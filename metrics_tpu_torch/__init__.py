@@ -1,0 +1,27 @@
+"""PyTorch/CUDA port of ``metrics_tpu``.
+
+The same metrics with the same ``update``/``compute``/``forward`` semantics
+and state layouts, on PyTorch tensors. Metrics run on CUDA unless the caller
+passes ``device="cpu"``; the kernels that the JAX package wrote in Pallas for
+the TPU are CUDA kernels for Hopper here (``csrc/``), built on first use.
+This package imports neither JAX nor ``metrics_tpu``.
+"""
+from metrics_tpu_torch.classification.accuracy import Accuracy
+from metrics_tpu_torch.classification.binned_precision_recall import (
+    BinnedAveragePrecision,
+    BinnedPrecisionRecallCurve,
+    BinnedRecallAtFixedPrecision,
+)
+from metrics_tpu_torch.classification.stat_scores import StatScores
+from metrics_tpu_torch.collections import MetricCollection
+from metrics_tpu_torch.metric import Metric
+
+__all__ = [
+    "Accuracy",
+    "BinnedAveragePrecision",
+    "BinnedPrecisionRecallCurve",
+    "BinnedRecallAtFixedPrecision",
+    "Metric",
+    "MetricCollection",
+    "StatScores",
+]

@@ -1,0 +1,132 @@
+"""``Accuracy`` (counterpart of ``metrics_tpu/classification/accuracy.py``)."""
+from typing import Any, Optional
+
+import torch
+
+from metrics_tpu_torch.classification.stat_scores import StatScores
+from metrics_tpu_torch.functional.classification.accuracy import (
+    _accuracy_compute,
+    _accuracy_update,
+    _check_subset_validity,
+    _mode,
+    _subset_accuracy_compute,
+    _subset_accuracy_update,
+)
+from metrics_tpu_torch.utilities.enums import AverageMethod, DataType
+
+Tensor = torch.Tensor
+
+
+class Accuracy(StatScores):
+    """Accuracy over any classification input type; the input case is
+    resolved at the first update and fixed from then on.
+
+    Example:
+        >>> import torch
+        >>> preds = torch.tensor([[0.75, 0.05, 0.05, 0.15], [0.1, 0.15, 0.7, 0.05],
+        ...                       [0.3, 0.4, 0.2, 0.1], [0.05, 0.05, 0.05, 0.85]])
+        >>> target = torch.tensor([0, 1, 3, 2])
+        >>> Accuracy(num_classes=4, device='cpu')(preds, target)
+        tensor(0.2500)
+    """
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update = False
+
+    def __init__(
+        self,
+        threshold: float = 0.5,
+        num_classes: Optional[int] = None,
+        average: Optional[str] = "micro",
+        # None, not "global": multidim inputs raise until the caller picks a
+        # reduction, as in the JAX package's class
+        mdmc_average: Optional[str] = None,
+        ignore_index: Optional[int] = None,
+        top_k: Optional[int] = None,
+        multiclass: Optional[bool] = None,
+        subset_accuracy: bool = False,
+        **kwargs: Any,
+    ) -> None:
+        allowed_average = ("micro", "macro", "weighted", "samples", "none", None)
+        if average not in allowed_average:
+            raise ValueError(f"The `average` has to be one of {allowed_average}, got {average}.")
+
+        _reduce_options = (AverageMethod.WEIGHTED, AverageMethod.NONE, None)
+        if "reduce" not in kwargs:
+            kwargs["reduce"] = "macro" if average in _reduce_options else average
+        if "mdmc_reduce" not in kwargs:
+            kwargs["mdmc_reduce"] = mdmc_average
+
+        super().__init__(
+            threshold=threshold,
+            top_k=top_k,
+            num_classes=num_classes,
+            multiclass=multiclass,
+            ignore_index=ignore_index,
+            **kwargs,
+        )
+
+        if top_k is not None and (not isinstance(top_k, int) or top_k <= 0):
+            raise ValueError(f"The `top_k` should be an integer larger than 0, got {top_k}")
+
+        self.average = average
+        self.threshold = threshold
+        self.top_k = top_k
+        self.subset_accuracy = subset_accuracy
+        self.mode: Optional[DataType] = None
+        self.multiclass = multiclass
+        self.ignore_index = ignore_index
+
+        if self.subset_accuracy:
+            self.add_state("correct", default=torch.tensor(0, dtype=torch.int32), dist_reduce_fx="sum")
+            self.add_state("total", default=torch.tensor(0, dtype=torch.int32), dist_reduce_fx="sum")
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        mode = _mode(preds, target, self.threshold, self.top_k, self.num_classes, self.multiclass, self.ignore_index)
+
+        if not self.mode:
+            self.mode = mode
+        elif self.mode != mode:
+            raise ValueError(f"You can not use {mode} inputs with {self.mode} inputs.")
+
+        if self.subset_accuracy and not _check_subset_validity(self.mode):
+            self.subset_accuracy = False
+
+        if self.subset_accuracy:
+            correct, total = _subset_accuracy_update(
+                preds, target, threshold=self.threshold, top_k=self.top_k, ignore_index=self.ignore_index
+            )
+            self.correct += correct
+            self.total += total
+        else:
+            tp, fp, tn, fn = _accuracy_update(
+                preds,
+                target,
+                reduce=self.reduce,
+                mdmc_reduce=self.mdmc_reduce,
+                threshold=self.threshold,
+                num_classes=self.num_classes,
+                top_k=self.top_k,
+                multiclass=self.multiclass,
+                ignore_index=self.ignore_index,
+                mode=self.mode,
+            )
+            if self.reduce != "samples" and self.mdmc_reduce != "samplewise":
+                self.tp += tp
+                self.fp += fp
+                self.tn += tn
+                self.fn += fn
+            else:
+                self.tp.append(tp)
+                self.fp.append(fp)
+                self.tn.append(tn)
+                self.fn.append(fn)
+
+    def compute(self) -> Tensor:
+        if not self.mode:
+            raise RuntimeError("You have to have determined mode.")
+        if self.subset_accuracy:
+            return _subset_accuracy_compute(self.correct, self.total)
+        tp, fp, tn, fn = self._get_final_stats()
+        return _accuracy_compute(tp, fp, tn, fn, self.average, self.mdmc_reduce, self.mode)

@@ -1,0 +1,309 @@
+"""``MetricCollection`` with automatic compute groups (counterpart of
+``metrics_tpu/collections.py``).
+
+Compute groups: after the first ``update`` the members whose states are
+equal form a group, and from then on only the group's first member (its
+head) runs ``update``. The other members' states point at the head's
+tensors, which the head updates in place. ``items``/``values``/``[]`` hand
+out copies by default, so a caller cannot write into a shared state by
+accident; loaded states stand until the next update.
+
+Not in this module yet: the overlapped-sync scheduler and ``sync_states``.
+"""
+from collections import OrderedDict
+from copy import deepcopy
+from typing import Any, Dict, Hashable, Iterable, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utilities.data import _flatten_dict
+
+
+class MetricCollection:
+    """Chain metrics with the same call pattern.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import Accuracy, MetricCollection
+        >>> coll = MetricCollection({"acc": Accuracy(device="cpu"), "macro": Accuracy(num_classes=3, average="macro", device="cpu")})
+        >>> out = coll(torch.tensor([2, 1, 2, 0]), torch.tensor([0, 2, 0, 2]))
+        >>> {k: round(float(v), 4) for k, v in out.items()}
+        {'acc': 0.0, 'macro': 0.0}
+    """
+
+    def __init__(
+        self,
+        metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]],
+        *additional_metrics: Metric,
+        prefix: Optional[str] = None,
+        postfix: Optional[str] = None,
+        compute_groups: Union[bool, List[List[str]]] = True,
+    ) -> None:
+        self._modules: "OrderedDict[str, Metric]" = OrderedDict()
+        self.prefix = self._check_arg(prefix, "prefix")
+        self.postfix = self._check_arg(postfix, "postfix")
+        self._enable_compute_groups = compute_groups
+        self._groups_checked = False
+        self._state_is_copy = False
+        self._groups: Dict[int, List[str]] = {}
+
+        self.add_metrics(metrics, *additional_metrics)
+
+    # ------------------------------------------------------------------
+    # call surface
+    # ------------------------------------------------------------------
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        return self.forward(*args, **kwargs)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Every member's forward; kwargs filtered per update signature."""
+        res = {k: m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items(keep_base=True, copy_state=False)}
+        res = _flatten_dict(res)
+        return {self._set_name(k): v for k, v in res.items()}
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """Update the group heads only, once groups have formed."""
+        if self._groups_checked:
+            for cg in self._groups.values():
+                m0 = self._modules[cg[0]]
+                m0.update(*args, **m0._filter_kwargs(**kwargs))
+                for name in cg[1:]:
+                    self._modules[name]._update_count = m0._update_count
+                    self._modules[name]._update_called = True
+                    self._modules[name]._computed = None
+            self._state_is_copy = False
+        else:
+            for _, m in self.items(keep_base=True, copy_state=False):
+                m.update(*args, **m._filter_kwargs(**kwargs))
+            if self._enable_compute_groups:
+                self._merge_compute_groups()
+                self._compute_groups_create_state_ref()
+                self._groups_checked = True
+
+    def compute(self) -> Dict[str, Any]:
+        self._compute_groups_create_state_ref()
+        res = {k: m.compute() for k, m in self._modules.items()}
+        res = _flatten_dict(res)
+        return {self._set_name(k): v for k, v in res.items()}
+
+    def reset(self) -> None:
+        for _, m in self.items(keep_base=True, copy_state=False):
+            m.reset()
+        if self._enable_compute_groups and self._groups_checked:
+            self._compute_groups_create_state_ref()
+
+    def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
+        mc = deepcopy(self)
+        if prefix:
+            mc.prefix = self._check_arg(prefix, "prefix")
+        if postfix:
+            mc.postfix = self._check_arg(postfix, "postfix")
+        return mc
+
+    def persistent(self, mode: bool = True) -> None:
+        for _, m in self.items(keep_base=True, copy_state=False):
+            m.persistent(mode)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Per-member state dicts keyed by base name."""
+        return {k: m.state_dict() for k, m in self.items(keep_base=True, copy_state=True)}
+
+    def load_state_dict(self, state_dict: Dict[str, Any]) -> None:
+        for k, m in self._modules.items():
+            if k in state_dict:
+                m.load_state_dict(state_dict[k])
+        # loaded states override group aliasing until the next update
+        self._state_is_copy = True
+
+    # ------------------------------------------------------------------
+    # compute groups
+    # ------------------------------------------------------------------
+
+    def _merge_compute_groups(self) -> None:
+        """Pairwise state-equality merge of groups."""
+        n_groups = len(self._groups)
+        while True:
+            for cg_idx1, cg_members1 in list(self._groups.items()):
+                merged = False
+                for cg_idx2, cg_members2 in list(self._groups.items()):
+                    if cg_idx1 == cg_idx2 or cg_idx2 not in self._groups:
+                        continue
+                    metric1 = self._modules[cg_members1[0]]
+                    metric2 = self._modules[cg_members2[0]]
+                    if self._equal_metric_states(metric1, metric2):
+                        self._groups[cg_idx1].extend(self._groups.pop(cg_idx2))
+                        merged = True
+                        break
+                if merged:
+                    break
+            if len(self._groups) == n_groups:
+                break
+            n_groups = len(self._groups)
+        self._groups = {i: v for i, v in enumerate(self._groups.values())}
+
+    @staticmethod
+    def _equal_metric_states(metric1: Metric, metric2: Metric) -> bool:
+        """Shape and value equality of two metrics' states."""
+        if len(metric1._defaults) == 0 or len(metric2._defaults) == 0:
+            return False
+        if metric1._defaults.keys() != metric2._defaults.keys():
+            return False
+        for key in metric1._defaults:
+            state1 = metric1._state[key]
+            state2 = metric2._state[key]
+            if type(state1) is not type(state2):
+                return False
+            if isinstance(state1, list):
+                if len(state1) != len(state2):
+                    return False
+                if not all(s1.shape == s2.shape and torch.allclose(s1, s2) for s1, s2 in zip(state1, state2)):
+                    return False
+            elif state1.shape != state2.shape or state1.device != state2.device or not torch.allclose(state1, state2):
+                return False
+        return True
+
+    def _compute_groups_create_state_ref(self, copy: bool = False) -> None:
+        """Point member states at their group head's states (copies with
+        ``copy=True``). Skipped while loaded or handed-out copies stand."""
+        if not self._state_is_copy:
+            for cg in self._groups.values():
+                m0 = self._modules[cg[0]]
+                for name in cg[1:]:
+                    mi = self._modules[name]
+                    for state in m0._defaults:
+                        m0_state = m0._state[state]
+                        if copy:
+                            m0_state = [s.clone() for s in m0_state] if isinstance(m0_state, list) else m0_state.clone()
+                        mi._state[state] = m0_state
+                    mi._computed = None
+        self._state_is_copy = copy
+
+    @property
+    def compute_groups(self) -> Dict[int, List[str]]:
+        return self._groups
+
+    # ------------------------------------------------------------------
+    # container surface
+    # ------------------------------------------------------------------
+
+    def add_metrics(
+        self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]], *additional_metrics: Metric
+    ) -> None:
+        if isinstance(metrics, Metric):
+            metrics = [metrics]
+        if isinstance(metrics, Sequence) and not isinstance(metrics, dict):
+            metrics = list(metrics)
+            remain: list = []
+            for m in additional_metrics:
+                (metrics if isinstance(m, Metric) else remain).append(m)
+            if remain:
+                raise ValueError(f"Received extra arguments {remain} that are not metrics.")
+        elif additional_metrics:
+            raise ValueError(
+                f"Received extra arguments {additional_metrics} that are not compatible"
+                " with first passed dictionary."
+            )
+
+        if isinstance(metrics, dict):
+            for name in sorted(metrics.keys()):
+                metric = metrics[name]
+                if not isinstance(metric, (Metric, MetricCollection)):
+                    raise ValueError(
+                        f"Value {metric} belonging to key {name} is not an instance of"
+                        " `metrics_tpu_torch.Metric` or `metrics_tpu_torch.MetricCollection`"
+                    )
+                if isinstance(metric, Metric):
+                    self._modules[name] = metric
+                else:
+                    for k, v in metric.items(keep_base=False):
+                        self._modules[f"{name}_{k}"] = v
+        elif isinstance(metrics, Sequence):
+            for metric in metrics:
+                if not isinstance(metric, (Metric, MetricCollection)):
+                    raise ValueError(
+                        f"Input {metric} to `MetricCollection` is not a instance of"
+                        " `metrics_tpu_torch.Metric` or `metrics_tpu_torch.MetricCollection`"
+                    )
+                if isinstance(metric, Metric):
+                    name = type(metric).__name__
+                    if name in self._modules:
+                        raise ValueError(f"Encountered two metrics both named {name}")
+                    self._modules[name] = metric
+                else:
+                    for k, v in metric.items(keep_base=False):
+                        self._modules[k] = v
+        else:
+            raise ValueError("Unknown input to MetricCollection.")
+
+        self._groups_checked = False
+        if self._enable_compute_groups:
+            self._init_compute_groups()
+        else:
+            self._groups = {}
+
+    def _init_compute_groups(self) -> None:
+        if isinstance(self._enable_compute_groups, list):
+            self._groups = {i: k for i, k in enumerate(self._enable_compute_groups)}
+            for v in self._groups.values():
+                for metric in v:
+                    if metric not in self._modules:
+                        raise ValueError(
+                            f"Input {metric} in `compute_groups` argument does not match a metric in the collection."
+                            f" Please make sure that {self._enable_compute_groups} matches {list(self._modules)}"
+                        )
+            self._groups_checked = True
+        else:
+            self._groups = {i: [str(k)] for i, k in enumerate(self._modules)}
+
+    def _set_name(self, base: str) -> str:
+        name = base if self.prefix is None else self.prefix + base
+        return name if self.postfix is None else name + self.postfix
+
+    def _to_renamed_ordered_dict(self) -> "OrderedDict[str, Metric]":
+        od: "OrderedDict[str, Metric]" = OrderedDict()
+        for k, v in self._modules.items():
+            od[self._set_name(k)] = v
+        return od
+
+    def keys(self, keep_base: bool = False) -> Iterable[Hashable]:
+        if keep_base:
+            return self._modules.keys()
+        return self._to_renamed_ordered_dict().keys()
+
+    def items(self, keep_base: bool = False, copy_state: bool = True) -> Iterable[Tuple[str, Metric]]:
+        self._compute_groups_create_state_ref(copy_state)
+        if keep_base:
+            return self._modules.items()
+        return self._to_renamed_ordered_dict().items()
+
+    def values(self, copy_state: bool = True) -> Iterable[Metric]:
+        self._compute_groups_create_state_ref(copy_state)
+        return self._modules.values()
+
+    def __getitem__(self, key: str, copy_state: bool = True) -> Metric:
+        self._compute_groups_create_state_ref(copy_state)
+        return self._modules[key]
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self.keys())
+
+    @staticmethod
+    def _check_arg(arg: Optional[str], name: str) -> Optional[str]:
+        if arg is None or isinstance(arg, str):
+            return arg
+        raise ValueError(f"Expected input `{name}` to be a string, but got {type(arg)}")
+
+    def __repr__(self) -> str:
+        repr_str = self.__class__.__name__ + "("
+        for k, v in self._modules.items():
+            repr_str += f"\n  {k}: {v!r}"
+        if self.prefix:
+            repr_str += f",\n  prefix={self.prefix}"
+        if self.postfix:
+            repr_str += f",\n  postfix={self.postfix}"
+        return repr_str + "\n)" if len(self._modules) else repr_str + ")"

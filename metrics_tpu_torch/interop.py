@@ -1,0 +1,56 @@
+"""Carry a JAX metric's state into its port.
+
+The JAX package keeps a metric's state as a dict of arrays
+(``metric_state``); a collection's members are keyed by name. Given those
+arrays as numpy (``{k: np.asarray(v) for k, v in jax_metric.metric_state.items()}``),
+:func:`load_jax_state` loads them into the port's metric or collection with
+``load_state_dict``'s checks, on the metric's device and in its state dtypes.
+A stream can then start in JAX and go on in the port.
+
+States only: an attribute that a metric infers from its first batch, such
+as ``Accuracy.mode``, is set again by the port's next ``update``.
+"""
+from typing import Any, Dict, Mapping, Union
+
+import numpy as np
+import torch
+
+from metrics_tpu_torch.collections import MetricCollection
+from metrics_tpu_torch.metric import Metric
+
+
+def _to_tensors(metric: Metric, state: Mapping[str, Any], where: str) -> Dict[str, Any]:
+    unknown = sorted(set(state) - set(metric._defaults))
+    if unknown:
+        raise ValueError(f"{where}: the JAX state has {unknown}, which {type(metric).__name__} does not keep")
+    out: Dict[str, Any] = {}
+    for key, value in state.items():
+        if isinstance(value, (list, tuple)):
+            out[key] = [torch.from_numpy(np.array(v)) for v in value]
+        else:
+            out[key] = torch.from_numpy(np.array(value))
+    return out
+
+
+def load_jax_state(
+    target: Union[Metric, MetricCollection],
+    state: Mapping[str, Any],
+) -> None:
+    """Load numpy arrays of a JAX metric's ``metric_state`` into ``target``.
+
+    For a bare metric ``state`` maps state names to arrays; for a collection
+    it maps member names to such dicts. Shapes and dtypes are checked as
+    :meth:`Metric.load_state_dict` checks them.
+    """
+    if isinstance(target, MetricCollection):
+        members = dict(target.items(keep_base=True, copy_state=False))
+        missing = sorted(set(state) - set(members))
+        if missing:
+            raise ValueError(f"load_jax_state: the collection has no member {missing}")
+        target.load_state_dict(
+            {name: _to_tensors(members[name], sub, f"load_jax_state[{name!r}]") for name, sub in state.items()}
+        )
+    elif isinstance(target, Metric):
+        target.load_state_dict(_to_tensors(target, state, "load_jax_state"))
+    else:
+        raise TypeError(f"load_jax_state loads into a Metric or a MetricCollection, got {type(target).__name__}")

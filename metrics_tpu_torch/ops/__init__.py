@@ -1,0 +1,4 @@
+"""Kernels and their plain PyTorch versions (counterpart of ``metrics_tpu/ops/``)."""
+from metrics_tpu_torch.ops.binned_counters import binned_counter_update, binned_counter_update_plain
+
+__all__ = ["binned_counter_update", "binned_counter_update_plain"]

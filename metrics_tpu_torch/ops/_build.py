@@ -1,0 +1,83 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under ``metrics_tpu_torch/csrc/`` is compiled with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, which ``ctypes``
+loads. The library lands in ``metrics_tpu_torch/_build/<name>-<hash>/``,
+keyed by a hash of the source and the flags, so an edited source is rebuilt
+and an unchanged one is built once. Nothing is built at import: the first
+call on a CUDA tensor builds.
+"""
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, List, Optional
+
+PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS: List[str] = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+]
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+# what the last build of each source took and what ptxas said about it
+build_info: Dict[str, Dict[str, object]] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc was not found (looked on PATH and under $CUDA_HOME/bin); it is needed to build the CUDA kernels")
+
+
+def library_path(source: str) -> pathlib.Path:
+    """Where the library built from ``csrc/<source>`` lives."""
+    src = CSRC_DIR / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}" / f"lib{src.stem}.so"
+
+
+def build(source: str) -> pathlib.Path:
+    """Compile ``csrc/<source>`` unless its library already exists."""
+    lib = library_path(source)
+    if lib.exists():
+        return lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    # build under a private name and rename: a concurrent process never
+    # loads a half-written library
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    (lib.parent / "build.log").write_text(" ".join(cmd) + "\n" + log)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {source} (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, lib)
+    ptxas = [ln.strip() for ln in log.splitlines() if "ptxas info" in ln or "spill" in ln]
+    build_info[source] = {"seconds": seconds, "ptxas": ptxas}
+    return lib
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Build if needed, then load the library of ``csrc/<source>`` once per process."""
+    with _lock:
+        lib: Optional[ctypes.CDLL] = _loaded.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            _loaded[source] = lib
+        return lib

@@ -1,0 +1,114 @@
+"""Shared tensor utilities (counterpart of ``metrics_tpu/utilities/data.py``)."""
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+Tensor = torch.Tensor
+
+METRIC_EPS = 1e-6
+
+
+def dim_zero_cat(x: Union[Tensor, List[Tensor], Tuple[Tensor, ...]]) -> Tensor:
+    """Concatenate a (list of) tensor(s) along dim 0."""
+    if isinstance(x, (list, tuple)):
+        if len(x) == 0:
+            raise ValueError("No samples to concatenate")
+        x = [torch.atleast_1d(v) for v in x]
+        return torch.cat(x, dim=0) if len(x) > 1 else x[0]
+    return torch.atleast_1d(x)
+
+
+def dim_zero_sum(x: Tensor) -> Tensor:
+    return torch.sum(x, dim=0)
+
+
+def dim_zero_mean(x: Tensor) -> Tensor:
+    return torch.mean(x, dim=0)
+
+
+def dim_zero_max(x: Tensor) -> Tensor:
+    return torch.amax(x, dim=0)
+
+
+def dim_zero_min(x: Tensor) -> Tensor:
+    return torch.amin(x, dim=0)
+
+
+def _flatten(x: Sequence) -> list:
+    """Flatten a list of lists one level."""
+    return [item for sublist in x for item in sublist]
+
+
+def _flatten_dict(x: Dict) -> Dict:
+    """Flatten a dict of dicts one level."""
+    new_dict = {}
+    for key, value in x.items():
+        if isinstance(value, dict):
+            for k, v in value.items():
+                new_dict[k] = v
+        else:
+            new_dict[key] = value
+    return new_dict
+
+
+def _squeeze_if_scalar(data: Any) -> Any:
+    """Squeeze single-element tensors to 0-d, through lists, tuples and dicts."""
+    if isinstance(data, Tensor):
+        return data.reshape(()) if data.numel() == 1 and data.ndim > 0 else data
+    if isinstance(data, dict):
+        return {k: _squeeze_if_scalar(v) for k, v in data.items()}
+    if isinstance(data, (list, tuple)):
+        return type(data)(_squeeze_if_scalar(v) for v in data)
+    return data
+
+
+def to_onehot(label_tensor: Tensor, num_classes: Optional[int] = None) -> Tensor:
+    """Integer labels ``(N, ...)`` to a dense int32 one-hot ``(N, C, ...)``,
+    by comparison against a class axis (no scatter)."""
+    labels = torch.as_tensor(label_tensor)
+    if num_classes is None:
+        num_classes = int(labels.max()) + 1
+    iota = torch.arange(num_classes, dtype=labels.dtype, device=labels.device)
+    iota = iota.reshape((1, num_classes) + (1,) * (labels.ndim - 1))
+    return (labels.unsqueeze(1) == iota).to(torch.int32)
+
+
+def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
+    """Int32 mask of the top-k entries along ``dim``.
+
+    Ties go to the lower index, as ``jax.lax.top_k`` and ``jnp.argmax`` break
+    them: ``argmax`` returns the first maximum, and a stable descending sort
+    keeps equal scores in index order (``torch.topk`` promises no order).
+    """
+    x = torch.as_tensor(prob_tensor)
+    if topk == 1:
+        idx = torch.argmax(x, dim=dim, keepdim=True)
+    else:
+        idx = torch.sort(x, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
+    mask = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    return mask.scatter_(dim, idx, 1)
+
+
+def jax_linspace(start: float, stop: float, num: int, device: Union[str, torch.device, None] = None) -> Tensor:
+    """float32 ``jnp.linspace(start, stop, num)``, bit for bit.
+
+    ``torch.linspace`` rounds differently (at ``num=1000`` a hundred values
+    differ), and a score equal to a threshold then lands in another bin.
+    JAX evaluates ``start*(1-step) + stop*step`` with ``step = iota/div`` in
+    float32 and appends ``stop``; XLA compiles the division by the constant
+    ``div`` as a multiplication by its float32 reciprocal, which is what
+    fixes the bits.
+    """
+    if num < 0:
+        raise ValueError(f"Number of samples, {num}, must be non-negative.")
+    f32 = dict(dtype=torch.float32, device=device)
+    start_t = torch.tensor(start, **f32)
+    stop_t = torch.tensor(stop, **f32)
+    if num == 0:
+        return torch.empty((0,), **f32)
+    if num == 1:
+        return start_t.reshape(1)
+    div = num - 1
+    recip = torch.tensor(1.0, **f32) / torch.tensor(float(div), **f32)
+    step = torch.arange(div, **f32) * recip
+    return torch.cat([start_t * (1 - step) + stop_t * step, stop_t.reshape(1)])

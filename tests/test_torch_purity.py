@@ -1,0 +1,74 @@
+"""The port stands alone: no module of ``metrics_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or anything of ``metrics_tpu``; importing the
+package builds and loads no kernel; and a metric with no device asks for
+CUDA and never falls back to the CPU."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import metrics_tpu_torch  # noqa: E402
+from metrics_tpu_torch.utilities.exceptions import MetricsTPUUserError  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "metrics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "metrics_tpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _is_forbidden(module):
+    return module.split(".")[0] in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path) if _is_forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_sees_forbidden_imports():
+    assert _is_forbidden("metrics_tpu.ops") and _is_forbidden("jax.numpy") and _is_forbidden("metrics_tpu")
+    assert not _is_forbidden("metrics_tpu_torch.ops") and not _is_forbidden("torch")
+
+
+def test_import_loads_no_jax_and_builds_nothing():
+    code = (
+        "import sys\n"
+        "import metrics_tpu_torch, metrics_tpu_torch.interop\n"
+        "from metrics_tpu_torch.ops import _build\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert _build._loaded == {} and _build.build_info == {}\n"
+        "assert 'triton' not in sys.modules\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", ["Accuracy", "StatScores", "BinnedAveragePrecision"])
+def test_metric_without_device_asks_for_cuda(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kwargs = {"num_classes": 3} if name.startswith("Binned") else {}
+    with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
+        getattr(metrics_tpu_torch, name)(**kwargs)
+    with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
+        getattr(metrics_tpu_torch, name)(device="cuda", **kwargs)
+    metric = getattr(metrics_tpu_torch, name)(device="cpu", **kwargs)
+    assert metric.device == torch.device("cpu")
+    assert all(v.device.type == "cpu" for v in metric.metric_state.values())
