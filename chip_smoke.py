@@ -8,16 +8,23 @@ Run from the root of a checkout, with no arguments::
 Phases, each printing one JSON line, and any failure exits non-zero:
 
 1. device: the card, and its name and power limit as ``nvidia-smi`` reports them;
-2. build: compile every CUDA kernel of the main path from ``metrics_tpu_torch/csrc/``;
+2. build: compile every CUDA kernel from ``metrics_tpu_torch/csrc/``, one
+   ``nvcc`` per source, all started together;
 3. parity: each kernel against its plain PyTorch version on the card, bit-equal,
-   at the main path's shape and at the edges;
+   at the main paths' shapes and at the edges (K1 ``binned_counters``, K3
+   ``compactor_fold``);
 4. main path: an ImageNet-1k validation epoch (50,000 rows, 1000 classes,
    1024-row batches) through ``MetricCollection({acc1, acc5, bap})`` on the
    card, checked against the same run of the port on the CPU;
-5. profile: where one batch update's time goes (each member alone, and a
-   ``torch.profiler`` window: device busy time, top kernels and host calls);
-6. kernels: each kernel's time, its bound on this card, and its launches on
-   the main path.
+5. stream path: an online score monitor, 64 batches of 2^20 lognormal rows
+   (0.1 % NaN/±inf) through ``MetricCollection({q: QuantileSketch, distinct:
+   HyperLogLog, freq: CountMinSketch})`` at their default sizes, checked
+   against the same run on the CPU and against exact answers on the card;
+6. profile: where one batch update's time goes on each path (each member
+   alone, and a ``torch.profiler`` window: device busy time, top kernels and
+   host calls), and the blocking device-to-host reads of a stream update;
+7. kernels: each kernel's time, its bound on this card, and its launches on
+   its path.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout of the repository, the script prints no result and exits 1.
@@ -28,6 +35,8 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -39,6 +48,17 @@ BATCH = 1024
 SIGNAL = 4.0  # added to the true class's logit, so accuracy is far above chance
 FORWARD_EVERY = 16  # batches 0, 16, 32 and 48 go through forward(), the rest through update()
 AP_ATOL = 1e-6  # float32 sums over thresholds, added in another order on the card
+
+# the stream path: an online monitor of a model's scores
+STREAM_BATCHES = 64
+STREAM_BATCH = 1 << 20
+STREAM_FORWARD_EVERY = 16  # batches 0, 16, 32 and 48 go through forward(), which merges sketches
+NONFINITE_SHARE = 0.001  # rows set to NaN, +inf or -inf; the sketches leave them out
+QUANTILES = (0.5, 0.9, 0.99, 0.999)
+HLL_RTOL = 1e-6  # the estimate sums 2^11 float32 terms, in another order on the card
+# K3's timing shape: a level of the default sketch (k = 6600) and the
+# 4096 items a 2^20-row batch precompacts to
+K3_K, K3_M = 6600, 4096
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -78,21 +98,48 @@ def cuda_time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def phase_build():
-    from metrics_tpu_torch.ops import _build, binned_counters
+def device_ms_per_launch(fn, kernel_name, iters=50):
+    """The card's own time for one launch of ``kernel_name``, from a
+    ``torch.profiler`` window over ``iters`` calls of ``fn``. Back-to-back
+    launches timed with CUDA events measure the host's enqueue rate when
+    the kernel is shorter than the launch itself; this does not."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel_name in e.key]
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0) for e in hits)
+    count = sum(e.count for e in hits)
+    return us / 1e3 / count if count else None
+
+
+def phase_build():
+    from metrics_tpu_torch.ops import _build, binned_counters, compactor
+
+    sources = [binned_counters.SOURCE, compactor.SOURCE]
     t0 = time.perf_counter()
-    _build.load(binned_counters.SOURCE)
-    info = _build.build_info.get(binned_counters.SOURCE, {})
-    emit({
-        "phase": "build",
-        "source": f"metrics_tpu_torch/csrc/{binned_counters.SOURCE}",
-        "library": str(_build.library_path(binned_counters.SOURCE).relative_to(ROOT)),
-        "built_now": bool(info),
-        "nvcc_s": info.get("seconds"),
-        "seconds": time.perf_counter() - t0,
-        "ptxas": info.get("ptxas", []),
-    })
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    for src in sources:
+        _build.load(src)
+    seconds = time.perf_counter() - t0
+    for src in sources:
+        info = _build.build_info.get(src, {})
+        emit({
+            "phase": "build",
+            "source": f"metrics_tpu_torch/csrc/{src}",
+            "library": str(_build.library_path(src).relative_to(ROOT)),
+            "built_now": bool(info),
+            "nvcc_s": info.get("seconds"),
+            "seconds_all_sources": seconds,
+            "ptxas": info.get("ptxas", []),
+        })
 
 
 def make_data(device):
@@ -282,9 +329,8 @@ def phase_main_path(preds, target):
     return launches
 
 
-def phase_kernel_times(preds, target, launches, max_abs_err, smi):
-    import ctypes
-
+def k1_times(preds, target, launches, max_abs_err):
+    """K1's entry of the kernels line."""
     import torch
 
     from metrics_tpu_torch.ops import binned_counters as k1
@@ -320,8 +366,7 @@ def phase_kernel_times(preds, target, launches, max_abs_err, smi):
     compares = n * c * t
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = compares / FP32_OPS_PER_S * 1e3
-    print(smi, flush=True)
-    emit({"kernels": [{
+    return {
         "name": "binned_counters",
         "route": "cuda",
         "source": "metrics_tpu_torch/csrc/binned_counters.cu",
@@ -331,6 +376,7 @@ def phase_kernel_times(preds, target, launches, max_abs_err, smi):
         "max_abs_err": max_abs_err,
         "ms": ms["wrapper"],
         "kernel_ms": ms["kernel"],
+        "kernel_device_ms": device_ms_per_launch(raw, "binned_counters_kernel"),
         "plain_ms": ms["plain"],
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -338,14 +384,45 @@ def phase_kernel_times(preds, target, launches, max_abs_err, smi):
         "shape": [n, c, t],
         "bytes": bytes_moved,
         "compares": compares,
-    }]})
+    }
+
+
+def profile_summary(prof, wall_s, batches):
+    """Device busy time and idle share of a profiled window, and its top
+    device and host items per batch."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    events = prof.key_averages()
+    # only the card's own events (kernels, copies): a host op also carries
+    # the device time of the kernels it launched, which would count it twice
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_us = sum(dev_us(e) for e in on_device)
+    top_device = sorted(on_device, key=dev_us, reverse=True)[:12]
+    top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    return {
+        "batches": batches,
+        "wall_ms_per_batch": wall_s * 1e3 / batches,
+        "device_busy_ms_per_batch": device_us / 1e3 / batches,
+        "device_idle_share": 1.0 - device_us / 1e6 / wall_s,
+        "top_device_ms_per_batch": [[e.key, dev_us(e) / 1e3 / batches, e.count // batches] for e in top_device if dev_us(e) > 0],
+        "top_host_ms_per_batch": [[e.key, e.self_cpu_time_total / 1e3 / batches, e.count // batches] for e in top_cpu],
+        # the port's own kernels, wherever they rank
+        "port_kernels_ms_per_batch": {
+            name: sum(dev_us(e) for e in on_device if name in e.key) / 1e3 / batches
+            for name in ("binned_counters_kernel", "compactor_fold_kernel")
+        },
+        # a blocking device-to-host read waits in one stream synchronisation
+        "stream_syncs_per_batch": sum(e.count for e in events if e.key == "cudaStreamSynchronize") / batches,
+    }
 
 
 def phase_profile(preds, target, batches=8):
     """Where an update's time goes: each member's update alone, and a
     ``torch.profiler`` window over the collection's updates."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import metrics_tpu_torch as mtt
@@ -374,27 +451,349 @@ def phase_profile(preds, target, batches=8):
             coll.update(*batch(i))
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    emit({"phase": "profile", "member_update_p50_ms": member_p50_ms, **profile_summary(prof, wall_s, batches)})
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
-    events = prof.key_averages()
-    # only the card's own events (kernels, copies): a host op also carries
-    # the device time of the kernels it launched, which would count it twice
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
-    device_us = sum(dev_us(e) for e in on_device)
-    top_device = sorted(on_device, key=dev_us, reverse=True)[:12]
-    top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
-    emit({
-        "phase": "profile",
-        "batches": batches,
-        "member_update_p50_ms": member_p50_ms,
-        "wall_ms_per_batch": wall_s * 1e3 / batches,
-        "device_busy_ms_per_batch": device_us / 1e3 / batches,
-        "device_idle_share": 1.0 - device_us / 1e6 / wall_s,
-        "top_device_ms_per_batch": [[e.key, dev_us(e) / 1e3 / batches, e.count // batches] for e in top_device if dev_us(e) > 0],
-        "top_host_ms_per_batch": [[e.key, e.self_cpu_time_total / 1e3 / batches, e.count // batches] for e in top_cpu],
+def _level_run(n, count, gen, dev, ties=False):
+    """An ascending (n,) float32 run, +inf past ``count``."""
+    import torch
+
+    if ties:
+        vals = torch.randint(0, 4, (n,), generator=gen, device=dev).to(torch.float32)
+    else:
+        vals = torch.rand(n, generator=gen, device=dev)
+    vals = torch.sort(vals).values
+    return torch.where(torch.arange(n, device=dev) < count, vals, float("inf"))
+
+
+def _count(c, dev):
+    import torch
+
+    return torch.tensor(c, dtype=torch.int32, device=dev)
+
+
+def phase_k3_parity(dev):
+    """K3 against its plain version on the card, bit for bit: the shapes of
+    the stream path (k = 6600, an insert's 4096 items, a merge's 3k run and
+    its level-with-carry merge) and every edge."""
+    import torch
+
+    from metrics_tpu_torch.ops import compactor as k3
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    k = K3_K
+    run = lambda n, c, ties=False: (_level_run(n, c, g, dev, ties), _count(c, dev))  # noqa: E731
+    cases = [
+        # name, (a, a_count), (b, b_count), k
+        ("insert_overflow", run(k, 6000), run(K3_M, 4096), k),
+        ("insert_odd_leftover", run(k, 6001), run(K3_M, 4096), k),
+        ("insert_absorb", run(k, 1000), run(K3_M, 4096), k),
+        ("merge_fold", run(k, 5000), run(3 * k, 9000), k),
+        ("merge_level_with_carry", run(k, 4000), run(2 * k, 7000), 3 * k),
+        ("nothing_incoming", run(k, 3000), run(K3_M, 0), k),
+        ("c_eq_k", run(k, 2600), run(K3_M, 4000), k),
+        ("c_eq_k_plus_1", run(k, 2601), run(K3_M, 4000), k),
+        ("all_inf", run(k, 0), run(K3_M, 0), k),
+        ("k8", run(8, 5), run(4, 3), 8),
+        ("k8_full", run(8, 8), run(8, 8), 8),
+        ("heavy_ties", run(k, 6600, True), run(K3_M, 4096, True), k),
+        ("m_2_16_many_blocks", run(k, 6500), run(70_000, 65_536), k),
+    ]
+    rows, max_err = [], 0.0
+    for name, (a, ca), (b, cb), kk in cases:
+        got = k3.compactor_fold(a, ca, b, cb, kk)
+        want = k3.compactor_fold_plain(a, ca, b, cb, kk)
+        torch.cuda.synchronize()
+        equal = all(x.shape == y.shape and torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(got, want))
+        err = max(
+            float(torch.where(x == y, 0.0, (x.double() - y.double()).abs()).max()) if x.numel() else 0.0
+            for x, y in zip(got, want)
+        )
+        max_err = max(max_err, err)
+        rows.append({
+            "case": name, "na": a.shape[0], "nb": b.shape[0], "k": kk,
+            "c": int(ca) + int(cb), "count": int(got[1]), "pcount": int(got[3]), "bit_equal": equal,
+        })
+        if not equal:
+            emit({"phase": "parity", "kernel": "compactor_fold", "cases": rows})
+            raise AssertionError(f"compactor_fold kernel differs from its plain version in case {name!r}")
+    emit({"phase": "parity", "kernel": "compactor_fold", "cases": rows, "max_abs_err": max_err})
+    return max_err
+
+
+def make_stream(device):
+    """The stream on the card, from a seeded generator: lognormal scores with
+    NaN, +inf and -inf rows."""
+    import torch
+
+    n = STREAM_BATCHES * STREAM_BATCH
+    g = torch.Generator(device=device).manual_seed(SEED + 2)
+    x = torch.empty(n, device=device).log_normal_(0.0, 1.0, generator=g)
+    pick = torch.rand(n, generator=g, device=device)
+    third = NONFINITE_SHARE / 3
+    x[pick < third] = float("nan")
+    x[(pick >= third) & (pick < 2 * third)] = float("inf")
+    x[(pick >= 2 * third) & (pick < NONFINITE_SHARE)] = float("-inf")
+    return x
+
+
+def build_monitor(pkg, device):
+    return pkg.MetricCollection({
+        "q": pkg.QuantileSketch(eps=0.01, quantiles=QUANTILES, device=device),
+        "distinct": pkg.HyperLogLog(device=device),
+        "freq": pkg.CountMinSketch(depth=4, width=2048, device=device),
     })
+
+
+def run_stream(coll, x, sync):
+    """Every 16th batch through forward, the rest through update."""
+    update_s, forward_s = [], []
+    for i in range(STREAM_BATCHES):
+        batch = x[i * STREAM_BATCH:(i + 1) * STREAM_BATCH]
+        t0 = time.perf_counter()
+        if i % STREAM_FORWARD_EVERY == 0:
+            coll(batch)
+            sync()
+            forward_s.append(time.perf_counter() - t0)
+        else:
+            coll.update(batch)
+            sync()
+            update_s.append(time.perf_counter() - t0)
+    return update_s, forward_s
+
+
+def predicted_k3_launches(state, batch_rows, updates, forwards):
+    """Each update folds at every level from the batch's own up to the one
+    below the top; a forward adds the merge, which runs K3 twice per level
+    below the top and once for the top (merging the carry into the other
+    sketch's level, then folding)."""
+    from metrics_tpu_torch.ops.binning import halving_level
+
+    L, k = state.items.shape
+    per_update = (L - 1) - halving_level(batch_rows, k)
+    per_merge = 2 * (L - 1) + 1
+    return updates * per_update + forwards * (per_update + per_merge)
+
+
+def phase_stream(x):
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import binned_counters as k1
+    from metrics_tpu_torch.ops import compactor as k3
+
+    dev = x.device
+    coll = build_monitor(mtt, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    k1.reset_launch_count()
+    k3.reset_launch_count()
+    t0 = time.perf_counter()
+    update_s, forward_s = run_stream(coll, x, torch.cuda.synchronize)
+    loop_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    result = coll.compute()
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t1
+    launches, k1_launches = k3.launch_count, k1.launch_count
+    peak_mem = torch.cuda.max_memory_allocated()  # before the checks below allocate
+
+    members = dict(coll.items(keep_base=True, copy_state=False))
+    for name, m in members.items():
+        for field, t in zip(m.metric_state["sketch"]._fields, m.metric_state["sketch"]):
+            if t.device.type != "cuda":
+                raise AssertionError(f"state {name}.sketch.{field} lies on {t.device}, not on the card")
+    q_state = members["q"].metric_state["sketch"]
+    want = predicted_k3_launches(q_state, STREAM_BATCH, len(update_s), len(forward_s))
+    if not (launches == want and launches > 0):
+        raise AssertionError(f"K3 launched {launches} times on the stream path; the code predicts {want}")
+
+    # the same stream through the port on the CPU
+    t2 = time.perf_counter()
+    cpu = build_monitor(mtt, "cpu")
+    run_stream(cpu, x.cpu(), lambda: None)
+    cpu_result = cpu.compute()
+    cpu_s = time.perf_counter() - t2
+    cpu_members = dict(cpu.items(keep_base=True, copy_state=False))
+    for name, m in members.items():
+        for field, a, b in zip(m.metric_state["sketch"]._fields, m.metric_state["sketch"], cpu_members[name].metric_state["sketch"]):
+            if a.dtype != b.dtype or not torch.equal(a.cpu().reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)):
+                raise AssertionError(f"state {name}.sketch.{field} differs between the card and the CPU")
+    if not torch.equal(result["q"].cpu(), cpu_result["q"]) or not torch.equal(result["freq"].cpu(), cpu_result["freq"]):
+        raise AssertionError("compute() of q or freq differs between the card and the CPU")
+    if not torch.allclose(result["distinct"].cpu(), cpu_result["distinct"], rtol=HLL_RTOL, atol=0.0):
+        raise AssertionError(f"distinct {float(result['distinct'])} on the card, {float(cpu_result['distinct'])} on the CPU")
+
+    # exact answers, on the card
+    finite = x[torch.isfinite(x)]
+    n = finite.numel()
+    if int(q_state.n_seen) != n:
+        raise AssertionError(f"the sketch saw {int(q_state.n_seen)} rows, the stream has {n} finite rows")
+    ordered = torch.sort(finite).values
+    eps_bound = q_state.eps_bound
+    q_vals = result["q"]
+    rank_err = []
+    for q, v in zip(QUANTILES, q_vals.tolist()):
+        vt = torch.tensor([v], device=dev)
+        lo = int(torch.searchsorted(ordered, vt, side="left"))
+        hi = int(torch.searchsorted(ordered, vt, side="right"))
+        target = q * n
+        rank_err.append(max(0.0, lo - target, target - hi) / n)
+    if not all(e <= eps_bound for e in rank_err):
+        raise AssertionError(f"quantile rank errors {rank_err} exceed eps_bound {eps_bound}")
+    distinct_exact = int(torch.unique(finite).numel())
+    distinct_est = float(result["distinct"])
+    hll_bound = 4 * 1.04 / (members["distinct"].metric_state["sketch"].registers.numel() ** 0.5)
+    hll_rel = abs(distinct_est - distinct_exact) / distinct_exact
+    if hll_rel > hll_bound:
+        raise AssertionError(f"HLL estimate {distinct_est} vs exact {distinct_exact}: relative error {hll_rel} > {hll_bound}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    probe = finite[torch.randint(0, n, (4096,), generator=g, device=dev)]
+    exact = torch.searchsorted(ordered, probe, side="right") - torch.searchsorted(ordered, probe, side="left")
+    est = members["freq"].query(probe)
+    if bool((est < exact).any()):
+        raise AssertionError("CountMin under-counted a probed value")
+    del ordered, finite
+
+    rows = STREAM_BATCHES * STREAM_BATCH
+    emit({
+        "phase": "stream_path",
+        "config": {
+            "batches": STREAM_BATCHES, "batch": STREAM_BATCH, "rows": rows, "nonfinite_share": NONFINITE_SHARE,
+            "quantile_sketch": list(q_state.items.shape), "hll_registers": members["distinct"].metric_state["sketch"].registers.numel(),
+            "count_min": list(members["freq"].metric_state["sketch"].counts.shape), "seed": SEED,
+        },
+        "update_calls": len(update_s),
+        "forward_calls": len(forward_s),
+        "rows_per_s": rows / loop_s,
+        "stream_s": loop_s,
+        "first_forward_ms": forward_s[0] * 1e3,
+        "first_update_ms": update_s[0] * 1e3,
+        "update_p50_ms": statistics.median(update_s) * 1e3,
+        "forward_p50_ms": statistics.median(forward_s) * 1e3,
+        "compute_s": compute_s,
+        "peak_mem_bytes": peak_mem,
+        "k3_launches": launches,
+        "k3_launches_predicted": want,
+        "k1_launches": k1_launches,
+        "quantiles": dict(zip(map(str, QUANTILES), q_vals.tolist())),
+        "quantile_rank_err": rank_err,
+        "eps_bound": eps_bound,
+        "distinct_est": distinct_est,
+        "distinct_exact": distinct_exact,
+        "hll_rel_err": hll_rel,
+        "count_min_max_overcount": int((est - exact).max()),
+        "finite_rows": n,
+        "cpu_reference_s": cpu_s,
+        "matches_cpu_run": True,
+    })
+    return launches
+
+
+def phase_stream_profile(x, batches=6):
+    """Where a stream update's time goes, and how many times it blocks on
+    the card (sync debug mode warns at every blocking device-to-host read)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import metrics_tpu_torch as mtt
+
+    def batch(i):
+        return x[i * STREAM_BATCH:(i + 1) * STREAM_BATCH]
+
+    coll = build_monitor(mtt, x.device)
+    for i in range(3):  # warm-up; compute groups form at the first update
+        coll.update(batch(i))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(3, 3 + batches):
+                coll.update(batch(i))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    blocking = [str(w.message).splitlines()[0] for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3 + batches, 3 + 2 * batches):
+            coll.update(batch(i))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    emit({
+        "phase": "profile_stream",
+        "blocking_reads_per_update": len(blocking) / batches,
+        "blocking_reads_seen": blocking[:5],
+        **profile_summary(prof, wall_s, batches),
+    })
+
+
+def k3_times(dev, launches, max_abs_err):
+    """K3's entry of the kernels line, at one fold of the stream path's
+    shape: a level of k = 6600 holding 6000 items and an insert's 4096,
+    which overflows and compacts."""
+    import torch
+
+    from metrics_tpu_torch.ops import compactor as k3
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    k, m = K3_K, K3_M
+    a, b = _level_run(k, 6000, g, dev), _level_run(m, m, g, dev)
+    ca, cb = _count(6000, dev), _count(m, dev)
+    p_len = (k + m) // 2
+    items = torch.empty(k, device=dev)
+    promoted = torch.empty(p_len, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    pcount = torch.empty((), dtype=torch.int32, device=dev)
+    lib = k3._library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def raw():
+        err = lib.compactor_fold_launch(
+            a.data_ptr(), k, b.data_ptr(), m, ca.data_ptr(), cb.data_ptr(), k,
+            items.data_ptr(), count.data_ptr(), promoted.data_ptr(), pcount.data_ptr(), stream,
+        )
+        if err:
+            raise RuntimeError(f"compactor_fold launch failed with cudaError {err}")
+
+    wrapper = lambda: k3.compactor_fold(a, ca, b, cb, k)  # noqa: E731
+    plain = lambda: k3.compactor_fold_plain(a, ca, b, cb, k)  # noqa: E731
+    merged = torch.cat([a, b])
+    sort_only = lambda: torch.sort(merged)  # noqa: E731
+    order = [("plain", plain), ("wrapper", wrapper), ("kernel", raw), ("sort", sort_only),
+             ("sort", sort_only), ("kernel", raw), ("wrapper", wrapper), ("plain", plain)]
+    times = {}
+    for name, fn in order:
+        times.setdefault(name, []).append(cuda_time_ms(fn, iters=200, warmup=20))
+    ms = {name: statistics.mean(v) for name, v in times.items()}
+
+    bytes_moved = (k + m) * 4 + 2 * 4 + (k + p_len) * 4 + 2 * 4  # runs and counts in; items, promoted, counts out
+    compares = k + m  # a merge needs at least one compare per value
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = compares / FP32_OPS_PER_S * 1e3
+    return {
+        "name": "compactor_fold",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/csrc/compactor_fold.cu",
+        "replaces": "metrics_tpu/ops/pallas_kernels.py:141",
+        "replaces_fn": "metrics_tpu/ops/pallas_kernels.py::_make_fold_kernel -> _fold_kernel (pallas_call at :188)",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": ms["wrapper"],
+        "kernel_ms": ms["kernel"],
+        "kernel_device_ms": device_ms_per_launch(raw, "compactor_fold_kernel"),
+        "plain_ms": ms["plain"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "torch_sort_of_merged_ms": ms["sort"],
+        "shape": {"k": k, "M": m, "c": 6000 + m},
+        "bytes": bytes_moved,
+        "compares": compares,
+    }
 
 
 def main():
@@ -426,10 +825,16 @@ def main():
     phase_build()
     device = torch.device("cuda", 0)
     preds, target = make_data(device)
-    max_abs_err = phase_parity(preds, target)
-    launches = phase_main_path(preds, target)
+    k1_err = phase_parity(preds, target)
+    k3_err = phase_k3_parity(device)
+    k1_launches = phase_main_path(preds, target)
+    stream = make_stream(device)
+    k3_launches = phase_stream(stream)
     phase_profile(preds, target)
-    phase_kernel_times(preds, target, launches, max_abs_err, smi)
+    phase_stream_profile(stream)
+    kernels = [k1_times(preds, target, k1_launches, k1_err), k3_times(device, k3_launches, k3_err)]
+    print(smi, flush=True)
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
 
 

@@ -15,13 +15,27 @@ from metrics_tpu_torch.classification.binned_precision_recall import (
 from metrics_tpu_torch.classification.stat_scores import StatScores
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.streaming import (
+    CountMinSketch,
+    CountMinState,
+    HllState,
+    HyperLogLog,
+    QuantileSketch,
+    QuantileSketchState,
+)
 
 __all__ = [
     "Accuracy",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "CountMinSketch",
+    "CountMinState",
+    "HllState",
+    "HyperLogLog",
     "Metric",
     "MetricCollection",
+    "QuantileSketch",
+    "QuantileSketchState",
     "StatScores",
 ]

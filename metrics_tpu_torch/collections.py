@@ -16,7 +16,7 @@ from typing import Any, Dict, Hashable, Iterable, List, Optional, Sequence, Tupl
 
 import torch
 
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.metric import Metric, _clone, _is_sketch_state
 from metrics_tpu_torch.utilities.data import _flatten_dict
 
 
@@ -155,7 +155,14 @@ class MetricCollection:
             state2 = metric2._state[key]
             if type(state1) is not type(state2):
                 return False
-            if isinstance(state1, list):
+            if _is_sketch_state(state1):
+                # field by field, each of the same shape and equal values
+                if not all(
+                    s1.shape == s2.shape and s1.device == s2.device and torch.equal(s1, s2)
+                    for s1, s2 in zip(state1, state2)
+                ):
+                    return False
+            elif isinstance(state1, list):
                 if len(state1) != len(state2):
                     return False
                 if not all(s1.shape == s2.shape and torch.allclose(s1, s2) for s1, s2 in zip(state1, state2)):
@@ -175,7 +182,7 @@ class MetricCollection:
                     for state in m0._defaults:
                         m0_state = m0._state[state]
                         if copy:
-                            m0_state = [s.clone() for s in m0_state] if isinstance(m0_state, list) else m0_state.clone()
+                            m0_state = _clone(m0_state)
                         mi._state[state] = m0_state
                     mi._computed = None
         self._state_is_copy = copy

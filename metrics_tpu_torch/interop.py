@@ -7,6 +7,12 @@ arrays as numpy (``{k: np.asarray(v) for k, v in jax_metric.metric_state.items()
 ``load_state_dict``'s checks, on the metric's device and in its state dtypes.
 A stream can then start in JAX and go on in the port.
 
+A sketch state (``QuantileSketch``, ``CountMinSketch``, ``HyperLogLog``)
+may be given as the JAX state itself (a NamedTuple of arrays), as its
+``to_primitives()`` mapping, or as either with its arrays turned to numpy;
+it loads through the port state's ``from_primitives``, which refuses
+another geometry.
+
 States only: an attribute that a metric infers from its first batch, such
 as ``Accuracy.mode``, is set again by the port's next ``update``.
 """
@@ -16,7 +22,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.collections import MetricCollection
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.metric import Metric, _is_sketch_state
 
 
 def _to_tensors(metric: Metric, state: Mapping[str, Any], where: str) -> Dict[str, Any]:
@@ -25,7 +31,9 @@ def _to_tensors(metric: Metric, state: Mapping[str, Any], where: str) -> Dict[st
         raise ValueError(f"{where}: the JAX state has {unknown}, which {type(metric).__name__} does not keep")
     out: Dict[str, Any] = {}
     for key, value in state.items():
-        if isinstance(value, (list, tuple)):
+        if _is_sketch_state(metric._defaults[key]):
+            out[key] = value  # from_primitives takes the JAX forms as they are
+        elif isinstance(value, (list, tuple)):
             out[key] = [torch.from_numpy(np.array(v)) for v in value]
         else:
             out[key] = torch.from_numpy(np.array(value))

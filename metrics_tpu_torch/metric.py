@@ -13,6 +13,11 @@ Subclass code may update states in place (``self.tp += tp``). The runtime
 therefore clones wherever it keeps a state for later: defaults on reset, the
 saved state in ``forward``, ``state_dict``.
 
+A state is a tensor, a list of tensors (a ``cat`` state), or a sketch state
+(``streaming/sketches.py``): a NamedTuple of tensors whose class sets
+``is_sketch_state``. A sketch state merges through its own ``sketch_merge``
+and is saved and loaded through ``to_primitives``/``from_primitives``.
+
 Not in this module yet: the fault channel (``on_invalid``), ``CatBuffer``
 rings, overlapped sync, snapshots, ``CompositionalMetric`` and the
 multi-process sync. In a ``torch.distributed`` world larger than one process
@@ -55,8 +60,21 @@ def _distributed_world_size() -> int:
     return 1
 
 
+def _is_sketch_state(value: Any) -> bool:
+    return getattr(type(value), "is_sketch_state", False)
+
+
+def _map_state(fn: Callable[[Tensor], Tensor], value: Any) -> Any:
+    """``fn`` over every tensor of a state: a tensor, a list, or a sketch state."""
+    if isinstance(value, list):
+        return [fn(v) for v in value]
+    if _is_sketch_state(value):
+        return type(value)(*(fn(v) for v in value))
+    return fn(value)
+
+
 def _clone(value: Any) -> Any:
-    return [v.clone() for v in value] if isinstance(value, list) else value.clone()
+    return _map_state(torch.Tensor.clone, value)
 
 
 class Metric:
@@ -66,7 +84,9 @@ class Metric:
     higher_is_better: Optional[bool] = None
     full_state_update: bool = False
 
-    def __init__(self, device: Union[str, torch.device, None] = None, **kwargs: Any) -> None:
+    def __init__(
+        self, device: Union[str, torch.device, None] = None, on_overflow: str = "warn", **kwargs: Any
+    ) -> None:
         object.__setattr__(self, "_state", {})
         object.__setattr__(self, "_defaults", {})
         object.__setattr__(self, "_reductions", {})
@@ -74,6 +94,11 @@ class Metric:
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {list(kwargs)}")
         self.device = resolve_device(device)
+        if on_overflow not in ("warn", "error", "ignore"):
+            raise ValueError(f"`on_overflow` must be 'warn', 'error' or 'ignore', got {on_overflow!r}")
+        # what compute() does when a state has run past its capacity
+        # (see _check_cat_overflow)
+        self.on_overflow = on_overflow
 
         self._update_count = 0
         self._update_called = False
@@ -98,19 +123,21 @@ class Metric:
     def add_state(
         self,
         name: str,
-        default: Union[Tensor, list],
+        default: Any,
         dist_reduce_fx: Reduction = None,
         persistent: bool = False,
     ) -> None:
-        """Register a named state: a tensor (fixed-shape accumulator) or an
-        empty list (a ``cat`` state, batches appended)."""
+        """Register a named state: a tensor (fixed-shape accumulator), an
+        empty list (a ``cat`` state, batches appended) or a sketch state."""
         if isinstance(default, list):
             if default:
                 raise ValueError("a list state's default must be an empty list")
+        elif _is_sketch_state(default):
+            default = _map_state(lambda t: t.to(self.device), default)
         elif isinstance(default, (Tensor, np.ndarray, int, float)):
             default = torch.as_tensor(default).to(self.device)
         else:
-            raise ValueError("state variable must be a tensor or an empty list (any value)")
+            raise ValueError("state variable must be a tensor, a sketch state or an empty list (any value)")
         if dist_reduce_fx not in ("sum", "mean", "cat", "max", "min", None) and not callable(dist_reduce_fx):
             raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
         self._defaults[name] = default
@@ -190,7 +217,9 @@ class Metric:
                     "which is not ported yet (it comes with the port of parallel/sync.py); "
                     "a value from this rank alone would be wrong."
                 )
-            self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+            value = compute(*args, **kwargs)
+            self._check_cat_overflow()
+            self._computed = _squeeze_if_scalar(value)
             return self._computed
 
         return wrapped_func
@@ -259,7 +288,11 @@ class Metric:
         merged: Dict[str, Any] = {}
         for name, reduce_fn in self._reductions.items():
             g, b = global_state[name], batch_state[name]
-            if reduce_fn == "sum":
+            if _is_sketch_state(g):
+                # a sketch merges by its own associative and commutative
+                # union; the reduction tag is documentary
+                merged[name] = g.sketch_merge(b)
+            elif reduce_fn == "sum":
                 merged[name] = g + b
             elif reduce_fn == "mean":
                 if global_count == 0:
@@ -295,6 +328,11 @@ class Metric:
         """Override to update state with batch data."""
         raise NotImplementedError
 
+    def _check_cat_overflow(self) -> None:
+        """Called by ``compute`` after the value is computed: a metric whose
+        state can run past its capacity warns or raises here, as
+        ``on_overflow`` says. No state of this base class can."""
+
     def compute(self) -> Any:  # pragma: no cover - abstract
         """Override to compute the final value from state."""
         raise NotImplementedError
@@ -320,8 +358,14 @@ class Metric:
             self._persistent[key] = mode
 
     def state_dict(self, prefix: str = "") -> Dict[str, Any]:
-        """Copies of the persistent states (tensors, or lists of tensors)."""
-        return {prefix + key: _clone(self._state[key]) for key in self._defaults if self._persistent[key]}
+        """Copies of the persistent states: tensors, lists of tensors, and a
+        sketch state as its ``to_primitives()`` mapping."""
+        out: Dict[str, Any] = {}
+        for key in self._defaults:
+            if self._persistent[key]:
+                value = self._state[key]
+                out[prefix + key] = value.to_primitives() if _is_sketch_state(value) else _clone(value)
+        return out
 
     def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "") -> None:
         """Restore states saved by :meth:`state_dict`.
@@ -358,6 +402,11 @@ class Metric:
                 value = torch.tensor(arr)
             return value
 
+        if _is_sketch_state(default):
+            try:
+                return type(default).from_primitives(v, like=default)
+            except ValueError as err:
+                fail(f"failed sketch-state validation: {err}")
         if isinstance(default, list):
             if not isinstance(v, (list, tuple)):
                 fail(f"is a list ('cat') state and must load from a list (got {type(v).__name__})")

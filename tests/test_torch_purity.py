@@ -61,6 +61,22 @@ def test_import_loads_no_jax_and_builds_nothing():
     assert proc.stdout.strip() == "ok"
 
 
+def test_streaming_import_builds_and_loads_no_kernel():
+    code = (
+        "import sys\n"
+        "import metrics_tpu_torch.streaming\n"
+        "from metrics_tpu_torch.ops import _build, compactor\n"
+        "assert _build._loaded == {} and _build.build_info == {}\n"
+        "assert compactor.launch_count == 0\n"
+        "assert 'triton' not in sys.modules and not any(m.split('.')[0] in ('jax', 'metrics_tpu') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 @pytest.mark.parametrize("name", ["Accuracy", "StatScores", "BinnedAveragePrecision"])
 def test_metric_without_device_asks_for_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
