@@ -11,8 +11,8 @@ Phases, each printing one JSON line, and any failure exits non-zero:
 2. build: compile every CUDA kernel from ``metrics_tpu_torch/csrc/``, one
    ``nvcc`` per source, all started together;
 3. parity: each kernel against its plain PyTorch version on the card, bit-equal,
-   at the main paths' shapes and at the edges (K1 ``binned_counters``, K3
-   ``compactor_fold``);
+   at the main paths' shapes and at the edges (K1 ``binned_counters``, K2
+   ``histogram``, K3 ``compactor_fold``);
 4. main path: an ImageNet-1k validation epoch (50,000 rows, 1000 classes,
    1024-row batches) through ``MetricCollection({acc1, acc5, bap})`` on the
    card, checked against the same run of the port on the CPU;
@@ -23,18 +23,33 @@ Phases, each printing one JSON line, and any failure exits non-zero:
 6. profile: where one batch update's time goes on each path (each member
    alone, and a ``torch.profiler`` window: device busy time, top kernels and
    host calls), and the blocking device-to-host reads of a stream update;
-7. kernels: each kernel's time, its bound on this card, and its launches on
+7. dist path: data-parallel evaluation of a binary scorer, 2^26 rows over
+   4 processes that share the card in one Gloo world (``torch.distributed``,
+   ``tcp://localhost``): each rank runs ``MetricCollection({auroc, ap,
+   auroc_ring, ap_ring})`` over its 2^24 rows and ``compute()`` gathers the
+   states and sorts all 2^26 rows; then ``sharded_descending_ranks`` (K2 on
+   every rank) on quantized, continuous and all-equal scores, held against
+   the gathered sort. Checked against the port in one process on the CPU
+   and against an exact float64 Mann-Whitney AUROC;
+8. kernels: each kernel's time, its bound on this card, and its launches on
    its path.
+
+The parent process builds every kernel before it spawns the ranks, so the
+ranks only load the libraries. A rank that fails makes the script fail.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout of the repository, the script prints no result and exits 1.
 """
+import hashlib
 import json
 import pathlib
+import queue
+import socket
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 
@@ -59,6 +74,22 @@ HLL_RTOL = 1e-6  # the estimate sums 2^11 float32 terms, in another order on the
 # K3's timing shape: a level of the default sketch (k = 6600) and the
 # 4096 items a 2^20-row batch precompacts to
 K3_K, K3_M = 6600, 4096
+
+# the dist path: an offline evaluation of a binary scorer (a CTR or ranking
+# model's held-out set is tens of millions of rows)
+DIST_WORLD = 4
+DIST_SHARD = 1 << 24  # rows per rank; 2^26 in all
+DIST_BATCH = 1 << 20
+DIST_FORWARD_EVERY = 8  # batches 0 and 8 of each rank go through forward()
+DIST_RING = 1 << 24  # capacity of each rank's rings: its whole shard
+POSITIVE_SHARE = 0.25
+NUM_BUCKETS = 2048  # sharded_descending_ranks' default grid
+K2_BINS = NUM_BUCKETS + 3  # with the +inf, -inf and overflow buckets
+QUANT_GRID = 2048  # quantized scores: floor(s * 2048) / 2048, one grid point per bucket
+DIST_RTOL = 1e-5  # areas: float32 sums over 2^26 terms, taken in another order than on the CPU
+EXACT_ATOL = 1e-5  # AUROC against the exact float64 Mann-Whitney value
+DIST_TIMEOUT_S = 600
+DIST_DEVICE = "cuda:0"  # where the ranks run: the one card, shared
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -120,9 +151,9 @@ def device_ms_per_launch(fn, kernel_name, iters=50):
 
 
 def phase_build():
-    from metrics_tpu_torch.ops import _build, binned_counters, compactor
+    from metrics_tpu_torch.ops import _build, binned_counters, compactor, histogram
 
-    sources = [binned_counters.SOURCE, compactor.SOURCE]
+    sources = [binned_counters.SOURCE, histogram.SOURCE, compactor.SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -795,6 +826,448 @@ def k3_times(dev, launches, max_abs_err):
         "compares": compares,
     }
 
+def phase_k2_parity(dev):
+    """K2 against its plain version on the card, bit for bit: the dist
+    path's shape, all ids in one bin, no ids, one id, a count that is not a
+    multiple of a block's step, ids out of range, one bucket, the JAX
+    package's largest grid (8195 bins) and a grid too large for shared
+    memory."""
+    import torch
+
+    from metrics_tpu_torch.ops import histogram as k2
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def ids(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=torch.int32)
+
+    out_of_range = ids(-3000, 5000, 100_003)
+    out_of_range[:2] = torch.tensor([-(1 << 31), (1 << 31) - 1], dtype=torch.int32, device=dev)
+    cases = [
+        ("path_uniform", ids(0, K2_BINS, DIST_SHARD), K2_BINS),
+        ("all_equal", torch.full((DIST_SHARD,), 1, dtype=torch.int32, device=dev), K2_BINS),
+        ("n0", ids(0, K2_BINS, 0), K2_BINS),
+        ("n1", ids(0, K2_BINS, 1), K2_BINS),
+        ("n_not_a_multiple_of_the_block", ids(0, K2_BINS, 3 * 2048 + 17), K2_BINS),
+        ("out_of_range", out_of_range, K2_BINS),
+        ("one_bucket", ids(-1, 3, 50_000), 1),
+        ("bins_8195", ids(0, 8195, DIST_SHARD), 8195),
+        ("bins_100000_global_memory", ids(-5, 100_005, 1 << 20), 100_000),
+    ]
+    rows, max_err = [], 0.0
+    for name, x, nb in cases:
+        got = k2.histogram(x, nb)
+        want = k2.histogram_plain(x, nb)
+        torch.cuda.synchronize()
+        equal = got.dtype == want.dtype and torch.equal(got, want)
+        err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        max_err = max(max_err, err)
+        rows.append({"case": name, "n": x.shape[0], "bins": nb, "counted": int(got.sum()), "bit_equal": equal})
+        if not equal:
+            emit({"phase": "parity", "kernel": "histogram", "cases": rows})
+            raise AssertionError(f"histogram kernel differs from its plain version in case {name!r}")
+    emit({"phase": "parity", "kernel": "histogram", "cases": rows, "max_abs_err": max_err})
+    return max_err
+
+
+def make_dist_data(device):
+    """The dist path's 2^26 rows, from one seeded generator on the card:
+    labels Bernoulli(0.25), float32 scores sigmoid(z + label) with z standard
+    normal. Every rank makes all of them and keeps its own slice, so the
+    concatenation of the shards is what the parent makes too."""
+    import torch
+
+    n = DIST_WORLD * DIST_SHARD
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    labels = (torch.rand(n, generator=g, device=device) < POSITIVE_SHARE).to(torch.int32)
+    z = torch.randn(n, generator=g, device=device)
+    return torch.sigmoid(z + labels.to(torch.float32)), labels
+
+
+def quantized(scores):
+    """Scores on a 2048-point grid, one point per histogram bucket."""
+    import torch
+
+    return torch.clamp(torch.floor(scores * QUANT_GRID), max=QUANT_GRID - 1) / QUANT_GRID
+
+
+def build_dist_collection(pkg, device, ring=None):
+    ring = DIST_RING if ring is None else ring
+    return pkg.MetricCollection({
+        "auroc": pkg.AUROC(device=device),
+        "ap": pkg.AveragePrecision(device=device),
+        "auroc_ring": pkg.AUROC(capacity=ring, device=device),
+        "ap_ring": pkg.AveragePrecision(capacity=ring, device=device),
+    })
+
+
+def run_dist_batches(coll, scores, labels, sync, forward_every=DIST_FORWARD_EVERY):
+    """Batches of 2^20 rows, every 8th through forward, the rest through
+    update (``forward_every=None``: all through update, which accumulates
+    the same state)."""
+    update_s, forward_s = [], []
+    for i in range(scores.shape[0] // DIST_BATCH):
+        p, y = scores[i * DIST_BATCH:(i + 1) * DIST_BATCH], labels[i * DIST_BATCH:(i + 1) * DIST_BATCH]
+        t0 = time.perf_counter()
+        if forward_every and i % forward_every == 0:
+            coll(p, y)
+            sync()
+            forward_s.append(time.perf_counter() - t0)
+        else:
+            coll.update(p, y)
+            sync()
+            update_s.append(time.perf_counter() - t0)
+    return update_s, forward_s
+
+
+def curve_digest(preds, target):
+    """The exact curve's integer parts (cumulative fps and tps, and the
+    thresholds): their length, last values and one sha256 over their bytes."""
+    from metrics_tpu_torch.functional.classification.precision_recall_curve import _binary_clf_curve
+
+    fps, tps, thresholds = _binary_clf_curve(preds, target)
+    h = hashlib.sha256()
+    for t in (fps, tps, thresholds):
+        h.update(t.cpu().numpy().tobytes())
+    return {"points": int(thresholds.shape[0]), "fps_last": float(fps[-1]), "tps_last": float(tps[-1]), "sha256": h.hexdigest()}
+
+
+def _bits(value):
+    import torch
+
+    return int(value.detach().reshape(()).cpu().view(torch.int32))
+
+
+def dist_rank(rank, world, port, results, device):
+    """One rank of the dist path, on the one card. Puts its numbers on
+    ``results``; on a failure it puts the traceback and exits non-zero."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            sync = torch.cuda.synchronize
+        else:
+            sync = lambda: None  # noqa: E731
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+
+        import metrics_tpu_torch as mtt
+        from metrics_tpu_torch.ops import _build
+        from metrics_tpu_torch.ops import binned_counters as k1
+        from metrics_tpu_torch.ops import compactor as k3
+        from metrics_tpu_torch.ops import histogram as k2
+        from metrics_tpu_torch.ops.bucketed_rank import descending_order, inverse_permutation, sharded_descending_ranks
+        from metrics_tpu_torch.parallel.sync import gather_all_arrays
+        from metrics_tpu_torch.utilities.data import dim_zero_cat
+
+        if dev.type == "cuda" and not _build.library_path(k2.SOURCE).exists():
+            raise RuntimeError("the histogram kernel was not built before the ranks were spawned")
+        out = {"rank": rank}
+        scores, labels = make_dist_data(dev)
+        lo, hi = rank * DIST_SHARD, (rank + 1) * DIST_SHARD
+        s, y = scores[lo:hi].clone(), labels[lo:hi].clone()
+        del scores, labels
+        coll = build_dist_collection(mtt, dev)
+        sync()
+        dist.barrier()
+
+        for kernel in (k1, k2, k3):
+            kernel.reset_launch_count()
+        t0 = time.perf_counter()
+        update_s, forward_s = run_dist_batches(coll, s, y, sync)
+        loop_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        values = coll.compute()
+        sync()
+        compute_s = time.perf_counter() - t1
+        out.update({
+            "update_p50_ms": statistics.median(update_s) * 1e3,
+            "forward_p50_ms": statistics.median(forward_s) * 1e3,
+            "first_forward_ms": forward_s[0] * 1e3,
+            "loop_s": loop_s,
+            "compute_s": compute_s,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
+            "values": {k: float(v) for k, v in values.items()},
+            "value_bits": {k: _bits(v) for k, v in values.items()},
+        })
+
+        # the synced states, once more: the gather alone, and on rank 0 the
+        # exact curve of the gathered rows
+        members = dict(coll.items(keep_base=True, copy_state=False))
+        t2 = time.perf_counter()
+        with members["auroc"].sync_context(), members["auroc_ring"].sync_context():
+            sync()
+            out["sync_s"] = time.perf_counter() - t2
+            gathered = dim_zero_cat(members["auroc"].preds)
+            ring = members["auroc_ring"].metric_state["preds"]
+            out["synced_rows"] = int(gathered.shape[0])
+            out["synced_ring"] = {"capacity": ring.capacity, "count": int(ring.count()), "dropped": int(ring.dropped)}
+            if rank == 0:
+                out["curve"] = curve_digest(gathered, dim_zero_cat(members["auroc"].target))
+            del gathered, ring
+
+        # sharded ranks on the same shards: K2 once per call
+        calls, sharded = 0, {}
+        n = world * DIST_SHARD
+        for kind, x in (("quantized", quantized(s)), ("continuous", s), ("equal", torch.full_like(s, 0.5))):
+            sync()
+            dist.barrier()
+            t = time.perf_counter()
+            ranks, resolved = sharded_descending_ranks(x)
+            resolved = bool(resolved)
+            hist_s = time.perf_counter() - t
+            calls += 1
+            t = time.perf_counter()
+            want = inverse_permutation(descending_order(torch.cat(gather_all_arrays(x))))[lo:hi]
+            sync()
+            gathered_s = time.perf_counter() - t
+            row = {"resolved": resolved, "hist_s": hist_s, "gathered_sort_s": gathered_s, "bit_equal": torch.equal(ranks, want)}
+            every = torch.cat(gather_all_arrays(ranks))
+            row["permutation"] = torch.equal(torch.sort(every).values, torch.arange(n, dtype=torch.int32, device=dev))
+            row["rank_sum"] = int(every.to(torch.int64).sum())
+            del every, want
+            sharded[kind] = row
+        out["sharded"] = sharded
+        out["k2_calls"] = calls
+        out["launches"] = {"binned_counters": k1.launch_count, "histogram": k2.launch_count, "compactor_fold": k3.launch_count}
+        out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "metrics_tpu"))
+        dist.barrier()
+        dist.destroy_process_group()
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_dist_world():
+    """Spawn the ranks, collect what each reports, and stop every process."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=dist_rank, args=(r, DIST_WORLD, port, results, DIST_DEVICE)) for r in range(DIST_WORLD)]
+    got = {}
+    try:
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        while len(got) < DIST_WORLD:
+            try:
+                rank, out = results.get(timeout=5)
+            except queue.Empty:
+                dead = {i: p.exitcode for i, p in enumerate(procs) if p.exitcode not in (None, 0)}
+                if dead:
+                    raise AssertionError(f"dist path: ranks exited before reporting: {dead}")
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"dist path: no result within {DIST_TIMEOUT_S} s")
+                continue
+            if "error" in out:
+                raise AssertionError(f"dist path: rank {rank} failed:\n{out['error']}")
+            got[rank] = out
+        for proc in procs:
+            proc.join(timeout=60)
+        codes = [proc.exitcode for proc in procs]
+        if codes != [0] * DIST_WORLD:
+            raise AssertionError(f"dist path: rank exit codes {codes}")
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return [got[r] for r in range(DIST_WORLD)]
+
+
+def mann_whitney_auroc(scores, labels):
+    """The exact AUROC in float64 with numpy: the positives' tie-averaged
+    rank sum (every rank a multiple of 0.5, every sum exact)."""
+    import numpy as np
+
+    _, inverse, counts = np.unique(scores, return_inverse=True, return_counts=True)
+    avg_rank = np.cumsum(counts) - (counts - 1) / 2.0
+    pos = labels == 1
+    n_pos = int(pos.sum())
+    n_neg = labels.shape[0] - n_pos
+    u = float(avg_rank[inverse[pos]].sum()) - n_pos * (n_pos + 1) / 2.0
+    return u / (float(n_pos) * float(n_neg))
+
+
+def phase_dist(dev):
+    import torch
+
+    import metrics_tpu_torch as mtt
+
+    t0 = time.perf_counter()
+    ranks = run_dist_world()
+    world_s = time.perf_counter() - t0
+    n = DIST_WORLD * DIST_SHARD
+    batches = DIST_SHARD // DIST_BATCH
+
+    for r in ranks:
+        if r["jax_loaded"]:
+            raise AssertionError(f"rank {r['rank']} loaded {r['jax_loaded']}")
+        if r["value_bits"] != ranks[0]["value_bits"]:
+            raise AssertionError(f"rank {r['rank']} computed {r['values']}, rank 0 {ranks[0]['values']}")
+        launches = r["launches"]
+        if not (launches["histogram"] == r["k2_calls"] > 0 and launches["binned_counters"] == launches["compactor_fold"] == 0):
+            raise AssertionError(f"rank {r['rank']}: launches {launches} for {r['k2_calls']} sharded_descending_ranks calls")
+        if r["synced_rows"] != n or r["synced_ring"] != {"capacity": n, "count": n, "dropped": 0}:
+            raise AssertionError(f"rank {r['rank']}: synced {r['synced_rows']} rows and ring {r['synced_ring']}")
+        sh = r["sharded"]
+        if not (sh["quantized"]["resolved"] and sh["quantized"]["bit_equal"]):
+            raise AssertionError(f"rank {r['rank']}: quantized ranks {sh['quantized']}")
+        if not (sh["equal"]["resolved"] and sh["equal"]["rank_sum"] == n * (n - 1) // 2):
+            raise AssertionError(f"rank {r['rank']}: all-equal ranks {sh['equal']}")
+        if not all(row["permutation"] for row in sh.values()):
+            raise AssertionError(f"rank {r['rank']}: ranks are not a permutation of 0..N-1: {sh}")
+        if sh["continuous"]["resolved"] and not sh["continuous"]["bit_equal"]:
+            raise AssertionError(f"rank {r['rank']}: resolved continuous ranks differ from the gathered sort")
+
+    # the same rows through the port in one process on the CPU, all through
+    # update: a ring's forward computes its batch value over the whole ring,
+    # and the CPU's ring holds all 2^26 rows
+    scores, labels = make_dist_data(dev)
+    cs, cl = scores.cpu(), labels.cpu()
+    del scores, labels
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ref = build_dist_collection(mtt, "cpu", ring=n)
+    run_dist_batches(ref, cs, cl, lambda: None, forward_every=None)
+    ref_values = ref.compute()
+    cpu_s = time.perf_counter() - t1
+    ref_curve = curve_digest(cs, cl)
+    t2 = time.perf_counter()
+    exact = mann_whitney_auroc(cs.numpy(), cl.numpy())
+    exact_s = time.perf_counter() - t2
+
+    card = ranks[0]["values"]
+    rel = {k: abs(card[k] - float(v)) / abs(float(v)) for k, v in ref_values.items()}
+    if ranks[0]["curve"] != ref_curve:
+        raise AssertionError(f"the exact curve's parts differ: card {ranks[0]['curve']}, CPU {ref_curve}")
+    if max(rel.values()) > DIST_RTOL:
+        raise AssertionError(f"card {card} vs CPU {dict((k, float(v)) for k, v in ref_values.items())}: rel {rel}")
+    exact_err = {k: abs(card[k] - exact) for k in ("auroc", "auroc_ring")}
+    if max(exact_err.values()) > EXACT_ATOL:
+        raise AssertionError(f"AUROC {card} vs exact Mann-Whitney {exact}: {exact_err}")
+
+    q = ranks[0]["sharded"]
+    emit({
+        "phase": "dist_path",
+        "config": {
+            "world": DIST_WORLD, "rows_per_rank": DIST_SHARD, "rows": n, "batch": DIST_BATCH, "batches_per_rank": batches,
+            "forward_every": DIST_FORWARD_EVERY, "ring_capacity": DIST_RING, "positive_share": POSITIVE_SHARE,
+            "backend": "gloo, four processes on one card (loopback TCP; not NCCL)", "seed": SEED,
+        },
+        "world_s": world_s,
+        "rows_per_s_per_rank": [DIST_SHARD / r["loop_s"] for r in ranks],
+        "update_p50_ms": [r["update_p50_ms"] for r in ranks],
+        "forward_p50_ms": [r["forward_p50_ms"] for r in ranks],
+        "first_forward_ms": [r["first_forward_ms"] for r in ranks],
+        "compute_s": [r["compute_s"] for r in ranks],
+        "sync_two_members_s": [r["sync_s"] for r in ranks],
+        "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
+        "values": card,
+        "cpu_values": {k: float(v) for k, v in ref_values.items()},
+        "rel_diff_vs_cpu": rel,
+        "exact_mann_whitney": exact,
+        "abs_err_vs_exact": exact_err,
+        "curve": ranks[0]["curve"],
+        "curve_matches_cpu": True,
+        "sharded_ranks": {
+            kind: {
+                "resolved": row["resolved"], "bit_equal_to_gathered_sort": row["bit_equal"],
+                "hist_s_per_rank": [r["sharded"][kind]["hist_s"] for r in ranks],
+                "gathered_sort_s_per_rank": [r["sharded"][kind]["gathered_sort_s"] for r in ranks],
+                "rank_sum": row["rank_sum"],
+            }
+            for kind, row in q.items()
+        },
+        "k2_launches_per_rank": [r["launches"]["histogram"] for r in ranks],
+        "k2_calls_per_rank": [r["k2_calls"] for r in ranks],
+        "cpu_reference_s": cpu_s,
+        "exact_reference_s": exact_s,
+        "matches_cpu_run": True,
+    })
+    return sum(r["launches"]["histogram"] for r in ranks), cs
+
+
+def k2_times(dev, launches, max_abs_err, cpu_scores):
+    """K2's entry of the kernels line, at the dist path's shape (2^24 ids of
+    one rank, 2051 bins): uniform ids, all ids in one bin, and the bucket
+    ids of rank 0's quantized scores."""
+    import torch
+
+    from metrics_tpu_torch.ops import histogram as k2
+    from metrics_tpu_torch.ops.bucketed_rank import bucket_counts
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    n, nb = DIST_SHARD, K2_BINS
+    q = quantized(cpu_scores.to(dev))
+    lo, hi = q.min(), q.max()
+    inputs = {
+        "uniform": torch.randint(0, nb, (n,), generator=g, device=dev, dtype=torch.int32),
+        "all_equal": torch.full((n,), 1, dtype=torch.int32, device=dev),
+        "path_ids": bucket_counts(q[:n], lo, hi, NUM_BUCKETS)[1].contiguous(),
+    }
+    del q
+    lib = k2._library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.zeros(nb, dtype=torch.int32, device=dev)
+    per_input = {}
+    for name, ids in inputs.items():
+        def raw(ids=ids):
+            out.zero_()
+            err = lib.histogram_launch(ids.data_ptr(), n, nb, out.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"histogram launch failed with cudaError {err}")
+
+        wrapper = lambda ids=ids: k2.histogram(ids, nb)  # noqa: E731
+        plain = lambda ids=ids: k2.histogram_plain(ids, nb)  # noqa: E731
+        library = lambda ids=ids: torch.bincount(ids, minlength=nb)  # noqa: E731
+        order = [("plain", plain), ("wrapper", wrapper), ("kernel", raw), ("library", library),
+                 ("library", library), ("kernel", raw), ("wrapper", wrapper), ("plain", plain)]
+        times = {}
+        for label, fn in order:
+            times.setdefault(label, []).append(cuda_time_ms(fn))
+        ms = {label: statistics.mean(v) for label, v in times.items()}
+        ms["kernel_device"] = device_ms_per_launch(raw, "histogram_kernel")
+        per_input[name] = ms
+
+    bytes_moved = 4 * n + 4 * nb  # int32 ids in, int32 counts out
+    ops = n  # one add per id
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    head = per_input["uniform"]
+    return {
+        "name": "histogram",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/csrc/histogram.cu",
+        "replaces": "metrics_tpu/ops/pallas_kernels.py:62",
+        "replaces_fn": "metrics_tpu/ops/pallas_kernels.py::_histogram_kernel (pallas_call at :92)",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": head["wrapper"],
+        "kernel_ms": head["kernel"],
+        "kernel_device_ms": head["kernel_device"],
+        "plain_ms": head["plain"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": head["library"],
+        "library_call": "torch.bincount(ids, minlength=2051)",
+        "by_input": per_input,
+        "shape": {"n": n, "bins": nb},
+        "bytes": bytes_moved,
+    }
+
+
 
 def main():
     try:
@@ -826,13 +1299,20 @@ def main():
     device = torch.device("cuda", 0)
     preds, target = make_data(device)
     k1_err = phase_parity(preds, target)
+    k2_err = phase_k2_parity(device)
     k3_err = phase_k3_parity(device)
     k1_launches = phase_main_path(preds, target)
     stream = make_stream(device)
     k3_launches = phase_stream(stream)
     phase_profile(preds, target)
     phase_stream_profile(stream)
-    kernels = [k1_times(preds, target, k1_launches, k1_err), k3_times(device, k3_launches, k3_err)]
+    del stream
+    k2_launches, dist_scores = phase_dist(device)
+    kernels = [
+        k1_times(preds, target, k1_launches, k1_err),
+        k2_times(device, k2_launches, k2_err, dist_scores),
+        k3_times(device, k3_launches, k3_err),
+    ]
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

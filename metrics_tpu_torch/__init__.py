@@ -7,11 +7,16 @@ the TPU are CUDA kernels for Hopper here (``csrc/``), built on first use.
 This package imports neither JAX nor ``metrics_tpu``.
 """
 from metrics_tpu_torch.classification.accuracy import Accuracy
+from metrics_tpu_torch.classification.auc import AUC
+from metrics_tpu_torch.classification.auroc import AUROC
+from metrics_tpu_torch.classification.avg_precision import AveragePrecision
 from metrics_tpu_torch.classification.binned_precision_recall import (
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
     BinnedRecallAtFixedPrecision,
 )
+from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve
+from metrics_tpu_torch.classification.roc import ROC
 from metrics_tpu_torch.classification.stat_scores import StatScores
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric
@@ -25,7 +30,10 @@ from metrics_tpu_torch.streaming import (
 )
 
 __all__ = [
+    "AUC",
+    "AUROC",
     "Accuracy",
+    "AveragePrecision",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
@@ -35,7 +43,9 @@ __all__ = [
     "HyperLogLog",
     "Metric",
     "MetricCollection",
+    "PrecisionRecallCurve",
     "QuantileSketch",
     "QuantileSketchState",
+    "ROC",
     "StatScores",
 ]

@@ -2,7 +2,7 @@
 ``metrics_tpu/collections.py``).
 
 Compute groups: after the first ``update`` the members whose states are
-equal form a group, and from then on only the group's first member (its
+equal (tensors, lists, rings and sketch states alike) form a group, and from then on only the group's first member (its
 head) runs ``update``. The other members' states point at the head's
 tensors, which the head updates in place. ``items``/``values``/``[]`` hand
 out copies by default, so a caller cannot write into a shared state by
@@ -16,7 +16,7 @@ from typing import Any, Dict, Hashable, Iterable, List, Optional, Sequence, Tupl
 
 import torch
 
-from metrics_tpu_torch.metric import Metric, _clone, _is_sketch_state
+from metrics_tpu_torch.metric import Metric, _clone, _is_tuple_state
 from metrics_tpu_torch.utilities.data import _flatten_dict
 
 
@@ -155,8 +155,9 @@ class MetricCollection:
             state2 = metric2._state[key]
             if type(state1) is not type(state2):
                 return False
-            if _is_sketch_state(state1):
-                # field by field, each of the same shape and equal values
+            if _is_tuple_state(state1):
+                # a sketch or a ring: field by field, each of the same shape
+                # and equal values
                 if not all(
                     s1.shape == s2.shape and s1.device == s2.device and torch.equal(s1, s2)
                     for s1, s2 in zip(state1, state2)

@@ -11,7 +11,11 @@ A sketch state (``QuantileSketch``, ``CountMinSketch``, ``HyperLogLog``)
 may be given as the JAX state itself (a NamedTuple of arrays), as its
 ``to_primitives()`` mapping, or as either with its arrays turned to numpy;
 it loads through the port state's ``from_primitives``, which refuses
-another geometry.
+another geometry. A ``CatBuffer`` ring (the curve metrics with
+``capacity=``) may be given as the JAX ``CatBuffer`` or as a ``{"data",
+"mask", "dropped"}`` mapping, at any capacity; a ``cat`` list state as a
+list of arrays. A JAX curve metric's state then carries over, and both
+packages compute the same value from it.
 
 States only: an attribute that a metric infers from its first batch, such
 as ``Accuracy.mode``, is set again by the port's next ``update``.
@@ -23,6 +27,7 @@ import torch
 
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric, _is_sketch_state
+from metrics_tpu_torch.utilities.ringbuffer import CatBuffer
 
 
 def _to_tensors(metric: Metric, state: Mapping[str, Any], where: str) -> Dict[str, Any]:
@@ -33,6 +38,9 @@ def _to_tensors(metric: Metric, state: Mapping[str, Any], where: str) -> Dict[st
     for key, value in state.items():
         if _is_sketch_state(metric._defaults[key]):
             out[key] = value  # from_primitives takes the JAX forms as they are
+        elif isinstance(metric._defaults[key], CatBuffer):
+            fields = value if isinstance(value, Mapping) else {f: getattr(value, f, None) for f in CatBuffer._fields}
+            out[key] = {f: torch.from_numpy(np.array(v)) for f, v in fields.items() if v is not None}
         elif isinstance(value, (list, tuple)):
             out[key] = [torch.from_numpy(np.array(v)) for v in value]
         else:

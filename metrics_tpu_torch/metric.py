@@ -13,26 +13,35 @@ Subclass code may update states in place (``self.tp += tp``). The runtime
 therefore clones wherever it keeps a state for later: defaults on reset, the
 saved state in ``forward``, ``state_dict``.
 
-A state is a tensor, a list of tensors (a ``cat`` state), or a sketch state
-(``streaming/sketches.py``): a NamedTuple of tensors whose class sets
-``is_sketch_state``. A sketch state merges through its own ``sketch_merge``
-and is saved and loaded through ``to_primitives``/``from_primitives``.
+A state is a tensor, a list of tensors (a ``cat`` state), a
+:class:`~metrics_tpu_torch.utilities.ringbuffer.CatBuffer` ring (a ``cat``
+state of fixed capacity), or a sketch state (``streaming/sketches.py``): a
+NamedTuple of tensors whose class sets ``is_sketch_state``. A sketch state
+merges through its own ``sketch_merge`` and is saved and loaded through
+``to_primitives``/``from_primitives``.
 
-Not in this module yet: the fault channel (``on_invalid``), ``CatBuffer``
-rings, overlapped sync, snapshots, ``CompositionalMetric`` and the
-multi-process sync. In a ``torch.distributed`` world larger than one process
-``compute()`` raises rather than return a value that covers one rank only.
+In a ``torch.distributed`` world of more than one process, ``compute()``
+gathers every state over the metric's ``process_group`` (``dist_sync_fn``,
+by default :func:`~metrics_tpu_torch.parallel.sync.gather_all_arrays`),
+reduces it, computes, and restores the local state. A failed collective
+raises.
+
+Not in this module yet: the fault channel (``on_invalid``), overlapped sync,
+snapshots, ``CompositionalMetric``, and the sync of sketch states.
 """
+import contextlib
 import functools
 import inspect
 from copy import deepcopy
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
 
-from metrics_tpu_torch.utilities.data import _squeeze_if_scalar
+from metrics_tpu_torch.parallel.sync import distributed_available, gather_all_arrays
+from metrics_tpu_torch.utilities.data import _squeeze_if_scalar, dim_zero_cat
 from metrics_tpu_torch.utilities.exceptions import MetricsTPUUserError
+from metrics_tpu_torch.utilities.ringbuffer import CatBuffer, cat_append
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -53,22 +62,21 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
     return device
 
 
-def _distributed_world_size() -> int:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
-
-
 def _is_sketch_state(value: Any) -> bool:
     return getattr(type(value), "is_sketch_state", False)
 
 
+def _is_tuple_state(value: Any) -> bool:
+    """A state held as a NamedTuple of tensors: a sketch state or a ring."""
+    return isinstance(value, CatBuffer) or _is_sketch_state(value)
+
+
 def _map_state(fn: Callable[[Tensor], Tensor], value: Any) -> Any:
-    """``fn`` over every tensor of a state: a tensor, a list, or a sketch state."""
+    """``fn`` over every tensor of a state: a tensor, a list, a ring or a
+    sketch state."""
     if isinstance(value, list):
         return [fn(v) for v in value]
-    if _is_sketch_state(value):
+    if _is_tuple_state(value):
         return type(value)(*(fn(v) for v in value))
     return fn(value)
 
@@ -85,7 +93,12 @@ class Metric:
     full_state_update: bool = False
 
     def __init__(
-        self, device: Union[str, torch.device, None] = None, on_overflow: str = "warn", **kwargs: Any
+        self,
+        device: Union[str, torch.device, None] = None,
+        on_overflow: str = "warn",
+        process_group: Optional[Any] = None,
+        dist_sync_fn: Optional[Callable] = None,
+        **kwargs: Any,
     ) -> None:
         object.__setattr__(self, "_state", {})
         object.__setattr__(self, "_defaults", {})
@@ -99,6 +112,12 @@ class Metric:
         # what compute() does when a state has run past its capacity
         # (see _check_cat_overflow)
         self.on_overflow = on_overflow
+        # the multi-process sync: the group to gather over and the gather
+        # itself, ``(tensor, group) -> [tensor of each rank]``
+        self.process_group = process_group
+        self.dist_sync_fn = dist_sync_fn
+        self._is_synced = False
+        self._cache: Optional[Dict[str, Any]] = None
 
         self._update_count = 0
         self._update_called = False
@@ -126,13 +145,22 @@ class Metric:
         default: Any,
         dist_reduce_fx: Reduction = None,
         persistent: bool = False,
+        template: Optional[Tensor] = None,
     ) -> None:
         """Register a named state: a tensor (fixed-shape accumulator), an
-        empty list (a ``cat`` state, batches appended) or a sketch state."""
+        empty list (a ``cat`` state, batches appended), a ``CatBuffer`` ring
+        or a sketch state.
+
+        ``template`` (list states only) is an empty ``(0, *row)`` tensor
+        giving the rows' dtype and trailing shape: a sync gathers the list
+        in that dtype, and a rank whose list is still empty gathers the
+        template itself, so every rank issues the same collectives with the
+        same dtype.
+        """
         if isinstance(default, list):
             if default:
                 raise ValueError("a list state's default must be an empty list")
-        elif _is_sketch_state(default):
+        elif _is_tuple_state(default):
             default = _map_state(lambda t: t.to(self.device), default)
         elif isinstance(default, (Tensor, np.ndarray, int, float)):
             default = torch.as_tensor(default).to(self.device)
@@ -140,6 +168,10 @@ class Metric:
             raise ValueError("state variable must be a tensor, a sketch state or an empty list (any value)")
         if dist_reduce_fx not in ("sum", "mean", "cat", "max", "min", None) and not callable(dist_reduce_fx):
             raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
+        if template is not None:
+            if not isinstance(default, list):
+                raise ValueError("`template` is only meaningful for list ('cat') states")
+            self.__dict__.setdefault("_list_templates", {})[name] = torch.as_tensor(template).to(self.device)
         self._defaults[name] = default
         self._reductions[name] = dist_reduce_fx
         self._persistent[name] = persistent
@@ -210,15 +242,11 @@ class Metric:
                 )
             if self._computed is not None:
                 return self._computed
-            if self._to_sync and _distributed_world_size() > 1:
-                raise MetricsTPUUserError(
-                    f"{type(self).__name__}.compute() in a torch.distributed world of "
-                    f"{_distributed_world_size()} processes needs the multi-process state sync, "
-                    "which is not ported yet (it comes with the port of parallel/sync.py); "
-                    "a value from this rank alone would be wrong."
-                )
-            value = compute(*args, **kwargs)
-            self._check_cat_overflow()
+            with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync):
+                value = compute(*args, **kwargs)
+                # checked while synced: ``dropped`` is then the global count,
+                # so every rank takes the same branch
+                self._check_cat_overflow()
             self._computed = _squeeze_if_scalar(value)
             return self._computed
 
@@ -303,6 +331,12 @@ class Metric:
                 merged[name] = torch.maximum(g, b)
             elif reduce_fn == "min":
                 merged[name] = torch.minimum(g, b)
+            elif isinstance(g, CatBuffer):
+                # the batch ring's valid rows go into the global ring at its
+                # capacity; rows past it drop and count, and the batch
+                # ring's own drops carry over
+                m = cat_append(g, b.data, valid=b.mask)
+                merged[name] = m._replace(dropped=m.dropped + b.dropped)
             elif reduce_fn == "cat" or (reduce_fn is None and isinstance(g, list)):
                 merged[name] = list(g) + list(b)
             elif callable(reduce_fn):
@@ -328,10 +362,156 @@ class Metric:
         """Override to update state with batch data."""
         raise NotImplementedError
 
+    @property
+    def dropped_count(self) -> int:
+        """Rows dropped by the ``CatBuffer`` rings: the largest count over
+        the rings, which fill in lockstep (preds and target drop the same
+        rows). 0 when nothing overflowed or there is no ring. Reads the
+        counts back from the device."""
+        return max((int(v.dropped) for v in self._state.values() if isinstance(v, CatBuffer)), default=0)
+
     def _check_cat_overflow(self) -> None:
-        """Called by ``compute`` after the value is computed: a metric whose
-        state can run past its capacity warns or raises here, as
-        ``on_overflow`` says. No state of this base class can."""
+        """Called by ``compute`` after the value is computed: when a ring
+        dropped rows, warn or raise as ``on_overflow`` says. Overflow is
+        never silent."""
+        if self.on_overflow == "ignore":
+            return
+        n = self.dropped_count
+        if not n:
+            return
+        msg = (
+            f"{type(self).__name__}: {n} sample rows exceeded the configured `capacity` and were "
+            "dropped; the computed value ignores them. Increase `capacity`, use the binned variant, "
+            "or pass `on_overflow='ignore'` to silence this."
+        )
+        if self.on_overflow == "error":
+            raise MetricsTPUUserError(msg)
+        rank_zero_warn(msg, UserWarning)
+
+    # ------------------------------------------------------------------
+    # multi-process sync
+    # ------------------------------------------------------------------
+
+    def _sync_dist(self, dist_sync_fn: Callable = gather_all_arrays, process_group: Optional[Any] = None) -> None:
+        """Gather and reduce every state across processes."""
+        object.__setattr__(self, "_state", self._gathered_state(self._state, dist_sync_fn, process_group))
+
+    def _gathered_state(
+        self,
+        state: Dict[str, Any],
+        dist_sync_fn: Callable = gather_all_arrays,
+        process_group: Optional[Any] = None,
+    ) -> Dict[str, Any]:
+        """The synced value of every state, leaving ``state`` untouched.
+
+        Every rank issues the same gathers in the same order: the rings in
+        state order, then the other states in state order. A list state is
+        concatenated first and gathered once, in its ``template``'s dtype
+        (an empty one gathers the template); a ring gathers ``data``,
+        ``mask`` and ``dropped`` and stacks them (the union of the valid
+        rows, the dropped rows summed); a tensor state is gathered, stacked
+        and reduced by its tag.
+        """
+        group = self.process_group if process_group is None else process_group
+        gather = lambda x: dist_sync_fn(x, group)  # noqa: E731
+        templates = self.__dict__.get("_list_templates", {})
+        out = dict(state)
+        rings = [k for k in self._reductions if isinstance(state[k], CatBuffer)]
+        for attr in rings + [k for k in self._reductions if k not in rings]:
+            value = state[attr]
+            reduction_fn = self._reductions[attr]
+            if _is_sketch_state(value):
+                raise MetricsTPUUserError(
+                    f"{type(self).__name__}: syncing the sketch state {attr!r} across processes is not ported yet"
+                )
+            if isinstance(value, CatBuffer):
+                data, mask, dropped = gather(value.data), gather(value.mask), gather(value.dropped)
+                out[attr] = CatBuffer(torch.cat(data), torch.cat(mask), torch.stack(dropped).sum(0, dtype=torch.int32))
+            elif isinstance(value, list):
+                # with a template every rank sends its dtype, so a rank whose
+                # list is empty gathers the same dtype as the others
+                template = templates.get(attr)
+                if value:
+                    local = dim_zero_cat(value)
+                    local = local if template is None else local.to(template.dtype)
+                elif template is not None:
+                    local = template
+                else:
+                    local = torch.zeros((0,), dtype=torch.float32, device=self.device)
+                out[attr] = [t for t in gather(local) if t.shape[0]]
+            elif reduction_fn == "cat":
+                out[attr] = torch.cat([torch.atleast_1d(t) for t in gather(value)])
+            else:
+                stacked = torch.stack(gather(value))
+                if reduction_fn == "sum":
+                    out[attr] = stacked.sum(0)
+                elif reduction_fn == "mean":
+                    out[attr] = stacked.mean(0)
+                elif reduction_fn == "max":
+                    out[attr] = stacked.amax(0)
+                elif reduction_fn == "min":
+                    out[attr] = stacked.amin(0)
+                elif callable(reduction_fn):
+                    out[attr] = reduction_fn(stacked)
+                elif reduction_fn is None:
+                    out[attr] = stacked
+                else:
+                    raise MetricsTPUUserError(f"Unsupported reduction: {reduction_fn}")
+        return out
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available_fn: Optional[Callable] = None,
+    ) -> None:
+        """Keep the local state aside and replace it with the synced one."""
+        if self._is_synced and should_sync:
+            raise MetricsTPUUserError("The Metric has already been synced.")
+        is_distributed = (distributed_available_fn or distributed_available)()
+        if not should_sync or not is_distributed:
+            return
+        # the sync builds new state values and mutates none, so the local
+        # state is kept as it is, without a copy
+        self._cache = dict(self._state)
+        self._sync_dist(dist_sync_fn or gather_all_arrays, process_group=process_group)
+        self._is_synced = True
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore the local state kept by :meth:`sync`."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise MetricsTPUUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise MetricsTPUUserError("The internal cache should exist to unsync the Metric.")
+        object.__setattr__(self, "_state", self._cache)
+        self._is_synced = False
+        self._cache = None
+
+    @contextlib.contextmanager
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available_fn: Optional[Callable] = None,
+    ) -> Iterator[None]:
+        """Synced inside the block, local again after it (even when the
+        block raises)."""
+        self.sync(
+            dist_sync_fn=dist_sync_fn,
+            process_group=process_group,
+            should_sync=should_sync,
+            distributed_available_fn=distributed_available_fn,
+        )
+        try:
+            yield
+        finally:
+            if self._is_synced and should_unsync:
+                self.unsync()
 
     def compute(self) -> Any:  # pragma: no cover - abstract
         """Override to compute the final value from state."""
@@ -347,6 +527,8 @@ class Metric:
         self._update_called = False
         self._computed = None
         self._forward_cache = None
+        self._cache = None
+        self._is_synced = False
         self._restore_defaults()
 
     def clone(self) -> "Metric":
@@ -358,13 +540,19 @@ class Metric:
             self._persistent[key] = mode
 
     def state_dict(self, prefix: str = "") -> Dict[str, Any]:
-        """Copies of the persistent states: tensors, lists of tensors, and a
-        sketch state as its ``to_primitives()`` mapping."""
+        """Copies of the persistent states: tensors, lists of tensors, a ring
+        as a ``{"data", "mask", "dropped"}`` mapping, and a sketch state as
+        its ``to_primitives()`` mapping."""
         out: Dict[str, Any] = {}
         for key in self._defaults:
             if self._persistent[key]:
                 value = self._state[key]
-                out[prefix + key] = value.to_primitives() if _is_sketch_state(value) else _clone(value)
+                if _is_sketch_state(value):
+                    out[prefix + key] = value.to_primitives()
+                elif isinstance(value, CatBuffer):
+                    out[prefix + key] = dict(_clone(value)._asdict())
+                else:
+                    out[prefix + key] = _clone(value)
         return out
 
     def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "") -> None:
@@ -379,10 +567,22 @@ class Metric:
             for key in self._defaults
             if prefix + key in state_dict
         }
+        self._check_ring_capacity_consistency({**self._state, **loaded})
         if loaded:
             self._state.update(loaded)
             self._update_called = True
             self._computed = None
+
+    def _check_ring_capacity_consistency(self, state: Dict[str, Any]) -> None:
+        """Rings that fill in lockstep pair their rows by position, so they
+        must share one capacity; checked before anything is loaded."""
+        caps = {key: v.capacity for key, v in state.items() if isinstance(v, CatBuffer)}
+        if len(set(caps.values())) > 1:
+            raise ValueError(
+                f"{type(self).__name__}.load_state_dict: lockstep ring states loaded at different "
+                f"capacities ({caps}); their rows pair positionally, so a partial or mismatched load "
+                "would silently misalign them. Load all rings of this metric at one capacity."
+            )
 
     def _validated_state_value(self, key: str, v: Any) -> Any:
         """One loaded value, checked against ``self._defaults[key]`` and moved
@@ -402,11 +602,38 @@ class Metric:
                 value = torch.tensor(arr)
             return value
 
+        def as_leaf(value: Any, like: Tensor, part: str, free_leading: bool = False) -> Tensor:
+            value = as_tensor(value)
+            # a ring may load at another capacity (a synced union, a restore
+            # at another world size); its row shape is fixed
+            want = tuple(like.shape[1:]) if free_leading else tuple(like.shape)
+            got = tuple(value.shape[1:]) if free_leading else tuple(value.shape)
+            if got != want or (free_leading and value.ndim != like.ndim):
+                fail(f"{part}has shape {tuple(value.shape)}, expected {tuple(like.shape)}" + (" (any capacity)" if free_leading else ""))
+            if not torch.can_cast(value.dtype, like.dtype):
+                fail(f"{part}has dtype {value.dtype}, incompatible with expected {like.dtype}")
+            return value.to(device=self.device, dtype=like.dtype)
+
         if _is_sketch_state(default):
             try:
                 return type(default).from_primitives(v, like=default)
             except ValueError as err:
                 fail(f"failed sketch-state validation: {err}")
+        if isinstance(default, CatBuffer):
+            if isinstance(v, CatBuffer):
+                v = v._asdict()
+            if not isinstance(v, dict) or not {"data", "mask"} <= set(v):
+                fail(
+                    "is a CatBuffer ring state and must load from a {'data', 'mask', 'dropped'} "
+                    f"mapping (got {type(v).__name__})"
+                )
+            data = as_leaf(v["data"], default.data, "slot 'data' ", free_leading=True)
+            mask = as_leaf(v["mask"], default.mask, "slot 'mask' ", free_leading=True)
+            if mask.shape[0] != data.shape[0]:
+                fail(f"has mask length {mask.shape[0]} != data capacity {data.shape[0]}")
+            dropped = v.get("dropped")
+            dropped = default.dropped.clone() if dropped is None else as_leaf(dropped, default.dropped, "slot 'dropped' ")
+            return CatBuffer(data, mask, dropped)
         if isinstance(default, list):
             if not isinstance(v, (list, tuple)):
                 fail(f"is a list ('cat') state and must load from a list (got {type(v).__name__})")

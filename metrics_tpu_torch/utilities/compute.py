@@ -1,6 +1,8 @@
 """Numeric-safety helpers (counterpart of ``metrics_tpu/utilities/compute.py``)."""
 import torch
 
+from metrics_tpu_torch.ops.bucketed_rank import ascending_order
+
 Tensor = torch.Tensor
 
 
@@ -42,9 +44,10 @@ def _auc_compute_without_check(x: Tensor, y: Tensor, direction: float, axis: int
 
 
 def _auc_compute(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
-    """Trapezoidal AUC with optional sorting by x."""
+    """Trapezoidal AUC with optional sorting by x (the order of
+    ``jnp.argsort(x, stable=True)``)."""
     if reorder:
-        order = torch.argsort(x, stable=True)
+        order = ascending_order(x).long()
         return _auc_compute_without_check(x[order], y[order], 1.0)
     dx = torch.diff(x)
     if bool(torch.all(dx >= 0)):

@@ -112,3 +112,12 @@ def jax_linspace(start: float, stop: float, num: int, device: Union[str, torch.d
     recip = torch.tensor(1.0, **f32) / torch.tensor(float(div), **f32)
     step = torch.arange(div, **f32) * recip
     return torch.cat([start_t * (1 - step) + stop_t * step, stop_t.reshape(1)])
+
+
+def _bincount(x: Tensor, minlength: int) -> Tensor:
+    """int32 counts of the integer values of ``x`` over ``[0, minlength)``;
+    values outside that range are not counted (a plain ``bincount`` would
+    refuse negatives and grow past ``minlength``)."""
+    x = x.reshape(-1).to(torch.int64)
+    safe = torch.where((x >= 0) & (x < minlength), x, minlength)
+    return torch.bincount(safe, minlength=minlength + 1)[:minlength].to(torch.int32)

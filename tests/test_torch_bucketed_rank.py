@@ -1,7 +1,9 @@
-"""The port's orderable keys and ``ascending_order`` against the JAX
-package: the float32 key equal by value to ``_float32_ascending_word`` and
-the order bitwise equal to ``jnp.argsort(x, stable=True)``, on adversarial
-floats (±0.0, denormals, NaNs of either sign, ±inf, ties)."""
+"""The port's orderable keys and orders against the JAX package: the
+float32 key equal by value to ``_float32_ascending_word``; ``ascending_order``,
+``descending_order``, ``partition_order``, ``stable_key_order``,
+``inverse_permutation`` and ``ascending_ranks`` bitwise equal to JAX's on
+adversarial inputs (±0.0, denormals, NaNs of either sign, ±inf, ties,
+int32 ``INT_MIN``)."""
 import numpy as np
 import pytest
 
@@ -10,11 +12,17 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from metrics_tpu.ops.bucketed_rank import _float32_ascending_word as jax_word  # noqa: E402
+from metrics_tpu.ops import bucketed_rank as jax_br  # noqa: E402
 from metrics_tpu.ops.bucketed_rank import _key_words_ascending as jax_key_words  # noqa: E402
 from metrics_tpu_torch.ops.bucketed_rank import (  # noqa: E402
     _float32_ascending_word,
     _key_words_ascending,
     ascending_order,
+    ascending_ranks,
+    descending_order,
+    inverse_permutation,
+    partition_order,
+    stable_key_order,
 )
 
 SPECIALS = np.array(
@@ -95,3 +103,56 @@ def test_int64_and_float64_orders():
     f[:6] = [0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf]
     canon = np.where(f == 0.0, 0.0, f)
     np.testing.assert_array_equal(ascending_order(torch.from_numpy(f)).numpy(), np.argsort(canon, kind="stable"))
+
+
+def _ties_heavy_ints(seed, n):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-3, 4, n).astype(np.int32)
+    x[rng.random(n) < 0.1] = np.iinfo(np.int32).min  # -INT_MIN wraps onto itself
+    x[rng.random(n) < 0.05] = np.iinfo(np.int32).max
+    return x
+
+
+@pytest.mark.parametrize("seed,n", [(0, 0), (1, 1), (2, 40), (3, 3000)])
+@pytest.mark.parametrize("kind", ["float32", "int32"])
+def test_descending_order_matches_jax(seed, n, kind):
+    x = _adversarial(seed, n) if kind == "float32" else _ties_heavy_ints(seed, n)
+    ours = descending_order(torch.from_numpy(x)).numpy()
+    assert ours.dtype == np.int32
+    np.testing.assert_array_equal(ours, np.asarray(jax_br.descending_order(jnp.asarray(x))))
+    np.testing.assert_array_equal(ours, np.asarray(jnp.argsort(-jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("seed,n", [(0, 0), (1, 1), (2, 77), (3, 4000)])
+def test_partition_order_matches_jax(seed, n):
+    first = np.random.default_rng(seed).random(n) < 0.3
+    ours = partition_order(torch.from_numpy(first)).numpy()
+    np.testing.assert_array_equal(ours, np.asarray(jax_br.partition_order(jnp.asarray(first))))
+
+
+@pytest.mark.parametrize("num_buckets,n", [(1, 10), (7, 500), (1000, 3000), (70000, 2000)])
+def test_stable_key_order_matches_jax(num_buckets, n):
+    keys = np.random.default_rng(num_buckets).integers(0, num_buckets, n).astype(np.int32)
+    ours = stable_key_order(torch.from_numpy(keys), num_buckets).numpy()
+    np.testing.assert_array_equal(ours, np.asarray(jax_br.stable_key_order(jnp.asarray(keys), num_buckets)))
+
+
+@pytest.mark.parametrize("bad", [-1, 8])
+def test_stable_key_order_checks_its_range(bad):
+    keys = torch.tensor([0, 3, bad, 2], dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"must be in \[0, 8\)"):
+        stable_key_order(keys, 8)
+    with pytest.raises(ValueError, match=r"must be in \[0, 8\)"):
+        jax_br.stable_key_order(jnp.asarray(keys.numpy()), 8)
+
+
+@pytest.mark.parametrize("seed,n", [(0, 0), (1, 1), (2, 33), (3, 5000)])
+def test_inverse_permutation_and_ranks_match_jax(seed, n):
+    x = _adversarial(seed, n)
+    perm = np.random.default_rng(seed).permutation(n).astype(np.int32)
+    inv = inverse_permutation(torch.from_numpy(perm)).numpy()
+    assert inv.dtype == np.int32
+    np.testing.assert_array_equal(inv, np.asarray(jax_br.inverse_permutation(jnp.asarray(perm))))
+    ranks = ascending_ranks(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(ranks, np.asarray(jax_br.ascending_ranks(jnp.asarray(x))))
+    np.testing.assert_array_equal(ranks, np.asarray(jnp.argsort(jnp.argsort(jnp.asarray(x), stable=True), stable=True)))

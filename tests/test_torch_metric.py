@@ -143,13 +143,26 @@ def test_load_state_dict_refuses_bad_values(value, match):
 
 
 def test_compute_refuses_an_unsynced_value_in_a_multi_process_world(monkeypatch):
-    acc = mtt.Accuracy(num_classes=C, device="cpu")
-    monkeypatch.setattr(metric_mod, "_distributed_world_size", lambda: 2)
+    """In a world of more than one process compute() syncs first (here
+    through an injected two-rank gather whose other rank saw the same
+    batch); the forward batch value stays local by design."""
+    gathered = []
+
+    def two_ranks(x, group):
+        gathered.append(x)
+        return [x, x.clone()]
+
+    acc = mtt.Accuracy(num_classes=C, device="cpu", dist_sync_fn=two_ranks)
+    monkeypatch.setattr(metric_mod, "distributed_available", lambda: True)
     preds, target = _batch(0)
-    batch_val = acc(preds, target)  # the forward batch value is local by design
-    assert 0.0 <= float(batch_val) <= 1.0
-    with pytest.raises(MetricsTPUUserError, match="not ported yet"):
-        acc.compute()
+    batch_val = acc(preds, target)
+    assert 0.0 <= float(batch_val) <= 1.0 and gathered == []
+    local = {k: v.clone() for k, v in acc.metric_state.items()}
+    value = acc.compute()
+    assert len(gathered) == len(local) and torch.equal(value, batch_val)
+    assert all(torch.equal(acc.metric_state[k], v) for k, v in local.items())  # the local state is back
+    with pytest.raises(MetricsTPUUserError, match="already been un-synced"):
+        acc.unsync()
 
 
 def test_inputs_move_to_the_metric_device():

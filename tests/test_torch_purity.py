@@ -77,7 +77,27 @@ def test_streaming_import_builds_and_loads_no_kernel():
     assert proc.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("name", ["Accuracy", "StatScores", "BinnedAveragePrecision"])
+def test_curve_and_sync_imports_build_and_load_no_kernel():
+    code = (
+        "import sys\n"
+        "import metrics_tpu_torch.parallel, metrics_tpu_torch.ops.histogram, metrics_tpu_torch.ops.bucketed_rank\n"
+        "import metrics_tpu_torch.classification.auroc, metrics_tpu_torch.utilities.ringbuffer\n"
+        "from metrics_tpu_torch.ops import _build, histogram\n"
+        "assert _build._loaded == {} and _build.build_info == {}\n"
+        "assert histogram.launch_count == 0\n"
+        "assert 'triton' not in sys.modules and not any(m.split('.')[0] in ('jax', 'metrics_tpu') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["Accuracy", "StatScores", "BinnedAveragePrecision", "AUROC", "AveragePrecision", "ROC", "PrecisionRecallCurve", "AUC"],
+)
 def test_metric_without_device_asks_for_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     kwargs = {"num_classes": 3} if name.startswith("Binned") else {}
@@ -87,4 +107,8 @@ def test_metric_without_device_asks_for_cuda(name, monkeypatch):
         getattr(metrics_tpu_torch, name)(device="cuda", **kwargs)
     metric = getattr(metrics_tpu_torch, name)(device="cpu", **kwargs)
     assert metric.device == torch.device("cpu")
-    assert all(v.device.type == "cpu" for v in metric.metric_state.values())
+    tensors = [t for v in metric.metric_state.values() for t in (v if isinstance(v, (list, tuple)) else [v])]
+    assert all(t.device.type == "cpu" for t in tensors)
+    if name in ("AUROC", "AveragePrecision", "ROC", "PrecisionRecallCurve", "AUC"):
+        ring = getattr(metrics_tpu_torch, name)(device="cpu", capacity=8)
+        assert all(t.device.type == "cpu" for v in ring.metric_state.values() for t in v)
