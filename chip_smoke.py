@@ -10,9 +10,13 @@ Phases, each printing one JSON line, and any failure exits non-zero:
 1. device: the card, and its name and power limit as ``nvidia-smi`` reports them;
 2. build: compile every CUDA kernel from ``metrics_tpu_torch/csrc/``, one
    ``nvcc`` per source, all started together;
-3. parity: each kernel against its plain PyTorch version on the card, bit-equal,
-   at the main paths' shapes and at the edges (K1 ``binned_counters``, K2
-   ``histogram``, K3 ``compactor_fold``);
+3. parity: each kernel against its plain PyTorch version on the card,
+   bit-equal, at the main paths' shapes and at the edges (K1
+   ``binned_counters`` with NaN, infinite and denormal scores and thresholds
+   and a histogram too large for shared memory; K2 ``histogram``; K3's
+   single fold ``compactor_fold`` and its cascade ``fold_cascade`` /
+   ``merge_cascade`` in insert and merge mode, including values of k whose
+   buffers run out of device memory);
 4. main path: an ImageNet-1k validation epoch (50,000 rows, 1000 classes,
    1024-row batches) through ``MetricCollection({acc1, acc5, bap})`` on the
    card, checked against the same run of the port on the CPU;
@@ -21,8 +25,9 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    HyperLogLog, freq: CountMinSketch})`` at their default sizes, checked
    against the same run on the CPU and against exact answers on the card;
 6. profile: where one batch update's time goes on each path (each member
-   alone, and a ``torch.profiler`` window: device busy time, top kernels and
-   host calls), and the blocking device-to-host reads of a stream update;
+   alone, and a ``torch.profiler`` window: device busy time and idle share,
+   operations on the card per update, top kernels and host calls), and the
+   blocking device-to-host reads of a stream update;
 7. dist path: data-parallel evaluation of a binary scorer, 2^26 rows over
    4 processes that share the card in one Gloo world (``torch.distributed``,
    ``tcp://localhost``): each rank runs ``MetricCollection({auroc, ap,
@@ -32,7 +37,9 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    the gathered sort. Checked against the port in one process on the CPU
    and against an exact float64 Mann-Whitney AUROC;
 8. kernels: each kernel's time, its bound on this card, and its launches on
-   its path.
+   its path; K1 and K3 each beside their previous design, timed in the same
+   run: K1's compare per (row, class, threshold), built from
+   ``csrc/binned_counters_loop.cu``, and K3's one single-fold launch per level.
 
 The parent process builds every kernel before it spawns the ranks, so the
 ranks only load the libraries. A rank that fails makes the script fail.
@@ -40,6 +47,7 @@ ranks only load the libraries. A rank that fails makes the script fail.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout of the repository, the script prints no result and exits 1.
 """
+import ctypes
 import hashlib
 import json
 import pathlib
@@ -90,6 +98,7 @@ DIST_RTOL = 1e-5  # areas: float32 sums over 2^26 terms, taken in another order 
 EXACT_ATOL = 1e-5  # AUROC against the exact float64 Mann-Whitney value
 DIST_TIMEOUT_S = 600
 DIST_DEVICE = "cuda:0"  # where the ranks run: the one card, shared
+LOOP_SOURCE = "binned_counters_loop.cu"  # K1's previous design, built only to time K1 against
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -129,11 +138,10 @@ def cuda_time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_ms_per_launch(fn, kernel_name, iters=50):
-    """The card's own time for one launch of ``kernel_name``, from a
-    ``torch.profiler`` window over ``iters`` calls of ``fn``. Back-to-back
-    launches timed with CUDA events measure the host's enqueue rate when
-    the kernel is shorter than the launch itself; this does not."""
+def device_profile(fn, kernel_name, iters=50):
+    """The card's own time per call of ``fn`` from a ``torch.profiler``
+    window over ``iters`` calls: of ``kernel_name`` (per launch and per
+    call, and its launches per call) and of every operation on the card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -144,16 +152,34 @@ def device_ms_per_launch(fn, kernel_name, iters=50):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and kernel_name in e.key]
-    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0) for e in hits)
-    count = sum(e.count for e in hits)
-    return us / 1e3 / count if count else None
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    hits = [e for e in on_device if kernel_name in e.key]
+    us, count = sum(dev_us(e) for e in hits), sum(e.count for e in hits)
+    return {
+        "ms_per_launch": us / 1e3 / count if count else None,
+        "ms_per_call": us / 1e3 / iters,
+        "launches_per_call": count / iters,
+        "all_device_ms_per_call": sum(dev_us(e) for e in on_device) / 1e3 / iters,
+        "device_ops_per_call": sum(e.count for e in on_device) / iters,
+    }
+
+
+def device_ms_per_launch(fn, kernel_name, iters=50):
+    """The card's own time for one launch of ``kernel_name``, from a
+    ``torch.profiler`` window over ``iters`` calls of ``fn``. Back-to-back
+    launches timed with CUDA events measure the host's enqueue rate when
+    the kernel is shorter than the launch itself; this does not."""
+    return device_profile(fn, kernel_name, iters)["ms_per_launch"]
 
 
 def phase_build():
     from metrics_tpu_torch.ops import _build, binned_counters, compactor, histogram
 
-    sources = [binned_counters.SOURCE, histogram.SOURCE, compactor.SOURCE]
+    sources = [binned_counters.SOURCE, histogram.SOURCE, compactor.SOURCE, LOOP_SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -185,7 +211,9 @@ def make_data(device):
 
 
 def phase_parity(preds, target):
-    """K1 against its plain version on the card, bit for bit."""
+    """K1 against its plain version on the card, bit for bit: the main
+    path's shape, and scores and thresholds at every edge the binary search
+    and the histogram meet."""
     import torch
 
     from metrics_tpu_torch.ops import binned_counters as k1
@@ -202,6 +230,12 @@ def phase_parity(preds, target):
     nasty[pick < 0.1] = float("nan")
     nasty[(pick >= 0.1) & (pick < 0.15)] = float("inf")
     nasty[(pick >= 0.15) & (pick < 0.2)] = float("-inf")
+    # scores around zero: denormals of both signs, both zeros, the smallest normal
+    edge_values = torch.tensor([1e-40, -1e-40, 1e-45, -1e-45, 0.0, -0.0, 1.1754944e-38, -1.1754944e-38, float("nan"),
+                                float("inf"), float("-inf"), 0.5], device=dev)
+    edges = edge_values[torch.randint(0, edge_values.numel(), (BATCH, CLASSES), generator=g, device=dev)]
+    edge_thr = torch.tensor([0.5, 0.0, -0.0, 1e-41, -1e-41, float("nan"), 0.5, 1.1754944e-38, float("-inf"), float("inf"),
+                             0.0, 1e-45, float("nan"), -1.0], device=dev)
     on_thr = thr[torch.randint(0, THRESHOLDS, (BATCH, CLASSES), generator=g, device=dev)]
     unsorted = torch.cat([torch.rand(30, generator=g, device=dev), thr[torch.tensor([5, 5, 50, 0, 99, 99, 42], device=dev)]])
     small = lambda n, c: (torch.rand((n, c), generator=g, device=dev), torch.rand((n, c), generator=g, device=dev) < 0.3)  # noqa: E731
@@ -215,9 +249,13 @@ def phase_parity(preds, target):
         ("t5", p, onehot, jax_linspace(0, 1.0, 5, device=dev)),
         ("nan_inf", nasty, onehot, thr),
         ("equal_to_thresholds", on_thr, onehot, thr),
-        ("unsorted_thresholds", p, onehot, unsorted),
+        ("unsorted_duplicated_thresholds", p, onehot, unsorted),
+        ("denormal_nan_inf_scores_and_thresholds", edges, onehot, edge_thr),
+        ("denormal_scores_linspace_thresholds", edges, onehot, thr),
         ("t1000", *small(256, 64), jax_linspace(0, 1.0, 1000, device=dev)),
-        ("t5000_two_threshold_tiles", *small(64, 3), torch.rand(5000, generator=g, device=dev)),
+        ("t5000", *small(64, 3), torch.rand(5000, generator=g, device=dev)),
+        # one class's 2 (T + 1) bins exceed a block's shared memory: the histogram lives in device memory
+        ("t30000_histogram_in_device_memory", *small(300, 5), torch.rand(30000, generator=g, device=dev)),
     ]
     rows = []
     max_err = 0.0
@@ -364,6 +402,7 @@ def k1_times(preds, target, launches, max_abs_err):
     """K1's entry of the kernels line."""
     import torch
 
+    from metrics_tpu_torch.ops import _build
     from metrics_tpu_torch.ops import binned_counters as k1
     from metrics_tpu_torch.utilities.data import jax_linspace, to_onehot
 
@@ -373,21 +412,49 @@ def k1_times(preds, target, launches, max_abs_err):
     thr = jax_linspace(0, 1.0, THRESHOLDS, device=dev)
     n, c, t = BATCH, CLASSES, THRESHOLDS
 
-    # the kernel alone, into one preallocated buffer
+    # the kernel alone, into preallocated buffers; its scratch must start at zero
     lib = k1._library()
     tgt_u8 = tgt.view(torch.uint8)
-    out = torch.zeros((3, c, t), dtype=torch.int32, device=dev)
+    sorted_thr, perm = k1.threshold_order(thr)
+    scratch = torch.zeros(2 * c * (t + 1) + c, dtype=torch.int32, device=dev)
+    out = torch.empty((3, c, t), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def raw():
-        err = lib.binned_counters_launch(p.data_ptr(), tgt_u8.data_ptr(), thr.data_ptr(), out.data_ptr(), n, c, t, stream)
+    def raw(rows=n):
+        scratch.zero_()
+        err = lib.binned_counters_launch(p.data_ptr(), tgt_u8.data_ptr(), sorted_thr.data_ptr(), perm.data_ptr(),
+                                         scratch.data_ptr(), out.data_ptr(), rows, c, t, stream)
         if err:
             raise RuntimeError(f"binned_counters launch failed with cudaError {err}")
 
-    wrapper = lambda: k1.binned_counter_update(p, tgt, thr)  # noqa: E731
+    # the previous design (a compare per row, class and threshold), built from
+    # csrc/binned_counters_loop.cu: alone into a zeroed buffer, and as its
+    # wrapper called it (zeros, launch, a float32 copy)
+    loop = _build.load(LOOP_SOURCE).binned_counters_loop_launch
+    loop.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    loop.restype = ctypes.c_int
+    loop_out = torch.zeros((3, c, t), dtype=torch.int32, device=dev)
+
+    def prev_raw():
+        loop_out.zero_()
+        err = loop(p.data_ptr(), tgt_u8.data_ptr(), thr.data_ptr(), loop_out.data_ptr(), n, c, t, stream)
+        if err:
+            raise RuntimeError(f"binned_counters_loop launch failed with cudaError {err}")
+
+    def prev_wrapper():
+        prev_raw()
+        return loop_out.to(torch.float32).unbind(0)
+
+    prev_raw()
+    if not torch.equal(loop_out.to(torch.float32), torch.stack(k1.binned_counter_update(p, tgt, thr))):
+        raise AssertionError("the previous K1 design and the kernel disagree on the timing inputs")
+
+    # as the metric calls it, with the thresholds' order kept
+    wrapper = lambda: k1.binned_counter_update(p, tgt, thr, (sorted_thr, perm))  # noqa: E731
     plain = lambda: k1.binned_counter_update_plain(p, tgt, thr)  # noqa: E731
     # in turns, so drift on the card touches every version alike
-    order = [("plain", plain), ("wrapper", wrapper), ("kernel", raw), ("kernel", raw), ("wrapper", wrapper), ("plain", plain)]
+    order = [("plain", plain), ("prev_wrapper", prev_wrapper), ("wrapper", wrapper), ("kernel", raw), ("prev_kernel", prev_raw),
+             ("prev_kernel", prev_raw), ("kernel", raw), ("wrapper", wrapper), ("prev_wrapper", prev_wrapper), ("plain", plain)]
     times = {}
     for name, fn in order:
         times.setdefault(name, []).append(cuda_time_ms(fn))
@@ -406,8 +473,10 @@ def k1_times(preds, target, launches, max_abs_err):
         "launches": launches,
         "max_abs_err": max_abs_err,
         "ms": ms["wrapper"],
-        "kernel_ms": ms["kernel"],
+        "kernel_ms": ms["kernel"],  # with the scratch's memset before each launch
         "kernel_device_ms": device_ms_per_launch(raw, "binned_counters_kernel"),
+        # the same launch over no rows: the kernel's fixed cost (zeroing, flush, tile counter, suffix sums)
+        "kernel_device_ms_no_rows": device_ms_per_launch(lambda: raw(0), "binned_counters_kernel"),
         "plain_ms": ms["plain"],
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -415,6 +484,12 @@ def k1_times(preds, target, launches, max_abs_err):
         "shape": [n, c, t],
         "bytes": bytes_moved,
         "compares": compares,
+        "previous_design": {
+            "what": "a compare per (row, class, threshold), csrc/binned_counters_loop.cu, timed in this run",
+            "ms": ms["prev_wrapper"],
+            "kernel_ms": ms["prev_kernel"],  # with the buffer's memset before each launch
+            "kernel_device_ms": device_ms_per_launch(prev_raw, "binned_counters_loop_kernel"),
+        },
     }
 
 
@@ -440,10 +515,12 @@ def profile_summary(prof, wall_s, batches):
         "device_idle_share": 1.0 - device_us / 1e6 / wall_s,
         "top_device_ms_per_batch": [[e.key, dev_us(e) / 1e3 / batches, e.count // batches] for e in top_device if dev_us(e) > 0],
         "top_host_ms_per_batch": [[e.key, e.self_cpu_time_total / 1e3 / batches, e.count // batches] for e in top_cpu],
+        # operations on the card (kernels, copies, memsets) per batch
+        "device_ops_per_batch": sum(e.count for e in on_device) / batches,
         # the port's own kernels, wherever they rank
         "port_kernels_ms_per_batch": {
             name: sum(dev_us(e) for e in on_device if name in e.key) / 1e3 / batches
-            for name in ("binned_counters_kernel", "compactor_fold_kernel")
+            for name in ("binned_counters_kernel", "compactor_fold_kernel", "compactor_cascade_kernel")
         },
         # a blocking device-to-host read waits in one stream synchronisation
         "stream_syncs_per_batch": sum(e.count for e in events if e.key == "cudaStreamSynchronize") / batches,
@@ -552,6 +629,97 @@ def phase_k3_parity(dev):
     return max_err
 
 
+def _levels(levels, k, fill, gen, dev, ties=False, extremes=False):
+    """A sketch's (levels, k) items, level l ascending with ``fill[l]``
+    valid values and +inf past them, and its int32 counts. ``extremes``: the
+    valid prefix starts with -inf and ends with +inf."""
+    import torch
+
+    rows = []
+    for c in fill:
+        row = _level_run(k, c, gen, dev, ties)
+        if extremes and c >= 4:
+            row[:2] = float("-inf")
+            row[c - 1] = float("inf")
+        rows.append(row)
+    return torch.stack(rows), torch.tensor(fill, dtype=torch.int32, device=dev)
+
+
+def phase_k3_cascade_parity(dev):
+    """The cascade kernel against its plain version (the per-level folds) on
+    the card, bit for bit, in insert and merge mode: the stream's shape, an
+    empty state, a saturated top level, ties with -inf/+inf values and +inf
+    padding, and values of k whose buffers exceed a block's shared memory
+    (they run out of device memory)."""
+    import torch
+
+    from metrics_tpu_torch.ops import compactor as k3
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    L, k, m = 20, K3_K, K3_M
+    start = 8  # the level of a 2^20-row batch's 4096 items at k = 6600
+
+    def rand_fill(levels, kk):
+        return torch.randint(0, kk + 1, (levels,), generator=g, device=dev).tolist()
+
+    def insert(name, levels, kk, fill, mm, mc, st, **kw):
+        items, counts = _levels(levels, kk, fill, g, dev, **kw)
+        inc = _level_run(mm, mc, g, dev, kw.get("ties", False))
+        return name, "insert", (items, counts, inc, _count(mc, dev), st)
+
+    def merge(name, levels, kk, fill_a, fill_b, **kw):
+        a = _levels(levels, kk, fill_a, g, dev, **kw)
+        b = _levels(levels, kk, fill_b, g, dev, **kw)
+        return name, "merge", (*a, *b)
+
+    chain = rand_fill(start, k) + [k - 100] * 6 + rand_fill(L - start - 6, k)
+    cases = [
+        insert("insert_stream_shape", L, k, chain, m, m, start),
+        insert("insert_empty_state", L, k, [0] * L, m, m, start),
+        insert("insert_empty_run", L, k, rand_fill(L, k), m, 0, start),
+        insert("insert_saturated_top", L, k, [k] * L, m, m, start),
+        insert("insert_at_level_0", L, k, [k - 1] * L, m, 4093, 0),
+        insert("insert_ties_and_infinities", L, k, [k - 50] * 12 + rand_fill(L - 12, k), m, m, start, ties=True, extremes=True),
+        insert("insert_k16384_device_memory", 6, 16384, [16384, 16383, 16384, 16000, 9000, 3], 16384, 16384, 0),
+        insert("insert_k66000_device_memory", 4, 66000, [66000, 65999, 66000, 100], 4096, 4096, 0),
+        merge("merge_stream_shape", L, k, rand_fill(L, k), rand_fill(L, k)),
+        merge("merge_both_empty", L, k, [0] * L, [0] * L),
+        merge("merge_with_an_empty_sketch", L, k, rand_fill(L, k), [0] * L),
+        merge("merge_saturated_top", L, k, [k] * L, [k] * L),
+        merge("merge_ties_and_infinities", L, k, [k] * 10 + rand_fill(L - 10, k), rand_fill(L, k), ties=True, extremes=True),
+        merge("merge_k10000_device_memory", 8, 10000, rand_fill(8, 10000), [10000] * 8),
+        merge("merge_k66000_device_memory", 4, 66000, [66000, 30000, 66000, 5], [65999, 66000, 1, 0]),
+    ]
+    rows, max_err = [], 0.0
+    for name, mode, args in cases:
+        if mode == "insert":
+            got = [k3.fold_cascade(*args)]
+            want = k3.fold_cascade_plain(*args)
+        else:
+            items, counts, o_items, o_counts = args
+            got = [k3.merge_cascade(*args), k3.merge_cascade(o_items, o_counts, items, counts)]
+            want = k3.merge_cascade_plain(*args)
+        torch.cuda.synchronize()
+        equal = all(
+            x.shape == y.shape and torch.equal(x.view(torch.int32), y.view(torch.int32)) for out in got for x, y in zip(out, want)
+        )
+        err = max(
+            float(torch.where(x == y, 0.0, (x.double() - y.double()).abs()).nan_to_num(float("inf")).max())
+            for out in got for x, y in zip(out, want)
+        )
+        max_err = max(max_err, err)
+        L_, k_ = args[0].shape
+        rows.append({
+            "case": name, "mode": mode, "levels": L_, "k": k_, "staged_in_shared_memory": k3._scratch_floats(k_, 0 if mode == "merge" else args[2].shape[0], mode == "merge") == 0,
+            "counts_in": args[1].tolist(), "counts_out": got[0][1].tolist(), "bit_equal": equal,
+        })
+        if not equal:
+            emit({"phase": "parity", "kernel": "compactor_cascade", "cases": rows})
+            raise AssertionError(f"compactor_cascade kernel differs from its plain version in case {name!r}")
+    emit({"phase": "parity", "kernel": "compactor_cascade", "cases": rows, "max_abs_err": max_err})
+    return max_err
+
+
 def make_stream(device):
     """The stream on the card, from a seeded generator: lognormal scores with
     NaN, +inf and -inf rows."""
@@ -594,16 +762,14 @@ def run_stream(coll, x, sync):
 
 
 def predicted_k3_launches(state, batch_rows, updates, forwards):
-    """Each update folds at every level from the batch's own up to the one
-    below the top; a forward adds the merge, which runs K3 twice per level
-    below the top and once for the top (merging the carry into the other
-    sketch's level, then folding)."""
+    """Each insert is one cascade launch per chunk of its batch (a batch
+    that would promote past the top level is split, ``QuantileSketchState.insert``);
+    a forward adds one merge, which is one more launch."""
     from metrics_tpu_torch.ops.binning import halving_level
 
     L, k = state.items.shape
-    per_update = (L - 1) - halving_level(batch_rows, k)
-    per_merge = 2 * (L - 1) + 1
-    return updates * per_update + forwards * (per_update + per_merge)
+    per_insert = 1 << max(0, halving_level(batch_rows, k) - (L - 1))
+    return updates * per_insert + forwards * (per_insert + 1)
 
 
 def phase_stream(x):
@@ -627,7 +793,7 @@ def phase_stream(x):
     result = coll.compute()
     torch.cuda.synchronize()
     compute_s = time.perf_counter() - t1
-    launches, k1_launches = k3.launch_count, k1.launch_count
+    launches, k1_launches, fold_launches = k3.launch_count, k1.launch_count, k3.fold_launch_count
     peak_mem = torch.cuda.max_memory_allocated()  # before the checks below allocate
 
     members = dict(coll.items(keep_base=True, copy_state=False))
@@ -637,8 +803,10 @@ def phase_stream(x):
                 raise AssertionError(f"state {name}.sketch.{field} lies on {t.device}, not on the card")
     q_state = members["q"].metric_state["sketch"]
     want = predicted_k3_launches(q_state, STREAM_BATCH, len(update_s), len(forward_s))
-    if not (launches == want and launches > 0):
-        raise AssertionError(f"K3 launched {launches} times on the stream path; the code predicts {want}")
+    if not (launches == want and launches > 0 and fold_launches == 0):
+        raise AssertionError(
+            f"K3's cascade launched {launches} times on the stream path (single folds: {fold_launches}); the code predicts {want}"
+        )
 
     # the same stream through the port on the CPU
     t2 = time.perf_counter()
@@ -707,6 +875,7 @@ def phase_stream(x):
         "peak_mem_bytes": peak_mem,
         "k3_launches": launches,
         "k3_launches_predicted": want,
+        "k3_single_fold_launches": fold_launches,
         "k1_launches": k1_launches,
         "quantiles": dict(zip(map(str, QUANTILES), q_vals.tolist())),
         "quantile_rank_err": rank_err,
@@ -719,7 +888,7 @@ def phase_stream(x):
         "cpu_reference_s": cpu_s,
         "matches_cpu_run": True,
     })
-    return launches
+    return launches, q_state
 
 
 def phase_stream_profile(x, batches=6):
@@ -762,69 +931,129 @@ def phase_stream_profile(x, batches=6):
     })
 
 
-def k3_times(dev, launches, max_abs_err):
-    """K3's entry of the kernels line, at one fold of the stream path's
-    shape: a level of k = 6600 holding 6000 items and an insert's 4096,
-    which overflows and compacts."""
+def k3_times(dev, launches, max_abs_err, fold_max_abs_err, q_state, batch):
+    """K3's entry of the kernels line: one cascade at the stream path's
+    shape, on its own data. The stream's first batch (4096 items at level
+    8) is folded into the monitor's final quantile state, where level 8
+    absorbs it, and into that state after one such insert, where level 8
+    overflows and promotes; the merge merges those two states. Beside each,
+    the previous design (one single-fold launch per level), timed in the
+    same run."""
     import torch
 
     from metrics_tpu_torch.ops import compactor as k3
+    from metrics_tpu_torch.ops.binning import precompact_binned
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    k, m = K3_K, K3_M
-    a, b = _level_run(k, 6000, g, dev), _level_run(m, m, g, dev)
-    ca, cb = _count(6000, dev), _count(m, dev)
-    p_len = (k + m) // 2
-    items = torch.empty(k, device=dev)
-    promoted = torch.empty(p_len, device=dev)
-    count = torch.empty((), dtype=torch.int32, device=dev)
-    pcount = torch.empty((), dtype=torch.int32, device=dev)
+    items, counts = q_state.items.contiguous(), q_state.counts.contiguous()
+    L, k = items.shape
+    inc, inc_count, level = precompact_binned(batch, torch.ones_like(batch, dtype=torch.bool), k)
+    m = inc.shape[0]
+    items2, counts2 = k3.fold_cascade(items, counts, inc, inc_count, level)
+    # the previous design must give the same states, bit for bit
+    for a, b in ((items, counts), (items2, counts2)):
+        per_level = k3.fold_cascade_plain(a, b, inc, inc_count, level, fold=k3.compactor_fold)
+        for got, want in zip(per_level, k3.fold_cascade(a, b, inc, inc_count, level)):
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError("the per-level insert and the cascade kernel disagree on the stream's state")
+
     lib = k3._library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream_ptr = torch.cuda.current_stream(dev).cuda_stream
+    out_items = torch.empty_like(items)
+    out_counts = torch.empty_like(counts)
+    inc_count1 = inc_count.reshape(1).to(torch.int32)
 
-    def raw():
-        err = lib.compactor_fold_launch(
-            a.data_ptr(), k, b.data_ptr(), m, ca.data_ptr(), cb.data_ptr(), k,
-            items.data_ptr(), count.data_ptr(), promoted.data_ptr(), pcount.data_ptr(), stream,
-        )
+    def raw_insert(a, b):
+        def run():
+            err = lib.compactor_cascade_launch(a.data_ptr(), b.data_ptr(), L, k, inc.data_ptr(), m, inc_count1.data_ptr(), level,
+                                               None, None, out_items.data_ptr(), out_counts.data_ptr(), None, stream_ptr)
+            if err:
+                raise RuntimeError(f"compactor_cascade launch failed with cudaError {err}")
+        return run
+
+    def raw_merge():
+        err = lib.compactor_cascade_launch(items2.data_ptr(), counts2.data_ptr(), L, k, None, 0, None, 0, items.data_ptr(),
+                                           counts.data_ptr(), out_items.data_ptr(), out_counts.data_ptr(), None, stream_ptr)
         if err:
-            raise RuntimeError(f"compactor_fold launch failed with cudaError {err}")
+            raise RuntimeError(f"compactor_cascade launch failed with cudaError {err}")
 
-    wrapper = lambda: k3.compactor_fold(a, ca, b, cb, k)  # noqa: E731
-    plain = lambda: k3.compactor_fold_plain(a, ca, b, cb, k)  # noqa: E731
-    merged = torch.cat([a, b])
-    sort_only = lambda: torch.sort(merged)  # noqa: E731
-    order = [("plain", plain), ("wrapper", wrapper), ("kernel", raw), ("sort", sort_only),
-             ("sort", sort_only), ("kernel", raw), ("wrapper", wrapper), ("plain", plain)]
-    times = {}
-    for name, fn in order:
-        times.setdefault(name, []).append(cuda_time_ms(fn, iters=200, warmup=20))
-    ms = {name: statistics.mean(v) for name, v in times.items()}
+    def insert_fns(a, b):
+        return {
+            "kernel": raw_insert(a, b),
+            "wrapper": lambda: k3.fold_cascade(a, b, inc, inc_count, level),
+            "plain": lambda: k3.fold_cascade_plain(a, b, inc, inc_count, level),
+            "per_level": lambda: k3.fold_cascade_plain(a, b, inc, inc_count, level, fold=k3.compactor_fold),
+            # the levels and counts in, the run and its count in; the levels and counts out
+            "bytes": 2 * (L * k * 4 + L * 4) + m * 4 + 4,
+            "counts_in": b.tolist(),
+        }
 
-    bytes_moved = (k + m) * 4 + 2 * 4 + (k + p_len) * 4 + 2 * 4  # runs and counts in; items, promoted, counts out
-    compares = k + m  # a merge needs at least one compare per value
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = compares / FP32_OPS_PER_S * 1e3
+    shapes = {
+        "insert_promotes": insert_fns(items2, counts2),
+        "insert_absorbs": insert_fns(items, counts),
+        "merge": {
+            "kernel": raw_merge,
+            "wrapper": lambda: k3.merge_cascade(items2, counts2, items, counts),
+            "plain": lambda: k3.merge_cascade_plain(items2, counts2, items, counts),
+            "per_level": lambda: k3.merge_cascade_plain(items2, counts2, items, counts, fold=k3.compactor_fold),
+            "bytes": 3 * (L * k * 4 + L * 4),
+            "counts_in": [counts2.tolist(), counts.tolist()],
+        },
+    }
+    out = {}
+    for shape, fns in shapes.items():
+        # in turns, so drift on the card touches every version alike
+        order = ["plain", "per_level", "wrapper", "kernel", "kernel", "wrapper", "per_level", "plain"]
+        times = {}
+        for name in order:
+            times.setdefault(name, []).append(cuda_time_ms(fns[name], iters=100, warmup=10))
+        ms = {name: statistics.mean(v) for name, v in times.items()}
+        cascade = device_profile(fns["kernel"], "compactor_cascade_kernel")
+        previous = device_profile(fns["per_level"], "compactor_fold_kernel")
+        bytes_ms = fns["bytes"] / HBM_BYTES_PER_S * 1e3
+        ops_ms = (L * k + (m if shape.startswith("insert") else L * k)) / FP32_OPS_PER_S * 1e3  # a compare per merged value
+        out[shape] = {
+            "ms": ms["wrapper"],
+            "kernel_ms": ms["kernel"],
+            "kernel_device_ms": cascade["ms_per_launch"],
+            "plain_ms": ms["plain"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": fns["bytes"],
+            "counts_in": fns["counts_in"],
+            "previous_design": {
+                "what": "one single-fold launch per level (the previous design), timed in this run",
+                "ms": ms["per_level"],
+                "fold_launches_per_call": previous["launches_per_call"],
+                "fold_device_ms_per_launch": previous["ms_per_launch"],
+                "fold_device_ms_per_call": previous["ms_per_call"],
+                "all_device_ms_per_call": previous["all_device_ms_per_call"],
+                "device_ops_per_call": previous["device_ops_per_call"],
+            },
+        }
+    head = out["insert_promotes"]
     return {
-        "name": "compactor_fold",
+        "name": "compactor_cascade",
         "route": "cuda",
         "source": "metrics_tpu_torch/csrc/compactor_fold.cu",
         "replaces": "metrics_tpu/ops/pallas_kernels.py:141",
-        "replaces_fn": "metrics_tpu/ops/pallas_kernels.py::_make_fold_kernel -> _fold_kernel (pallas_call at :188)",
+        "replaces_fn": "metrics_tpu/ops/pallas_kernels.py::_make_fold_kernel -> _fold_kernel (pallas_call at :188), "
+                       "with the level loops of ops/compactor.py::fold_cascade and QuantileSketchState.sketch_merge",
         "launches": launches,
         "max_abs_err": max_abs_err,
-        "ms": ms["wrapper"],
-        "kernel_ms": ms["kernel"],
-        "kernel_device_ms": device_ms_per_launch(raw, "compactor_fold_kernel"),
-        "plain_ms": ms["plain"],
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "ms": head["ms"],
+        "kernel_ms": head["kernel_ms"],
+        "kernel_device_ms": head["kernel_device_ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
         "library_ms": None,
-        "torch_sort_of_merged_ms": ms["sort"],
-        "shape": {"k": k, "M": m, "c": 6000 + m},
-        "bytes": bytes_moved,
-        "compares": compares,
+        "unit": "one cascade (a whole sketch update); the bound is per cascade",
+        "shape": {"levels": L, "k": k, "M": m, "start_level": level, "timed": "insert_promotes"},
+        "bytes": head["bytes"],
+        "by_call": out,
+        "single_fold_max_abs_err": fold_max_abs_err,
     }
+
 
 def phase_k2_parity(dev):
     """K2 against its plain version on the card, bit for bit: the dist
@@ -1300,18 +1529,20 @@ def main():
     preds, target = make_data(device)
     k1_err = phase_parity(preds, target)
     k2_err = phase_k2_parity(device)
-    k3_err = phase_k3_parity(device)
+    k3_fold_err = phase_k3_parity(device)
+    k3_err = phase_k3_cascade_parity(device)
     k1_launches = phase_main_path(preds, target)
     stream = make_stream(device)
-    k3_launches = phase_stream(stream)
+    k3_launches, q_state = phase_stream(stream)
     phase_profile(preds, target)
     phase_stream_profile(stream)
+    first_batch = stream[:STREAM_BATCH].clone()
     del stream
     k2_launches, dist_scores = phase_dist(device)
     kernels = [
         k1_times(preds, target, k1_launches, k1_err),
         k2_times(device, k2_launches, k2_err, dist_scores),
-        k3_times(device, k3_launches, k3_err),
+        k3_times(device, k3_launches, k3_err, k3_fold_err, q_state, first_batch),
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -14,7 +14,7 @@ from metrics_tpu_torch.functional.classification.average_precision import (
     _average_precision_compute_with_precision_recall,
 )
 from metrics_tpu_torch.metric import Metric
-from metrics_tpu_torch.ops.binned_counters import binned_counter_update
+from metrics_tpu_torch.ops.binned_counters import binned_counter_update, threshold_order
 from metrics_tpu_torch.utilities.data import METRIC_EPS, jax_linspace, to_onehot
 
 Tensor = torch.Tensor
@@ -86,6 +86,8 @@ class BinnedPrecisionRecallCurve(Metric):
             self.thresholds = torch.tensor(thresholds, dtype=torch.float32) if isinstance(thresholds, list) else thresholds
             self.thresholds = self.thresholds.to(device=self.device, dtype=torch.float32)
             self.num_thresholds = self.thresholds.numel()
+        # the thresholds are fixed: their sorted order, for the CUDA kernel, is taken once
+        self._threshold_order = threshold_order(self.thresholds)
 
         for name in ("TPs", "FPs", "FNs"):
             self.add_state(
@@ -102,7 +104,7 @@ class BinnedPrecisionRecallCurve(Metric):
             target = target.reshape(-1, 1)
         if preds.ndim == target.ndim + 1:
             target = to_onehot(target, num_classes=self.num_classes)
-        tps, fps, fns = binned_counter_update(preds, target == 1, self.thresholds)
+        tps, fps, fns = binned_counter_update(preds, target == 1, self.thresholds, self._threshold_order)
         self.TPs += tps
         self.FPs += fps
         self.FNs += fns

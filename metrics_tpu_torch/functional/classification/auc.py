@@ -4,7 +4,7 @@ from typing import Tuple
 
 import torch
 
-from metrics_tpu_torch.ops.bucketed_rank import ascending_order
+from metrics_tpu_torch.ops.bucketed_rank import ascending_order, flush_denormals
 from metrics_tpu_torch.utilities.compute import _auc_compute
 
 Tensor = torch.Tensor
@@ -39,7 +39,8 @@ def _auc_compute_masked(x: Tensor, y: Tensor, mask: Tensor, reorder: bool = Fals
     order = ascending_order(torch.where(mask, key, inf)).long()
     x_s, y_s, m_s = x[order], y[order], mask[order]
     valid_pair = m_s[:-1] & m_s[1:]
-    dx = torch.where(valid_pair, torch.diff(x_s), 0.0)
+    # XLA flushes float32 denormals in the subtraction and the compares
+    dx = torch.where(valid_pair, flush_denormals(torch.diff(flush_denormals(x_s))), 0.0)
     area = torch.sum(torch.where(valid_pair, (y_s[:-1] + y_s[1:]) * dx / 2.0, 0.0))
     if reorder:
         return area

@@ -9,27 +9,37 @@ pair the item at ``2j + (j & 1)`` is promoted to the next level, and an odd
 leftover stays. The kept side alternates, so the fold is a function of the
 sorted values alone and merging two sketches is bitwise commutative.
 
-:func:`compactor_fold` is kernel K3's wrapper. On a CUDA tensor it launches
-``csrc/compactor_fold.cu``, which merges the two sorted runs and selects in
-one launch, reading both counts from device memory; if it cannot, it raises.
-On a CPU tensor it runs :func:`compactor_fold_plain`, a ``torch.sort`` of the
-concatenation followed by :func:`_compactor_fold_select`, the port of the
-JAX package's post-sort stage. That is also what the kernel is checked
-against on the card. No switch sends a CUDA tensor to the plain version.
+Kernel K3 (``csrc/compactor_fold.cu``) has two wrappers here:
 
-:func:`fold_cascade` folds a batch up the levels. The JAX package skips the
-levels that the promotion does not reach with a ``lax.cond`` on the
-incoming count. Here that count stays on the device: the cascade launches
-the fold at every level from the batch's own up, and a fold whose incoming
-count is 0 passes the level through unchanged (in the kernel, without any
-search), so an update reads nothing back to the host.
+- :func:`fold_cascade` and :func:`merge_cascade` run a whole sketch update
+  (a run folded into its level, the promoted run up the levels, the top
+  level absorbing) or a whole sketch merge in ONE launch of the cascade
+  kernel, which reads and writes every count on the device, so neither
+  reads anything back to the host. On a CPU tensor they run
+  :func:`fold_cascade_plain` and :func:`merge_cascade_plain`, the per-level
+  composition of :func:`compactor_fold_plain`, which is also what the
+  kernel is held against on the card.
+- :func:`compactor_fold` (and :func:`fold_level`) fold one level, the
+  counterpart of the JAX package's single fold: on a CUDA tensor one launch
+  of the fold kernel; on a CPU tensor :func:`compactor_fold_plain`, a
+  ``torch.sort`` of the concatenation followed by
+  :func:`_compactor_fold_select`, the port of the JAX package's post-sort
+  stage.
+
+On a CUDA tensor every wrapper launches its kernel or raises; no switch
+sends a CUDA tensor to a plain version.
+
+The JAX package skips the levels that the promotion does not reach with a
+``lax.cond`` on the incoming count. The cascade kernel does the same on the
+device: once the carry is empty it copies the levels above through.
 
 Rank error: a compaction at level ``l`` moves any rank by at most ``2**l``,
 so over ``n`` rows the error stays below about ``2 (L + 1) n / k``
 (``QuantileSketchState.eps_bound``).
 """
 import ctypes
-from typing import Tuple
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -43,13 +53,16 @@ SOURCE = "compactor_fold.cu"
 _INF = float("inf")
 _INT32_MAX = (1 << 31) - 1
 
-# kernel launches since the last reset_launch_count(); read by chip_smoke.py
+# launches since the last reset_launch_count(), read by chip_smoke.py: of
+# the cascade kernel (the sketch paths' K3) and of the single-fold kernel
 launch_count = 0
+fold_launch_count = 0
 
 
 def reset_launch_count() -> None:
-    global launch_count
+    global launch_count, fold_launch_count
     launch_count = 0
+    fold_launch_count = 0
 
 
 def masked_ascending(x: Tensor, count: Tensor) -> Tensor:
@@ -90,22 +103,21 @@ def compactor_fold_plain(
 
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    fn = lib.compactor_fold_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.compactor_fold_launch.argtypes = [p, i, p, i, p, p, i, p, p, p, p, p]
+    lib.compactor_fold_launch.restype = i
+    lib.compactor_cascade_scratch_floats.argtypes = [i, i, i]
+    lib.compactor_cascade_scratch_floats.restype = ctypes.c_longlong
+    lib.compactor_cascade_launch.argtypes = [p, p, i, i, p, i, p, i, p, p, p, p, p, p]
+    lib.compactor_cascade_launch.restype = i
     return lib
 
 
 def _compactor_fold_cuda(
     a: Tensor, a_count: Tensor, b: Tensor, b_count: Tensor, k: int
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Launch K3 on PyTorch's current stream."""
-    global launch_count
+    """Launch the single-fold kernel on PyTorch's current stream."""
+    global fold_launch_count
     na, nb = a.shape[0], b.shape[0]
     a, b = a.contiguous(), b.contiguous()
     a_count = a_count.to(torch.int32).contiguous()
@@ -122,7 +134,7 @@ def _compactor_fold_cuda(
     )
     if err != 0:
         raise RuntimeError(f"compactor_fold kernel launch failed with cudaError {err}")
-    launch_count += 1
+    fold_launch_count += 1
     return items, count, promoted, pcount
 
 
@@ -174,28 +186,151 @@ def fold_level(items: Tensor, count: Tensor, inc: Tensor, inc_count: Tensor) -> 
     return compactor_fold(items, count, inc, inc_count, items.shape[0])
 
 
+def _absorb_top(items: Tensor, count: Tensor, inc: Tensor, inc_count: Tensor) -> Tuple[Tensor, Tensor]:
+    """The top level never promotes: it absorbs and saturates at ``k`` items,
+    which ``QuantileSketchState.create`` makes unreachable by sizing ``L``."""
+    k = items.shape[0]
+    combined = torch.sort(torch.cat([items, inc])).values
+    c = torch.clamp(count + inc_count, max=k)
+    return masked_ascending(combined[:k], c), c
+
+
+def fold_cascade_plain(
+    items: Tensor, counts: Tensor, inc: Tensor, inc_count: Tensor, start_level: int, fold: Callable = compactor_fold_plain
+) -> Tuple[Tensor, Tensor]:
+    """The plain version of an insert cascade: ``fold`` (by default
+    :func:`compactor_fold_plain`) at every level from ``start_level`` up,
+    then the top level's absorb. With ``fold=compactor_fold`` on CUDA
+    tensors it is the per-level design the cascade kernel replaced."""
+    L, k = items.shape
+    rows = [items[lvl] for lvl in range(min(start_level, L))]
+    cnts = [counts[lvl] for lvl in range(min(start_level, L))]
+    for lvl in range(start_level, L):
+        if lvl == L - 1:
+            row, c = _absorb_top(items[lvl], counts[lvl], inc, inc_count)
+        else:
+            row, c, inc, inc_count = fold(items[lvl], counts[lvl], inc, inc_count, k)
+        rows.append(row)
+        cnts.append(c)
+    return torch.stack(rows), torch.stack(cnts).to(torch.int32)
+
+
+def merge_cascade_plain(
+    items: Tensor, counts: Tensor, other_items: Tensor, other_counts: Tensor, fold: Callable = compactor_fold_plain
+) -> Tuple[Tensor, Tensor]:
+    """The plain version of a merge cascade. At each level the JAX package
+    sorts the level with the other sketch's level and the carry from below.
+    Here the other level and the carry, two ascending runs, are merged first
+    (a fold whose size is their total, so nothing compacts), and the result
+    is folded into the level. ``fold`` is as in :func:`fold_cascade_plain`."""
+    L, k = items.shape
+    carry = torch.full((2 * k,), _INF, dtype=torch.float32, device=items.device)
+    carry_count = torch.zeros((), dtype=torch.int32, device=items.device)
+    rows, cnts = [], []
+    for lvl in range(L):
+        inc, inc_count, _, _ = fold(other_items[lvl], other_counts[lvl], carry, carry_count, 3 * k)
+        if lvl == L - 1:
+            row, c = _absorb_top(items[lvl], counts[lvl], inc, inc_count)
+        else:
+            row, c, carry, carry_count = fold(items[lvl], counts[lvl], inc, inc_count, k)
+        rows.append(row)
+        cnts.append(c)
+    return torch.stack(rows), torch.stack(cnts).to(torch.int32)
+
+
+def _check_levels(items: Tensor, counts: Tensor, what: str) -> None:
+    if items.ndim != 2 or counts.shape != (items.shape[0],):
+        raise ValueError(f"{what} expects (L, k) items and (L,) counts, got {tuple(items.shape)} and {tuple(counts.shape)}")
+    if items.dtype != torch.float32:
+        raise TypeError(f"{what} runs over float32 items, got {items.dtype}")
+    if items.shape[0] * items.shape[1] > _INT32_MAX:
+        raise ValueError(f"{what} takes fewer than 2^31 items, got {tuple(items.shape)}")
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_floats(k: int, m: int, merge: bool) -> int:
+    return int(_library().compactor_cascade_scratch_floats(k, m, int(merge)))
+
+
+def _cascade_cuda(
+    items: Tensor,
+    counts: Tensor,
+    inc: Optional[Tensor],
+    inc_count: Optional[Tensor],
+    start_level: int,
+    other_items: Optional[Tensor],
+    other_counts: Optional[Tensor],
+) -> Tuple[Tensor, Tensor]:
+    """One launch of the cascade kernel on PyTorch's current stream."""
+    global launch_count
+    L, k = items.shape
+    merge = other_items is not None
+    items = items.contiguous()
+    counts = counts.to(torch.int32).contiguous()
+    if merge:
+        other_items = other_items.contiguous()
+        other_counts = other_counts.to(torch.int32).contiguous()
+        m = 0
+    else:
+        inc = inc.contiguous()
+        inc_count = inc_count.to(torch.int32).reshape(1).contiguous()
+        m = inc.shape[0]
+    out_items = torch.empty((L, k), dtype=torch.float32, device=items.device)
+    out_counts = torch.empty((L,), dtype=torch.int32, device=items.device)
+    lib = _library()
+    n_scratch = _scratch_floats(k, m, merge)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=items.device) if n_scratch else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(items.device):
+        err = lib.compactor_cascade_launch(
+            items.data_ptr(), counts.data_ptr(), L, k, ptr(inc), m, ptr(inc_count), min(start_level, L),
+            ptr(other_items), ptr(other_counts), out_items.data_ptr(), out_counts.data_ptr(), ptr(scratch),
+            torch.cuda.current_stream(items.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"compactor_cascade kernel launch failed with cudaError {err}")
+    launch_count += 1
+    return out_items, out_counts
+
+
 def fold_cascade(items: Tensor, counts: Tensor, inc: Tensor, inc_count: Tensor, start_level: int) -> Tuple[Tensor, Tensor]:
     """Run ``inc`` (weight ``2**start_level``) up the level cascade.
 
-    ``items``/``counts`` are the ``(L, k)``/``(L,)`` sketch buffers. Levels
-    below ``start_level`` are untouched; every level from it up is folded,
-    and a fold with nothing incoming is the identity. The top level never
-    promotes: it absorbs and saturates at ``k`` items, which
-    ``QuantileSketchState.create`` makes unreachable by sizing ``L``."""
-    L, k = items.shape
-    rows = [items[lvl] for lvl in range(start_level)]
-    cnts = [counts[lvl] for lvl in range(start_level)]
-    for lvl in range(start_level, L):
-        if lvl == L - 1:
-            combined = torch.sort(torch.cat([items[lvl], inc])).values
-            c = torch.clamp(counts[lvl] + inc_count, max=k)
-            rows.append(masked_ascending(combined[:k], c))
-            cnts.append(c)
-            break
-        new_items, new_count, inc, inc_count = fold_level(items[lvl], counts[lvl], inc, inc_count)
-        rows.append(new_items)
-        cnts.append(new_count)
-    return torch.stack(rows), torch.stack(cnts).to(torch.int32)
+    ``items``/``counts`` are the ``(L, k)``/``(L,)`` sketch buffers, ``inc``
+    an ascending ``(M,)`` run, ``+inf`` past the 0-d ``inc_count``. Levels
+    below ``start_level`` are untouched; from it up each level folds in the
+    run promoted from below, and the top level absorbs and saturates at
+    ``k``. Returns new ``(items, counts)``. On a CUDA tensor: one launch of
+    the cascade kernel, no host read."""
+    _check_levels(items, counts, "fold_cascade")
+    if inc.ndim != 1 or inc.dtype != torch.float32 or inc_count.numel() != 1:
+        raise ValueError(f"fold_cascade expects a 1-D float32 run and a count, got {tuple(inc.shape)} {inc.dtype}")
+    if not (items.device == counts.device == inc.device == inc_count.device):
+        raise ValueError(f"fold_cascade's inputs must be on one device, got {items.device}, {counts.device}, {inc.device} and {inc_count.device}")
+    if start_level < 0:
+        raise ValueError(f"fold_cascade needs start_level >= 0, got {start_level}")
+    if items.device.type == "cpu":
+        return fold_cascade_plain(items, counts, inc, inc_count.reshape(()), start_level)
+    if items.device.type == "cuda":
+        return _cascade_cuda(items, counts, inc, inc_count, start_level, None, None)
+    raise ValueError(f"fold_cascade runs on CPU or CUDA tensors, got device {items.device}")
+
+
+def merge_cascade(items: Tensor, counts: Tensor, other_items: Tensor, other_counts: Tensor) -> Tuple[Tensor, Tensor]:
+    """The union of two sketches' levels, bitwise commutative. Returns new
+    ``(items, counts)``. On a CUDA tensor: one launch of the cascade kernel,
+    no host read."""
+    _check_levels(items, counts, "merge_cascade")
+    _check_levels(other_items, other_counts, "merge_cascade")
+    if items.shape != other_items.shape:
+        raise ValueError(f"merge_cascade needs two sketches of one shape, got {tuple(items.shape)} and {tuple(other_items.shape)}")
+    if not (items.device == counts.device == other_items.device == other_counts.device):
+        raise ValueError(f"merge_cascade's inputs must be on one device, got {items.device} and {other_items.device}")
+    if items.device.type == "cpu":
+        return merge_cascade_plain(items, counts, other_items, other_counts)
+    if items.device.type == "cuda":
+        return _cascade_cuda(items, counts, None, None, 0, other_items, other_counts)
+    raise ValueError(f"merge_cascade runs on CPU or CUDA tensors, got device {items.device}")
 
 
 def level_weights(items: Tensor, counts: Tensor) -> Tensor:

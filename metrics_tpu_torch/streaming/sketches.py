@@ -33,10 +33,8 @@ import torch
 from metrics_tpu_torch.metric import Metric, resolve_device
 from metrics_tpu_torch.ops.binning import halving_level, precompact_binned
 from metrics_tpu_torch.ops.compactor import (
-    compactor_fold,
     fold_cascade,
-    fold_level,
-    masked_ascending,
+    merge_cascade,
     weighted_cdf,
     weighted_quantiles,
     weighted_rank,
@@ -184,39 +182,15 @@ class QuantileSketchState(NamedTuple):
         return QuantileSketchState(items=items, counts=counts, n_seen=self.n_seen + n)
 
     def sketch_merge(self, other: "QuantileSketchState") -> "QuantileSketchState":
-        """Union of two sketches, bitwise commutative.
-
-        At each level the JAX package sorts the level with the other
-        sketch's level and the carry from below. Here the other level and
-        the carry, two ascending runs, are first merged by K3 (with the
-        level size set to their total, so nothing compacts), and the result
-        is folded into the level by K3."""
+        """Union of two sketches, bitwise commutative: one merge cascade
+        (``ops/compactor.py::merge_cascade``, one launch of K3 on the card)."""
         if self.items.shape != other.items.shape:
             raise ValueError(
                 f"cannot merge QuantileSketchState of shape {tuple(self.items.shape)} with "
                 f"{tuple(other.items.shape)}; construct both with the same eps/k/levels"
             )
-        L, k = self.items.shape
-        dev = self.items.device
-        carry = torch.full((2 * k,), _INF, dtype=torch.float32, device=dev)
-        carry_count = torch.zeros((), dtype=torch.int32, device=dev)
-        rows, cnts = [], []
-        for lvl in range(L):
-            inc, inc_count, _, _ = compactor_fold(other.items[lvl], other.counts[lvl], carry, carry_count, 3 * k)
-            if lvl == L - 1:
-                combined = torch.sort(torch.cat([self.items[lvl], inc])).values
-                c = torch.clamp(self.counts[lvl] + inc_count, max=k)
-                rows.append(masked_ascending(combined[:k], c))
-                cnts.append(c)
-                break
-            ni, nc, carry, carry_count = fold_level(self.items[lvl], self.counts[lvl], inc, inc_count)
-            rows.append(ni)
-            cnts.append(nc)
-        return QuantileSketchState(
-            items=torch.stack(rows),
-            counts=torch.stack(cnts).to(torch.int32),
-            n_seen=self.n_seen + other.n_seen,
-        )
+        items, counts = merge_cascade(self.items, self.counts, other.items, other.counts)
+        return QuantileSketchState(items=items, counts=counts, n_seen=self.n_seen + other.n_seen)
 
     # -- queries --------------------------------------------------------
 

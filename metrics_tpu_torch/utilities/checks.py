@@ -7,8 +7,10 @@ back from the device.
 """
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from metrics_tpu_torch.ops.bucketed_rank import flush_denormals
 from metrics_tpu_torch.utilities.data import select_topk, to_onehot
 from metrics_tpu_torch.utilities.enums import DataType
 
@@ -205,6 +207,19 @@ def _input_squeeze(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
     return preds, target
 
 
+def _at_or_above(preds: Tensor, threshold: float) -> Tensor:
+    """``preds >= threshold`` as XLA compares on the CPU and the TPU: a
+    float32 denormal, score or threshold, counts as zero."""
+    if preds.dtype != torch.float32:
+        return preds >= threshold
+    # the threshold is flushed on the host: a device tensor would cost a copy
+    # and a stream synchronize on every update
+    thr = float(np.float32(threshold))
+    if abs(thr) < np.finfo(np.float32).tiny:
+        thr = 0.0
+    return flush_denormals(preds) >= thr
+
+
 def _infer_num_classes(preds: Tensor, target: Tensor) -> int:
     return int(max(int(preds.max()), int(target.max())) + 1)
 
@@ -238,7 +253,7 @@ def _input_format_classification(
     )
 
     if case in (DataType.BINARY, DataType.MULTILABEL) and not top_k:
-        preds = (preds >= threshold).to(torch.int32)
+        preds = _at_or_above(preds, threshold).to(torch.int32)
         num_classes = num_classes if not multiclass else 2
 
     if case == DataType.MULTILABEL and top_k:

@@ -1,7 +1,7 @@
 """Numeric-safety helpers (counterpart of ``metrics_tpu/utilities/compute.py``)."""
 import torch
 
-from metrics_tpu_torch.ops.bucketed_rank import ascending_order
+from metrics_tpu_torch.ops.bucketed_rank import ascending_order, flush_denormals
 
 Tensor = torch.Tensor
 
@@ -49,7 +49,8 @@ def _auc_compute(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
     if reorder:
         order = ascending_order(x).long()
         return _auc_compute_without_check(x[order], y[order], 1.0)
-    dx = torch.diff(x)
+    # XLA flushes float32 denormals in the subtraction and the compares
+    dx = flush_denormals(torch.diff(flush_denormals(x)))
     if bool(torch.all(dx >= 0)):
         sign = 1.0
     elif bool(torch.all(dx <= 0)):

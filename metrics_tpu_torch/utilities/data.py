@@ -3,6 +3,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from metrics_tpu_torch.ops.bucketed_rank import flush_denormals
+
 Tensor = torch.Tensor
 
 METRIC_EPS = 1e-6
@@ -82,7 +84,8 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     """
     x = torch.as_tensor(prob_tensor)
     if topk == 1:
-        idx = torch.argmax(x, dim=dim, keepdim=True)
+        # XLA's argmax compares float32 denormals as zero; its top_k does not
+        idx = torch.argmax(flush_denormals(x), dim=dim, keepdim=True)
     else:
         idx = torch.sort(x, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
     mask = torch.zeros(x.shape, dtype=torch.int32, device=x.device)

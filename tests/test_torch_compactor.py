@@ -206,3 +206,113 @@ def test_empty_sketch_queries_are_nan():
     counts = torch.zeros(4, dtype=torch.int32)
     assert bool(torch.isnan(compactor.weighted_quantiles(items, counts, torch.tensor([0.5]))).all())
     assert bool(torch.isnan(compactor.weighted_cdf(items, counts, [0.0, 1.0])).all())
+
+
+# --------------------------------------------------------------------------
+# the cascade's plain versions (what the cascade kernel is held against)
+# --------------------------------------------------------------------------
+
+
+def _per_level_insert(items, counts, inc, inc_count, start_level):
+    """The per-level composition the cascade replaced: one ``compactor_fold``
+    call per level, then the top level's absorb."""
+    return compactor.fold_cascade_plain(items, counts, inc, inc_count, start_level, fold=compactor.compactor_fold)
+
+
+def _state_with(levels, k, fill, seed):
+    """A (levels, k) state whose level l holds ``fill[l]`` ascending items."""
+    rng = np.random.default_rng(seed)
+    items = np.stack([_level_buffer(k, c, rng) for c in fill]).astype(np.float32)
+    return items, np.array(fill, np.int32)
+
+
+# name, (levels, k), per-level fill, inc size, inc count, start level
+INSERT_CASES = [
+    ("empty_state", (6, 64), [0] * 6, 64, 50, 0),
+    ("empty_state_empty_run", (6, 64), [0] * 6, 32, 0, 2),
+    ("promotes_to_the_top", (5, 16), [16, 16, 15, 16, 3], 16, 16, 0),
+    ("saturated_top", (4, 16), [15, 16, 16, 16], 16, 13, 0),
+    ("start_at_the_top", (4, 16), [3, 9, 2, 12], 8, 8, 3),
+    ("start_mid_odd_leftover", (7, 64), [10, 64, 63, 64, 1, 0, 0], 40, 37, 1),
+    ("run_longer_than_k", (5, 16), [16, 16, 16, 2, 0], 40, 33, 0),
+]
+
+
+@pytest.mark.parametrize(("name", "shape", "fill", "m", "mc", "start"), INSERT_CASES, ids=[c[0] for c in INSERT_CASES])
+def test_fold_cascade_plain_matches_the_per_level_folds_and_jax(name, shape, fill, m, mc, start):
+    levels, k = shape
+    items, counts = _state_with(levels, k, fill, seed=len(name))
+    inc = _level_buffer(m, mc, np.random.default_rng(m + mc))
+    args = (_t(items), _t(counts), _t(inc), torch.tensor(mc, dtype=torch.int32))
+    ours = compactor.fold_cascade_plain(*args, start)
+    for o, r in zip(ours, _per_level_insert(*args, start)):
+        _assert_bit_equal(o, r.numpy())
+    for o, r in zip(ours, jax_compactor.fold_cascade(jnp.asarray(items), jnp.asarray(counts), jnp.asarray(inc), jnp.int32(mc), start)):
+        _assert_bit_equal(o, r)
+    for o, r in zip(compactor.fold_cascade(*args, start), ours):  # the CPU wrapper is the plain version
+        _assert_bit_equal(o, r.numpy())
+
+
+# name, (levels, k), fill of a, fill of b
+MERGE_CASES = [
+    ("both_empty", (5, 16), [0] * 5, [0] * 5),
+    ("with_an_empty_sketch", (5, 16), [7, 16, 3, 0, 0], [0] * 5),
+    ("full_levels_carry_up", (6, 16), [16, 16, 16, 16, 16, 4], [16, 15, 16, 16, 16, 1]),
+    ("saturated_top", (4, 16), [16, 16, 16, 15], [16, 16, 16, 16]),
+    ("sparse", (7, 64), [5, 0, 64, 0, 33, 0, 0], [0, 64, 64, 1, 0, 0, 2]),
+]
+
+
+@pytest.mark.parametrize(("name", "shape", "fill_a", "fill_b"), MERGE_CASES, ids=[c[0] for c in MERGE_CASES])
+def test_merge_cascade_plain_matches_jax_and_commutes(name, shape, fill_a, fill_b):
+    levels, k = shape
+    a_items, a_counts = _state_with(levels, k, fill_a, seed=1)
+    b_items, b_counts = _state_with(levels, k, fill_b, seed=2)
+    ab = compactor.merge_cascade_plain(_t(a_items), _t(a_counts), _t(b_items), _t(b_counts))
+    ba = compactor.merge_cascade_plain(_t(b_items), _t(b_counts), _t(a_items), _t(a_counts))
+    ja = JaxState(items=jnp.asarray(a_items), counts=jnp.asarray(a_counts), n_seen=jnp.int32(0))
+    jb = JaxState(items=jnp.asarray(b_items), counts=jnp.asarray(b_counts), n_seen=jnp.int32(0))
+    ref = ja.sketch_merge(jb)
+    for o, o2, r in zip(ab, ba, (ref.items, ref.counts)):
+        _assert_bit_equal(o, r)
+        _assert_bit_equal(o2, r)
+    for o, r in zip(compactor.merge_cascade(_t(a_items), _t(a_counts), _t(b_items), _t(b_counts)), ab):
+        _assert_bit_equal(o, r.numpy())
+
+
+def test_cascade_wrappers_check_their_inputs():
+    items, counts = torch.full((4, 8), float("inf")), torch.zeros(4, dtype=torch.int32)
+    run, c = torch.full((8,), float("inf")), torch.tensor(0, dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\(L, k\) items"):
+        compactor.fold_cascade(items[0], counts, run, c, 0)
+    with pytest.raises(TypeError, match="float32"):
+        compactor.fold_cascade(items.double(), counts, run, c, 0)
+    with pytest.raises(ValueError, match="one shape"):
+        compactor.merge_cascade(items, counts, items[:3], counts[:3])
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        compactor.merge_cascade(items.to("meta"), counts.to("meta"), items.to("meta"), counts.to("meta"))
+    with pytest.raises(ValueError, match="start_level"):
+        compactor.fold_cascade(items, counts, run, c, -1)
+
+
+def test_cuda_paths_raise_instead_of_falling_back():
+    """The kernels' launch paths build their library first; without a CUDA
+    toolkit that raises, and nothing answers with the plain version."""
+    import shutil
+
+    from metrics_tpu_torch.ops import binned_counters, histogram
+
+    if torch.cuda.is_available() or shutil.which("nvcc"):
+        pytest.skip("a CUDA toolkit is present: the launch paths build and run there (chip_smoke.py)")
+    items, counts = torch.full((4, 8), float("inf")), torch.zeros(4, dtype=torch.int32)
+    run, c = torch.full((8,), float("inf")), torch.tensor(0, dtype=torch.int32)
+    calls = [
+        lambda: compactor._cascade_cuda(items, counts, run, c, 0, None, None),
+        lambda: compactor._cascade_cuda(items, counts, None, None, 0, items, counts),
+        lambda: compactor._compactor_fold_cuda(run, c, run, c, 8),
+        lambda: binned_counters._binned_counter_update_cuda(torch.rand(4, 3), torch.zeros(4, 3, dtype=torch.bool), torch.rand(5)),
+        lambda: histogram._histogram_cuda(torch.zeros(4, dtype=torch.int32), 8),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            call()

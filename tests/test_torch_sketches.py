@@ -138,6 +138,36 @@ def test_sketch_merge_commutative_and_matches_jax():
         st_a.sketch_merge(sketches.QuantileSketchState.create(device="cpu", k=16, levels=6))
 
 
+@pytest.mark.parametrize("fill", [[], [700, 90], [5000, 3000, 20000]])
+def test_merge_with_an_empty_sketch_matches_jax_both_ways(fill):
+    """Merging with an empty sketch, on either side, through the merge
+    cascade: bit-equal to JAX's merge, and the same either way round."""
+    st, jst = sketches.QuantileSketchState.create(device="cpu", **GEOMETRY), mt.QuantileSketchState.create(**GEOMETRY)
+    for x in _stream(7, fill):
+        st, jst = st.insert(torch.from_numpy(x)), jst.insert(jnp.asarray(x))
+    empty, jempty = sketches.QuantileSketchState.create(device="cpu", **GEOMETRY), mt.QuantileSketchState.create(**GEOMETRY)
+    assert_sketch_equal(st.sketch_merge(empty), jst.sketch_merge(jempty))
+    assert_sketch_equal(empty.sketch_merge(st), jempty.sketch_merge(jst))
+    for o, r in zip(st.sketch_merge(empty), empty.sketch_merge(st)):
+        np.testing.assert_array_equal(_bits(o), _bits(r))
+
+
+def test_saturated_top_level_matches_jax():
+    """A geometry far below the stream's size: the cascade reaches the top
+    level, which absorbs and saturates at k, on insert and on merge."""
+    geometry = dict(k=8, levels=3)
+    st, jst = sketches.QuantileSketchState.create(device="cpu", **geometry), mt.QuantileSketchState.create(**geometry)
+    other, jother = sketches.QuantileSketchState.create(device="cpu", **geometry), mt.QuantileSketchState.create(**geometry)
+    for i, x in enumerate(_stream(8, [8, 7, 8, 8, 5, 8, 8, 8, 6, 8, 8, 8])):
+        st, jst = st.insert(torch.from_numpy(x)), jst.insert(jnp.asarray(x))
+        if i % 2:
+            other, jother = other.insert(torch.from_numpy(x)), jother.insert(jnp.asarray(x))
+        assert_sketch_equal(st, jst)
+    assert int(st.counts[-1]) == 8
+    assert_sketch_equal(st.sketch_merge(other), jst.sketch_merge(jother))
+    assert_sketch_equal(other.sketch_merge(st), jother.sketch_merge(jst))
+
+
 def test_oversized_batch_is_split():
     """A batch that would promote past the top level is split, as in JAX,
     and no row is lost."""
@@ -149,6 +179,24 @@ def test_oversized_batch_is_split():
     assert_sketch_equal(ours.metric_state["sketch"], ref.metric_state["sketch"])
     assert int(ours.metric_state["sketch"].n_seen) == int(np.isfinite(x).sum())
     np.testing.assert_array_equal(_np(ours.compute()), np.asarray(ref.compute()))
+
+
+def test_split_batches_then_merge_match_jax():
+    """Batches that split past the top level, on two sketches, then merged
+    both ways: every chunk is one insert cascade and the union one merge
+    cascade, bit-equal to JAX's."""
+    geometry = dict(k=8, levels=4)
+    states = []
+    for seed in (9, 10):
+        st, jst = sketches.QuantileSketchState.create(device="cpu", **geometry), mt.QuantileSketchState.create(**geometry)
+        for x in _stream(seed, [1000, 333]):
+            st, jst = st.insert(torch.from_numpy(x)), jst.insert(jnp.asarray(x))
+            assert_sketch_equal(st, jst)
+        states.append((st, jst))
+    (a, ja), (b, jb) = states
+    assert_sketch_equal(a.sketch_merge(b), ja.sketch_merge(jb))
+    for o, r in zip(a.sketch_merge(b), b.sketch_merge(a)):
+        np.testing.assert_array_equal(_bits(o), _bits(r))
 
 
 def test_on_overflow_policies():
