@@ -13,10 +13,12 @@ Phases, each printing one JSON line, and any failure exits non-zero:
 3. parity: each kernel against its plain PyTorch version on the card,
    bit-equal, at the main paths' shapes and at the edges (K1
    ``binned_counters`` with NaN, infinite and denormal scores and thresholds
-   and a histogram too large for shared memory; K2 ``histogram``; K3's
-   single fold ``compactor_fold`` and its cascade ``fold_cascade`` /
-   ``merge_cascade`` in insert and merge mode, including values of k whose
-   buffers run out of device memory);
+   and a histogram too large for shared memory; K2 ``histogram`` with
+   sorted, run-length, Zipf and one-bin ids, misaligned data pointers,
+   scalar heads and tails, and grids on both sides of each shared-memory
+   limit; K3's single fold ``compactor_fold`` and its cascade
+   ``fold_cascade`` / ``merge_cascade`` in insert and merge mode, including
+   values of k whose buffers run out of device memory);
 4. main path: an ImageNet-1k validation epoch (50,000 rows, 1000 classes,
    1024-row batches) through ``MetricCollection({acc1, acc5, bap})`` on the
    card, checked against the same run of the port on the CPU;
@@ -37,9 +39,12 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    the gathered sort. Checked against the port in one process on the CPU
    and against an exact float64 Mann-Whitney AUROC;
 8. kernels: each kernel's time, its bound on this card, and its launches on
-   its path; K1 and K3 each beside their previous design, timed in the same
-   run: K1's compare per (row, class, threshold), built from
-   ``csrc/binned_counters_loop.cu``, and K3's one single-fold launch per level.
+   its path; each beside its previous design, timed in the same run: K1's
+   compare per (row, class, threshold), built from
+   ``csrc/binned_counters_loop.cu``; K2's warp match per id, built from
+   ``csrc/histogram_match.cu``, with three readings that take it apart
+   (its flush of global atomics, its match, its loads); and K3's one
+   single-fold launch per level.
 
 The parent process builds every kernel before it spawns the ranks, so the
 ranks only load the libraries. A rank that fails makes the script fail.
@@ -99,10 +104,14 @@ EXACT_ATOL = 1e-5  # AUROC against the exact float64 Mann-Whitney value
 DIST_TIMEOUT_S = 600
 DIST_DEVICE = "cuda:0"  # where the ranks run: the one card, shared
 LOOP_SOURCE = "binned_counters_loop.cu"  # K1's previous design, built only to time K1 against
+MATCH_SOURCE = "histogram_match.cu"  # K2's previous design, built only to time K2 against
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")  # host calls that launch a kernel, as the profiler names them
+RECORDED_SHARE = 0.95  # least share of a profiler window's launches whose records on the card it must keep
 
 
 def emit(obj):
@@ -141,30 +150,51 @@ def cuda_time_ms(fn, iters=50, warmup=5):
 def device_profile(fn, kernel_name, iters=50):
     """The card's own time per call of ``fn`` from a ``torch.profiler``
     window over ``iters`` calls: of ``kernel_name`` (per launch and per
-    call, and its launches per call) and of every operation on the card."""
+    call, and its launches per call), of every operation on the card, and
+    the kernel launches that ``fn`` makes on the host per call.
+
+    The profiler keeps every launch made on the host, but late in a long
+    run it has left out the card's records of whole calls at one end of a
+    window (those of 10 of 50 calls, of all of 10, of 3 of 800). Per-call
+    figures divide by the calls whose records were kept; a window that
+    kept less than 95 % of its launches is taken again over four times the
+    calls, twice at most, and then the run fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+        kernels = sum(e.count for e in on_device if not e.key.startswith(("Memcpy", "Memset")))
+        launches = sum(e.count for e in events if e.device_type != DeviceType.CUDA and e.key.startswith(LAUNCH_CALLS))
+        if kernels >= RECORDED_SHARE * launches:
+            break
+        iters *= 4
+    else:
+        raise RuntimeError(f"the profiler recorded {kernels} kernels of {launches} launches on the host")
+    calls = iters * min(1.0, kernels / launches) if launches else iters
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
-    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     hits = [e for e in on_device if kernel_name in e.key]
     us, count = sum(dev_us(e) for e in hits), sum(e.count for e in hits)
     return {
         "ms_per_launch": us / 1e3 / count if count else None,
-        "ms_per_call": us / 1e3 / iters,
-        "launches_per_call": count / iters,
-        "all_device_ms_per_call": sum(dev_us(e) for e in on_device) / 1e3 / iters,
-        "device_ops_per_call": sum(e.count for e in on_device) / iters,
+        "ms_per_call": us / 1e3 / calls,
+        "launches_per_call": count / calls,
+        "all_device_ms_per_call": sum(dev_us(e) for e in on_device) / 1e3 / calls,
+        "device_ops_per_call": sum(e.count for e in on_device) / calls,
+        "host_launches_per_call": launches / iters,
+        "recorded_share": kernels / launches if launches else None,
+        "iters": iters,
     }
 
 
@@ -179,7 +209,7 @@ def device_ms_per_launch(fn, kernel_name, iters=50):
 def phase_build():
     from metrics_tpu_torch.ops import _build, binned_counters, compactor, histogram
 
-    sources = [binned_counters.SOURCE, histogram.SOURCE, compactor.SOURCE, LOOP_SOURCE]
+    sources = [binned_counters.SOURCE, histogram.SOURCE, compactor.SOURCE, LOOP_SOURCE, MATCH_SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
@@ -1057,10 +1087,14 @@ def k3_times(dev, launches, max_abs_err, fold_max_abs_err, q_state, batch):
 
 def phase_k2_parity(dev):
     """K2 against its plain version on the card, bit for bit: the dist
-    path's shape, all ids in one bin, no ids, one id, a count that is not a
-    multiple of a block's step, ids out of range, one bucket, the JAX
-    package's largest grid (8195 bins) and a grid too large for shared
-    memory."""
+    path's shape; sorted ids, pairs, 16-way runs, a Zipf draw and all ids in
+    one bin; data pointers off the 16-byte boundary (a scalar head) and
+    counts that are not a multiple of 4 (a scalar tail), down to ids in the
+    head and tail alone; no ids, one id, ids out of range among valid ones
+    (INT_MIN, INT_MAX, -1, num_buckets); one bucket, the JAX package's
+    largest grid (8195 bins), and grids on both sides of each shared-memory
+    limit of the launcher: the 48 KB default and the opt-in maximum, above
+    which the bins live in device memory."""
     import torch
 
     from metrics_tpu_torch.ops import histogram as k2
@@ -1072,15 +1106,28 @@ def phase_k2_parity(dev):
 
     out_of_range = ids(-3000, 5000, 100_003)
     out_of_range[:2] = torch.tensor([-(1 << 31), (1 << 31) - 1], dtype=torch.int32, device=dev)
+    extremes = ids(0, K2_BINS, 1 << 20)
+    for j, v in enumerate((-(1 << 31), (1 << 31) - 1, -1, K2_BINS)):
+        extremes[j::1000] = v
+    base = ids(0, K2_BINS, DIST_SHARD + 4)
+    optin = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", 232_448) // 4
+    default = 48 * 1024 // 4
     cases = [
         ("path_uniform", ids(0, K2_BINS, DIST_SHARD), K2_BINS),
-        ("all_equal", torch.full((DIST_SHARD,), 1, dtype=torch.int32, device=dev), K2_BINS),
+        *((f"path_{k}", x, K2_BINS) for k, x in k2_id_patterns(dev, DIST_SHARD, K2_BINS, SEED + 9).items() if k != "uniform"),
+        ("misaligned_by_1_n_2^24+3", base[1:], K2_BINS),
+        ("misaligned_by_2", base[2:DIST_SHARD + 2], K2_BINS),
+        ("misaligned_by_3_n_2^24+1", base[3:], K2_BINS),
+        ("misaligned_head_and_tail_only_n5", base[1:6], K2_BINS),
+        ("misaligned_head_only_n2", base[1:3], K2_BINS),
         ("n0", ids(0, K2_BINS, 0), K2_BINS),
         ("n1", ids(0, K2_BINS, 1), K2_BINS),
         ("n_not_a_multiple_of_the_block", ids(0, K2_BINS, 3 * 2048 + 17), K2_BINS),
         ("out_of_range", out_of_range, K2_BINS),
+        ("int_min_int_max_-1_among_valid", extremes, K2_BINS),
         ("one_bucket", ids(-1, 3, 50_000), 1),
         ("bins_8195", ids(0, 8195, DIST_SHARD), 8195),
+        *((f"bins_{nb}", ids(-5, nb + 5, 1 << 20), nb) for nb in (default, default + 1, optin, optin + 1)),
         ("bins_100000_global_memory", ids(-5, 100_005, 1 << 20), 100_000),
     ]
     rows, max_err = [], 0.0
@@ -1091,11 +1138,12 @@ def phase_k2_parity(dev):
         equal = got.dtype == want.dtype and torch.equal(got, want)
         err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
         max_err = max(max_err, err)
-        rows.append({"case": name, "n": x.shape[0], "bins": nb, "counted": int(got.sum()), "bit_equal": equal})
+        rows.append({"case": name, "n": x.shape[0], "bins": nb, "offset_bytes": x.data_ptr() % 16,
+                     "counted": int(got.sum()), "bit_equal": equal})
         if not equal:
             emit({"phase": "parity", "kernel": "histogram", "cases": rows})
             raise AssertionError(f"histogram kernel differs from its plain version in case {name!r}")
-    emit({"phase": "parity", "kernel": "histogram", "cases": rows, "max_abs_err": max_err})
+    emit({"phase": "parity", "kernel": "histogram", "smem_limits_bins": [default, optin], "cases": rows, "max_abs_err": max_err})
     return max_err
 
 
@@ -1428,52 +1476,193 @@ def phase_dist(dev):
     return sum(r["launches"]["histogram"] for r in ranks), cs
 
 
+def k2_id_patterns(dev, n, nb, seed):
+    """Id patterns for K2 at ``n`` ids over ``nb`` bins: uniform, sorted
+    uniform, all in one bin, pairs and 16-way runs of consecutive ids, and
+    a Zipf(1.1) draw whose first bins are hot."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    i = torch.arange(n, device=dev, dtype=torch.int64)
+    uniform = torch.randint(0, nb, (n,), generator=g, device=dev, dtype=torch.int32)
+    weights = torch.arange(1, nb + 1, device=dev, dtype=torch.float64) ** -1.1
+    cdf = torch.cumsum(weights, 0) / weights.sum()
+    u = torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    return {
+        "uniform": uniform,
+        "sorted": torch.sort(uniform).values,
+        "all_equal": torch.full((n,), 1, dtype=torch.int32, device=dev),
+        "pairs": ((i // 2) % nb).to(torch.int32),
+        "runs_16": ((i // 16) % nb).to(torch.int32),
+        "zipf": torch.clamp(torch.searchsorted(cdf, u), max=nb - 1).to(torch.int32),
+    }
+
+
+def _match_library():
+    """K2's previous design (csrc/histogram_match.cu) and its two variants."""
+    from metrics_tpu_torch.ops import _build
+
+    lib = _build.load(MATCH_SOURCE)
+    lib.histogram_match_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.histogram_match_launch.restype = ctypes.c_int
+    lib.histogram_match_variant_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                                                   ctypes.c_int, ctypes.c_void_p]
+    lib.histogram_match_variant_launch.restype = ctypes.c_int
+    return lib
+
+
+def _match_fn(lib, ids, nb, out, stream, variant=None):
+    """One launch of the previous design (``variant`` None) or of one of its
+    variants (1: a plain shared atomic per id, 2: the loads alone) into
+    ``out``, which it zeroes first."""
+    def run():
+        out.zero_()
+        if variant is None:
+            err = lib.histogram_match_launch(ids.data_ptr(), ids.shape[0], nb, out.data_ptr(), stream)
+        else:
+            err = lib.histogram_match_variant_launch(ids.data_ptr(), ids.shape[0], nb, out.data_ptr(), variant, stream)
+        if err:
+            raise RuntimeError(f"histogram_match launch failed with cudaError {err}")
+    return run
+
+
+def k2_readings(dev, inputs):
+    """Three readings of the previous design that take it apart, in device
+    ms per launch: (a) the flush, one step per block with 2048 nonzero bins
+    in each (ids i % 2048 over 2 x SMs x 2048 ids) against the same count of
+    ids in one bin; (b) the warp match, against a plain shared atomic per
+    id on the same loop, on uniform and all-equal ids; (c) the loads alone
+    (the ids' sum) at 2^24, against the bytes' bound."""
+    import torch
+
+    lib = _match_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.zeros(K2_BINS, dtype=torch.int32, device=dev)
+    name = "histogram_match_kernel"
+    blocks = 2 * torch.cuda.get_device_properties(dev).multi_processor_count  # the previous design's grid
+    n_a = blocks * 2048
+    spread = (torch.arange(n_a, device=dev) % 2048).to(torch.int32)
+    one_bin = torch.full((n_a,), 1, dtype=torch.int32, device=dev)
+    flush = {
+        "ids": n_a, "blocks": blocks, "global_atomics": blocks * 2048,
+        "match_2048_bins_ms": device_ms_per_launch(_match_fn(lib, spread, K2_BINS, out, stream), name),
+        "match_one_bin_ms": device_ms_per_launch(_match_fn(lib, one_bin, K2_BINS, out, stream), name),
+        "plain_2048_bins_ms": device_ms_per_launch(_match_fn(lib, spread, K2_BINS, out, stream, 1), name),
+        "plain_one_bin_ms": device_ms_per_launch(_match_fn(lib, one_bin, K2_BINS, out, stream, 1), name),
+        "empty_ms": device_ms_per_launch(_match_fn(lib, one_bin[:1], K2_BINS, out, stream), name),
+    }
+    match = {}
+    for kind in ("uniform", "all_equal", "sorted", "zipf"):
+        ids = inputs[kind]
+        m = device_ms_per_launch(_match_fn(lib, ids, K2_BINS, out, stream), name)
+        p = device_ms_per_launch(_match_fn(lib, ids, K2_BINS, out, stream, 1), name)
+        match[kind] = {"match_ms": m, "plain_atomic_ms": p, "match_share": (m - p) / m}
+    ids = inputs["uniform"]
+    loads_ms = device_ms_per_launch(_match_fn(lib, ids, K2_BINS, out, stream, 2), name)
+    bound_ms = 4 * ids.shape[0] / HBM_BYTES_PER_S * 1e3
+    return {
+        "a_flush": flush,
+        "b_match": match,
+        "c_loads": {"n": ids.shape[0], "ms": loads_ms, "bytes_per_s": 4 * ids.shape[0] / (loads_ms * 1e-3),
+                    "bound_ms": bound_ms, "share_of_bound": bound_ms / loads_ms},
+    }
+
+
 def k2_times(dev, launches, max_abs_err, cpu_scores):
     """K2's entry of the kernels line, at the dist path's shape (2^24 ids of
-    one rank, 2051 bins): uniform ids, all ids in one bin, and the bucket
-    ids of rank 0's quantized scores."""
+    one rank, 2051 bins), beside its previous design (csrc/histogram_match.cu)
+    timed in the same run: uniform ids, all ids in one bin, sorted uniform
+    ids, and the bucket ids of rank 0's quantized and continuous scores.
+    The dist path's launches x (device time - bound) counts each of its
+    three kinds of score on its own ids (the all-equal scores put every id
+    in one bin); readings (a)-(c) take the previous design apart."""
     import torch
 
     from metrics_tpu_torch.ops import histogram as k2
     from metrics_tpu_torch.ops.bucketed_rank import bucket_counts
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 8)
     n, nb = DIST_SHARD, K2_BINS
-    q = quantized(cpu_scores.to(dev))
-    lo, hi = q.min(), q.max()
+    patterns = k2_id_patterns(dev, n, nb, SEED + 8)
+    scores = cpu_scores.to(dev)  # all 2^26 rows: their bounds are what the ranks' all_reduce gives
+    q = quantized(scores)
     inputs = {
-        "uniform": torch.randint(0, nb, (n,), generator=g, device=dev, dtype=torch.int32),
-        "all_equal": torch.full((n,), 1, dtype=torch.int32, device=dev),
-        "path_ids": bucket_counts(q[:n], lo, hi, NUM_BUCKETS)[1].contiguous(),
+        "uniform": patterns["uniform"],
+        "all_equal": patterns["all_equal"],
+        "sorted": patterns["sorted"],
+        "path_ids": bucket_counts(q[:n], q.min(), q.max(), NUM_BUCKETS)[1].contiguous(),
+        "path_continuous": bucket_counts(scores[:n], scores.min(), scores.max(), NUM_BUCKETS)[1].contiguous(),
     }
-    del q
+    del q, scores
     lib = k2._library()
+    prev_lib = _match_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.zeros(nb, dtype=torch.int32, device=dev)
-    per_input = {}
-    for name, ids in inputs.items():
-        def raw(ids=ids):
-            out.zero_()
-            err = lib.histogram_launch(ids.data_ptr(), n, nb, out.data_ptr(), stream)
+    prev_out = torch.zeros(nb, dtype=torch.int32, device=dev)
+
+    def kernel_fn(ids, zero=True):
+        def run():
+            if zero:
+                out.zero_()
+            err = lib.histogram_launch(ids.data_ptr(), ids.shape[0], nb, out.data_ptr(), stream)
             if err:
                 raise RuntimeError(f"histogram launch failed with cudaError {err}")
-
-        wrapper = lambda ids=ids: k2.histogram(ids, nb)  # noqa: E731
-        plain = lambda ids=ids: k2.histogram_plain(ids, nb)  # noqa: E731
-        library = lambda ids=ids: torch.bincount(ids, minlength=nb)  # noqa: E731
-        order = [("plain", plain), ("wrapper", wrapper), ("kernel", raw), ("library", library),
-                 ("library", library), ("kernel", raw), ("wrapper", wrapper), ("plain", plain)]
-        times = {}
-        for label, fn in order:
-            times.setdefault(label, []).append(cuda_time_ms(fn))
-        ms = {label: statistics.mean(v) for label, v in times.items()}
-        ms["kernel_device"] = device_ms_per_launch(raw, "histogram_kernel")
-        per_input[name] = ms
+        return run
 
     bytes_moved = 4 * n + 4 * nb  # int32 ids in, int32 counts out
     ops = n  # one add per id
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    per_input = {}
+    for name, ids in inputs.items():
+        raw, prev = kernel_fn(ids), _match_fn(prev_lib, ids, nb, prev_out, stream)
+        raw()
+        prev()
+        if not torch.equal(out, prev_out):
+            raise AssertionError(f"the previous K2 design and the kernel disagree on input {name!r}")
+        fns = {
+            "kernel": raw,
+            "prev_kernel": prev,
+            "wrapper": lambda ids=ids: k2.histogram(ids, nb),
+            "plain": lambda ids=ids: k2.histogram_plain(ids, nb),
+            "library": lambda ids=ids: torch.bincount(ids, minlength=nb),
+        }
+        # in turns, so drift on the card touches every version alike
+        order = ["plain", "prev_kernel", "wrapper", "kernel", "library", "library", "kernel", "wrapper", "prev_kernel", "plain"]
+        times = {}
+        for label in order:
+            times.setdefault(label, []).append(cuda_time_ms(fns[label]))
+        ms = {label: statistics.mean(v) for label, v in times.items()}
+        ms["kernel_device"] = device_ms_per_launch(raw, "histogram_kernel")
+        # kernels that one call of the launcher puts on the card, from the launches on the host
+        ms["kernels_per_call"] = device_profile(kernel_fn(ids, zero=False), "histogram_kernel")["host_launches_per_call"]
+        if ms["kernels_per_call"] != 1.0:
+            raise AssertionError(f"one histogram call launched {ms['kernels_per_call']} kernels on input {name!r}, not 1")
+        ms["prev_kernel_device"] = device_ms_per_launch(prev, "histogram_match_kernel")
+        ms["library_device"] = device_profile(fns["library"], "")["all_device_ms_per_call"]
+        ms["kernel_vs_prev"] = ms["kernel_device"] / ms["prev_kernel_device"]
+        ms["kernel_vs_library"] = ms["kernel_device"] / ms["library_device"]
+        ms["share_of_bound"] = bound_ms / ms["kernel_device"]
+        per_input[name] = ms
+
+    # the dist path: each rank calls sharded_descending_ranks once on each kind of score
+    kinds = {"quantized": "path_ids", "continuous": "path_continuous", "equal": "all_equal"}
+    per_kind = launches // len(kinds)
+    if per_kind * len(kinds) != launches:
+        raise AssertionError(f"{launches} K2 launches on the dist path are not {len(kinds)} kinds x its ranks")
+    gap = {kind: per_kind * (per_input[x]["kernel_device"] - bound_ms) for kind, x in kinds.items()}
+    prev_gap = {kind: per_kind * (per_input[x]["prev_kernel_device"] - bound_ms) for kind, x in kinds.items()}
+
+    # the new design's flush: one step per block (8192 ids), 2048 nonzero bins in each, against one bin
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    spread = (torch.arange(blocks * 8192, device=dev) % 2048).to(torch.int32)
+    readings = k2_readings(dev, patterns)
+    readings["a_flush_new_design"] = {
+        "ids": spread.shape[0], "blocks": blocks, "global_atomics": blocks * 2048,
+        "2048_bins_ms": device_ms_per_launch(kernel_fn(spread), "histogram_kernel"),
+        "one_bin_ms": device_ms_per_launch(kernel_fn(torch.ones_like(spread)), "histogram_kernel"),
+        "empty_ms": device_ms_per_launch(kernel_fn(spread[:1]), "histogram_kernel"),
+    }
     head = per_input["uniform"]
     return {
         "name": "histogram",
@@ -1482,20 +1671,27 @@ def k2_times(dev, launches, max_abs_err, cpu_scores):
         "replaces": "metrics_tpu/ops/pallas_kernels.py:62",
         "replaces_fn": "metrics_tpu/ops/pallas_kernels.py::_histogram_kernel (pallas_call at :92)",
         "launches": launches,
+        "kernels_per_call": head["kernels_per_call"],
         "max_abs_err": max_abs_err,
         "ms": head["wrapper"],
         "kernel_ms": head["kernel"],
         "kernel_device_ms": head["kernel_device"],
         "plain_ms": head["plain"],
-        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": head["library"],
         "library_call": "torch.bincount(ids, minlength=2051)",
         "by_input": per_input,
+        "dist_path": {
+            "launches_per_kind": per_kind, "ids_per_kind": kinds,
+            "launches_x_gap_ms": sum(gap.values()), "by_kind_ms": gap,
+            "previous_design_launches_x_gap_ms": sum(prev_gap.values()), "previous_design_by_kind_ms": prev_gap,
+        },
+        "previous_design": "csrc/histogram_match.cu (a warp match per id, scalar loads, two blocks per SM), timed in this run",
+        "readings": readings,
         "shape": {"n": n, "bins": nb},
         "bytes": bytes_moved,
     }
-
 
 
 def main():

@@ -1,8 +1,9 @@
 """The port's histogram (K2's plain version and its wrapper on the CPU) and
 ``bucket_counts`` against the JAX package: the Pallas kernel run in
 interpret mode and the XLA scatter-add, on seeded ids and scores, with
-out-of-range ids, no ids, one bucket, all-equal ids, ±inf, NaN, ``valid``
-masks and no finite score. Counts and bucket ids are bit-equal."""
+out-of-range ids, no ids, one bucket, all-equal, sorted, run-length and
+Zipf-skewed ids, a misaligned view, ±inf, NaN, ``valid`` masks and no
+finite score. Counts and bucket ids are bit-equal."""
 import numpy as np
 import pytest
 
@@ -17,12 +18,38 @@ from metrics_tpu_torch.ops import histogram as k2  # noqa: E402
 from metrics_tpu_torch.ops.bucketed_rank import bucket_counts  # noqa: E402
 
 
+def _id_pattern(pattern, rng, n, num_buckets):
+    """The id patterns the card's parity cases cover, at a small size: the
+    ids, and the tensor the port is given (for ``misaligned`` a view one
+    element into its buffer, so its data pointer is off the 16-byte
+    boundary that the kernel's vector loads need)."""
+    i = np.arange(n)
+    if pattern == "uniform":
+        ids = rng.integers(0, num_buckets, n)
+    elif pattern == "sorted":
+        ids = np.sort(rng.integers(0, num_buckets, n))
+    elif pattern == "pairs":
+        ids = (i // 2) % num_buckets
+    elif pattern == "runs_16":
+        ids = (i // 16) % num_buckets
+    elif pattern == "zipf":
+        ids = np.minimum(rng.zipf(1.1, n) - 1, num_buckets - 1)
+    else:
+        base = torch.from_numpy(rng.integers(0, num_buckets, n + 1).astype(np.int32))
+        view = base[1:]
+        assert n == 0 or view.data_ptr() % 16 != 0
+        return view.numpy(), view
+    ids = ids.astype(np.int32)
+    return ids, torch.from_numpy(ids)
+
+
+@pytest.mark.parametrize("pattern", ["uniform", "sorted", "pairs", "runs_16", "zipf", "misaligned"])
 @pytest.mark.parametrize("num_buckets", [1, 7, 130, 515])
 @pytest.mark.parametrize("n", [0, 1, 127, 513, 3000])
-def test_plain_matches_pallas_interpret_and_xla(num_buckets, n):
+def test_plain_matches_pallas_interpret_and_xla(num_buckets, n, pattern):
     rng = np.random.default_rng(num_buckets * 1000 + n)
-    ids = rng.integers(0, num_buckets, n).astype(np.int32)
-    ours = k2.histogram_plain(torch.from_numpy(ids), num_buckets).numpy()
+    ids, port_ids = _id_pattern(pattern, rng, n, num_buckets)
+    ours = k2.histogram_plain(port_ids, num_buckets).numpy()
     assert ours.dtype == np.int32 and ours.shape == (num_buckets,)
     np.testing.assert_array_equal(ours, np.asarray(histogram_pallas(jnp.asarray(ids), num_buckets, interpret=True)))
     np.testing.assert_array_equal(ours, np.asarray(_histogram_xla(jnp.asarray(ids), num_buckets)))
