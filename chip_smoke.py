@@ -33,18 +33,32 @@ Phases, each printing one JSON line, and any failure exits non-zero:
 7. dist path: data-parallel evaluation of a binary scorer, 2^26 rows over
    4 processes that share the card in one Gloo world (``torch.distributed``,
    ``tcp://localhost``): each rank runs ``MetricCollection({auroc, ap,
-   auroc_ring, ap_ring})`` over its 2^24 rows and ``compute()`` gathers the
-   states and sorts all 2^26 rows; then ``sharded_descending_ranks`` (K2 on
-   every rank) on quantized, continuous and all-equal scores, held against
-   the gathered sort. Checked against the port in one process on the CPU
-   and against an exact float64 Mann-Whitney AUROC;
-8. kernels: each kernel's time, its bound on this card, and its launches on
-   its path; each beside its previous design, timed in the same run: K1's
+   auroc_ring, ap_ring})`` over its 2^24 rows and ``compute()`` syncs the
+   collection once (``fused_sync``: each compute group gathers its lists
+   and rings once) and sorts all 2^26 rows on every rank; then
+   ``sharded_descending_ranks`` (K2 on every rank) on quantized, continuous
+   and all-equal scores, held against the gathered sort. Checked against
+   the port in one process on the CPU and against an exact float64
+   Mann-Whitney AUROC;
+8. fused dist path: the ImageNet epoch over the same four-rank world, with
+   0.5 % of the rows given a NaN score and 0.5 % the label 1000, through
+   ``{acc, prec, rec, f1, bap}`` with ``on_invalid="drop"``; ``compute()``
+   must make one ``all_reduce`` per (reduction, dtype) bucket of the
+   states and no gather (counted by a recording wrapper around
+   ``torch.distributed``), the synced fault counts must equal the injected
+   rows on every rank, K1 must launch once per batch, and the values must
+   equal the port's in one process on the CPU; ``all_reduce`` over Gloo is
+   checked on the card for int32, int64 and float32 with SUM and MAX;
+9. fused sketch path: ``{mean, q: QuantileSketch, cm: CountMinSketch}`` over
+   16 batches of 2^20 lognormal rows per rank (0.1 % NaN/±inf): at most two
+   ``all_reduce`` and no gather, the synced sketches bit-equal to an
+   in-process ``sketch_merge`` fold of the ranks' sketches on the card
+   (K3's merge cascade, launches counted), the mean against numpy;
+10. kernels: each kernel's time, its bound on this card, and its launches on
+   each path; each beside its previous design, timed in the same run: K1's
    compare per (row, class, threshold), built from
    ``csrc/binned_counters_loop.cu``; K2's warp match per id, built from
-   ``csrc/histogram_match.cu``, with three readings that take it apart
-   (its flush of global atomics, its match, its loads); and K3's one
-   single-fold launch per level.
+   ``csrc/histogram_match.cu``; and K3's one single-fold launch per level.
 
 The parent process builds every kernel before it spawns the ranks, so the
 ranks only load the libraries. A rank that fails makes the script fail.
@@ -55,6 +69,7 @@ outside a checkout of the repository, the script prints no result and exits 1.
 import ctypes
 import hashlib
 import json
+import math
 import pathlib
 import queue
 import socket
@@ -103,6 +118,17 @@ DIST_RTOL = 1e-5  # areas: float32 sums over 2^26 terms, taken in another order 
 EXACT_ATOL = 1e-5  # AUROC against the exact float64 Mann-Whitney value
 DIST_TIMEOUT_S = 600
 DIST_DEVICE = "cuda:0"  # where the ranks run: the one card, shared
+# the fused sync's paths, over the same four-rank world: the ImageNet epoch
+# with injected faults, and a sketch monitor of 2^26 rows
+FAULT_SHARE = 0.005  # rows that get a NaN score; as many again get the label CLASSES
+# the (dtype, operation) buckets of a collection's compute(), as predicted
+# from its states: fault counters int64 SUM; stat scores int32 SUM; BAP's
+# counters, the mean's sums and the packed quantile sketches float32 SUM;
+# CountMin int64 SUM
+FUSED_EVAL_BUCKETS = [["float32", "SUM"], ["int32", "SUM"], ["int64", "SUM"]]
+FUSED_SKETCH_BUCKETS = [["float32", "SUM"], ["int64", "SUM"]]
+FUSED_SKETCH_BATCHES = 16  # batches of 2^20 rows per rank
+MEAN_RTOL = 1e-5  # a float32 mean of 2^26 rows, summed in batches and across ranks, against float64
 LOOP_SOURCE = "binned_counters_loop.cu"  # K1's previous design, built only to time K1 against
 MATCH_SOURCE = "histogram_match.cu"  # K2's previous design, built only to time K2 against
 
@@ -1256,8 +1282,9 @@ def dist_rank(rank, world, port, results, device):
         update_s, forward_s = run_dist_batches(coll, s, y, sync)
         loop_s = time.perf_counter() - t0
         t1 = time.perf_counter()
-        values = coll.compute()
-        sync()
+        with CollectiveRecorder() as rec:
+            values = coll.compute()
+            sync()
         compute_s = time.perf_counter() - t1
         out.update({
             "update_p50_ms": statistics.median(update_s) * 1e3,
@@ -1265,6 +1292,7 @@ def dist_rank(rank, world, port, results, device):
             "first_forward_ms": forward_s[0] * 1e3,
             "loop_s": loop_s,
             "compute_s": compute_s,
+            "compute_collectives": {"all_reduce": rec.all_reduce, "other": rec.other},
             "peak_mem_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
             "values": {k: float(v) for k, v in values.items()},
             "value_bits": {k: _bits(v) for k, v in values.items()},
@@ -1324,14 +1352,15 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def run_dist_world():
-    """Spawn the ranks, collect what each reports, and stop every process."""
+def run_world(target, label):
+    """Spawn the ranks of a path (``target(rank, world, port, results,
+    device)``), collect what each reports, and stop every process."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=dist_rank, args=(r, DIST_WORLD, port, results, DIST_DEVICE)) for r in range(DIST_WORLD)]
+    procs = [ctx.Process(target=target, args=(r, DIST_WORLD, port, results, DIST_DEVICE)) for r in range(DIST_WORLD)]
     got = {}
     try:
         for proc in procs:
@@ -1343,18 +1372,18 @@ def run_dist_world():
             except queue.Empty:
                 dead = {i: p.exitcode for i, p in enumerate(procs) if p.exitcode not in (None, 0)}
                 if dead:
-                    raise AssertionError(f"dist path: ranks exited before reporting: {dead}")
+                    raise AssertionError(f"{label}: ranks exited before reporting: {dead}")
                 if time.monotonic() > deadline:
-                    raise AssertionError(f"dist path: no result within {DIST_TIMEOUT_S} s")
+                    raise AssertionError(f"{label}: no result within {DIST_TIMEOUT_S} s")
                 continue
             if "error" in out:
-                raise AssertionError(f"dist path: rank {rank} failed:\n{out['error']}")
+                raise AssertionError(f"{label}: rank {rank} failed:\n{out['error']}")
             got[rank] = out
         for proc in procs:
             proc.join(timeout=60)
         codes = [proc.exitcode for proc in procs]
         if codes != [0] * DIST_WORLD:
-            raise AssertionError(f"dist path: rank exit codes {codes}")
+            raise AssertionError(f"{label}: rank exit codes {codes}")
     finally:
         for proc in procs:
             if proc.is_alive():
@@ -1383,7 +1412,7 @@ def phase_dist(dev):
     import metrics_tpu_torch as mtt
 
     t0 = time.perf_counter()
-    ranks = run_dist_world()
+    ranks = run_world(dist_rank, "dist path")
     world_s = time.perf_counter() - t0
     n = DIST_WORLD * DIST_SHARD
     batches = DIST_SHARD // DIST_BATCH
@@ -1449,6 +1478,10 @@ def phase_dist(dev):
         "forward_p50_ms": [r["forward_p50_ms"] for r in ranks],
         "first_forward_ms": [r["first_forward_ms"] for r in ranks],
         "compute_s": [r["compute_s"] for r in ranks],
+        # the previous transport (every member gathered its states, two
+        # all_gather per tensor), for comparison: not measured in this run
+        "compute_s_recorded_before_fused_sync": "4.158-4.161 (PERF.md, PR 5, call 12)",
+        "compute_collectives": ranks[0]["compute_collectives"],
         "sync_two_members_s": [r["sync_s"] for r in ranks],
         "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
         "values": card,
@@ -1473,7 +1506,489 @@ def phase_dist(dev):
         "exact_reference_s": exact_s,
         "matches_cpu_run": True,
     })
-    return sum(r["launches"]["histogram"] for r in ranks), cs
+    return sum(r["launches"]["histogram"] for r in ranks)
+
+
+# ----------------------------------------------------------------------
+# the fused multi-process sync: data-parallel evaluation with the fault
+# channel, and sketch monitors, over the dist path's four-rank world
+# ----------------------------------------------------------------------
+
+
+class CollectiveRecorder:
+    """Counts the collectives made through ``torch.distributed``: each
+    ``all_reduce`` by its dtype and operation, and every gather."""
+
+    NAMES = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast", "gather", "reduce_scatter")
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist = dist
+        self.all_reduce = []
+        self.other = []
+        self._saved = {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = getattr(self.dist, name)
+            self._saved[name] = fn
+
+            def wrapped(*args, _fn=fn, _name=name, **kwargs):
+                if _name == "all_reduce":
+                    op = kwargs.get("op", args[1] if len(args) > 1 else self.dist.ReduceOp.SUM)
+                    self.all_reduce.append([str(args[0].dtype).replace("torch.", ""), str(op).split(".")[-1]])
+                else:
+                    self.other.append(_name)
+                return _fn(*args, **kwargs)
+
+            setattr(self.dist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.dist, name, fn)
+
+
+def check_reduce_dtypes(dev, world, rank):
+    """``all_reduce`` over Gloo on tensors on the card, with SUM and MAX, in
+    each bucket dtype of the fused sync: int32, int64 and float32."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for dtype in (torch.int32, torch.int64, torch.float32):
+        for op in ("SUM", "MAX"):
+            x = torch.arange(3, device=dev).to(dtype) + rank
+            dist.all_reduce(x, op=getattr(dist.ReduceOp, op))
+            want = torch.arange(3, device=dev).to(dtype) * world + sum(range(world)) if op == "SUM" else torch.arange(3, device=dev).to(dtype) + world - 1
+            out[f"{str(dtype).replace('torch.', '')}_{op}"] = bool(torch.equal(x, want)) and x.device.type == dev.type
+    return out
+
+
+def make_fused_eval_data(device):
+    """The ImageNet epoch of the main path, with faults from a seeded
+    generator: 0.5 % of the rows get a NaN score, another 0.5 % the label
+    ``CLASSES``."""
+    import torch
+
+    preds, target = make_data(device)
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    pick = torch.rand(ROWS, generator=g, device=device)
+    col = torch.randint(0, CLASSES, (ROWS,), generator=g, device=device)
+    nan_rows = pick < FAULT_SHARE
+    label_rows = (pick >= FAULT_SHARE) & (pick < 2 * FAULT_SHARE)
+    preds[nan_rows, col[nan_rows]] = float("nan")
+    target[label_rows] = CLASSES
+    return preds, target, int(nan_rows.sum()), int(label_rows.sum())
+
+
+def build_fused_eval(pkg, device):
+    kw = dict(num_classes=CLASSES, on_invalid="drop", device=device)
+    return pkg.MetricCollection({
+        "acc": pkg.Accuracy(**kw),
+        "prec": pkg.Precision(average="macro", **kw),
+        "rec": pkg.Recall(average="macro", **kw),
+        "f1": pkg.F1Score(average="macro", **kw),
+        "bap": pkg.BinnedAveragePrecision(thresholds=THRESHOLDS, **kw),
+    })
+
+
+def run_fused_eval(coll, preds, target, sync):
+    """1024-row batches, the last one ragged; batch 0 through forward."""
+    update_s = []
+    for i, start in enumerate(range(0, preds.shape[0], BATCH)):
+        p, y = preds[start:start + BATCH], target[start:start + BATCH]
+        t0 = time.perf_counter()
+        coll(p, y) if i == 0 else coll.update(p, y)
+        sync()
+        update_s.append(time.perf_counter() - t0)
+    return update_s
+
+
+def _values(result):
+    return {k: [float(x) for x in v] if isinstance(v, list) else float(v) for k, v in result.items()}
+
+
+def _rank_device(device):
+    """The rank's device, and a synchronise on it."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev, lambda: None
+    torch.cuda.set_device(dev)
+    return dev, torch.cuda.synchronize
+
+
+def fused_eval_rank(rank, world, port, results, device):
+    """One rank of the fused evaluation path: its quarter of the epoch."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        dev, sync = _rank_device(device)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+        import metrics_tpu_torch as mtt
+        from metrics_tpu_torch.ops import binned_counters as k1
+        from metrics_tpu_torch.ops import compactor as k3
+        from metrics_tpu_torch.ops import histogram as k2
+
+        out = {"rank": rank, "reduce_dtypes": check_reduce_dtypes(dev, world, rank)}
+        preds, target, _, _ = make_fused_eval_data(dev)
+        shard = -(-ROWS // world)
+        p, y = preds[rank * shard:(rank + 1) * shard].clone(), target[rank * shard:(rank + 1) * shard].clone()
+        del preds, target
+        coll = build_fused_eval(mtt, dev)
+        sync()
+        dist.barrier()
+
+        for kernel in (k1, k2, k3):
+            kernel.reset_launch_count()
+        with CollectiveRecorder() as during_updates:
+            update_s = run_fused_eval(coll, p, y, sync)
+        launches = {"binned_counters": k1.launch_count, "histogram": k2.launch_count, "compactor_fold": k3.launch_count}
+        dist.barrier()
+        t0 = time.perf_counter()
+        with CollectiveRecorder() as rec:
+            values = coll.compute()
+            sync()
+        compute_s = time.perf_counter() - t0
+        members = dict(coll.items(keep_base=True, copy_state=False))
+        out.update({
+            "rows": int(p.shape[0]),
+            "batches": len(update_s),
+            "update_p50_ms": statistics.median(update_s) * 1e3,
+            "compute_s": compute_s,
+            "collectives_in_updates": during_updates.all_reduce + during_updates.other,
+            "all_reduce": rec.all_reduce,
+            "other_collectives": rec.other,
+            "groups": [list(g) for g in coll.compute_groups.values()],
+            "launches": launches,
+            "bap_updates": members["bap"].update_count,
+            "local_faults": {k: m.fault_counts for k, m in members.items()},
+            "values": _values(values),
+            "states_on_card": all(t.device == dev for m in members.values() for v in m.metric_state.values()
+                                  for t in (v if isinstance(v, tuple) else (v,))),
+        })
+        # the sync alone, once more: the rest of compute() is the members' computes
+        t1 = time.perf_counter()
+        coll.sync_states()
+        sync()
+        out["sync_s"] = time.perf_counter() - t1
+        out["synced_faults"] = {k: m.fault_counts for k, m in members.items()}
+        out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "metrics_tpu"))
+        dist.barrier()
+        dist.destroy_process_group()
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def phase_fused_eval(dev):
+    import torch
+
+    import metrics_tpu_torch as mtt
+
+    t0 = time.perf_counter()
+    ranks = run_world(fused_eval_rank, "fused evaluation path")
+    world_s = time.perf_counter() - t0
+    preds, target, nan_rows, label_rows = make_fused_eval_data(dev)
+    want_faults = {name: 0 for name in ranks[0]["synced_faults"]["acc"]}
+    want_faults.update({"nonfinite_preds": nan_rows, "label_out_of_range": label_rows, "dropped_rows": nan_rows + label_rows})
+    if not (nan_rows and label_rows):
+        raise AssertionError(f"fused evaluation path: {nan_rows} NaN rows and {label_rows} out-of-range labels injected")
+
+    for r in ranks:
+        if r["jax_loaded"]:
+            raise AssertionError(f"rank {r['rank']} loaded {r['jax_loaded']}")
+        if not all(r["reduce_dtypes"].values()):
+            raise AssertionError(f"rank {r['rank']}: all_reduce on the card gave wrong results: {r['reduce_dtypes']}")
+        if r["collectives_in_updates"]:
+            raise AssertionError(f"rank {r['rank']}: forward and update made collectives {r['collectives_in_updates']}")
+        if sorted(r["all_reduce"]) != FUSED_EVAL_BUCKETS or r["other_collectives"]:
+            raise AssertionError(
+                f"rank {r['rank']}: compute() made all_reduce {r['all_reduce']} and {r['other_collectives']}; "
+                f"predicted the buckets {FUSED_EVAL_BUCKETS}"
+            )
+        for name, counts in r["synced_faults"].items():
+            if counts != want_faults:
+                raise AssertionError(f"rank {r['rank']}: synced fault counts of {name} {counts}, injected {want_faults}")
+        launches = r["launches"]
+        if not (launches["binned_counters"] == r["bap_updates"] == r["batches"] and launches["histogram"] == launches["compactor_fold"] == 0):
+            raise AssertionError(f"rank {r['rank']}: launches {launches} for {r['bap_updates']} bap updates over {r['batches']} batches")
+        if not r["states_on_card"]:
+            raise AssertionError(f"rank {r['rank']}: a state lies off the card")
+        if r["values"] != ranks[0]["values"]:
+            raise AssertionError(f"rank {r['rank']} computed other values than rank 0")
+
+    # the same rows and faults through the port in one process on the CPU
+    t1 = time.perf_counter()
+    ref = build_fused_eval(mtt, "cpu")
+    run_fused_eval(ref, preds.cpu(), target.cpu(), lambda: None)
+    ref_values = _values(ref.compute())
+    cpu_s = time.perf_counter() - t1
+    card = ranks[0]["values"]
+    if card["acc"] != ref_values["acc"]:
+        raise AssertionError(f"fused evaluation path: accuracy {card['acc']} on the card, {ref_values['acc']} on the CPU")
+    err = {
+        k: max(abs(a - b) for a, b in zip(card[k], ref_values[k])) if isinstance(card[k], list) else abs(card[k] - ref_values[k])
+        for k in card
+    }
+    if max(err.values()) > AP_ATOL or not all(math.isfinite(x) for v in card.values() for x in (v if isinstance(v, list) else [v])):
+        raise AssertionError(f"fused evaluation path: card against CPU {err} (atol {AP_ATOL})")
+    emit({
+        "phase": "fused_dist_path",
+        "config": {
+            "world": DIST_WORLD, "rows": ROWS, "rows_per_rank": [r["rows"] for r in ranks], "classes": CLASSES,
+            "batch": BATCH, "fault_share": FAULT_SHARE, "on_invalid": "drop", "seed": SEED,
+            "backend": "gloo, four processes on one card (loopback TCP; not NCCL)",
+        },
+        "world_s": world_s,
+        "compute_s": [r["compute_s"] for r in ranks],
+        "sync_s": [r["sync_s"] for r in ranks],
+        "update_p50_ms": [r["update_p50_ms"] for r in ranks],
+        "buckets": FUSED_EVAL_BUCKETS,
+        "all_reduce_per_compute": [len(r["all_reduce"]) for r in ranks],
+        "all_reduce_calls": ranks[0]["all_reduce"],
+        "other_collectives_per_compute": [len(r["other_collectives"]) for r in ranks],
+        "compute_groups": ranks[0]["groups"],
+        "reduce_dtypes_on_card": ranks[0]["reduce_dtypes"],
+        "injected": {"nonfinite_preds": nan_rows, "label_out_of_range": label_rows},
+        "synced_fault_counts": ranks[0]["synced_faults"]["acc"],
+        "local_fault_counts_per_rank": [r["local_faults"]["acc"] for r in ranks],
+        "k1_launches_per_rank": [r["launches"]["binned_counters"] for r in ranks],
+        "acc": card["acc"], "prec": card["prec"], "rec": card["rec"], "f1": card["f1"],
+        "bap_mean": sum(card["bap"]) / len(card["bap"]),
+        "max_abs_err_vs_cpu": err,
+        "cpu_reference_s": cpu_s,
+        "matches_cpu_run": True,
+    })
+    return sum(r["launches"]["binned_counters"] for r in ranks)
+
+
+def make_rank_stream(device, rank):
+    """One rank's stream: lognormal scores with NaN, +inf and -inf rows, from
+    a generator seeded for the rank."""
+    import torch
+
+    n = FUSED_SKETCH_BATCHES * STREAM_BATCH
+    g = torch.Generator(device=device).manual_seed(SEED + 20 + rank)
+    x = torch.empty(n, device=device).log_normal_(0.0, 1.0, generator=g)
+    pick = torch.rand(n, generator=g, device=device)
+    third = NONFINITE_SHARE / 3
+    x[pick < third] = float("nan")
+    x[(pick >= third) & (pick < 2 * third)] = float("inf")
+    x[(pick >= 2 * third) & (pick < NONFINITE_SHARE)] = float("-inf")
+    return x
+
+
+def build_fused_monitor(pkg, device):
+    return pkg.MetricCollection({
+        "mean": pkg.MeanMetric(nan_strategy="warn", device=device),
+        "q": pkg.QuantileSketch(eps=0.01, on_invalid="drop", quantiles=(0.5, 0.99), device=device),
+        "cm": pkg.CountMinSketch(depth=4, width=2048, device=device),
+    })
+
+
+def _host_state(state):
+    """A metric's states as numpy, to put on the results queue (a tensor
+    sent there would share memory with a rank that exits)."""
+    return {k: ({f: t.cpu().numpy() for f, t in zip(v._fields, v)} if isinstance(v, tuple) else v.cpu().numpy()) for k, v in state.items()}
+
+
+def _state_tensor(host, cls):
+    """A state of ``cls`` rebuilt from :func:`_host_state`'s mapping."""
+    import torch
+
+    return cls(*(torch.from_numpy(host[f]) for f in cls._fields))
+
+
+def fused_sketch_rank(rank, world, port, results, device):
+    """One rank of the fused sketch path: 16 batches of 2^20 rows."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        dev, sync = _rank_device(device)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+        import metrics_tpu_torch as mtt
+        from metrics_tpu_torch.ops import compactor as k3
+
+        x = make_rank_stream(dev, rank)
+        coll = build_fused_monitor(mtt, dev)
+        sync()
+        dist.barrier()
+        k3.reset_launch_count()
+        update_s = []
+        with CollectiveRecorder() as during_updates:
+            for i in range(FUSED_SKETCH_BATCHES):
+                batch = x[i * STREAM_BATCH:(i + 1) * STREAM_BATCH]
+                t0 = time.perf_counter()
+                coll(batch) if i == 0 else coll.update(batch)
+                sync()
+                update_s.append(time.perf_counter() - t0)
+        members = dict(coll.items(keep_base=True, copy_state=False))
+        local = {k: _host_state(m.metric_state) for k, m in members.items()}
+        insert_launches = k3.launch_count
+        predicted = predicted_k3_launches(members["q"].metric_state["sketch"], STREAM_BATCH, FUSED_SKETCH_BATCHES - 1, 1)
+        dist.barrier()
+        t0 = time.perf_counter()
+        with CollectiveRecorder() as rec:
+            values = coll.compute()
+            sync()
+        compute_s = time.perf_counter() - t0
+        sync_launches = k3.launch_count - insert_launches
+        # the sync alone, once more: the rest of compute() is the members' computes
+        t1 = time.perf_counter()
+        coll.sync_states()
+        sync()
+        sync_s = time.perf_counter() - t1
+        out = {
+            "rank": rank,
+            "update_p50_ms": statistics.median(update_s) * 1e3,
+            "compute_s": compute_s,
+            "sync_s": sync_s,
+            "collectives_in_updates": during_updates.all_reduce + during_updates.other,
+            "all_reduce": rec.all_reduce,
+            "other_collectives": rec.other,
+            "k3_insert_launches": insert_launches,
+            "k3_insert_launches_predicted": predicted,
+            "k3_sync_launches": sync_launches,
+            "local": local,
+            "synced": {k: _host_state(m.metric_state) for k, m in members.items()},
+            "values": {k: v.cpu().numpy() for k, v in values.items()},
+            "finite_sum": float(torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0).to(torch.float64).sum()),
+            "finite_rows": int(torch.isfinite(x).sum()),
+            "kept_sum": float(torch.where(torch.isnan(x), 0.0, x).to(torch.float64).sum()),
+            "kept_rows": int((~torch.isnan(x)).sum()),
+        }
+        # the collection once more over the same rows with the infinities
+        # made NaN (rows the mean leaves out): its mean is finite, so the
+        # synced sums of the W4 merge can be held to numpy
+        coll.reset()
+        for i in range(FUSED_SKETCH_BATCHES):
+            batch = x[i * STREAM_BATCH:(i + 1) * STREAM_BATCH]
+            coll.update(torch.where(torch.isinf(batch), float("nan"), batch))
+        nan_local = _host_state(members["mean"].metric_state)
+        nan_mean = float(coll.compute()["mean"])
+        coll.sync_states()
+        out["nan_rows_local_mean"] = nan_local
+        out["nan_rows_mean"] = nan_mean
+        out["nan_rows_synced_mean"] = _host_state(members["mean"].metric_state)
+        out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "metrics_tpu"))
+        dist.barrier()
+        dist.destroy_process_group()
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def phase_fused_sketch(dev):
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import compactor as k3
+    from metrics_tpu_torch.utilities.guard import FaultCounters
+
+    t0 = time.perf_counter()
+    ranks = run_world(fused_sketch_rank, "fused sketch path")
+    world_s = time.perf_counter() - t0
+    for r in ranks:
+        if r["jax_loaded"]:
+            raise AssertionError(f"rank {r['rank']} loaded {r['jax_loaded']}")
+        if r["collectives_in_updates"]:
+            raise AssertionError(f"rank {r['rank']}: forward and update made collectives {r['collectives_in_updates']}")
+        if sorted(r["all_reduce"]) != FUSED_SKETCH_BUCKETS or r["other_collectives"]:
+            raise AssertionError(f"rank {r['rank']}: compute() made all_reduce {r['all_reduce']} and {r['other_collectives']}")
+        if not (r["k3_insert_launches"] == r["k3_insert_launches_predicted"] > 0 and r["k3_sync_launches"] == DIST_WORLD - 1):
+            raise AssertionError(
+                f"rank {r['rank']}: K3 launched {r['k3_insert_launches']} times on the updates (predicted "
+                f"{r['k3_insert_launches_predicted']}) and {r['k3_sync_launches']} in the sync's fold"
+            )
+
+    # the ranks' local sketches folded in rank order on the card, with K3's merge cascade
+    k3.reset_launch_count()
+    folded = None
+    for r in ranks:
+        s = mtt.QuantileSketchState(*(t.to(dev) for t in _state_tensor(r["local"]["q"]["sketch"], mtt.QuantileSketchState)))
+        folded = s if folded is None else folded.sketch_merge(s)
+    _rank_device(dev)[1]()
+    fold_launches = k3.launch_count
+    if fold_launches != DIST_WORLD - 1:
+        raise AssertionError(f"the in-process fold launched K3 {fold_launches} times for {DIST_WORLD - 1} merges")
+    folded = type(folded)(*(t.cpu() for t in folded))
+    cm = sum(torch.from_numpy(r["local"]["cm"]["sketch"]["counts"]) for r in ranks)
+    faults = {k: sum(torch.from_numpy(r["local"][k]["_faults"]["counts"]) for r in ranks) for k in ("mean", "q")}
+    for r in ranks:
+        q = _state_tensor(r["synced"]["q"]["sketch"], mtt.QuantileSketchState)
+        # items by value: the sum in the bucket turns -0.0 into +0.0
+        if not (torch.equal(q.items, folded.items) and torch.equal(q.counts, folded.counts) and int(q.n_seen) == int(folded.n_seen)):
+            raise AssertionError(f"rank {r['rank']}: the synced quantile sketch differs from the in-process fold")
+        if not torch.equal(torch.from_numpy(r["synced"]["cm"]["sketch"]["counts"]), cm):
+            raise AssertionError(f"rank {r['rank']}: the synced CountMin counts differ from the sum of the ranks'")
+        for k, want in faults.items():
+            if not torch.equal(_state_tensor(r["synced"][k]["_faults"], FaultCounters).counts, want):
+                raise AssertionError(f"rank {r['rank']}: synced fault counts of {k} differ from the sum of the ranks'")
+        if not (r["values"]["q"] == ranks[0]["values"]["q"]).all():
+            raise AssertionError(f"rank {r['rank']}: quantiles differ from rank 0's")
+    finite_rows = sum(r["finite_rows"] for r in ranks)
+    if int(folded.n_seen) != finite_rows:
+        raise AssertionError(f"the synced sketch saw {int(folded.n_seen)} rows, the ranks hold {finite_rows} finite rows")
+    dropped = int(faults["q"][5])
+    if dropped != DIST_WORLD * FUSED_SKETCH_BATCHES * STREAM_BATCH - finite_rows:
+        raise AssertionError(f"the quantile sketch's drop policy counted {dropped} rows")
+    # the collection's means. Over the stream (NaN rows left out; it holds
+    # +inf and -inf, so numpy's mean is NaN too). Over the stream with the
+    # infinities made NaN, finite: float32 sums of 2^26 rows in batches,
+    # merged across ranks, within MEAN_RTOL of float64, and the synced sums
+    # against the ranks' local sums
+    kept_mean = sum(r["kept_sum"] for r in ranks) / sum(r["kept_rows"] for r in ranks)
+    synced_weight = float(ranks[0]["synced"]["mean"]["weight"])
+    mean = float(ranks[0]["values"]["mean"])
+    if not (math.isnan(mean) == math.isnan(kept_mean) and abs(synced_weight - sum(r["kept_rows"] for r in ranks)) <= MEAN_RTOL * synced_weight):
+        raise AssertionError(f"mean {mean} (weight {synced_weight}) against numpy {kept_mean}")
+    finite_mean = sum(r["finite_sum"] for r in ranks) / finite_rows
+    nan_rows_mean = ranks[0]["nan_rows_mean"]
+    finite_err = abs(nan_rows_mean - finite_mean) / abs(finite_mean)
+    if not finite_err <= MEAN_RTOL or any(r["nan_rows_mean"] != nan_rows_mean for r in ranks):
+        raise AssertionError(f"the mean over NaN rows {[r['nan_rows_mean'] for r in ranks]} against numpy {finite_mean}: rel {finite_err}")
+    local_value = sum(float(r["nan_rows_local_mean"]["value"]) for r in ranks)
+    local_weight = sum(float(r["nan_rows_local_mean"]["weight"]) for r in ranks)
+    for r in ranks:
+        value, weight = float(r["nan_rows_synced_mean"]["value"]), float(r["nan_rows_synced_mean"]["weight"])
+        if not (abs(value - local_value) <= MEAN_RTOL * abs(local_value) and abs(weight - local_weight) <= MEAN_RTOL * local_weight):
+            raise AssertionError(f"rank {r['rank']}: synced mean sums {value}, {weight} against the ranks' {local_value}, {local_weight}")
+    emit({
+        "phase": "fused_sketch_path",
+        "config": {
+            "world": DIST_WORLD, "batches_per_rank": FUSED_SKETCH_BATCHES, "batch": STREAM_BATCH,
+            "rows": DIST_WORLD * FUSED_SKETCH_BATCHES * STREAM_BATCH, "nonfinite_share": NONFINITE_SHARE,
+            "quantile_sketch": list(folded.items.shape), "count_min": list(cm.shape), "seed": SEED,
+            "backend": "gloo, four processes on one card (loopback TCP; not NCCL)",
+        },
+        "world_s": world_s,
+        "compute_s": [r["compute_s"] for r in ranks],
+        "sync_s": [r["sync_s"] for r in ranks],
+        "update_p50_ms": [r["update_p50_ms"] for r in ranks],
+        "buckets": FUSED_SKETCH_BUCKETS,
+        "all_reduce_per_compute": [len(r["all_reduce"]) for r in ranks],
+        "all_reduce_calls": ranks[0]["all_reduce"],
+        "other_collectives_per_compute": [len(r["other_collectives"]) for r in ranks],
+        "k3_launches_per_rank": [r["k3_insert_launches"] + r["k3_sync_launches"] for r in ranks],
+        "k3_fold_launches": fold_launches,
+        "synced_sketch_equals_fold": True,
+        "quantiles": ranks[0]["values"]["q"].tolist(),
+        "n_seen": int(folded.n_seen),
+        "synced_fault_counts_q": faults["q"].tolist(),
+        "mean": mean if math.isfinite(mean) else str(mean),
+        "mean_weight": synced_weight,
+        "nan_rows_mean": nan_rows_mean,
+        "nan_rows_mean_rel_err": finite_err,
+    })
+    return sum(r["k3_insert_launches"] + r["k3_sync_launches"] for r in ranks)
 
 
 def k2_id_patterns(dev, n, nb, seed):
@@ -1499,83 +2014,33 @@ def k2_id_patterns(dev, n, nb, seed):
 
 
 def _match_library():
-    """K2's previous design (csrc/histogram_match.cu) and its two variants."""
+    """K2's previous design (csrc/histogram_match.cu)."""
     from metrics_tpu_torch.ops import _build
 
     lib = _build.load(MATCH_SOURCE)
     lib.histogram_match_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.histogram_match_launch.restype = ctypes.c_int
-    lib.histogram_match_variant_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-                                                   ctypes.c_int, ctypes.c_void_p]
-    lib.histogram_match_variant_launch.restype = ctypes.c_int
     return lib
 
 
-def _match_fn(lib, ids, nb, out, stream, variant=None):
-    """One launch of the previous design (``variant`` None) or of one of its
-    variants (1: a plain shared atomic per id, 2: the loads alone) into
-    ``out``, which it zeroes first."""
+def _match_fn(lib, ids, nb, out, stream):
+    """One launch of the previous design into ``out``, which it zeroes first."""
     def run():
         out.zero_()
-        if variant is None:
-            err = lib.histogram_match_launch(ids.data_ptr(), ids.shape[0], nb, out.data_ptr(), stream)
-        else:
-            err = lib.histogram_match_variant_launch(ids.data_ptr(), ids.shape[0], nb, out.data_ptr(), variant, stream)
+        err = lib.histogram_match_launch(ids.data_ptr(), ids.shape[0], nb, out.data_ptr(), stream)
         if err:
             raise RuntimeError(f"histogram_match launch failed with cudaError {err}")
     return run
 
 
-def k2_readings(dev, inputs):
-    """Three readings of the previous design that take it apart, in device
-    ms per launch: (a) the flush, one step per block with 2048 nonzero bins
-    in each (ids i % 2048 over 2 x SMs x 2048 ids) against the same count of
-    ids in one bin; (b) the warp match, against a plain shared atomic per
-    id on the same loop, on uniform and all-equal ids; (c) the loads alone
-    (the ids' sum) at 2^24, against the bytes' bound."""
-    import torch
-
-    lib = _match_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    out = torch.zeros(K2_BINS, dtype=torch.int32, device=dev)
-    name = "histogram_match_kernel"
-    blocks = 2 * torch.cuda.get_device_properties(dev).multi_processor_count  # the previous design's grid
-    n_a = blocks * 2048
-    spread = (torch.arange(n_a, device=dev) % 2048).to(torch.int32)
-    one_bin = torch.full((n_a,), 1, dtype=torch.int32, device=dev)
-    flush = {
-        "ids": n_a, "blocks": blocks, "global_atomics": blocks * 2048,
-        "match_2048_bins_ms": device_ms_per_launch(_match_fn(lib, spread, K2_BINS, out, stream), name),
-        "match_one_bin_ms": device_ms_per_launch(_match_fn(lib, one_bin, K2_BINS, out, stream), name),
-        "plain_2048_bins_ms": device_ms_per_launch(_match_fn(lib, spread, K2_BINS, out, stream, 1), name),
-        "plain_one_bin_ms": device_ms_per_launch(_match_fn(lib, one_bin, K2_BINS, out, stream, 1), name),
-        "empty_ms": device_ms_per_launch(_match_fn(lib, one_bin[:1], K2_BINS, out, stream), name),
-    }
-    match = {}
-    for kind in ("uniform", "all_equal", "sorted", "zipf"):
-        ids = inputs[kind]
-        m = device_ms_per_launch(_match_fn(lib, ids, K2_BINS, out, stream), name)
-        p = device_ms_per_launch(_match_fn(lib, ids, K2_BINS, out, stream, 1), name)
-        match[kind] = {"match_ms": m, "plain_atomic_ms": p, "match_share": (m - p) / m}
-    ids = inputs["uniform"]
-    loads_ms = device_ms_per_launch(_match_fn(lib, ids, K2_BINS, out, stream, 2), name)
-    bound_ms = 4 * ids.shape[0] / HBM_BYTES_PER_S * 1e3
-    return {
-        "a_flush": flush,
-        "b_match": match,
-        "c_loads": {"n": ids.shape[0], "ms": loads_ms, "bytes_per_s": 4 * ids.shape[0] / (loads_ms * 1e-3),
-                    "bound_ms": bound_ms, "share_of_bound": bound_ms / loads_ms},
-    }
-
-
-def k2_times(dev, launches, max_abs_err, cpu_scores):
+def k2_times(dev, max_abs_err):
     """K2's entry of the kernels line, at the dist path's shape (2^24 ids of
     one rank, 2051 bins), beside its previous design (csrc/histogram_match.cu)
     timed in the same run: uniform ids, all ids in one bin, sorted uniform
     ids, and the bucket ids of rank 0's quantized and continuous scores.
-    The dist path's launches x (device time - bound) counts each of its
-    three kinds of score on its own ids (the all-equal scores put every id
-    in one bin); readings (a)-(c) take the previous design apart."""
+    Timed before any path spawns its ranks: after that, the profiler has
+    kept the card's records of too few launches (620 of 800). The dist
+    path's launches come in later (:func:`k2_path_launches`)."""
     import torch
 
     from metrics_tpu_torch.ops import histogram as k2
@@ -1583,7 +2048,7 @@ def k2_times(dev, launches, max_abs_err, cpu_scores):
 
     n, nb = DIST_SHARD, K2_BINS
     patterns = k2_id_patterns(dev, n, nb, SEED + 8)
-    scores = cpu_scores.to(dev)  # all 2^26 rows: their bounds are what the ranks' all_reduce gives
+    scores = make_dist_data(dev)[0]  # all 2^26 rows: their bounds are what the ranks' all_reduce gives
     q = quantized(scores)
     inputs = {
         "uniform": patterns["uniform"],
@@ -1645,24 +2110,6 @@ def k2_times(dev, launches, max_abs_err, cpu_scores):
         ms["share_of_bound"] = bound_ms / ms["kernel_device"]
         per_input[name] = ms
 
-    # the dist path: each rank calls sharded_descending_ranks once on each kind of score
-    kinds = {"quantized": "path_ids", "continuous": "path_continuous", "equal": "all_equal"}
-    per_kind = launches // len(kinds)
-    if per_kind * len(kinds) != launches:
-        raise AssertionError(f"{launches} K2 launches on the dist path are not {len(kinds)} kinds x its ranks")
-    gap = {kind: per_kind * (per_input[x]["kernel_device"] - bound_ms) for kind, x in kinds.items()}
-    prev_gap = {kind: per_kind * (per_input[x]["prev_kernel_device"] - bound_ms) for kind, x in kinds.items()}
-
-    # the new design's flush: one step per block (8192 ids), 2048 nonzero bins in each, against one bin
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    spread = (torch.arange(blocks * 8192, device=dev) % 2048).to(torch.int32)
-    readings = k2_readings(dev, patterns)
-    readings["a_flush_new_design"] = {
-        "ids": spread.shape[0], "blocks": blocks, "global_atomics": blocks * 2048,
-        "2048_bins_ms": device_ms_per_launch(kernel_fn(spread), "histogram_kernel"),
-        "one_bin_ms": device_ms_per_launch(kernel_fn(torch.ones_like(spread)), "histogram_kernel"),
-        "empty_ms": device_ms_per_launch(kernel_fn(spread[:1]), "histogram_kernel"),
-    }
     head = per_input["uniform"]
     return {
         "name": "histogram",
@@ -1670,7 +2117,6 @@ def k2_times(dev, launches, max_abs_err, cpu_scores):
         "source": "metrics_tpu_torch/csrc/histogram.cu",
         "replaces": "metrics_tpu/ops/pallas_kernels.py:62",
         "replaces_fn": "metrics_tpu/ops/pallas_kernels.py::_histogram_kernel (pallas_call at :92)",
-        "launches": launches,
         "kernels_per_call": head["kernels_per_call"],
         "max_abs_err": max_abs_err,
         "ms": head["wrapper"],
@@ -1682,15 +2128,29 @@ def k2_times(dev, launches, max_abs_err, cpu_scores):
         "library_ms": head["library"],
         "library_call": "torch.bincount(ids, minlength=2051)",
         "by_input": per_input,
-        "dist_path": {
-            "launches_per_kind": per_kind, "ids_per_kind": kinds,
-            "launches_x_gap_ms": sum(gap.values()), "by_kind_ms": gap,
-            "previous_design_launches_x_gap_ms": sum(prev_gap.values()), "previous_design_by_kind_ms": prev_gap,
-        },
         "previous_design": "csrc/histogram_match.cu (a warp match per id, scalar loads, two blocks per SM), timed in this run",
-        "readings": readings,
         "shape": {"n": n, "bins": nb},
         "bytes": bytes_moved,
+    }
+
+
+def k2_path_launches(entry, launches):
+    """K2's launches on the dist path into its kernels entry, and their
+    launches x (device time - bound): each rank calls
+    sharded_descending_ranks once on each kind of score, on its own ids
+    (the all-equal scores put every id in one bin)."""
+    kinds = {"quantized": "path_ids", "continuous": "path_continuous", "equal": "all_equal"}
+    per_kind = launches // len(kinds)
+    if per_kind * len(kinds) != launches:
+        raise AssertionError(f"{launches} K2 launches on the dist path are not {len(kinds)} kinds x its ranks")
+    per_input, bound_ms = entry["by_input"], entry["bound_ms"]
+    gap = {kind: per_kind * (per_input[x]["kernel_device"] - bound_ms) for kind, x in kinds.items()}
+    prev_gap = {kind: per_kind * (per_input[x]["prev_kernel_device"] - bound_ms) for kind, x in kinds.items()}
+    entry["launches"] = launches
+    entry["dist_path"] = {
+        "launches_per_kind": per_kind, "ids_per_kind": kinds,
+        "launches_x_gap_ms": sum(gap.values()), "by_kind_ms": gap,
+        "previous_design_launches_x_gap_ms": sum(prev_gap.values()), "previous_design_by_kind_ms": prev_gap,
     }
 
 
@@ -1734,12 +2194,23 @@ def main():
     phase_stream_profile(stream)
     first_batch = stream[:STREAM_BATCH].clone()
     del stream
-    k2_launches, dist_scores = phase_dist(device)
+    # the kernels' times, before any path spawns its ranks
     kernels = [
         k1_times(preds, target, k1_launches, k1_err),
-        k2_times(device, k2_launches, k2_err, dist_scores),
+        k2_times(device, k2_err),
         k3_times(device, k3_launches, k3_err, k3_fold_err, q_state, first_batch),
     ]
+    del preds, target, q_state, first_batch
+    torch.cuda.empty_cache()
+    k2_launches = phase_dist(device)
+    k2_path_launches(kernels[1], k2_launches)
+    k1_fused_launches = phase_fused_eval(device)
+    k3_fused_launches = phase_fused_sketch(device)
+    # each kernel's launches on every path that runs it, each path counted
+    # from zero just before it
+    kernels[0]["launches_by_path"] = {"main_path": k1_launches, "fused_dist_path": k1_fused_launches}
+    kernels[1]["launches_by_path"] = {"dist_path": k2_launches}
+    kernels[2]["launches_by_path"] = {"stream_path": k3_launches, "fused_sketch_path": k3_fused_launches}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -6,6 +6,7 @@ passes ``device="cpu"``; the kernels that the JAX package wrote in Pallas for
 the TPU are CUDA kernels for Hopper here (``csrc/``), built on first use.
 This package imports neither JAX nor ``metrics_tpu``.
 """
+from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.classification.accuracy import Accuracy
 from metrics_tpu_torch.classification.auc import AUC
 from metrics_tpu_torch.classification.auroc import AUROC
@@ -15,11 +16,14 @@ from metrics_tpu_torch.classification.binned_precision_recall import (
     BinnedPrecisionRecallCurve,
     BinnedRecallAtFixedPrecision,
 )
+from metrics_tpu_torch.classification.f_beta import F1Score, FBetaScore
+from metrics_tpu_torch.classification.precision_recall import Precision, Recall
 from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve
 from metrics_tpu_torch.classification.roc import ROC
 from metrics_tpu_torch.classification.stat_scores import StatScores
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utilities.guard import FaultCounters
 from metrics_tpu_torch.streaming import (
     CountMinSketch,
     CountMinState,
@@ -37,15 +41,25 @@ __all__ = [
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "CatMetric",
     "CountMinSketch",
     "CountMinState",
+    "F1Score",
+    "FBetaScore",
+    "FaultCounters",
     "HllState",
     "HyperLogLog",
+    "MaxMetric",
+    "MeanMetric",
     "Metric",
     "MetricCollection",
+    "MinMetric",
+    "Precision",
     "PrecisionRecallCurve",
     "QuantileSketch",
     "QuantileSketchState",
     "ROC",
+    "Recall",
     "StatScores",
+    "SumMetric",
 ]

@@ -34,6 +34,13 @@ class Accuracy(StatScores):
     higher_is_better = True
     full_state_update = False
 
+    @property
+    def _valid_mask_always(self) -> bool:
+        # subset accuracy has no masked counting rule and refuses ``valid``
+        if self.subset_accuracy:
+            return False
+        return super()._valid_mask_always
+
     def __init__(
         self,
         threshold: float = 0.5,
@@ -82,7 +89,9 @@ class Accuracy(StatScores):
             self.add_state("correct", default=torch.tensor(0, dtype=torch.int32), dist_reduce_fx="sum")
             self.add_state("total", default=torch.tensor(0, dtype=torch.int32), dist_reduce_fx="sum")
 
-    def update(self, preds: Tensor, target: Tensor) -> None:
+    def update(self, preds: Tensor, target: Tensor, valid: Optional[Tensor] = None) -> None:
+        """Accumulate a batch; a row that the bool ``(N,)`` ``valid`` mask
+        leaves out adds nothing (not with ``subset_accuracy``)."""
         mode = _mode(preds, target, self.threshold, self.top_k, self.num_classes, self.multiclass, self.ignore_index)
 
         if not self.mode:
@@ -94,6 +103,8 @@ class Accuracy(StatScores):
             self.subset_accuracy = False
 
         if self.subset_accuracy:
+            if valid is not None:
+                raise ValueError("`valid` row masks are not supported with `subset_accuracy`")
             correct, total = _subset_accuracy_update(
                 preds, target, threshold=self.threshold, top_k=self.top_k, ignore_index=self.ignore_index
             )
@@ -111,6 +122,7 @@ class Accuracy(StatScores):
                 multiclass=self.multiclass,
                 ignore_index=self.ignore_index,
                 mode=self.mode,
+                valid=valid,
             )
             if self.reduce != "samples" and self.mdmc_reduce != "samplewise":
                 self.tp += tp

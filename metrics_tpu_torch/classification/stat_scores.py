@@ -27,6 +27,15 @@ class StatScores(Metric):
     higher_is_better: Optional[bool] = None
     full_state_update: bool = False
 
+    @property
+    def _valid_mask_always(self) -> bool:
+        """Whether this instance's update takes ``valid`` row masks: not
+        for per-sample reductions (one output row per input row) nor for a
+        negative ``ignore_index`` (rows dropped by boolean indexing)."""
+        if self.reduce == "samples" or self.mdmc_reduce == "samplewise":
+            return False
+        return self.ignore_index is None or self.ignore_index >= 0
+
     def __init__(
         self,
         threshold: float = 0.5,
@@ -61,10 +70,25 @@ class StatScores(Metric):
             for s in ("tp", "fp", "tn", "fn"):
                 self.add_state(s, default=torch.zeros(shape, dtype=torch.int32), dist_reduce_fx="sum")
         else:
+            # a rank with no batch gathers this template, so its rows must
+            # have the dtype and number of dimensions of the others'
+            template = torch.zeros(self._list_row_shape(), dtype=torch.int32)
             for s in ("tp", "fp", "tn", "fn"):
-                self.add_state(s, default=[], dist_reduce_fx="cat")
+                self.add_state(s, default=[], dist_reduce_fx="cat", template=template)
 
-    def update(self, preds: Tensor, target: Tensor) -> None:
+    def _list_row_shape(self) -> Tuple[int, ...]:
+        """``(0, *row)`` of one appended batch of the per-sample states: a
+        samplewise reduction of ``(N, C, X)`` inputs counts ``(N,)`` (micro),
+        ``(N, C)`` (macro) or ``(N, X)`` (samples, X known only from the
+        data: 0 here, and the gather pads it); ``reduce="samples"`` alone
+        counts ``(N,)``."""
+        if self.mdmc_reduce != "samplewise" or self.reduce == "micro":
+            return (0,)
+        return (0, self.num_classes) if self.reduce == "macro" else (0, 0)
+
+    def update(self, preds: Tensor, target: Tensor, valid: Optional[Tensor] = None) -> None:
+        """Accumulate a batch's counts; a row that the bool ``(N,)``
+        ``valid`` mask leaves out adds to no counter."""
         tp, fp, tn, fn = _stat_scores_update(
             preds,
             target,
@@ -75,6 +99,7 @@ class StatScores(Metric):
             top_k=self.top_k,
             multiclass=self.multiclass,
             ignore_index=self.ignore_index,
+            valid=valid,
         )
         if self.reduce != "samples" and self.mdmc_reduce != "samplewise":
             self.tp += tp

@@ -8,7 +8,17 @@ tensors, which the head updates in place. ``items``/``values``/``[]`` hand
 out copies by default, so a caller cannot write into a shared state by
 accident; loaded states stand until the next update.
 
-Not in this module yet: the overlapped-sync scheduler and ``sync_states``.
+In a ``torch.distributed`` world of more than one process, ``compute()``
+syncs the whole collection once, in one
+:func:`~metrics_tpu_torch.parallel.sync.fused_sync` of every member's
+states: one ``all_reduce`` per (reduction, dtype) bucket, and one gather
+per list or ring state of each compute group (a group gathers once when
+every rank has formed it). Every member then computes from the synced
+states without syncing itself, and gets its local state back.
+:meth:`MetricCollection.sync_states` is the same sync without the restore.
+``forward`` never syncs.
+
+Not in this module yet: the overlapped-sync scheduler.
 """
 from collections import OrderedDict
 from copy import deepcopy
@@ -17,6 +27,7 @@ from typing import Any, Dict, Hashable, Iterable, List, Optional, Sequence, Tupl
 import torch
 
 from metrics_tpu_torch.metric import Metric, _clone, _is_tuple_state
+from metrics_tpu_torch.parallel.sync import distributed_available, fused_sync
 from metrics_tpu_torch.utilities.data import _flatten_dict
 
 
@@ -83,10 +94,69 @@ class MetricCollection:
                 self._groups_checked = True
 
     def compute(self) -> Dict[str, Any]:
+        """Every member's value; in a world of more than one process from
+        one fused sync of the whole collection."""
         self._compute_groups_create_state_ref()
-        res = {k: m.compute() for k, m in self._modules.items()}
+        if distributed_available() and any(m._computed is None for m in self._modules.values()):
+            local = self._sync_members(None)
+            try:
+                res = {}
+                for k, m in self._modules.items():
+                    m._to_sync = False  # the states are synced already
+                    try:
+                        res[k] = m.compute()
+                    finally:
+                        m._to_sync = True
+            finally:
+                for m, state in zip(self._modules.values(), local):
+                    object.__setattr__(m, "_state", state)
+        else:
+            res = {k: m.compute() for k, m in self._modules.items()}
         res = _flatten_dict(res)
         return {self._set_name(k): v for k, v in res.items()}
+
+    def sync_states(self, group: Optional[Any] = None) -> None:
+        """Replace every member's state with its synced value, from one
+        :func:`~metrics_tpu_torch.parallel.sync.fused_sync` over ``group``
+        (by default the members' ``process_group``); the members of a
+        compute group point at their head's synced state."""
+        self._compute_groups_create_state_ref()
+        self._sync_members(group)
+        for cg in self._groups.values():
+            head = self._modules[cg[0]]
+            for name in cg[1:]:
+                for k in head._defaults:
+                    self._modules[name]._state[k] = head._state[k]
+
+    def _sync_members(self, group: Optional[Any]) -> List[Dict[str, Any]]:
+        """Every member's state replaced by its synced value, from one fused
+        sync; returns the local states, which the sync left untouched.
+
+        Every member goes into the sync, since compute groups form from each
+        rank's own data (a rank without a batch forms none) and every rank
+        must send the same collectives. A member that shares its head's
+        tensors says so (``same_as``): its gathered states then come from
+        the head's gather when every rank agrees."""
+        members = list(self._modules.values())
+        group = members[0].process_group if group is None else group
+        index = {name: i for i, name in enumerate(self._modules)}
+        same_as: List[Optional[int]] = [None] * len(members)
+        for cg in self._groups.values():
+            head = self._modules[cg[0]]
+            for name in cg[1:]:
+                if all(self._modules[name]._state[k] is head._state[k] for k in head._defaults):
+                    same_as[index[name]] = index[cg[0]]
+        synced = fused_sync(
+            [m._state for m in members],
+            [m._reductions for m in members],
+            group,
+            [m._sync_defaults() for m in members],
+            same_as=same_as,
+        )
+        local = [m._state for m in members]
+        for m, s in zip(members, synced):
+            object.__setattr__(m, "_state", s)
+        return local
 
     def reset(self) -> None:
         for _, m in self.items(keep_base=True, copy_state=False):

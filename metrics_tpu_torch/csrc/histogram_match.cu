@@ -15,11 +15,6 @@
 // the block adds each nonzero bin to device memory with one global
 // atomicAdd. Above the shared-memory opt-in (58,112 bins on an H100) the
 // same loop adds straight into device memory.
-//
-// Two variants of the same loop serve only to take the design apart
-// (histogram_match_variant_launch): kPlain adds every id with its own shared
-// atomic and no match; kLoads reads the ids and sums them, counting nothing,
-// so it times the load path alone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,8 +25,6 @@ constexpr int kThreads = 512;
 constexpr int kUnroll = 4;          // ids per thread per step, loaded together
 constexpr int kBlocksPerSm = 2;
 constexpr int kDefaultSmem = 48 * 1024;
-
-enum Variant { kMatch = 0, kPlain = 1, kLoads = 2 };
 
 // Adds each distinct in-range id of the warp once, with the count of lanes
 // that hold it. Every lane of the warp must call it (the loop below keeps
@@ -44,18 +37,17 @@ __device__ __forceinline__ void warp_add(int* bins, int id, unsigned num_buckets
   }
 }
 
-template <bool kShared, int kVariant>
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
 histogram_match_kernel(const int* __restrict__ ids, long long n, int num_buckets, int* __restrict__ out) {
   extern __shared__ int s_bins[];
   int* bins = out;
-  if (kShared && kVariant != kLoads) {
+  if (kShared) {
     for (int i = threadIdx.x; i < num_buckets; i += kThreads) s_bins[i] = 0;
     __syncthreads();
     bins = s_bins;
   }
 
-  unsigned sum = 0;
   // every thread of the block runs the same number of steps, so the warp
   // stays converged for __match_any_sync
   const long long step = (long long)gridDim.x * kThreads * kUnroll;
@@ -67,23 +59,9 @@ histogram_match_kernel(const int* __restrict__ ids, long long n, int num_buckets
       v[k] = i < n ? __ldg(ids + i) : -1;
     }
 #pragma unroll
-    for (int k = 0; k < kUnroll; ++k) {
-      if (kVariant == kMatch) {
-        warp_add(bins, v[k], (unsigned)num_buckets);
-      } else if (kVariant == kPlain) {
-        if ((unsigned)v[k] < (unsigned)num_buckets) atomicAdd(bins + v[k], 1);
-      } else {
-        sum += (unsigned)v[k];
-      }
-    }
+    for (int k = 0; k < kUnroll; ++k) warp_add(bins, v[k], (unsigned)num_buckets);
   }
 
-  if (kVariant == kLoads) {
-    // one atomic per warp, so the sum cannot be optimized away
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, o);
-    if ((threadIdx.x & 31) == 0) atomicAdd(out, (int)sum);
-    return;
-  }
   if (kShared) {
     __syncthreads();
     for (int i = threadIdx.x; i < num_buckets; i += kThreads) {
@@ -93,7 +71,6 @@ histogram_match_kernel(const int* __restrict__ ids, long long n, int num_buckets
   }
 }
 
-template <int kVariant>
 int launch(const int* ids, long long n, int num_buckets, int* out, void* stream) {
   if (n <= 0 || num_buckets <= 0) return (int)cudaSuccess;
   int device = 0, sms = 0, smem_optin = 0;
@@ -105,17 +82,17 @@ int launch(const int* ids, long long n, int num_buckets, int* out, void* stream)
   const long long per_block = (long long)kThreads * kUnroll;
   long long blocks = (n + per_block - 1) / per_block;
   if (blocks > (long long)kBlocksPerSm * sms) blocks = (long long)kBlocksPerSm * sms;
-  const size_t smem = kVariant == kLoads ? 0 : (size_t)num_buckets * sizeof(int);
+  const size_t smem = (size_t)num_buckets * sizeof(int);
   cudaStream_t s = (cudaStream_t)stream;
 
   if (smem <= (size_t)smem_optin) {
     if (smem > (size_t)kDefaultSmem) {
-      err = cudaFuncSetAttribute(histogram_match_kernel<true, kVariant>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      err = cudaFuncSetAttribute(histogram_match_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
     }
-    histogram_match_kernel<true, kVariant><<<(unsigned)blocks, kThreads, smem, s>>>(ids, n, num_buckets, out);
+    histogram_match_kernel<true><<<(unsigned)blocks, kThreads, smem, s>>>(ids, n, num_buckets, out);
   } else {
-    histogram_match_kernel<false, kVariant><<<(unsigned)blocks, kThreads, 0, s>>>(ids, n, num_buckets, out);
+    histogram_match_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(ids, n, num_buckets, out);
   }
   return (int)cudaGetLastError();
 }
@@ -126,14 +103,5 @@ int launch(const int* ids, long long n, int num_buckets, int* out, void* stream)
 // `stream` and returns the launch's cudaError_t. out must hold num_buckets
 // zeroed int32 values. n = 0 launches nothing.
 extern "C" int histogram_match_launch(const int* ids, long long n, int num_buckets, int* out, void* stream) {
-  return launch<kMatch>(ids, n, num_buckets, out, stream);
-}
-
-// The same loop with `variant` 1 (a plain shared atomic per id, no match)
-// or 2 (loads only: out[0] receives the ids' sum, wrapped to int32).
-extern "C" int histogram_match_variant_launch(const int* ids, long long n, int num_buckets, int* out, int variant,
-                                              void* stream) {
-  if (variant == kPlain) return launch<kPlain>(ids, n, num_buckets, out, stream);
-  if (variant == kLoads) return launch<kLoads>(ids, n, num_buckets, out, stream);
-  return (int)cudaErrorInvalidValue;
+  return launch(ids, n, num_buckets, out, stream);
 }

@@ -46,6 +46,7 @@ def _accuracy_update(
     multiclass: Optional[bool],
     ignore_index: Optional[int],
     mode: DataType,
+    valid: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     if mode == DataType.MULTILABEL and top_k:
         raise ValueError("You can not use the `top_k` parameter to calculate accuracy for multi-label inputs.")
@@ -61,6 +62,7 @@ def _accuracy_update(
         multiclass=multiclass,
         ignore_index=ignore_index,
         mode=mode,
+        valid=valid,
     )
 
 

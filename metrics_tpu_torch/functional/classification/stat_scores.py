@@ -42,8 +42,13 @@ def _stat_scores(
     preds: Tensor,
     target: Tensor,
     reduce: Optional[str] = "micro",
+    valid: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Count tp/fp/tn/fn over canonical binary ``(N, C)`` / ``(N, C, X)`` inputs."""
+    """Count tp/fp/tn/fn over canonical binary ``(N, C)`` / ``(N, C, X)`` inputs.
+
+    ``valid`` is an optional bool ``(N,)`` row mask: a False row adds to no
+    counter. Only the row-reducing modes (micro, macro) take it: a
+    per-sample output keeps one row per input row."""
     if reduce == "micro":
         dim = (0, 1) if preds.ndim == 2 else (1, 2)
     elif reduce == "macro":
@@ -54,10 +59,18 @@ def _stat_scores(
     true_pred = target == preds
     pos_pred = preds == 1
 
+    if valid is not None:
+        if reduce == "samples":
+            raise ValueError("`valid` row masks are not supported with reduce='samples'")
+        v = torch.as_tensor(valid, device=preds.device).to(torch.bool).reshape((preds.shape[0],) + (1,) * (preds.ndim - 1))
+        true_pred, pos_pred, neg_pred = true_pred & v, pos_pred & v, ~pos_pred & v
+    else:
+        neg_pred = ~pos_pred
+
     tp = torch.sum(true_pred & pos_pred, dim=dim)
-    fp = torch.sum((~true_pred) & pos_pred, dim=dim)
-    tn = torch.sum(true_pred & ~pos_pred, dim=dim)
-    fn = torch.sum((~true_pred) & ~pos_pred, dim=dim)
+    fp = torch.sum(~true_pred & pos_pred, dim=dim)
+    tn = torch.sum(true_pred & neg_pred, dim=dim)
+    fn = torch.sum(~true_pred & neg_pred, dim=dim)
     return tp.to(torch.int32), fp.to(torch.int32), tn.to(torch.int32), fn.to(torch.int32)
 
 
@@ -72,8 +85,16 @@ def _stat_scores_update(
     multiclass: Optional[bool] = None,
     ignore_index: Optional[int] = None,
     mode: Optional[DataType] = None,
+    valid: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Canonicalise inputs and count tp/fp/tn/fn."""
+    """Canonicalise inputs and count tp/fp/tn/fn; a row that ``valid``
+    masks adds to no counter (the canonicalisation keeps rows in order)."""
+    if valid is not None and ignore_index is not None and ignore_index < 0:
+        # the negative-ignore path drops rows by boolean indexing, which
+        # would misalign the mask
+        raise ValueError("`valid` row masks are not supported with a negative `ignore_index`")
+    if valid is not None and (reduce == "samples" or mdmc_reduce == "samplewise"):
+        raise ValueError("`valid` row masks are not supported with per-sample reductions")
     _negative_index_dropped = False
     if ignore_index is not None and ignore_index < 0:
         if mode is None:
@@ -102,6 +123,9 @@ def _stat_scores_update(
                 "When your inputs are multi-dimensional multi-class, you have to set the `mdmc_reduce` parameter"
             )
         if mdmc_reduce == "global":
+            if valid is not None:
+                # (N, C, X) -> (N*X, C) row-major: each row's bit covers its X samples
+                valid = torch.repeat_interleave(torch.as_tensor(valid, device=preds.device).to(torch.bool), preds.shape[2])
             preds = torch.movedim(preds, 1, 2).reshape(-1, preds.shape[1])
             target = torch.movedim(target, 1, 2).reshape(-1, target.shape[1])
 
@@ -109,7 +133,7 @@ def _stat_scores_update(
         preds = _del_column(preds, ignore_index)
         target = _del_column(target, ignore_index)
 
-    tp, fp, tn, fn = _stat_scores(preds, target, reduce=reduce)
+    tp, fp, tn, fn = _stat_scores(preds, target, reduce=reduce, valid=valid)
 
     if ignore_index is not None and reduce == "macro" and not _negative_index_dropped:
         # mark the ignored class with the -1 sentinel

@@ -17,6 +17,11 @@ another geometry. A ``CatBuffer`` ring (the curve metrics with
 list of arrays. A JAX curve metric's state then carries over, and both
 packages compute the same value from it.
 
+The fault counters of a guarded metric (``_faults``) may be given as the
+JAX ``FaultCounters`` or as its uint32 counts vector; the port holds them
+as int64 of the same values. The aggregators' states (``MeanMetric``'s
+value and weight, a ring ``CatMetric``) carry over like any other.
+
 States only: an attribute that a metric infers from its first batch, such
 as ``Accuracy.mode``, is set again by the port's next ``update``.
 """
@@ -27,6 +32,7 @@ import torch
 
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric, _is_sketch_state
+from metrics_tpu_torch.utilities.guard import FaultCounters
 from metrics_tpu_torch.utilities.ringbuffer import CatBuffer
 
 
@@ -38,6 +44,8 @@ def _to_tensors(metric: Metric, state: Mapping[str, Any], where: str) -> Dict[st
     for key, value in state.items():
         if _is_sketch_state(metric._defaults[key]):
             out[key] = value  # from_primitives takes the JAX forms as they are
+        elif isinstance(metric._defaults[key], FaultCounters):
+            out[key] = np.array(getattr(value, "counts", value))
         elif isinstance(metric._defaults[key], CatBuffer):
             fields = value if isinstance(value, Mapping) else {f: getattr(value, f, None) for f in CatBuffer._fields}
             out[key] = {f: torch.from_numpy(np.array(v)) for f, v in fields.items() if v is not None}

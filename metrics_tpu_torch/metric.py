@@ -10,8 +10,11 @@ where there is no CUDA device, so a metric never runs on the CPU unless the
 caller asks for ``device="cpu"``.
 
 Subclass code may update states in place (``self.tp += tp``). The runtime
-therefore clones wherever it keeps a state for later: defaults on reset, the
-saved state in ``forward``, ``state_dict``.
+therefore clones wherever it keeps a state for later or hands one out:
+defaults on reset, the saved state in ``forward``, ``state_dict``,
+``metric_state``, and every value that ``load_state_dict`` takes in. No
+tensor is shared between two owners (the compute groups of a
+``MetricCollection`` share their head's state on purpose).
 
 A state is a tensor, a list of tensors (a ``cat`` state), a
 :class:`~metrics_tpu_torch.utilities.ringbuffer.CatBuffer` ring (a ``cat``
@@ -21,13 +24,21 @@ merges through its own ``sketch_merge`` and is saved and loaded through
 ``to_primitives``/``from_primitives``.
 
 In a ``torch.distributed`` world of more than one process, ``compute()``
-gathers every state over the metric's ``process_group`` (``dist_sync_fn``,
-by default :func:`~metrics_tpu_torch.parallel.sync.gather_all_arrays`),
-reduces it, computes, and restores the local state. A failed collective
-raises.
+syncs every state over the metric's ``process_group`` with
+:func:`~metrics_tpu_torch.parallel.sync.fused_sync` (one ``all_reduce`` per
+(reduction, dtype) bucket, a gather for ``cat`` states; ``dist_sync_fn``
+is a communicator in place of ``torch.distributed``, stated difference
+D15), computes, and restores the local state. A failed collective raises.
 
-Not in this module yet: the fault channel (``on_invalid``), overlapped sync,
-snapshots, ``CompositionalMetric``, and the sync of sketch states.
+The fault channel (``on_invalid``, ``utilities/guard.py``): with a policy
+other than ``"ignore"`` every update is validated by tensor ops, the faults
+are counted in the ``_faults`` sum state, ``"drop"`` masks the offending
+rows, and ``"warn"``/``"error"`` act at ``compute()`` from the synced
+counts. Such an update runs without the value checks of
+``utilities/checks.py`` and reads nothing back (stated difference D1).
+
+Not in this module yet: overlapped sync, snapshots and
+``CompositionalMetric``.
 """
 import contextlib
 import functools
@@ -38,11 +49,22 @@ from typing import Any, Callable, Dict, Iterator, Optional, Union
 import numpy as np
 import torch
 
-from metrics_tpu_torch.parallel.sync import distributed_available, gather_all_arrays
-from metrics_tpu_torch.utilities.data import _squeeze_if_scalar, dim_zero_cat
+from metrics_tpu_torch.parallel.sync import distributed_available, fused_sync
+from metrics_tpu_torch.utilities.checks import value_checks_off
+from metrics_tpu_torch.utilities.data import _squeeze_if_scalar
 from metrics_tpu_torch.utilities.exceptions import MetricsTPUUserError
-from metrics_tpu_torch.utilities.ringbuffer import CatBuffer, cat_append
+from metrics_tpu_torch.utilities.guard import (
+    _IDX,
+    NUM_FAULT_CLASSES,
+    VALID_POLICIES,
+    FaultCounters,
+    actionable_fault_total,
+    format_fault_report,
+    guard_update_args,
+    nan_state_leaves,
+)
 from metrics_tpu_torch.utilities.prints import rank_zero_warn
+from metrics_tpu_torch.utilities.ringbuffer import CatBuffer, cat_append
 
 Tensor = torch.Tensor
 Reduction = Union[str, Callable, None]
@@ -67,8 +89,9 @@ def _is_sketch_state(value: Any) -> bool:
 
 
 def _is_tuple_state(value: Any) -> bool:
-    """A state held as a NamedTuple of tensors: a sketch state or a ring."""
-    return isinstance(value, CatBuffer) or _is_sketch_state(value)
+    """A state held as a NamedTuple of tensors: a sketch state, a ring or
+    the fault counters."""
+    return isinstance(value, (CatBuffer, FaultCounters)) or _is_sketch_state(value)
 
 
 def _map_state(fn: Callable[[Tensor], Tensor], value: Any) -> Any:
@@ -96,6 +119,7 @@ class Metric:
         self,
         device: Union[str, torch.device, None] = None,
         on_overflow: str = "warn",
+        on_invalid: str = "ignore",
         process_group: Optional[Any] = None,
         dist_sync_fn: Optional[Callable] = None,
         **kwargs: Any,
@@ -112,8 +136,16 @@ class Metric:
         # what compute() does when a state has run past its capacity
         # (see _check_cat_overflow)
         self.on_overflow = on_overflow
-        # the multi-process sync: the group to gather over and the gather
-        # itself, ``(tensor, group) -> [tensor of each rank]``
+        if on_invalid not in VALID_POLICIES:
+            raise ValueError(f"`on_invalid` must be one of {VALID_POLICIES}, got {on_invalid!r}")
+        # what an update does with invalid rows, and compute() with their
+        # counts (utilities/guard.py)
+        self.on_invalid = on_invalid
+        # the fault total that the warn policy last reported
+        self._faults_reported = 0
+        # the multi-process sync: the group to sync over, and optionally a
+        # communicator that replaces ``torch.distributed`` (an object with
+        # its all_reduce, all_gather, get_world_size and get_rank)
         self.process_group = process_group
         self.dist_sync_fn = dist_sync_fn
         self._is_synced = False
@@ -127,13 +159,33 @@ class Metric:
         self._to_sync = True
 
         self._wrap_methods()
+        if on_invalid != "ignore":
+            self.add_state("_faults", default=FaultCounters.zeros(), dist_reduce_fx="sum")
 
     def _wrap_methods(self) -> None:
-        object.__setattr__(self, "_original_update", type(self).update.__get__(self))
+        object.__setattr__(self, "_original_update", self._maybe_guard(type(self).update.__get__(self)))
         object.__setattr__(self, "_original_compute", type(self).compute.__get__(self))
         object.__setattr__(self, "update", self._wrap_update(self._original_update))
         object.__setattr__(self, "compute", self._wrap_compute(self._original_compute))
         self._update_signature = inspect.signature(self._original_update)
+
+    def _maybe_guard(self, update: Callable) -> Callable:
+        """The update behind the fault channel: its arguments validated,
+        masked by the policy and counted into ``_faults``, and the body run
+        without the value checks (nothing is read back). ``"ignore"``
+        returns the update as it is. Attributes are read at call time: a
+        subclass sets ``num_classes`` after ``Metric.__init__``."""
+        if self.on_invalid == "ignore":
+            return update
+
+        @functools.wraps(update)
+        def guarded(*args: Any, **kwargs: Any) -> None:
+            args, kwargs, counters = guard_update_args(self, args, kwargs)
+            self._faults = self._faults + FaultCounters(counters.counts.to(self._faults.counts.device))
+            with value_checks_off():
+                return update(*args, **kwargs)
+
+        return guarded
 
     # ------------------------------------------------------------------
     # state registry
@@ -194,8 +246,9 @@ class Metric:
 
     @property
     def metric_state(self) -> Dict[str, Any]:
-        """The current states (the live tensors, not copies)."""
-        return dict(self._state)
+        """Copies of the current states: a held dict does not change when
+        the metric updates (an update writes its states in place)."""
+        return self._copy_state()
 
     @property
     def update_called(self) -> bool:
@@ -244,9 +297,10 @@ class Metric:
                 return self._computed
             with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync):
                 value = compute(*args, **kwargs)
-                # checked while synced: ``dropped`` is then the global count,
-                # so every rank takes the same branch
+                # checked while synced: ``dropped`` and the fault counts are
+                # then global, so every rank takes the same branch
                 self._check_cat_overflow()
+                self._check_faults()
             self._computed = _squeeze_if_scalar(value)
             return self._computed
 
@@ -278,12 +332,15 @@ class Metric:
         self._restore_defaults()
         self._update_count = 0
         self.update(*args, **kwargs)
+        reported = self._faults_reported
         try:
             batch_val = self.compute()
         finally:
-            # the accumulated state survives a compute that raises
+            # the accumulated state survives a compute that raises; the warn
+            # watermark was the batch's own inside that compute
             object.__setattr__(self, "_state", saved[0])
             self._update_count = saved[1]
+            self._faults_reported = reported
             self._to_sync = True
             self._computed = None
         return batch_val
@@ -295,10 +352,13 @@ class Metric:
         self._update_count = 0
         self.update(*args, **kwargs)
         self._to_sync = False
+        reported = self._faults_reported
         try:
             batch_val = self.compute()
         finally:
-            # the batch is merged even when compute raises
+            # the batch is merged even when compute raises; the warn
+            # watermark was the batch's own inside that compute
+            self._faults_reported = reported
             object.__setattr__(self, "_state", self._reduce_states(global_state, self._state, global_count))
             self._update_count = global_count + 1
             self._to_sync = True
@@ -389,75 +449,61 @@ class Metric:
         rank_zero_warn(msg, UserWarning)
 
     # ------------------------------------------------------------------
+    # the fault channel
+    # ------------------------------------------------------------------
+
+    @property
+    def fault_counts(self) -> Optional[Dict[str, int]]:
+        """The fault channel's counts by class name
+        (``utilities/guard.py::FAULT_CLASSES``), or None when the metric is
+        unguarded (``on_invalid="ignore"``). Reads them back."""
+        fc = self._state.get("_faults")
+        return None if fc is None else fc.as_dict()
+
+    def _check_faults(self) -> None:
+        """The fault channel's boundary at ``compute()``: ``"warn"`` warns
+        once for each new fault total and ``"error"`` raises until the state
+        is reset, both from the synced counts plus the NaN states found now
+        (``nonfinite_state``). ``"drop"`` has masked the rows already and
+        stays silent; :attr:`fault_counts` shows what it masked."""
+        if self.on_invalid in ("ignore", "drop"):
+            return
+        fc = self._state.get("_faults")
+        if fc is None:
+            return
+        counts = fc.counts.cpu().numpy().astype(np.int64)
+        counts[_IDX["nonfinite_state"]] += nan_state_leaves({k: v for k, v in self._state.items() if k != "_faults"})
+        total = actionable_fault_total(counts)
+        if self.on_invalid == "error":
+            # no watermark: a poisoned accumulator raises until it is reset
+            if total > 0:
+                raise MetricsTPUUserError(format_fault_report(counts, type(self).__name__))
+            return
+        if total <= self._faults_reported:
+            return
+        self._faults_reported = total
+        rank_zero_warn(format_fault_report(counts, type(self).__name__), UserWarning)
+
+    def report_faults(self) -> None:
+        """Apply the ``on_invalid`` policy to the current (ideally synced)
+        counts now, for a caller that syncs without ``compute()``."""
+        self._check_faults()
+
+    # ------------------------------------------------------------------
     # multi-process sync
     # ------------------------------------------------------------------
 
-    def _sync_dist(self, dist_sync_fn: Callable = gather_all_arrays, process_group: Optional[Any] = None) -> None:
-        """Gather and reduce every state across processes."""
-        object.__setattr__(self, "_state", self._gathered_state(self._state, dist_sync_fn, process_group))
+    def _sync_defaults(self) -> Dict[str, Any]:
+        """The list states' templates, which the sync gathers in their place
+        when a list is empty."""
+        return dict(self.__dict__.get("_list_templates", {}))
 
-    def _gathered_state(
-        self,
-        state: Dict[str, Any],
-        dist_sync_fn: Callable = gather_all_arrays,
-        process_group: Optional[Any] = None,
-    ) -> Dict[str, Any]:
-        """The synced value of every state, leaving ``state`` untouched.
-
-        Every rank issues the same gathers in the same order: the rings in
-        state order, then the other states in state order. A list state is
-        concatenated first and gathered once, in its ``template``'s dtype
-        (an empty one gathers the template); a ring gathers ``data``,
-        ``mask`` and ``dropped`` and stacks them (the union of the valid
-        rows, the dropped rows summed); a tensor state is gathered, stacked
-        and reduced by its tag.
-        """
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        """Sync every state across processes with one
+        :func:`~metrics_tpu_torch.parallel.sync.fused_sync`."""
         group = self.process_group if process_group is None else process_group
-        gather = lambda x: dist_sync_fn(x, group)  # noqa: E731
-        templates = self.__dict__.get("_list_templates", {})
-        out = dict(state)
-        rings = [k for k in self._reductions if isinstance(state[k], CatBuffer)]
-        for attr in rings + [k for k in self._reductions if k not in rings]:
-            value = state[attr]
-            reduction_fn = self._reductions[attr]
-            if _is_sketch_state(value):
-                raise MetricsTPUUserError(
-                    f"{type(self).__name__}: syncing the sketch state {attr!r} across processes is not ported yet"
-                )
-            if isinstance(value, CatBuffer):
-                data, mask, dropped = gather(value.data), gather(value.mask), gather(value.dropped)
-                out[attr] = CatBuffer(torch.cat(data), torch.cat(mask), torch.stack(dropped).sum(0, dtype=torch.int32))
-            elif isinstance(value, list):
-                # with a template every rank sends its dtype, so a rank whose
-                # list is empty gathers the same dtype as the others
-                template = templates.get(attr)
-                if value:
-                    local = dim_zero_cat(value)
-                    local = local if template is None else local.to(template.dtype)
-                elif template is not None:
-                    local = template
-                else:
-                    local = torch.zeros((0,), dtype=torch.float32, device=self.device)
-                out[attr] = [t for t in gather(local) if t.shape[0]]
-            elif reduction_fn == "cat":
-                out[attr] = torch.cat([torch.atleast_1d(t) for t in gather(value)])
-            else:
-                stacked = torch.stack(gather(value))
-                if reduction_fn == "sum":
-                    out[attr] = stacked.sum(0)
-                elif reduction_fn == "mean":
-                    out[attr] = stacked.mean(0)
-                elif reduction_fn == "max":
-                    out[attr] = stacked.amax(0)
-                elif reduction_fn == "min":
-                    out[attr] = stacked.amin(0)
-                elif callable(reduction_fn):
-                    out[attr] = reduction_fn(stacked)
-                elif reduction_fn is None:
-                    out[attr] = stacked
-                else:
-                    raise MetricsTPUUserError(f"Unsupported reduction: {reduction_fn}")
-        return out
+        (synced,) = fused_sync([self._state], [self._reductions], group, [self._sync_defaults()], comm=dist_sync_fn)
+        object.__setattr__(self, "_state", synced)
 
     def sync(
         self,
@@ -475,7 +521,7 @@ class Metric:
         # the sync builds new state values and mutates none, so the local
         # state is kept as it is, without a copy
         self._cache = dict(self._state)
-        self._sync_dist(dist_sync_fn or gather_all_arrays, process_group=process_group)
+        self._sync_dist(dist_sync_fn, process_group=process_group)
         self._is_synced = True
 
     def unsync(self, should_unsync: bool = True) -> None:
@@ -529,6 +575,8 @@ class Metric:
         self._forward_cache = None
         self._cache = None
         self._is_synced = False
+        # the counts restart with the state, and so does the warn watermark
+        self._faults_reported = 0
         self._restore_defaults()
 
     def clone(self) -> "Metric":
@@ -541,8 +589,9 @@ class Metric:
 
     def state_dict(self, prefix: str = "") -> Dict[str, Any]:
         """Copies of the persistent states: tensors, lists of tensors, a ring
-        as a ``{"data", "mask", "dropped"}`` mapping, and a sketch state as
-        its ``to_primitives()`` mapping."""
+        as a ``{"data", "mask", "dropped"}`` mapping, a sketch state as its
+        ``to_primitives()`` mapping, and the fault counters as their counts
+        vector."""
         out: Dict[str, Any] = {}
         for key in self._defaults:
             if self._persistent[key]:
@@ -551,6 +600,8 @@ class Metric:
                     out[prefix + key] = value.to_primitives()
                 elif isinstance(value, CatBuffer):
                     out[prefix + key] = dict(_clone(value)._asdict())
+                elif isinstance(value, FaultCounters):
+                    out[prefix + key] = value.counts.clone()
                 else:
                     out[prefix + key] = _clone(value)
         return out
@@ -561,6 +612,8 @@ class Metric:
         Every value is checked against the registered default's shape and
         dtype before any state changes: a mismatched checkpoint raises a
         ``ValueError`` naming the state and leaves the metric untouched.
+        The metric keeps copies: a tensor in ``state_dict`` is never shared
+        with it, so two metrics loaded from one dict stay independent.
         """
         loaded = {
             key: self._validated_state_value(key, state_dict[prefix + key])
@@ -585,8 +638,8 @@ class Metric:
             )
 
     def _validated_state_value(self, key: str, v: Any) -> Any:
-        """One loaded value, checked against ``self._defaults[key]`` and moved
-        to the metric's device in the default's dtype."""
+        """One loaded value, checked against ``self._defaults[key]``, as a
+        copy on the metric's device in the default's dtype."""
         default = self._defaults[key]
 
         def fail(why: str) -> None:
@@ -612,8 +665,17 @@ class Metric:
                 fail(f"{part}has shape {tuple(value.shape)}, expected {tuple(like.shape)}" + (" (any capacity)" if free_leading else ""))
             if not torch.can_cast(value.dtype, like.dtype):
                 fail(f"{part}has dtype {value.dtype}, incompatible with expected {like.dtype}")
-            return value.to(device=self.device, dtype=like.dtype)
+            return value.to(device=self.device, dtype=like.dtype, copy=True)
 
+        if isinstance(default, FaultCounters):
+            counts = getattr(v, "counts", v)  # the port's or the JAX package's counters, or their vector
+            arr = np.asarray(counts.cpu() if isinstance(counts, Tensor) else counts).reshape(-1)
+            if arr.dtype == object or not np.issubdtype(arr.dtype, np.integer) or bool((arr < 0).any()):
+                fail("is a FaultCounters state and must load from a vector of non-negative integer counts")
+            # the classes are appends-only: a shorter vector pads the newer
+            # classes with zeros, a longer one keeps the classes known here
+            arr = np.concatenate([arr.astype(np.int64), np.zeros(max(0, NUM_FAULT_CLASSES - arr.shape[0]), np.int64)])
+            return FaultCounters(torch.from_numpy(arr[:NUM_FAULT_CLASSES].copy()).to(self.device))
         if _is_sketch_state(default):
             try:
                 return type(default).from_primitives(v, like=default)
@@ -637,13 +699,13 @@ class Metric:
         if isinstance(default, list):
             if not isinstance(v, (list, tuple)):
                 fail(f"is a list ('cat') state and must load from a list (got {type(v).__name__})")
-            return [as_tensor(x).to(self.device) for x in v]
+            return [as_tensor(x).to(self.device, copy=True) for x in v]
         value = as_tensor(v)
         if tuple(value.shape) != tuple(default.shape):
             fail(f"has shape {tuple(value.shape)}, expected {tuple(default.shape)}")
         if not torch.can_cast(value.dtype, default.dtype):
             fail(f"has dtype {value.dtype}, incompatible with expected {default.dtype}")
-        return value.to(device=self.device, dtype=default.dtype)
+        return value.to(device=self.device, dtype=default.dtype, copy=True)
 
     def __getstate__(self) -> Dict[str, Any]:
         return {k: v for k, v in self.__dict__.items() if k not in _BOUND}

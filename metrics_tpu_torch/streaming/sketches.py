@@ -20,8 +20,13 @@ with every product kept below ``2**63``. Hashing sees a float by its bits,
 with ``-0.0`` and denormals taken as ``+0.0``, as the JAX package's
 ``x + 0.0`` gives them on the CPU and the TPU, which flush denormals.
 
-Not in this module yet: the fault channel (``on_invalid``) and the sketch
-branch of the multi-process sync.
+A sketch metric takes ``on_invalid`` like any metric: its update leaves
+non-finite rows out by itself, and the fault channel counts them (as
+``nonfinite_preds`` and ``dropped_rows``). In a multi-process sync
+(``parallel/sync.py::fused_sync``) the CountMin counters join the sum
+bucket, the HyperLogLog registers the max bucket, and the quantile
+sketches travel packed (:meth:`QuantileSketchState.pack`) and fold with
+``sketch_merge`` in rank order.
 """
 import functools
 import math
@@ -464,6 +469,11 @@ class _SketchMetric(Metric):
     is_differentiable = False
     higher_is_better = None
     full_state_update = False
+
+    # the update itself leaves invalid rows out, so the guard's drop policy
+    # only counts them
+    _guard_handles_drop = True
+    nan_strategy = "ignore"  # read by the guard; a sketch always masks
 
     @staticmethod
     def _valid_rows(values: Tensor) -> Tensor:

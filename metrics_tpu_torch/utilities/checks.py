@@ -1,11 +1,17 @@
 """Input validation and canonicalisation for classification inputs
 (counterpart of ``metrics_tpu/utilities/checks.py``).
 
-PyTorch runs eagerly, so every value check runs on every call; the JAX
-package can only run them outside ``jit``. Each value check reads one number
-back from the device.
+PyTorch runs eagerly, so the value checks (label ranges, non-negative
+inputs) run on every call, where the JAX package skips them inside ``jit``.
+Each value check reads one number back from the device. A metric guarded
+by the fault channel (``on_invalid`` other than ``"ignore"``) runs its
+update inside :func:`value_checks_off`: the checks are skipped, nothing is
+read back, and the channel counts the label and non-finite faults instead,
+as on the JAX package's compiled path (stated difference D1).
 """
-from typing import Optional, Tuple
+import contextlib
+import contextvars
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -15,6 +21,22 @@ from metrics_tpu_torch.utilities.data import select_topk, to_onehot
 from metrics_tpu_torch.utilities.enums import DataType
 
 Tensor = torch.Tensor
+
+_VALUE_CHECKS = contextvars.ContextVar("metrics_tpu_torch_value_checks", default=True)
+
+
+@contextlib.contextmanager
+def value_checks_off() -> Iterator[None]:
+    """Skip the value checks that read the inputs back, inside the block."""
+    token = _VALUE_CHECKS.set(False)
+    try:
+        yield
+    finally:
+        _VALUE_CHECKS.reset(token)
+
+
+def _value_checks() -> bool:
+    return _VALUE_CHECKS.get()
 
 
 def _check_for_empty_tensors(preds: Tensor, target: Tensor) -> bool:
@@ -35,6 +57,8 @@ def _basic_input_validation(
 
     if preds.shape[0] != target.shape[0]:
         raise ValueError("The `preds` and `target` should have the same first dimension.")
+    if not _value_checks():
+        return
 
     tmin = int(target.min())
     if ignore_index is None and tmin < 0:
@@ -61,7 +85,7 @@ def _check_shape_and_type_consistency(preds: Tensor, target: Tensor) -> Tuple[Da
                 f"The `preds` and `target` should have the same shape, "
                 f"got `preds` with shape={tuple(preds.shape)} and `target` with shape={tuple(target.shape)}."
             )
-        if preds_float and target.numel() > 0 and int(target.max()) > 1:
+        if preds_float and target.numel() > 0 and _value_checks() and int(target.max()) > 1:
             raise ValueError(
                 "If `preds` and `target` are of shape (N, ...) and `preds` are floats, `target` should be binary."
             )
@@ -124,7 +148,7 @@ def _check_num_classes_mc(
                 "You have set `multiclass=False`, but the implied number of classes"
                 " (from shape of inputs) does not match `num_classes`."
             )
-        if target.numel() > 0 and num_classes <= int(target.max()):
+        if target.numel() > 0 and _value_checks() and num_classes <= int(target.max()):
             raise ValueError("The highest label in `target` should be smaller than `num_classes`.")
         if preds.shape != target.shape and num_classes != implied_classes:
             raise ValueError("The size of C dimension of `preds` does not match `num_classes`.")
@@ -178,7 +202,7 @@ def _check_classification_inputs(
                 "You have set `multiclass=False`, but have more than 2 classes in your data,"
                 " based on the C dimension of `preds`."
             )
-        if target.numel() > 0 and int(target.max()) >= implied_classes:
+        if target.numel() > 0 and _value_checks() and int(target.max()) >= implied_classes:
             raise ValueError(
                 "The highest label in `target` should be smaller than the size of the `C` dimension of `preds`."
             )

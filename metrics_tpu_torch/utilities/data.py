@@ -1,5 +1,5 @@
 """Shared tensor utilities (counterpart of ``metrics_tpu/utilities/data.py``)."""
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -51,6 +51,16 @@ def _flatten_dict(x: Dict) -> Dict:
         else:
             new_dict[key] = value
     return new_dict
+
+
+def _tensor_leaves(value: Any) -> Iterator[Tensor]:
+    """Every tensor of a state: a tensor, or a list or NamedTuple of them
+    (a ``cat`` list, a ring, a sketch state, the fault counters)."""
+    if isinstance(value, Tensor):
+        yield value
+    elif isinstance(value, (list, tuple)):
+        for v in value:
+            yield from _tensor_leaves(v)
 
 
 def _squeeze_if_scalar(data: Any) -> Any:

@@ -17,6 +17,7 @@ import metrics_tpu_torch as mtt  # noqa: E402
 from metrics_tpu_torch import metric as metric_mod  # noqa: E402
 from metrics_tpu_torch.metric import Metric  # noqa: E402
 from metrics_tpu_torch.utilities.exceptions import MetricsTPUUserError  # noqa: E402
+from tests.helpers.torch_twin_world import TwinWorld  # noqa: E402
 
 C = 5
 
@@ -144,22 +145,19 @@ def test_load_state_dict_refuses_bad_values(value, match):
 
 def test_compute_refuses_an_unsynced_value_in_a_multi_process_world(monkeypatch):
     """In a world of more than one process compute() syncs first (here
-    through an injected two-rank gather whose other rank saw the same
-    batch); the forward batch value stays local by design."""
-    gathered = []
-
-    def two_ranks(x, group):
-        gathered.append(x)
-        return [x, x.clone()]
-
+    through an injected two-rank communicator whose other rank saw the same
+    batch: the fused sync sends the four int32 sum states as one bucket, so
+    it reduces once); the forward batch value stays local by design."""
+    two_ranks = TwinWorld()
     acc = mtt.Accuracy(num_classes=C, device="cpu", dist_sync_fn=two_ranks)
     monkeypatch.setattr(metric_mod, "distributed_available", lambda: True)
     preds, target = _batch(0)
     batch_val = acc(preds, target)
-    assert 0.0 <= float(batch_val) <= 1.0 and gathered == []
+    assert 0.0 <= float(batch_val) <= 1.0 and two_ranks.calls == []
     local = {k: v.clone() for k, v in acc.metric_state.items()}
     value = acc.compute()
-    assert len(gathered) == len(local) and torch.equal(value, batch_val)
+    assert [c[0] for c in two_ranks.calls] == ["all_reduce"] and two_ranks.calls[0][1].numel() == len(local)
+    assert torch.equal(value, batch_val)
     assert all(torch.equal(acc.metric_state[k], v) for k, v in local.items())  # the local state is back
     with pytest.raises(MetricsTPUUserError, match="already been un-synced"):
         acc.unsync()
@@ -176,7 +174,9 @@ def test_inputs_move_to_the_metric_device():
 
 def test_constructor_errors():
     with pytest.raises(ValueError, match="Unexpected keyword"):
-        mtt.Accuracy(device="cpu", on_invalid="drop")
+        mtt.Accuracy(device="cpu", sync_mode="overlapped")
+    with pytest.raises(ValueError, match="on_invalid"):
+        mtt.Accuracy(device="cpu", on_invalid="skip")
     with pytest.raises(ValueError, match="dist_reduce_fx"):
         SumAndMax(device="cpu").add_state("x", torch.tensor(0), dist_reduce_fx="median")
     with pytest.raises(ValueError, match="empty list"):

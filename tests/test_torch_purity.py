@@ -94,13 +94,42 @@ def test_curve_and_sync_imports_build_and_load_no_kernel():
     assert proc.stdout.strip() == "ok"
 
 
+def test_fused_sync_and_fault_channel_imports_build_and_load_no_kernel():
+    code = (
+        "import sys\n"
+        "import metrics_tpu_torch.parallel.sync, metrics_tpu_torch.utilities.guard, metrics_tpu_torch.aggregation\n"
+        "import metrics_tpu_torch.classification.precision_recall, metrics_tpu_torch.classification.f_beta\n"
+        "import metrics_tpu_torch.functional.classification.precision_recall, metrics_tpu_torch.functional.classification.f_beta\n"
+        "from metrics_tpu_torch.ops import _build\n"
+        "assert _build._loaded == {} and _build.build_info == {}\n"
+        "assert 'triton' not in sys.modules and not any(m.split('.')[0] in ('jax', 'metrics_tpu') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_fused_sync_rank_helper_imports_no_jax():
+    """The ranks of ``tests/test_torch_fused_sync.py`` run this module."""
+    path = ROOT / "tests" / "helpers" / "torch_fused_sync_ranks.py"
+    bad = [m for m in _imported_modules(path) if _is_forbidden(m)]
+    assert not bad, bad
+
+
 @pytest.mark.parametrize(
     "name",
-    ["Accuracy", "StatScores", "BinnedAveragePrecision", "AUROC", "AveragePrecision", "ROC", "PrecisionRecallCurve", "AUC"],
+    [
+        "Accuracy", "StatScores", "BinnedAveragePrecision", "AUROC", "AveragePrecision", "ROC", "PrecisionRecallCurve", "AUC",
+        "Precision", "Recall", "F1Score", "FBetaScore", "MaxMetric", "MinMetric", "SumMetric", "MeanMetric", "CatMetric",
+    ],
 )
 def test_metric_without_device_asks_for_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     kwargs = {"num_classes": 3} if name.startswith("Binned") else {}
+    if name in ("Precision", "Recall", "F1Score", "FBetaScore"):
+        kwargs = {"num_classes": 3, "average": "macro", "on_invalid": "drop"}
     with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
         getattr(metrics_tpu_torch, name)(**kwargs)
     with pytest.raises(MetricsTPUUserError, match="no CUDA device"):

@@ -32,6 +32,7 @@ import metrics_tpu_torch as mtt  # noqa: E402
 from metrics_tpu_torch.ops.bucketed_rank import ascending_ranks, sharded_descending_ranks  # noqa: E402
 from metrics_tpu_torch.parallel.sync import _pad_gather_trim, distributed_available, gather_all_arrays  # noqa: E402
 from metrics_tpu_torch.utilities.ringbuffer import CatBuffer  # noqa: E402
+from tests.helpers.torch_twin_world import TwinWorld  # noqa: E402
 
 AREA_ATOL = 1e-6  # float32 sums over a curve, added in another order
 SEED = 7
@@ -329,13 +330,13 @@ def test_sharded_ranks_in_a_world_of_one_match_the_sort():
 
 
 def test_sync_jobs_with_an_injected_transport():
-    """``dist_sync_fn`` replaces the gather: a fake two-rank world that
-    gives every state twice. List states double, rings stack with their
-    drops summed, sum states double and max states stay."""
+    """``dist_sync_fn`` replaces the communicator: a fake two-rank world
+    whose other rank holds the same states. List states double, rings stack
+    with their drops summed, sum states double and max states stay."""
     p, y, _ = _rows([40], SEED)
     m = mtt.AUROC(device="cpu")
     m.update(torch.from_numpy(p), torch.from_numpy(y))
-    twice = lambda x, group: [x, x.clone()]  # noqa: E731
+    twice = TwinWorld()
     m.sync(dist_sync_fn=twice, distributed_available_fn=lambda: True)
     assert torch.equal(torch.cat(m.preds), torch.cat([torch.from_numpy(p)] * 2))
     m.unsync()
