@@ -54,7 +54,22 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    ``all_reduce`` and no gather, the synced sketches bit-equal to an
    in-process ``sketch_merge`` fold of the ranks' sketches on the card
    (K3's merge cascade, launches counted), the mean against numpy;
-10. kernels: each kernel's time, its bound on this card, and its launches on
+10. sync layer, in one more four-rank world: ``overlapped_path`` (the fused
+   evaluation path with every member ``sync_mode="overlapped"``, exact then
+   int8: a covered view read with no collective, bit-equal to
+   ``compute(fresh=True)`` and to the fused evaluation path when exact, BAP's
+   counters within the int8 envelope), ``quantized_sketch_path`` (the sketch
+   monitor through ``fused_sync(transport="int8"|"fp16")``: counts exact, the
+   item lanes within the codec's envelope, K3's merges counted),
+   ``chunked_sync`` (``chunks=4`` bit-equal to one collective, the predicted
+   count of ``all_reduce``) and ``retry`` (the bounded communicator bit-equal
+   over the healthy world; against a wedged peer in this process it degrades
+   to the local values within its timeout, records one ``gather_degraded``,
+   and returns at once while its breaker is open); before the worlds,
+   ``windowed_path``: a trailing window of accuracy and a decayed mean over
+   the epoch on the card, against the trailing rows, the float64 closed form
+   and the CPU run. A health event in a healthy world fails the run;
+11. kernels: each kernel's time, its bound on this card, and its launches on
    each path; each beside its previous design, timed in the same run: K1's
    compare per (row, class, threshold), built from
    ``csrc/binned_counters_loop.cu``; K2's warp match per id, built from
@@ -129,6 +144,20 @@ FUSED_EVAL_BUCKETS = [["float32", "SUM"], ["int32", "SUM"], ["int64", "SUM"]]
 FUSED_SKETCH_BUCKETS = [["float32", "SUM"], ["int64", "SUM"]]
 FUSED_SKETCH_BATCHES = 16  # batches of 2^20 rows per rank
 MEAN_RTOL = 1e-5  # a float32 mean of 2^26 rows, summed in batches and across ranks, against float64
+# the sync layer (phases overlapped_path, quantized_sketch_path, chunked_sync,
+# retry, windowed_path)
+SYNC_EVERY_N = 4  # the overlapped members' cadence: a cycle every 4 notifies
+SYNC_CHUNKS = 4
+RETRY_TIMEOUT_S = 1.0  # the wedged transport's bound
+RETRY_SLACK_S = 0.5  # a degraded call returns within RETRY_TIMEOUT_S plus this
+BREAKER_FAST_S = 0.010  # a call while the breaker is open returns within this
+HEALTH_EVENTS = ("gather_degraded", "async_sync_error", "async_sync_stalled")
+# the float32 roundings of a decoded lane (the scale's division and the
+# product), relative to the lane, added to a codec's worst case
+DECODE_ROUNDING = 2.0 ** -23
+WINDOW = 8192
+WINDOW_BUCKETS = 8  # 1024-row buckets: the epoch's batches fill one each
+HALFLIFE = 8192.0
 LOOP_SOURCE = "binned_counters_loop.cu"  # K1's previous design, built only to time K1 against
 MATCH_SOURCE = "histogram_match.cu"  # K2's previous design, built only to time K2 against
 
@@ -1527,6 +1556,8 @@ class CollectiveRecorder:
         self.dist = dist
         self.all_reduce = []
         self.other = []
+        self.sizes = []  # lanes of each all_reduce
+        self.bytes = 0  # what this process sends
         self._saved = {}
 
     def __enter__(self):
@@ -1538,8 +1569,13 @@ class CollectiveRecorder:
                 if _name == "all_reduce":
                     op = kwargs.get("op", args[1] if len(args) > 1 else self.dist.ReduceOp.SUM)
                     self.all_reduce.append([str(args[0].dtype).replace("torch.", ""), str(op).split(".")[-1]])
+                    self.sizes.append(args[0].numel())
+                    self.bytes += args[0].numel() * args[0].element_size()
                 else:
                     self.other.append(_name)
+                    sent = args[1] if len(args) > 1 else kwargs.get("tensor")
+                    if hasattr(sent, "element_size"):
+                        self.bytes += sent.numel() * sent.element_size()
                 return _fn(*args, **kwargs)
 
             setattr(self.dist, name, wrapped)
@@ -1583,8 +1619,8 @@ def make_fused_eval_data(device):
     return preds, target, int(nan_rows.sum()), int(label_rows.sum())
 
 
-def build_fused_eval(pkg, device):
-    kw = dict(num_classes=CLASSES, on_invalid="drop", device=device)
+def build_fused_eval(pkg, device, **sync_kw):
+    kw = dict(num_classes=CLASSES, on_invalid="drop", device=device, **sync_kw)
     return pkg.MetricCollection({
         "acc": pkg.Accuracy(**kw),
         "prec": pkg.Precision(average="macro", **kw),
@@ -1765,7 +1801,7 @@ def phase_fused_eval(dev):
         "cpu_reference_s": cpu_s,
         "matches_cpu_run": True,
     })
-    return sum(r["launches"]["binned_counters"] for r in ranks)
+    return sum(r["launches"]["binned_counters"] for r in ranks), card
 
 
 def make_rank_stream(device, rank):
@@ -1991,6 +2027,521 @@ def phase_fused_sketch(dev):
     return sum(r["k3_insert_launches"] + r["k3_sync_launches"] for r in ranks)
 
 
+# --------------------------------------------------------------------------
+# the sync layer: overlapped sync, quantized and chunked transports, the
+# bounded communicator, windowed and decayed metrics
+# --------------------------------------------------------------------------
+
+
+def _leaves(state):
+    """A state dict's tensors by name (a tuple state by ``name.field``)."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, tuple):
+            out.update({f"{k}.{f}": t for f, t in zip(v._fields, v)})
+        elif isinstance(v, list):
+            out.update({f"{k}[{i}]": t for i, t in enumerate(v)})
+        else:
+            out[k] = v
+    return out
+
+
+def _bit_equal(a, b):
+    """Two lists of state dicts, tensor by tensor, bit for bit."""
+    import torch
+
+    for x, y in zip(a, b):
+        lx, ly = _leaves(x), _leaves(y)
+        if lx.keys() != ly.keys():
+            return False
+        for k in lx:
+            if lx[k].dtype != ly[k].dtype or lx[k].shape != ly[k].shape:
+                return False
+            if lx[k].is_floating_point():
+                if not torch.equal(lx[k].view(torch.int32 if lx[k].element_size() == 4 else torch.int16), ly[k].view(torch.int32 if ly[k].element_size() == 4 else torch.int16)):
+                    return False
+            elif not torch.equal(lx[k], ly[k]):
+                return False
+    return True
+
+
+def _view_states(member):
+    """An overlapped member's view: ``{name: state}`` of every member, after
+    the view's event."""
+    payload, event = member._sync_scheduler.view().payload
+    if event is not None:
+        event.synchronize()
+    return {name: entry[0] for name, entry in payload.items()}
+
+
+def _block_absmax(flat, block):
+    import torch
+
+    from metrics_tpu_torch.ops.quantize import TINY_NORMAL
+
+    pad = (-flat.numel()) % block
+    x = torch.cat([flat, flat.new_zeros(pad)]).reshape(-1, block)
+    return torch.clamp_min(torch.where(torch.isfinite(x), x.abs(), torch.zeros_like(x)).amax(dim=1), TINY_NORMAL)
+
+
+def _health_events(registry):
+    return {k: v for k, v in registry.counts().items() if k in HEALTH_EVENTS}
+
+
+def _overlapped_run(mtt, dev, sync, p, y, transport, world, members_of_blocking):
+    """The fused evaluation collection with every member overlapped: the
+    updates, a covered view, a read with no collective, the fresh read."""
+    import torch
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.ops import binned_counters as k1
+    from metrics_tpu_torch.ops import compactor as k3
+    from metrics_tpu_torch.ops import histogram as k2
+    from metrics_tpu_torch.ops.quantize import DEFAULT_BLOCK, MAX_CODE, resolve_codec
+    from metrics_tpu_torch.parallel.sync import fused_sync
+    from metrics_tpu_torch.resilience.health import health_report, registry
+
+    coll = build_fused_eval(mtt, dev, sync_mode="overlapped", sync_every_n=SYNC_EVERY_N, sync_transport=transport)
+    sync()
+    dist.barrier()
+    for kernel in (k1, k2, k3):
+        kernel.reset_launch_count()
+    with CollectiveRecorder() as during_updates:
+        update_s = run_fused_eval(coll, p, y, sync)
+    launches = {"binned_counters": k1.launch_count, "histogram": k2.launch_count, "compactor_fold": k3.launch_count}
+    members = dict(coll.items(keep_base=True, copy_state=False))
+    covered = members["acc"].request_sync(wait=True, deadline_s=120.0)
+    sync()
+    sched = members["acc"]._sync_scheduler
+    cycles = {"cycles": sched.cycles, "cycle_ms": sched.cycle_s / max(sched.cycles, 1) * 1e3,
+              "producers_blocked_s": sched.blocked_s, "notifies": sched.seq()}
+    t0 = time.perf_counter()
+    with CollectiveRecorder() as rec:
+        values = _values(coll.compute())
+        sync()
+    read_s = time.perf_counter() - t0
+    report = health_report(coll)
+    view = _view_states(members["acc"])
+    names = list(members)
+    live = [members[k]._state for k in names]
+    reds = [members[k]._reductions for k in names]
+    defaults = [members[k]._sync_defaults() for k in names]
+    exact = fused_sync(live, reds, None, defaults, transport="exact")
+    # one cycle's bytes: the same sync on the same states, recorded
+    with CollectiveRecorder() as wire:
+        fused_sync(live, reds, None, defaults, transport="exact", host_codec=resolve_codec(transport))
+    with CollectiveRecorder() as exact_wire:
+        fused_sync(live, reds, None, defaults, transport="exact")
+    dist.barrier()
+    t1 = time.perf_counter()
+    fresh = _values(coll.compute(fresh=True))
+    sync()
+    fresh_s = time.perf_counter() - t1
+    out = {
+        "update_p50_ms": statistics.median(update_s) * 1e3,
+        "updates_s": sum(update_s),
+        "collectives_in_updates": len(during_updates.all_reduce + during_updates.other),
+        **cycles,
+        "covered": covered,
+        "read_collectives": rec.all_reduce + rec.other,
+        "read_s": read_s,
+        "fresh_s": fresh_s,
+        "values": values,
+        "fresh_values": fresh,
+        "launches": launches,
+        "bap_updates": members["bap"].update_count,
+        "degradation_events": sorted(set(report["event_counts"]) - set(report["informational_event_kinds"])),
+        "degraded_by": sorted({k for e in report["metrics"].values() for k in ("faults", "overflow_dropped") if k in e}),
+        "sync_lag_steps": {k: e.get("sync_lag_steps") for k, e in report["metrics"].items()},
+        "view_equals_exact": _bit_equal([view[k] for k in names], exact),
+        "wire_bytes": wire.bytes,
+        "exact_bytes": exact_wire.bytes,
+        "wire_collectives": wire.all_reduce + wire.other,
+    }
+    # the int8 envelope of BAP's float32 counters: each lane within the sum
+    # over ranks of its block's absmax / (2 * 126), plus the float32
+    # roundings of each rank's decode and of the rank-order sum (the
+    # difference is taken in float64)
+    worst = 0.0
+    for key in ("TPs", "FPs", "FNs"):
+        local = members["bap"]._state[key].reshape(-1)
+        absmax = _block_absmax(local, DEFAULT_BLOCK)
+        parts = [torch.empty_like(absmax) for _ in range(world)]
+        dist.all_gather(parts, absmax)
+        per_block = torch.stack(parts).sum(0) / (2 * MAX_CODE)
+        bound = per_block.repeat_interleave(DEFAULT_BLOCK)[: local.numel()].double()
+        got = view["bap"][key].reshape(-1).double()
+        want = exact[names.index("bap")][key].reshape(-1).double()
+        bound = bound + world * DECODE_ROUNDING * (want.abs() + bound)
+        worst = max(worst, float(((got - want).abs() / bound).max()))
+    out["bap_err_over_bound"] = worst
+    out["bap_max_abs_err"] = max(float((view["bap"][k] - exact[names.index("bap")][k]).abs().max()) for k in ("TPs", "FPs", "FNs"))
+    out["int_lanes_bit_equal"] = all(
+        torch.equal(a, b)
+        for i, k in enumerate(names)
+        for leaf, a in _leaves(view[k]).items()
+        for b in [_leaves(exact[i])[leaf]]
+        if not a.is_floating_point()
+    )
+    out["events"] = _health_events(registry)
+    coll.reset()
+    return out
+
+
+def sync_layer_rank(rank, world, port, results, device):
+    """One rank of the sync layer's world: the overlapped evaluation (exact,
+    then int8), the quantized sketch sync (int8, then fp16), the chunked
+    schedule and the bounded communicator over the healthy world."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        dev, sync = _rank_device(device)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+        import metrics_tpu_torch as mtt
+        from metrics_tpu_torch.ops import compactor as k3
+        from metrics_tpu_torch.ops.quantize import resolve_codec
+        from metrics_tpu_torch.parallel.sync import RetryingGather, fused_sync
+        from metrics_tpu_torch.resilience.health import registry
+
+        out = {"rank": rank}
+        preds, target, _, _ = make_fused_eval_data(dev)
+        shard = -(-ROWS // world)
+        p, y = preds[rank * shard:(rank + 1) * shard].clone(), target[rank * shard:(rank + 1) * shard].clone()
+        del preds, target
+
+        # the blocking collection, for the update p50 of the same world
+        blocking = build_fused_eval(mtt, dev)
+        sync()
+        dist.barrier()
+        out["blocking_update_p50_ms"] = statistics.median(run_fused_eval(blocking, p, y, sync)) * 1e3
+        bmembers = dict(blocking.items(keep_base=True, copy_state=False))
+        out["blocking_values"] = _values(blocking.compute())
+        out["overlapped"] = {t: _overlapped_run(mtt, dev, sync, p, y, t, world, bmembers) for t in ("exact", "int8")}
+
+        # the chunked schedule on the evaluation collection's states
+        names = list(bmembers)
+        states = [bmembers[k]._state for k in names]
+        reds = [bmembers[k]._reductions for k in names]
+        defaults = [bmembers[k]._sync_defaults() for k in names]
+        chunked = {}
+        synced = {}
+        for chunks in (1, SYNC_CHUNKS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            with CollectiveRecorder() as rec:
+                synced[chunks] = fused_sync(states, reds, None, defaults, transport="exact", chunks=chunks)
+                sync()
+            chunked[chunks] = {"sync_s": time.perf_counter() - t0, "all_reduce": rec.all_reduce, "sizes": rec.sizes, "other": rec.other}
+        out["chunked"] = {
+            "by_chunks": chunked,
+            "bit_equal": _bit_equal(synced[1], synced[SYNC_CHUNKS]),
+            "predicted_all_reduce": sum(min(SYNC_CHUNKS, n) for n in chunked[1]["sizes"]),
+        }
+
+        # the bounded communicator over the healthy world
+        # (timed in turns: plain, bounded, bounded, plain)
+        bounded = RetryingGather(dist)
+        times = {"plain": [], "bounded": []}
+        for kind in ("plain", "bounded", "bounded", "plain"):
+            dist.barrier()
+            t0 = time.perf_counter()
+            synced_once = fused_sync(states, reds, None, defaults, comm=dist if kind == "plain" else bounded, transport="exact")
+            sync()
+            times[kind].append(time.perf_counter() - t0)
+            if kind == "plain":
+                plain = synced_once
+            else:
+                retried = synced_once
+        out["retry_healthy"] = {"bit_equal": _bit_equal(plain, retried), "events": _health_events(registry), "sync_s": times}
+        del blocking, bmembers, states, synced, plain, retried, p, y
+        torch.cuda.empty_cache()
+
+        # the sketch monitor through the quantized transports
+        x = make_rank_stream(dev, rank)
+        mon = build_fused_monitor(mtt, dev)
+        for i in range(FUSED_SKETCH_BATCHES):
+            batch = x[i * STREAM_BATCH:(i + 1) * STREAM_BATCH]
+            mon(batch) if i == 0 else mon.update(batch)
+        del x
+        mm = dict(mon.items(keep_base=True, copy_state=False))
+        names = list(mm)
+        states = [mm[k]._state for k in names]
+        reds = [mm[k]._reductions for k in names]
+        defaults = [mm[k]._sync_defaults() for k in names]
+        qi = names.index("q")
+        exact = fused_sync(states, reds, None, defaults, transport="exact")
+        qs = (0.5, 0.99)
+        sketch = {"exact_quantiles": exact[qi]["sketch"].quantile(qs).tolist()}
+        local = states[qi]["sketch"]
+        packed, tail = local.pack(), local.counts.shape[0] + 2
+        for transport in ("int8", "fp16"):
+            codec = resolve_codec(transport)
+            dist.barrier()
+            k3.reset_launch_count()
+            t0 = time.perf_counter()
+            with CollectiveRecorder() as rec:
+                got = fused_sync(states, reds, None, defaults, transport=transport)
+                sync()
+            seconds = time.perf_counter() - t0
+            launches = k3.launch_count
+            # this rank's payload through the wire: the item lanes within the
+            # codec's envelope, the tail bit-exact
+            dec = codec.decode(codec.encode(packed, tail), packed.numel(), tail)
+            head = packed[: packed.numel() - tail]
+            finite = torch.isfinite(head)
+            absmax = _block_absmax(head, 32).repeat_interleave(32)[: head.numel()].double()
+            h64 = torch.where(finite, head, torch.zeros_like(head)).double()
+            if transport == "int8":
+                bound = absmax / 252
+            else:
+                bound = torch.maximum(h64.abs() * 2.0 ** -10, absmax * 2.0 ** -24)
+            bound = bound + DECODE_ROUNDING * h64.abs()
+            err = torch.where(finite, dec[: head.numel()].double() - h64, torch.zeros_like(h64)).abs()
+            specials = torch.equal(torch.isnan(dec[: head.numel()]), torch.isnan(head)) and torch.equal(torch.isinf(dec[: head.numel()]), torch.isinf(head))
+            sketch[transport] = {
+                "sync_s": seconds,
+                "all_reduce": rec.all_reduce,
+                "other": rec.other,
+                "bytes": rec.bytes,
+                "k3_merge_launches": launches,
+                "counts_equal": torch.equal(got[qi]["sketch"].counts, exact[qi]["sketch"].counts),
+                "n_seen_equal": int(got[qi]["sketch"].n_seen) == int(exact[qi]["sketch"].n_seen),
+                "cm_equal": torch.equal(got[names.index("cm")]["sketch"].counts, exact[names.index("cm")]["sketch"].counts),
+                "faults_equal": all(torch.equal(got[i]["_faults"].counts, exact[i]["_faults"].counts) for i, k in enumerate(names) if "_faults" in exact[i]),
+                "item_err_over_bound": float((err / bound).max()),
+                "tail_bit_equal": torch.equal(dec[head.numel():].view(torch.int32), packed[head.numel():].view(torch.int32)),
+                "specials_kept": specials,
+                "quantiles": got[qi]["sketch"].quantile(qs).tolist(),
+                "mean_sums": [float(got[names.index("mean")][k]) for k in ("value", "weight")],
+            }
+        with CollectiveRecorder() as rec:
+            fused_sync(states, reds, None, defaults, transport="exact")
+        sketch["exact_bytes"] = rec.bytes
+        sketch["exact_mean_sums"] = [float(exact[names.index("mean")][k]) for k in ("value", "weight")]
+        out["sketch"] = sketch
+        out["events"] = _health_events(registry)
+        out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "metrics_tpu"))
+        dist.barrier()
+        dist.destroy_process_group()
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+class _WedgedWorld:
+    """A world of ``DIST_WORLD`` ranks whose collectives never return: a
+    peer that hangs."""
+
+    def get_world_size(self, group=None):
+        return DIST_WORLD
+
+    def get_rank(self, group=None):
+        return 0
+
+    def all_reduce(self, tensor, op=None, group=None):
+        time.sleep(3600)
+
+    def all_gather(self, parts, tensor, group=None):
+        time.sleep(3600)
+
+
+def retry_wedged(dev):
+    """The bounded communicator against a wedged peer, in this process: a
+    sync of the evaluation collection's states degrades to the local value
+    within the timeout, records one ``gather_degraded``, and the next sync
+    returns at once while the breaker is open."""
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.parallel.sync import _WORLD_OF_ONE, RetryingGather, fused_sync
+    from metrics_tpu_torch.resilience.health import registry
+
+    preds, target, _, _ = make_fused_eval_data(dev)
+    coll = build_fused_eval(mtt, dev)
+    run_fused_eval(coll, preds[:4096], target[:4096], torch.cuda.synchronize)
+    members = dict(coll.items(keep_base=True, copy_state=False))
+    states = [m._state for m in members.values()]
+    reds = [m._reductions for m in members.values()]
+    defaults = [m._sync_defaults() for m in members.values()]
+    registry.clear()
+    comm = RetryingGather(_WedgedWorld(), timeout_s=RETRY_TIMEOUT_S)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t0 = time.perf_counter()
+        got = fused_sync(states, reds, None, defaults, comm=comm, transport="exact")
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        again = fused_sync(states, reds, None, defaults, comm=comm, transport="exact")
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t1
+    local = fused_sync(states, reds, None, defaults, comm=_WORLD_OF_ONE, transport="exact")
+    events = dict(registry.counts())
+    out = {
+        "timeout_s": RETRY_TIMEOUT_S,
+        "degraded_call_s": first_s,
+        "breaker_open_call_s": second_s,
+        "events": events,
+        "local_values": _bit_equal(got, local) and _bit_equal(again, local),
+    }
+    if not (first_s <= RETRY_TIMEOUT_S + RETRY_SLACK_S and second_s < BREAKER_FAST_S and events == {"gather_degraded": 1} and out["local_values"]):
+        raise AssertionError(f"retry: the wedged world gave {out}")
+    registry.clear()
+    return out
+
+
+def phase_sync_layer(dev, fused_values):
+    """The four-rank world of the sync layer, then the wedged transport in
+    this process; emits the phases overlapped_path, quantized_sketch_path,
+    chunked_sync and retry."""
+    t0 = time.perf_counter()
+    ranks = run_world(sync_layer_rank, "sync layer")
+    world_s = time.perf_counter() - t0
+    for r in ranks:
+        if r["jax_loaded"]:
+            raise AssertionError(f"rank {r['rank']} loaded {r['jax_loaded']}")
+        if r["events"] or any(o["events"] for o in r["overlapped"].values()) or r["retry_healthy"]["events"]:
+            raise AssertionError(f"rank {r['rank']}: health events in a healthy world: {r['events']}, {[o['events'] for o in r['overlapped'].values()]}")
+        for transport, o in r["overlapped"].items():
+            where = f"rank {r['rank']}, overlapped {transport}"
+            if not o["covered"] or o["read_collectives"]:
+                raise AssertionError(f"{where}: covered {o['covered']}, the read made {o['read_collectives']}")
+            # the path injects faults, which health_report counts as
+            # degraded by the JAX package's own rule; the sync must add none
+            if o["degradation_events"] or any(v != 0 for v in o["sync_lag_steps"].values()) or o["degraded_by"] != ["faults"]:
+                raise AssertionError(f"{where}: events {o['degradation_events']}, lag {o['sync_lag_steps']}, degraded by {o['degraded_by']}")
+            launches = o["launches"]
+            if not (launches["binned_counters"] == o["bap_updates"] > 0 and launches["histogram"] == launches["compactor_fold"] == 0):
+                raise AssertionError(f"{where}: launches {launches} for {o['bap_updates']} bap updates")
+            if o["fresh_values"] != r["blocking_values"]:
+                raise AssertionError(f"{where}: compute(fresh=True) differs from the blocking collection")
+            if not o["int_lanes_bit_equal"]:
+                raise AssertionError(f"{where}: integer or fault lanes of the view differ from the exact sync")
+        ex, q8 = r["overlapped"]["exact"], r["overlapped"]["int8"]
+        if not (ex["view_equals_exact"] and ex["values"] == ex["fresh_values"] == fused_values):
+            raise AssertionError(f"rank {r['rank']}: the exact overlapped read differs from the blocking read or fused_dist_path")
+        if not q8["bap_err_over_bound"] <= 1.0:
+            raise AssertionError(f"rank {r['rank']}: int8 BAP lanes at {q8['bap_err_over_bound']} of their bound")
+        if any(q8["values"][k] != ex["values"][k] for k in ("acc", "prec", "rec", "f1")):
+            raise AssertionError(f"rank {r['rank']}: int8 changed members without float leaves")
+        c = r["chunked"]
+        if not (c["bit_equal"] and len(c["by_chunks"][SYNC_CHUNKS]["all_reduce"]) == c["predicted_all_reduce"] and not c["by_chunks"][SYNC_CHUNKS]["other"]):
+            raise AssertionError(f"rank {r['rank']}: chunked sync {c}")
+        if not r["retry_healthy"]["bit_equal"]:
+            raise AssertionError(f"rank {r['rank']}: the bounded communicator changed the synced values")
+        for transport in ("int8", "fp16"):
+            sk = r["sketch"][transport]
+            checks = ("counts_equal", "n_seen_equal", "cm_equal", "faults_equal", "tail_bit_equal", "specials_kept")
+            if not all(sk[c] for c in checks) or sk["item_err_over_bound"] > 1.0 or sk["k3_merge_launches"] != DIST_WORLD - 1 or sk["other"] != ["all_gather"]:
+                raise AssertionError(f"rank {r['rank']}: {transport} sketch sync {sk}")
+        if r["overlapped"]["exact"]["values"] != ranks[0]["overlapped"]["exact"]["values"]:
+            raise AssertionError(f"rank {r['rank']} read other values than rank 0")
+    wedged = retry_wedged(dev)
+    backend = "gloo, four processes on one card (loopback TCP; not NCCL)"
+    r0 = ranks[0]
+    emit({
+        "phase": "overlapped_path",
+        "config": {"world": DIST_WORLD, "rows": ROWS, "classes": CLASSES, "sync_every_n": SYNC_EVERY_N, "backend": backend},
+        "world_s": world_s,
+        "update_p50_ms": {t: [r["overlapped"][t]["update_p50_ms"] for r in ranks] for t in ("exact", "int8")},
+        "blocking_update_p50_ms": [r["blocking_update_p50_ms"] for r in ranks],
+        "read_s": {t: [r["overlapped"][t]["read_s"] for r in ranks] for t in ("exact", "int8")},
+        "fresh_s": {t: [r["overlapped"][t]["fresh_s"] for r in ranks] for t in ("exact", "int8")},
+        "read_collectives": 0,
+        "cycles": {t: [{k: r["overlapped"][t][k] for k in ("notifies", "cycles", "cycle_ms", "producers_blocked_s", "updates_s")} for r in ranks] for t in ("exact", "int8")},
+        "cycle_bytes_per_rank": {"exact": r0["overlapped"]["exact"]["exact_bytes"], "int8": r0["overlapped"]["int8"]["wire_bytes"]},
+        "int8_cycle_collectives": r0["overlapped"]["int8"]["wire_collectives"],
+        "exact_equals_blocking_and_fused_dist_path": True,
+        "int8_bap_err_over_bound": [r["overlapped"]["int8"]["bap_err_over_bound"] for r in ranks],
+        "int8_bap_max_abs_err": [r["overlapped"]["int8"]["bap_max_abs_err"] for r in ranks],
+        "int8_bap_mean": sum(r0["overlapped"]["int8"]["values"]["bap"]) / CLASSES,
+        "exact_bap_mean": sum(r0["overlapped"]["exact"]["values"]["bap"]) / CLASSES,
+        "acc": r0["overlapped"]["exact"]["values"]["acc"],
+        "k1_launches_per_rank": [r["overlapped"]["exact"]["launches"]["binned_counters"] + r["overlapped"]["int8"]["launches"]["binned_counters"] for r in ranks],
+        "health_degradation_events": [],
+        "health_degraded_by": ["faults"],
+    })
+    emit({
+        "phase": "quantized_sketch_path",
+        "config": {"world": DIST_WORLD, "batches_per_rank": FUSED_SKETCH_BATCHES, "batch": STREAM_BATCH, "backend": backend},
+        "exact_quantiles": r0["sketch"]["exact_quantiles"],
+        "exact_bytes_per_rank": r0["sketch"]["exact_bytes"],
+        "exact_mean_sums": [x if math.isfinite(x) else str(x) for x in r0["sketch"]["exact_mean_sums"]],
+        **{t: {
+            "quantiles": r0["sketch"][t]["quantiles"],
+            "bytes_per_rank": r0["sketch"][t]["bytes"],
+            "sync_s": [r["sketch"][t]["sync_s"] for r in ranks],
+            "all_reduce": r0["sketch"][t]["all_reduce"],
+            "other": r0["sketch"][t]["other"],
+            "item_err_over_bound": max(r["sketch"][t]["item_err_over_bound"] for r in ranks),
+            "k3_merge_launches_per_rank": [r["sketch"][t]["k3_merge_launches"] for r in ranks],
+            "mean_sums": [x if math.isfinite(x) else str(x) for x in r0["sketch"][t]["mean_sums"]],
+        } for t in ("int8", "fp16")},
+        "counts_n_seen_cm_faults_bit_equal": True,
+    })
+    emit({
+        "phase": "chunked_sync",
+        "chunks": SYNC_CHUNKS,
+        "sync_s": {str(k): [r["chunked"]["by_chunks"][k]["sync_s"] for r in ranks] for k in (1, SYNC_CHUNKS)},
+        "all_reduce_calls": {str(k): len(r0["chunked"]["by_chunks"][k]["all_reduce"]) for k in (1, SYNC_CHUNKS)},
+        "predicted_all_reduce": r0["chunked"]["predicted_all_reduce"],
+        "bucket_lanes": r0["chunked"]["by_chunks"][1]["sizes"],
+        "bit_equal": True,
+    })
+    emit({"phase": "retry", "healthy_bit_equal": True, "healthy_events": {},
+          "healthy_sync_s": {k: [t for r in ranks for t in r["retry_healthy"]["sync_s"][k]] for k in ("plain", "bounded")}, **wedged})
+    k1 = sum(r["overlapped"][t]["launches"]["binned_counters"] for r in ranks for t in ("exact", "int8"))
+    k3 = sum(r["sketch"][t]["k3_merge_launches"] for r in ranks for t in ("int8", "fp16"))
+    return k1, k3
+
+
+def phase_windowed(preds, target):
+    """A trailing window of accuracy and a decayed mean of top-1 correctness
+    over the epoch's full batches, on the card and on the CPU."""
+    import torch
+
+    import metrics_tpu_torch as mtt
+
+    full = (ROWS // BATCH) * BATCH
+    correct = (preds[:full].argmax(dim=1) == target[:full]).to(torch.float32)
+    out = {}
+    card = preds.device.type
+    for device in (card, "cpu"):
+        win = mtt.WindowedMetric(mtt.Accuracy(num_classes=CLASSES, device=device), window=WINDOW, buckets=WINDOW_BUCKETS)
+        dec = mtt.DecayedMetric(mtt.MeanMetric(device=device), halflife=HALFLIFE)
+        t0 = time.perf_counter()
+        for start in range(0, full, BATCH):
+            win.update(preds[start:start + BATCH].to(device), target[start:start + BATCH].to(device))
+            dec.update(correct[start:start + BATCH].to(device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["card" if device == card and "card" not in out else "cpu"] = {"seconds": time.perf_counter() - t0, "window": float(win.compute()), "window_rows": win.window_rows,
+                       "decayed": float(dec.compute())}
+    trailing = mtt.Accuracy(num_classes=CLASSES, device=card)
+    trailing.update(preds[full - WINDOW:full], target[full - WINDOW:full])
+    want = float(trailing.compute())
+    batches = full // BATCH
+    c64 = correct.cpu().to(torch.float64).reshape(batches, BATCH).sum(dim=1)
+    after = torch.arange(batches - 1, -1, -1, dtype=torch.float64) * BATCH
+    w = torch.exp2(-after / HALFLIFE)
+    closed = float((w * c64).sum() / (w * BATCH).sum())
+    card, cpu = out["card"], out["cpu"]
+    rel = abs(card["decayed"] - closed) / abs(closed)
+    if not (card["window_rows"] == WINDOW == cpu["window_rows"] and card["window"] == want == cpu["window"]):
+        raise AssertionError(f"windowed_path: window {card}, {cpu} against the trailing {WINDOW} rows' {want}")
+    if not (rel <= MEAN_RTOL and abs(card["decayed"] - cpu["decayed"]) <= MEAN_RTOL * abs(cpu["decayed"])):
+        raise AssertionError(f"windowed_path: decayed {card['decayed']} (CPU {cpu['decayed']}) against {closed}")
+    emit({
+        "phase": "windowed_path",
+        "config": {"rows": full, "batch": BATCH, "window": WINDOW, "buckets": WINDOW_BUCKETS, "halflife": HALFLIFE},
+        "window_accuracy": card["window"], "trailing_accuracy": want, "window_rows": card["window_rows"],
+        "decayed_mean": card["decayed"], "decayed_mean_cpu": cpu["decayed"], "closed_form": closed, "rel_err": rel,
+        "card_s": card["seconds"], "cpu_s": cpu["seconds"], "matches_cpu_run": True,
+    })
+
+
 def k2_id_patterns(dev, n, nb, seed):
     """Id patterns for K2 at ``n`` ids over ``nb`` bins: uniform, sorted
     uniform, all in one bin, pairs and 16-way runs of consecutive ids, and
@@ -2188,6 +2739,7 @@ def main():
     k3_fold_err = phase_k3_parity(device)
     k3_err = phase_k3_cascade_parity(device)
     k1_launches = phase_main_path(preds, target)
+    phase_windowed(preds, target)
     stream = make_stream(device)
     k3_launches, q_state = phase_stream(stream)
     phase_profile(preds, target)
@@ -2204,13 +2756,14 @@ def main():
     torch.cuda.empty_cache()
     k2_launches = phase_dist(device)
     k2_path_launches(kernels[1], k2_launches)
-    k1_fused_launches = phase_fused_eval(device)
+    k1_fused_launches, fused_values = phase_fused_eval(device)
     k3_fused_launches = phase_fused_sketch(device)
+    k1_overlapped_launches, k3_quantized_launches = phase_sync_layer(device, fused_values)
     # each kernel's launches on every path that runs it, each path counted
     # from zero just before it
-    kernels[0]["launches_by_path"] = {"main_path": k1_launches, "fused_dist_path": k1_fused_launches}
+    kernels[0]["launches_by_path"] = {"main_path": k1_launches, "fused_dist_path": k1_fused_launches, "overlapped_path": k1_overlapped_launches}
     kernels[1]["launches_by_path"] = {"dist_path": k2_launches}
-    kernels[2]["launches_by_path"] = {"stream_path": k3_launches, "fused_sketch_path": k3_fused_launches}
+    kernels[2]["launches_by_path"] = {"stream_path": k3_launches, "fused_sketch_path": k3_fused_launches, "quantized_sketch_path": k3_quantized_launches}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

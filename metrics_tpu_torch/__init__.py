@@ -27,11 +27,14 @@ from metrics_tpu_torch.utilities.guard import FaultCounters
 from metrics_tpu_torch.streaming import (
     CountMinSketch,
     CountMinState,
+    DecayedMetric,
     HllState,
     HyperLogLog,
     QuantileSketch,
     QuantileSketchState,
+    WindowedMetric,
 )
+from metrics_tpu_torch.resilience.health import health_report
 
 __all__ = [
     "AUC",
@@ -44,6 +47,7 @@ __all__ = [
     "CatMetric",
     "CountMinSketch",
     "CountMinState",
+    "DecayedMetric",
     "F1Score",
     "FBetaScore",
     "FaultCounters",
@@ -62,4 +66,6 @@ __all__ = [
     "Recall",
     "StatScores",
     "SumMetric",
+    "WindowedMetric",
+    "health_report",
 ]

@@ -18,15 +18,31 @@ states without syncing itself, and gets its local state back.
 :meth:`MetricCollection.sync_states` is the same sync without the restore.
 ``forward`` never syncs.
 
-Not in this module yet: the overlapped-sync scheduler.
+Members with ``sync_mode="overlapped"`` share one scheduler
+(``parallel/async_sync.py``), a single issuer of collectives: each cycle
+clones every overlapped member's state and syncs them all in one
+``fused_sync``, under ``gather_sequence_lock``, and each member reads its
+own entry of the view. Its cadence is the strictest of its members'.
+``compute(fresh=True)`` is forwarded to every member: all of them then sync
+in the blocking collection sync. ``reset``, ``clone`` and pickling drop the
+scheduler and its thread.
 """
+import contextlib
 from collections import OrderedDict
 from copy import deepcopy
 from typing import Any, Dict, Hashable, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.metric import Metric, _clone, _is_tuple_state
+from metrics_tpu_torch.metric import (
+    Metric,
+    _clone,
+    _cycle_error_recorder,
+    _is_tuple_state,
+    _on_stream,
+    _use_on_current_stream,
+)
+from metrics_tpu_torch.ops.quantize import resolve_codec
 from metrics_tpu_torch.parallel.sync import distributed_available, fused_sync
 from metrics_tpu_torch.utilities.data import _flatten_dict
 
@@ -70,12 +86,14 @@ class MetricCollection:
 
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Every member's forward; kwargs filtered per update signature."""
+        self._ensure_overlap_scheduler()
         res = {k: m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items(keep_base=True, copy_state=False)}
         res = _flatten_dict(res)
         return {self._set_name(k): v for k, v in res.items()}
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update the group heads only, once groups have formed."""
+        self._ensure_overlap_scheduler()
         if self._groups_checked:
             for cg in self._groups.values():
                 m0 = self._modules[cg[0]]
@@ -93,26 +111,32 @@ class MetricCollection:
                 self._compute_groups_create_state_ref()
                 self._groups_checked = True
 
-    def compute(self) -> Dict[str, Any]:
+    def compute(self, fresh: bool = False) -> Dict[str, Any]:
         """Every member's value; in a world of more than one process from
-        one fused sync of the whole collection."""
+        one fused sync of the members that do not read an overlapped view
+        (every member with ``fresh=True``)."""
         self._compute_groups_create_state_ref()
-        if distributed_available() and any(m._computed is None for m in self._modules.values()):
-            local = self._sync_members(None)
+        self._ensure_overlap_scheduler()
+        readers = set() if fresh else {k for k, m in self._modules.items() if m.sync_mode == "overlapped"}
+        blocking = [k for k in self._modules if k not in readers]
+        res = {}
+        if distributed_available() and any(self._modules[k]._computed is None for k in blocking):
+            local = self._sync_members(None, blocking)
             try:
-                res = {}
-                for k, m in self._modules.items():
+                for k in blocking:
+                    m = self._modules[k]
                     m._to_sync = False  # the states are synced already
                     try:
                         res[k] = m.compute()
                     finally:
                         m._to_sync = True
             finally:
-                for m, state in zip(self._modules.values(), local):
-                    object.__setattr__(m, "_state", state)
+                for k, state in zip(blocking, local):
+                    object.__setattr__(self._modules[k], "_state", state)
         else:
-            res = {k: m.compute() for k, m in self._modules.items()}
-        res = _flatten_dict(res)
+            res.update({k: self._modules[k].compute() for k in blocking})
+        res.update({k: self._modules[k].compute() for k in readers})
+        res = _flatten_dict({k: res[k] for k in self._modules})
         return {self._set_name(k): v for k, v in res.items()}
 
     def sync_states(self, group: Optional[Any] = None) -> None:
@@ -128,7 +152,7 @@ class MetricCollection:
                 for k in head._defaults:
                     self._modules[name]._state[k] = head._state[k]
 
-    def _sync_members(self, group: Optional[Any]) -> List[Dict[str, Any]]:
+    def _sync_members(self, group: Optional[Any], names: Optional[List[str]] = None) -> List[Dict[str, Any]]:
         """Every member's state replaced by its synced value, from one fused
         sync; returns the local states, which the sync left untouched.
 
@@ -137,32 +161,140 @@ class MetricCollection:
         must send the same collectives. A member that shares its head's
         tensors says so (``same_as``): its gathered states then come from
         the head's gather when every rank agrees."""
-        members = list(self._modules.values())
+        names = list(self._modules) if names is None else names
+        members = [self._modules[n] for n in names]
         group = members[0].process_group if group is None else group
-        index = {name: i for i, name in enumerate(self._modules)}
-        same_as: List[Optional[int]] = [None] * len(members)
-        for cg in self._groups.values():
-            head = self._modules[cg[0]]
-            for name in cg[1:]:
-                if all(self._modules[name]._state[k] is head._state[k] for k in head._defaults):
-                    same_as[index[name]] = index[cg[0]]
         synced = fused_sync(
             [m._state for m in members],
             [m._reductions for m in members],
             group,
             [m._sync_defaults() for m in members],
-            same_as=same_as,
+            comm=members[0].dist_sync_fn,
+            same_as=self._same_as(names),
+            transport="exact",
         )
         local = [m._state for m in members]
         for m, s in zip(members, synced):
             object.__setattr__(m, "_state", s)
         return local
 
+    def _same_as(self, names: List[str]) -> List[Optional[int]]:
+        """For each of ``names``, the index among them of the group head
+        whose tensors it holds on this rank, or None."""
+        index = {name: i for i, name in enumerate(names)}
+        same_as: List[Optional[int]] = [None] * len(names)
+        for cg in self._groups.values():
+            head = self._modules[cg[0]]
+            for name in cg[1:]:
+                if cg[0] in index and name in index and all(
+                    self._modules[name]._state[k] is head._state[k] for k in head._defaults
+                ):
+                    same_as[index[name]] = index[cg[0]]
+        return same_as
+
+    # ------------------------------------------------------------------
+    # the overlapped sync
+    # ------------------------------------------------------------------
+
+    def _ensure_overlap_scheduler(self) -> None:
+        """One scheduler for every overlapped member, set on each of them
+        before it updates, so no member starts a scheduler of its own."""
+        names = [k for k, m in self._modules.items() if m.sync_mode == "overlapped"]
+        if not names:
+            return
+        sched = self.__dict__.get("_overlap_sched")
+        if sched is None or sched.stopped:
+            from metrics_tpu_torch.parallel.async_sync import AsyncSyncScheduler
+
+            members = [self._modules[k] for k in names]
+            transports = {m.sync_transport for m in members}
+            if len(transports) > 1:
+                raise ValueError(f"the overlapped members of a collection sync in one cycle; they ask for transports {transports}")
+            label = f"collection({'+'.join(type(m).__name__ for m in members)})"
+            every_n = [m.sync_every_n for m in members if m.sync_every_n is not None]
+            every_s = [m.sync_every_s for m in members if m.sync_every_s is not None]
+            sched = AsyncSyncScheduler(
+                self._overlap_snapshot,
+                self._overlap_reduce,
+                sync_every_n=min(every_n) if every_n else None,
+                sync_every_s=min(every_s) if every_s else None,
+                on_error=_cycle_error_recorder(label),
+                name=label,
+            )
+            self.__dict__["_overlap_sched"] = sched
+            self.__dict__["_overlap_names"] = names
+        for k in names:
+            m = self._modules[k]
+            old = m.__dict__.get("_sync_scheduler")
+            if old is not None and old is not sched:
+                old.stop(final=False, timeout_s=5.0)
+            object.__setattr__(m, "_sync_scheduler", sched)
+            object.__setattr__(m, "_sync_view_key", k)
+
+    def _overlap_snapshot(self):
+        """Every overlapped member's state cloned, under all their locks (a
+        group's members hold its head's tensors): ``(entries, same_as),
+        None`` with an entry ``(name, state, event, steps)`` each."""
+        names = self.__dict__["_overlap_names"]
+        members = [self._modules[k] for k in names]
+        with contextlib.ExitStack() as stack:
+            for m in members:
+                stack.enter_context(m._state_swap_guard())
+            # an update rebinds some of a head's states (``self._faults =
+            # ...``): point its members at them again before the clone
+            if not self._state_is_copy:
+                for cg in self._groups.values():
+                    head = self._modules[cg[0]]
+                    for name in cg[1:]:
+                        self._modules[name]._state.update({k: head._state[k] for k in head._defaults})
+            same_as = self._same_as(names)
+            # a group member's count follows its head's, which the
+            # collection sets after the head's update: the head's is the one
+            # its state holds now
+            head_of = {name: cg[0] for cg in self._groups.values() for name in cg}
+            entries = []
+            for k, m in zip(names, members):
+                (state, event), steps = m._overlap_snapshot()
+                entries.append((k, state, event, self._modules[head_of.get(k, k)]._update_count))
+        return (entries, same_as), None
+
+    def _overlap_reduce(self, payload):
+        """One sync of every member's clone: ``({name: (state, steps)},
+        event)``."""
+        entries, same_as = payload
+        members = [self._modules[k] for k, _, _, _ in entries]
+        head = members[0]
+        side = head._cycle_stream()
+        with _on_stream(side):
+            for (_, state, event, _) in entries:
+                _use_on_current_stream(state, event)
+            synced = [state for _, state, _, _ in entries]
+            if distributed_available():
+                synced = fused_sync(
+                    synced,
+                    [m._reductions for m in members],
+                    head.process_group,
+                    [m._sync_defaults() for m in members],
+                    comm=head.dist_sync_fn,
+                    same_as=same_as,
+                    transport="exact",
+                    host_codec=resolve_codec(head.sync_transport),
+                )
+            done = None if side is None else side.record_event()
+        return {k: (state, steps) for (k, _, _, steps), state in zip(entries, synced)}, done
+
     def reset(self) -> None:
+        sched = self.__dict__.pop("_overlap_sched", None)
+        if sched is not None:
+            sched.stop(final=False, timeout_s=5.0)
         for _, m in self.items(keep_base=True, copy_state=False):
             m.reset()
         if self._enable_compute_groups and self._groups_checked:
             self._compute_groups_create_state_ref()
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # the scheduler's thread never travels: the copy builds its own
+        return {k: v for k, v in self.__dict__.items() if k not in ("_overlap_sched", "_overlap_names")}
 
     def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
         mc = deepcopy(self)

@@ -22,6 +22,14 @@ JAX ``FaultCounters`` or as its uint32 counts vector; the port holds them
 as int64 of the same values. The aggregators' states (``MeanMetric``'s
 value and weight, a ring ``CatMetric``) carry over like any other.
 
+A ``WindowedMetric``'s bucket rings (``win__<state>``, the fault ring
+``win___faults`` as uint32 counts) and cursor (``win__head``,
+``win__fill``, ``win__n_updates``, ``win__rows``), and a
+``DecayedMetric``'s float32 sums (``dec__<state>``, ``dec__n_updates``),
+load like any other state, and the window or the decay goes on from them.
+An overlapped metric (``sync_mode="overlapped"``) loads its live state; its
+view is not carried, and the next cycle builds it.
+
 States only: an attribute that a metric infers from its first batch, such
 as ``Accuracy.mode``, is set again by the port's next ``update``.
 """

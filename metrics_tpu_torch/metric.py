@@ -28,7 +28,20 @@ syncs every state over the metric's ``process_group`` with
 :func:`~metrics_tpu_torch.parallel.sync.fused_sync` (one ``all_reduce`` per
 (reduction, dtype) bucket, a gather for ``cat`` states; ``dist_sync_fn``
 is a communicator in place of ``torch.distributed``, stated difference
-D15), computes, and restores the local state. A failed collective raises.
+D15), computes, and restores the local state. A blocking sync is always
+exact. A collective that cannot complete degrades the sync to this rank's
+own state, loudly (``parallel/sync.py::RetryingGather``).
+
+The overlapped mode (``sync_mode="overlapped"``, ``parallel/async_sync.py``):
+every ``sync_every_n`` updates the state is cloned, on the thread and the
+stream that ran them, and a worker thread syncs the clone and publishes it
+as a view; ``compute()`` computes from the view with no collective,
+``compute(fresh=True)`` takes the blocking sync, and ``forward`` returns the
+batch's own value. ``sync_transport`` (``int8``/``fp16``) ships the cycle's
+float leaves quantized (``ops/quantize.py``); blocking syncs stay exact. On
+the card the cycle runs on a stream of its own after the clone's event, and
+a read waits on the view's event. ``reset``, ``clone``, deepcopy and
+pickling drop the scheduler and its thread.
 
 The fault channel (``on_invalid``, ``utilities/guard.py``): with a policy
 other than ``"ignore"`` every update is validated by tensor ops, the faults
@@ -37,21 +50,23 @@ rows, and ``"warn"``/``"error"`` act at ``compute()`` from the synced
 counts. Such an update runs without the value checks of
 ``utilities/checks.py`` and reads nothing back (stated difference D1).
 
-Not in this module yet: overlapped sync, snapshots and
-``CompositionalMetric``.
+Not in this module yet: snapshots and ``CompositionalMetric``.
 """
 import contextlib
 import functools
 import inspect
+import threading
+import time
 from copy import deepcopy
 from typing import Any, Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
 
+from metrics_tpu_torch.ops.quantize import resolve_codec, validate_transport
 from metrics_tpu_torch.parallel.sync import distributed_available, fused_sync
 from metrics_tpu_torch.utilities.checks import value_checks_off
-from metrics_tpu_torch.utilities.data import _squeeze_if_scalar
+from metrics_tpu_torch.utilities.data import _squeeze_if_scalar, _tensor_leaves
 from metrics_tpu_torch.utilities.exceptions import MetricsTPUUserError
 from metrics_tpu_torch.utilities.guard import (
     _IDX,
@@ -69,8 +84,10 @@ from metrics_tpu_torch.utilities.ringbuffer import CatBuffer, cat_append
 Tensor = torch.Tensor
 Reduction = Union[str, Callable, None]
 
-# attributes rebuilt per instance, never copied or pickled
+# attributes rebuilt per instance, never copied or pickled: the bound
+# methods, and the overlapped mode's scheduler, lock and streams
 _BOUND = ("update", "compute", "_original_update", "_original_compute", "_update_signature")
+_PER_INSTANCE = _BOUND + ("_sync_scheduler", "_overlap_lock", "_sync_view_key", "_update_stream", "_side_stream", "_in_forward")
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -108,6 +125,57 @@ def _clone(value: Any) -> Any:
     return _map_state(torch.Tensor.clone, value)
 
 
+def _cuda_leaves(state: Dict[str, Any]) -> list:
+    return [t for v in state.values() for t in _tensor_leaves(v) if t.is_cuda]
+
+
+def _record_event(state: Dict[str, Any], stream: Optional[Any]) -> Optional[Any]:
+    """An event recorded on ``stream`` after the work that made ``state``
+    (None for CPU states)."""
+    if stream is None or not _cuda_leaves(state):
+        return None
+    return stream.record_event()
+
+
+def _use_on_current_stream(state: Dict[str, Any], event: Optional[Any]) -> None:
+    """Make the current CUDA stream wait for ``event`` and mark the state's
+    tensors as used by it, so the allocator does not hand their memory to
+    another stream too early."""
+    leaves = _cuda_leaves(state)
+    if event is None or not leaves:
+        return
+    current = torch.cuda.current_stream(leaves[0].device)
+    current.wait_event(event)
+    for t in leaves:
+        t.record_stream(current)
+
+
+_NO_SYNC_VIEW = object()
+
+
+@contextlib.contextmanager
+def _on_stream(stream: Optional[Any]) -> Iterator[None]:
+    if stream is None:
+        yield
+    else:
+        with torch.cuda.stream(stream):
+            yield
+
+
+def _cycle_error_recorder(name: str) -> Callable[[BaseException], None]:
+    """The scheduler's ``on_error``: a failed cycle keeps the previous view
+    and records an ``async_sync_error`` health event."""
+
+    def on_error(err: BaseException) -> None:
+        from metrics_tpu_torch.resilience.health import record_degradation
+
+        record_degradation(
+            "async_sync_error", f"overlapped sync cycle for {name} raised {type(err).__name__}: {err}", metric=name
+        )
+
+    return on_error
+
+
 class Metric:
     """Base class for all metrics."""
 
@@ -122,6 +190,10 @@ class Metric:
         on_invalid: str = "ignore",
         process_group: Optional[Any] = None,
         dist_sync_fn: Optional[Callable] = None,
+        sync_mode: str = "blocking",
+        sync_every_n: Optional[int] = None,
+        sync_every_s: Optional[float] = None,
+        sync_transport: Optional[str] = None,
         **kwargs: Any,
     ) -> None:
         object.__setattr__(self, "_state", {})
@@ -150,9 +222,29 @@ class Metric:
         self.dist_sync_fn = dist_sync_fn
         self._is_synced = False
         self._cache: Optional[Dict[str, Any]] = None
+        # the overlapped mode (parallel/async_sync.py)
+        if sync_mode not in ("blocking", "overlapped"):
+            raise ValueError(f"`sync_mode` must be 'blocking' or 'overlapped', got {sync_mode!r}")
+        self.sync_mode = sync_mode
+        if sync_mode == "overlapped":
+            from metrics_tpu_torch.parallel.async_sync import resolve_sync_cadence
+
+            self.sync_every_n, self.sync_every_s = resolve_sync_cadence(sync_every_n, sync_every_s)
+        else:
+            if sync_every_n is not None or sync_every_s is not None:
+                raise ValueError("`sync_every_n`/`sync_every_s` need sync_mode='overlapped'")
+            self.sync_every_n = None
+            self.sync_every_s = None
+        validate_transport(sync_transport)
+        if sync_transport not in (None, "exact") and sync_mode != "overlapped":
+            raise ValueError("`sync_transport` needs sync_mode='overlapped' (the blocking sync path is always exact)")
+        self.sync_transport = sync_transport
+        self._init_overlap()
 
         self._update_count = 0
         self._update_called = False
+        # wall-clock time of the last update (health_report's staleness)
+        self._last_update_unix: Optional[float] = None
         self._computed: Any = None
         self._forward_cache: Any = None
         # False only inside forward: its batch value is local by design
@@ -161,6 +253,22 @@ class Metric:
         self._wrap_methods()
         if on_invalid != "ignore":
             self.add_state("_faults", default=FaultCounters.zeros(), dist_reduce_fx="sum")
+
+    def _init_overlap(self) -> None:
+        """The per-instance parts of the overlapped mode: no scheduler yet,
+        and one lock around every window in which ``_state`` changes or is
+        swapped, so a cycle never clones a half-made state."""
+        object.__setattr__(self, "_sync_scheduler", None)
+        object.__setattr__(self, "_sync_view_key", None)
+        object.__setattr__(self, "_update_stream", None)
+        object.__setattr__(self, "_side_stream", None)
+        object.__setattr__(self, "_in_forward", False)
+        lock = threading.RLock() if self.__dict__.get("sync_mode") == "overlapped" else None
+        object.__setattr__(self, "_overlap_lock", lock)
+
+    def _state_swap_guard(self):
+        lock = self.__dict__.get("_overlap_lock")
+        return lock if lock is not None else contextlib.nullcontext()
 
     def _wrap_methods(self) -> None:
         object.__setattr__(self, "_original_update", self._maybe_guard(type(self).update.__get__(self)))
@@ -272,7 +380,10 @@ class Metric:
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
-            self._run_update(update, args, kwargs)
+            with self._state_swap_guard():
+                self._run_update(update, args, kwargs)
+            if self.sync_mode == "overlapped" and not self._in_forward:
+                self._notify_scheduler()
 
         return wrapped_func
 
@@ -280,6 +391,7 @@ class Metric:
         self._computed = None
         self._update_count += 1
         self._update_called = True
+        self._last_update_unix = time.time()
         args = tuple(self._to_device(a) for a in args)
         kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
         update(*args, **kwargs)
@@ -287,21 +399,31 @@ class Metric:
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
         def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            # ``fresh=True``: the overlapped mode's way back to the blocking
+            # sync (a no-op for a blocking metric)
+            fresh = bool(kwargs.pop("fresh", False))
             if not self._update_called:
                 rank_zero_warn(
                     f"The ``compute`` method of metric {type(self).__name__} was called before the ``update`` "
                     "method which may lead to errors, as metric states have not yet been updated.",
                     UserWarning,
                 )
+            if self.sync_mode == "overlapped" and not fresh and self._to_sync and not self._is_synced:
+                value = self._overlapped_read(*args, **kwargs)
+                if value is not _NO_SYNC_VIEW:
+                    return value
+                # no cycle has completed: ask for one, and sync now
+                self._ensure_sync_scheduler().request()
             if self._computed is not None:
                 return self._computed
-            with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync):
-                value = compute(*args, **kwargs)
-                # checked while synced: ``dropped`` and the fault counts are
-                # then global, so every rank takes the same branch
-                self._check_cat_overflow()
-                self._check_faults()
-            self._computed = _squeeze_if_scalar(value)
+            with self._state_swap_guard():
+                with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync):
+                    value = compute(*args, **kwargs)
+                    # checked while synced: ``dropped`` and the fault counts
+                    # are then global, so every rank takes the same branch
+                    self._check_cat_overflow()
+                    self._check_faults()
+                self._computed = _squeeze_if_scalar(value)
             return self._computed
 
         return wrapped_func
@@ -315,12 +437,23 @@ class Metric:
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Accumulate into the global state AND return the batch's own value,
-        kept in ``_forward_cache`` until the next ``reset``."""
-        if self.full_state_update:
-            batch_val = self._forward_full_state_update(*args, **kwargs)
-        else:
-            batch_val = self._forward_reduce_state_update(*args, **kwargs)
-        self._forward_cache = batch_val
+        kept in ``_forward_cache`` until the next ``reset``. The whole
+        protocol holds the overlapped mode's lock and notifies the scheduler
+        once, at its end, so a cycle never clones one of its passing states
+        (a reset or a batch-only state)."""
+        with self._state_swap_guard():
+            object.__setattr__(self, "_in_forward", True)
+            try:
+                if self.full_state_update:
+                    batch_val = self._forward_full_state_update(*args, **kwargs)
+                else:
+                    batch_val = self._forward_reduce_state_update(*args, **kwargs)
+            finally:
+                object.__setattr__(self, "_in_forward", False)
+            self._forward_cache = batch_val
+        if self.sync_mode == "overlapped":
+            # one notify for the whole protocol, once the state is whole again
+            self._notify_scheduler()
         return batch_val
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
@@ -490,6 +623,135 @@ class Metric:
         self._check_faults()
 
     # ------------------------------------------------------------------
+    # the overlapped sync (parallel/async_sync.py)
+    # ------------------------------------------------------------------
+
+    def _notify_scheduler(self) -> None:
+        """One update landed: tell the scheduler (which may snapshot now, on
+        this thread)."""
+        if self.device.type == "cuda":
+            # the stream whose work the cycle's clone must follow
+            object.__setattr__(self, "_update_stream", torch.cuda.current_stream(self.device))
+        self._ensure_sync_scheduler().notify(steps=self._update_count)
+
+    def _ensure_sync_scheduler(self):
+        """This metric's scheduler, built on first use (a collection sets its
+        own shared one on its members instead)."""
+        sched = self.__dict__.get("_sync_scheduler")
+        if sched is None:
+            from metrics_tpu_torch.parallel.async_sync import AsyncSyncScheduler
+
+            sched = AsyncSyncScheduler(
+                snapshot_fn=self._overlap_snapshot,
+                reduce_fn=self._overlap_reduce,
+                sync_every_n=self.sync_every_n,
+                sync_every_s=self.sync_every_s,
+                on_error=_cycle_error_recorder(type(self).__name__),
+                name=type(self).__name__,
+            )
+            object.__setattr__(self, "_sync_scheduler", sched)
+        return sched
+
+    def _overlap_snapshot(self):
+        """A clone of the live state (a cycle's back buffer), made under the
+        swap lock on the stream that ran the updates, with the event that
+        follows it: ``((state, event), update count)``. The scheduler calls
+        it at each trigger, on the triggering thread."""
+        with self._state_swap_guard():
+            stream = self.__dict__.get("_update_stream")
+            with _on_stream(stream):
+                state = self._copy_state()
+                event = _record_event(state, stream)
+            return (state, event), self._update_count
+
+    def _cycle_stream(self) -> Optional[Any]:
+        """The stream a cycle's collectives run on, its own (CUDA only)."""
+        if self.device.type != "cuda":
+            return None
+        if self.__dict__.get("_side_stream") is None:
+            object.__setattr__(self, "_side_stream", torch.cuda.Stream(self.device))
+        return self._side_stream
+
+    def _overlap_reduce(self, payload):
+        """A cycle's sync, on the snapshot: the blocking path's
+        :meth:`_synced_state` (an exact cycle's view is bit-equal to a
+        blocking read of the batches it covers), or, with a quantized
+        ``sync_transport`` (the argument, else
+        ``METRICS_TPU_SYNC_TRANSPORT``, resolved each cycle), the host
+        wire's rule. In a world of one process the view is the snapshot.
+        Returns ``(state, event)``; the reader waits on the event."""
+        state, event = payload
+        if not distributed_available():
+            return state, event
+        side = self._cycle_stream()
+        with _on_stream(side):
+            _use_on_current_stream(state, event)
+            synced = self._synced_state(state, self.dist_sync_fn, codec=resolve_codec(self.sync_transport))
+            return synced, _record_event(synced, side)
+
+    def _overlapped_read(self, *args: Any, **kwargs: Any) -> Any:
+        """Compute from the scheduler's front view, with no collective;
+        ``_NO_SYNC_VIEW`` before the first completed cycle."""
+        sched = self.__dict__.get("_sync_scheduler")
+        view = sched.view() if sched is not None else None
+        if view is None:
+            return _NO_SYNC_VIEW
+        payload, event = view.payload
+        key = self.__dict__.get("_sync_view_key")
+        if key is not None:
+            # a collection's view: each member's entry (state, covered steps)
+            entry = payload.get(key)
+            if entry is None:
+                return _NO_SYNC_VIEW
+            payload = entry[0]
+        with self._state_swap_guard():
+            _use_on_current_stream(payload, event)
+            prev_state, prev_synced = self.__dict__["_state"], self._is_synced
+            object.__setattr__(self, "_state", dict(payload))
+            self._is_synced = True  # the view is the synced state
+            try:
+                value = self._original_compute(*args, **kwargs)
+                self._check_cat_overflow()
+                self._check_faults()
+            finally:
+                object.__setattr__(self, "_state", prev_state)
+                self._is_synced = prev_synced
+        return _squeeze_if_scalar(value)
+
+    def request_sync(self, wait: bool = False, deadline_s: float = 30.0) -> bool:
+        """Ask the overlapped scheduler for a cycle now. With ``wait=True``,
+        block (at most ``deadline_s``) until the view covers every update so
+        far; returns whether it does. A blocking metric returns True."""
+        if self.sync_mode != "overlapped":
+            return True
+        sched = self._ensure_sync_scheduler()
+        target = sched.seq()
+        if not wait:
+            sched.request()
+            return sched.covered(target)
+        return sched.wait_covered(target, deadline_s)
+
+    @property
+    def sync_lag(self) -> Optional[Dict[str, Any]]:
+        """How far the overlapped view trails the live state
+        (``sync_lag_steps``, ``sync_lag_s``); None for a blocking metric."""
+        if self.sync_mode != "overlapped":
+            return None
+        sched = self.__dict__.get("_sync_scheduler")
+        if sched is None:
+            return {"sync_lag_steps": self._update_count, "sync_lag_s": None, "synced_once": False, "in_flight": False}
+        key = self.__dict__.get("_sync_view_key")
+        if key is None:
+            return sched.lag(live_steps=self._update_count)
+        # a collection's view: this member's own entry
+        base = sched.lag(live_steps=self._update_count)
+        view = sched.view()
+        entry = view.payload[0].get(key) if view is not None else None
+        if entry is None:
+            return {**base, "sync_lag_steps": self._update_count, "sync_lag_s": None, "synced_once": False}
+        return {**base, "sync_lag_steps": max(0, self._update_count - entry[1])}
+
+    # ------------------------------------------------------------------
     # multi-process sync
     # ------------------------------------------------------------------
 
@@ -499,11 +761,25 @@ class Metric:
         return dict(self.__dict__.get("_list_templates", {}))
 
     def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
-        """Sync every state across processes with one
+        """Sync every state across processes with one exact
         :func:`~metrics_tpu_torch.parallel.sync.fused_sync`."""
+        object.__setattr__(self, "_state", self._synced_state(self._state, dist_sync_fn, process_group))
+
+    def _synced_state(
+        self,
+        state: Dict[str, Any],
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        codec: Any = None,
+    ) -> Dict[str, Any]:
+        """``state`` synced across processes; reads only the metric's
+        configuration, so an overlapped cycle runs it on a clone. ``codec``
+        is the overlapped cycle's host wire; without it the sync is exact."""
         group = self.process_group if process_group is None else process_group
-        (synced,) = fused_sync([self._state], [self._reductions], group, [self._sync_defaults()], comm=dist_sync_fn)
-        object.__setattr__(self, "_state", synced)
+        (synced,) = fused_sync(
+            [state], [self._reductions], group, [self._sync_defaults()], comm=dist_sync_fn, transport="exact", host_codec=codec
+        )
+        return synced
 
     def sync(
         self,
@@ -568,9 +844,15 @@ class Metric:
     # ------------------------------------------------------------------
 
     def reset(self) -> None:
-        """Restore the default state."""
+        """Restore the default state. An overlapped metric's view covers the
+        old stream: its scheduler stops, and the next update starts another."""
+        sched = self.__dict__.get("_sync_scheduler")
+        if sched is not None and self.__dict__.get("_sync_view_key") is None:
+            sched.stop(final=False, timeout_s=5.0)
+        object.__setattr__(self, "_sync_scheduler", None)
         self._update_count = 0
         self._update_called = False
+        self._last_update_unix = None
         self._computed = None
         self._forward_cache = None
         self._cache = None
@@ -708,10 +990,15 @@ class Metric:
         return value.to(device=self.device, dtype=default.dtype, copy=True)
 
     def __getstate__(self) -> Dict[str, Any]:
-        return {k: v for k, v in self.__dict__.items() if k not in _BOUND}
+        # no scheduler thread, lock or stream travels: the copy builds its
+        # own on first use
+        return {k: v for k, v in self.__dict__.items() if k not in _PER_INSTANCE}
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         self.__dict__.update(state)
+        self.__dict__.setdefault("sync_mode", "blocking")
+        self.__dict__.setdefault("_last_update_unix", None)
+        self._init_overlap()
         self._wrap_methods()
 
     def __deepcopy__(self, memo: dict) -> "Metric":
@@ -719,8 +1006,9 @@ class Metric:
         new = cls.__new__(cls)
         memo[id(self)] = new
         for k, v in self.__dict__.items():
-            if k not in _BOUND:
+            if k not in _PER_INSTANCE:
                 object.__setattr__(new, k, deepcopy(v, memo))
+        new._init_overlap()
         new._wrap_methods()
         return new
 

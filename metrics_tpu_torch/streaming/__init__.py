@@ -7,12 +7,15 @@ from metrics_tpu_torch.streaming.sketches import (
     QuantileSketch,
     QuantileSketchState,
 )
+from metrics_tpu_torch.streaming.windowed import DecayedMetric, WindowedMetric
 
 __all__ = [
     "CountMinSketch",
+    "DecayedMetric",
     "CountMinState",
     "HllState",
     "HyperLogLog",
     "QuantileSketch",
     "QuantileSketchState",
+    "WindowedMetric",
 ]

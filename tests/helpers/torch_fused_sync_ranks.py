@@ -52,6 +52,20 @@ def shards(kind, world):
     return [tuple(c[a:b] for c in cols) for a, b in zip(bounds[:-1], bounds[1:])]
 
 
+TRANSPORT_REDUCTIONS = {"s": "sum", "c": "sum", "m": "mean"}
+
+
+def transport_states(rank):
+    """A rank's states for the quantized transport over Gloo: a float32 sum
+    leaf over four decades, an int32 sum leaf and a float32 mean leaf."""
+    rng = np.random.default_rng(SEED + 50 + rank)
+    return {
+        "s": (rng.standard_normal(700) * 10.0 ** rng.uniform(-2, 2, 700)).astype(np.float32),
+        "c": rng.integers(0, 99, 5).astype(np.int32),
+        "m": rng.random(33).astype(np.float32),
+    }
+
+
 def batches(rows):
     """Two batches of a rank's rows (the first through ``forward``); none
     for an empty rank."""
@@ -179,7 +193,7 @@ def rank_main(rank, world, store, queue):
         dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
         warnings.simplefilter("ignore")
         import metrics_tpu_torch as mtt
-        from metrics_tpu_torch.parallel.sync import _pad_gather_trim
+        from metrics_tpu_torch.parallel.sync import _pad_gather_trim, fused_sync
 
         out = {}
         _run_collection(stat_collection(mtt, device="cpu"), shards("stat", world)[rank], torch, dist, out, "stat")
@@ -215,6 +229,16 @@ def rank_main(rank, world, store, queue):
             out["mismatch"] = None
         except ValueError as err:
             out["mismatch"] = str(err)
+        # int16, which neither Gloo nor NCCL carries, travels as bytes: a
+        # ragged gather and a list state through fused_sync
+        local16 = (torch.arange(3 * (rank + 1), dtype=torch.int16) * 1000 - 9).reshape(-1, 3)
+        out["int16"] = _numpy(_pad_gather_trim(local16))
+        out["int16_list"] = _numpy(fused_sync([{"v": [local16]}], [{"v": "cat"}], defaults=[{"v": torch.zeros((0, 3), dtype=torch.int16)}])[0]["v"])
+        # the int8 transport, chunked, through the default (bounded) communicator
+        states = {k: torch.from_numpy(v) for k, v in transport_states(rank).items()}
+        with Recorder(dist) as rec:
+            out["int8"] = _numpy(fused_sync([states], [TRANSPORT_REDUCTIONS], transport="int8", chunks=2)[0])
+        out["int8_calls"] = rec.calls
         out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "metrics_tpu"))
         dist.destroy_process_group()
         queue.put((rank, out))

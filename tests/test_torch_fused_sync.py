@@ -337,3 +337,54 @@ def test_ragged_gather_reconciles_an_empty_rank_and_refuses_a_mismatch(world):
         assert [p.shape for p in parts[:-1]] == [(r + 1, 3) for r in range(n - 1)]
         assert parts[-1].shape == (0, 3) and all(p.dtype == np.int32 for p in parts)
         assert res["mismatch"] is not None and "different dtypes" in res["mismatch"]
+
+
+def test_sketch_sync_bit_equal_to_jax_fused_sync_under_vmap(world):
+    """The sketch branch against the reference itself: the ranks' local
+    sketches (after their three further rows), stacked, through the JAX
+    package's ``fused_sync`` under ``jax.vmap`` (which runs on this
+    machine's jax, where its ``shard_map`` form does not, F0). Items by
+    value: both sums turn ``-0.0`` into ``+0.0``."""
+    from metrics_tpu.streaming.sketches import QuantileSketchState as JaxSketch
+
+    n, results = world
+    local = [res["sketch"]["after_update"]["q"]["sketch"] for res in results]
+    stacked = JaxSketch(*(jnp.stack([jnp.asarray(st[f]) for st in local]) for f in JaxSketch._fields))
+    synced = jax.vmap(lambda s: jax_fused_sync([{"sketch": s}], [{"sketch": None}], "d")[0]["sketch"], axis_name="d")(stacked)
+    for r, res in enumerate(results):
+        got = res["sketch"]["synced"]["q"]["sketch"]
+        for field in JaxSketch._fields:
+            assert np.array_equal(got[field], np.asarray(getattr(synced, field))[r]), (r, field)
+
+
+def test_int16_travels_as_bytes(world):
+    """``_pad_gather_trim`` and a list state in int16 over Gloo, which
+    carries no int16: the payload travels as a byte view."""
+    n, results = world
+    want = [(np.arange(3 * (r + 1), dtype=np.int16) * 1000 - 9).reshape(-1, 3) for r in range(n)]
+    for res in results:
+        assert [p.dtype for p in res["int16"]] == [np.int16] * n
+        for got, w in zip(res["int16"], want):
+            np.testing.assert_array_equal(got, w)
+        for got, w in zip(res["int16_list"], want):
+            np.testing.assert_array_equal(got, w)
+
+
+def test_int8_transport_over_gloo_against_jax_under_vmap(world):
+    """``fused_sync(transport="int8", chunks=2)`` over Gloo through the default
+    bounded communicator: one byte ``all_gather`` of the wire, two
+    ``all_reduce`` per bucket. The quantized sum and the counts are
+    bit-equal to JAX's ``fused_sync`` under ``jax.vmap``; the mean bucket is
+    Gloo's float32 sum, whose order over four ranks is Gloo's own, so it is
+    held to ``MEAN_RTOL``."""
+    n, results = world
+    per = [R.transport_states(r) for r in range(n)]
+    stacked = {k: jnp.stack([jnp.asarray(p[k]) for p in per]) for k in per[0]}
+    ref = jax.vmap(lambda st: jax_fused_sync([st], [R.TRANSPORT_REDUCTIONS], "d", transport="int8", chunks=2)[0], axis_name="d")(stacked)
+    for r, res in enumerate(results):
+        assert np.array_equal(res["int8"]["s"].view(np.uint32), np.asarray(ref["s"])[r].view(np.uint32))
+        np.testing.assert_array_equal(res["int8"]["c"], np.asarray(ref["c"])[r])
+        np.testing.assert_allclose(res["int8"]["m"], np.asarray(ref["m"])[r], rtol=MEAN_RTOL)
+        gathers = [c for c in res["int8_calls"] if c[0] == "all_gather"]
+        assert len(gathers) == 1 and len(_all_reduces(res["int8_calls"])) == 4
+

@@ -174,7 +174,10 @@ def test_inputs_move_to_the_metric_device():
 
 def test_constructor_errors():
     with pytest.raises(ValueError, match="Unexpected keyword"):
-        mtt.Accuracy(device="cpu", sync_mode="overlapped")
+        mtt.Accuracy(device="cpu", not_an_option=True)
+    # the overlapped mode is ported: its arguments are checked, not refused
+    with pytest.raises(ValueError, match="sync_mode"):
+        mtt.Accuracy(device="cpu", sync_mode="weird")
     with pytest.raises(ValueError, match="on_invalid"):
         mtt.Accuracy(device="cpu", on_invalid="skip")
     with pytest.raises(ValueError, match="dist_reduce_fx"):

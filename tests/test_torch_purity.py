@@ -111,6 +111,35 @@ def test_fused_sync_and_fault_channel_imports_build_and_load_no_kernel():
     assert proc.stdout.strip() == "ok"
 
 
+def test_sync_layer_imports_load_no_jax_build_nothing_and_start_no_thread():
+    """The sync layer's modules import no JAX and nothing of
+    ``metrics_tpu`` (not even its standard-library ``parallel/retry.py``,
+    ``ops/_envtools.py`` or ``resilience/health.py``), build no kernel, and
+    start no scheduler or transport thread until a metric asks."""
+    code = (
+        "import sys, threading\n"
+        "import metrics_tpu_torch.ops._envtools, metrics_tpu_torch.ops.quantize, metrics_tpu_torch.parallel.retry\n"
+        "import metrics_tpu_torch.parallel.async_sync, metrics_tpu_torch.resilience.health, metrics_tpu_torch.streaming.windowed\n"
+        "import metrics_tpu_torch.metric, metrics_tpu_torch.collections, metrics_tpu_torch.interop\n"
+        "from metrics_tpu_torch.ops import _build\n"
+        "assert _build._loaded == {} and _build.build_info == {}\n"
+        "assert [t.name for t in threading.enumerate()] == ['MainThread']\n"
+        "assert 'triton' not in sys.modules and not any(m.split('.')[0] in ('jax', 'metrics_tpu') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", ["torch_thread_world.py", "torch_twin_world.py"])
+def test_rank_helpers_import_no_jax(name):
+    path = ROOT / "tests" / "helpers" / name
+    bad = [m for m in _imported_modules(path) if _is_forbidden(m)]
+    assert not bad, bad
+
+
 def test_fused_sync_rank_helper_imports_no_jax():
     """The ranks of ``tests/test_torch_fused_sync.py`` run this module."""
     path = ROOT / "tests" / "helpers" / "torch_fused_sync_ranks.py"
@@ -123,6 +152,7 @@ def test_fused_sync_rank_helper_imports_no_jax():
     [
         "Accuracy", "StatScores", "BinnedAveragePrecision", "AUROC", "AveragePrecision", "ROC", "PrecisionRecallCurve", "AUC",
         "Precision", "Recall", "F1Score", "FBetaScore", "MaxMetric", "MinMetric", "SumMetric", "MeanMetric", "CatMetric",
+        "WindowedMetric", "DecayedMetric",
     ],
 )
 def test_metric_without_device_asks_for_cuda(name, monkeypatch):
@@ -130,6 +160,14 @@ def test_metric_without_device_asks_for_cuda(name, monkeypatch):
     kwargs = {"num_classes": 3} if name.startswith("Binned") else {}
     if name in ("Precision", "Recall", "F1Score", "FBetaScore"):
         kwargs = {"num_classes": 3, "average": "macro", "on_invalid": "drop"}
+    if name in ("WindowedMetric", "DecayedMetric"):
+        # a wrapper takes its device from the metric it wraps
+        extra = {"window": 8, "buckets": 2} if name == "WindowedMetric" else {"halflife": 4.0}
+        with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
+            getattr(metrics_tpu_torch, name)(metrics_tpu_torch.SumMetric(device="cpu"), device="cuda", **extra)
+        metric = getattr(metrics_tpu_torch, name)(metrics_tpu_torch.SumMetric(device="cpu"), **extra)
+        assert metric.device == torch.device("cpu")
+        return
     with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
         getattr(metrics_tpu_torch, name)(**kwargs)
     with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
