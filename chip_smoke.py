@@ -73,7 +73,28 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    each path; each beside its previous design, timed in the same run: K1's
    compare per (row, class, threshold), built from
    ``csrc/binned_counters_loop.cu``; K2's warp match per id, built from
-   ``csrc/histogram_match.cu``; and K3's one single-fold launch per level.
+   ``csrc/histogram_match.cu``; and K3's one single-fold launch per level;
+   K2 also at the confusion matrix's shape (1024 ids over 10^6 bins) beside
+   ``torch.bincount``;
+12. full classification path (after the windowed path): the ImageNet epoch
+   through ``{cm: ConfusionMatrix, kappa: CohenKappa, mcc: MatthewsCorrCoef,
+   jaccard: JaccardIndex, spec: Specificity, dice: Dice, hamming:
+   HammingDistance, ce: CalibrationError(binned), hinge: HingeLoss
+   (crammer-singer), f1: 2 * p * r / (p + r), bap}`` (the confusion-matrix
+   family one compute group, so K2 counts once per batch) and a
+   ``KLDivergence`` of the epoch's distributions against a second seeded
+   model's, on the card and on the CPU: the confusion matrix bit-equal, its
+   trace the top-1 rows, K1 and K2 once per batch, and a guarded
+   ``ConfusionMatrix`` update with no blocking read;
+13. multilabel path: a COCO-2014-val-shaped evaluation (40,504 images, 80
+   labels, 512-row batches) through ``{CoverageError,
+   LabelRankingAveragePrecision, LabelRankingLoss, HammingDistance,
+   ConfusionMatrix(multilabel)}`` on the card and on the CPU, K2 once per
+   batch;
+14. full classification over four ranks (after the sync layer's world): the
+   collection of phase 12 on the shards of the epoch; ``compute()`` makes
+   one ``all_reduce`` per predicted bucket and no gather, and its values
+   are those of the one-process CPU run.
 
 The parent process builds every kernel before it spawns the ranks, so the
 ranks only load the libraries. A rank that fails makes the script fail.
@@ -158,6 +179,35 @@ DECODE_ROUNDING = 2.0 ** -23
 WINDOW = 8192
 WINDOW_BUCKETS = 8  # 1024-row buckets: the epoch's batches fill one each
 HALFLIFE = 8192.0
+# the rest of classification (phases full_classification_path, multilabel_path,
+# full_classification_dist): the ImageNet epoch through every classification
+# metric, and a COCO-2014-val-shaped multilabel evaluation
+CE_BINS = 15
+# declared compute groups: the confusion-matrix family counts once per batch
+# (one K2 launch), specificity and Dice share their stat scores
+FULL_GROUPS = [["cm", "kappa", "mcc", "jaccard"], ["spec", "dice"], ["hamming"], ["ce"], ["hinge"], ["f1"], ["bap"]]
+# its sync's buckets, as predicted from the states: confusion matrices, stat
+# scores, Hamming and hinge counts int32 SUM; calibration bins, the hinge sum
+# and BAP's counters float32 SUM; no list, ring or fault state, so no gather
+FULL_EVAL_BUCKETS = [["float32", "SUM"], ["int32", "SUM"]]
+# values from float32 sums over the epoch's rows (calibration bins, hinge,
+# KL, the ranking means), added in another order on the card: within this
+# share of max(1, |value|) of the CPU run's
+FLOAT_SUM_RTOL = 1e-5
+FLOAT_SUM_VALUES = ("ce", "hinge", "kl")
+GUARDED_UPDATES = 8  # guarded ConfusionMatrix updates watched for blocking reads
+PROFILE_BATCHES = 8  # updates of each new path's collection in its profiler window
+ML_ROWS = 40_504  # COCO 2014 val images
+ML_LABELS = 80
+ML_BATCH = 512
+ML_LABELS_PER_ROW = 2.9  # COCO's mean categories per image
+# logit centres of a true and a false label, for a scorer of the precision
+# (about 0.85) and recall (about 0.72) at threshold 0.5 that ResNet-101
+# multilabel classifiers report on COCO 2014 val (ML-GCN, CVPR 2019):
+# Phi(0.58) = 0.72 of true labels and Phi(-2.59) = 0.48 % of false ones score
+# above 0.5, so about 0.37 false positives an image against 2.09 true ones
+ML_POS_LOGIT = 0.58
+ML_NEG_LOGIT = -2.59
 LOOP_SOURCE = "binned_counters_loop.cu"  # K1's previous design, built only to time K1 against
 MATCH_SOURCE = "histogram_match.cu"  # K2's previous design, built only to time K2 against
 
@@ -480,7 +530,7 @@ def phase_main_path(preds, target):
         "cpu_reference_s": cpu_s,
         "matches_cpu_run": True,
     })
-    return launches
+    return launches, [float(v) for v in cpu_result["bap"]]
 
 
 def k1_times(preds, target, launches, max_abs_err):
@@ -605,18 +655,17 @@ def profile_summary(prof, wall_s, batches):
         # the port's own kernels, wherever they rank
         "port_kernels_ms_per_batch": {
             name: sum(dev_us(e) for e in on_device if name in e.key) / 1e3 / batches
-            for name in ("binned_counters_kernel", "compactor_fold_kernel", "compactor_cascade_kernel")
+            for name in ("binned_counters_kernel", "histogram_kernel", "compactor_fold_kernel", "compactor_cascade_kernel")
         },
         # a blocking device-to-host read waits in one stream synchronisation
         "stream_syncs_per_batch": sum(e.count for e in events if e.key == "cudaStreamSynchronize") / batches,
     }
 
 
-def phase_profile(preds, target, batches=8):
+def phase_profile(preds, target, batches=PROFILE_BATCHES):
     """Where an update's time goes: each member's update alone, and a
     ``torch.profiler`` window over the collection's updates."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     import metrics_tpu_torch as mtt
 
@@ -634,17 +683,9 @@ def phase_profile(preds, target, batches=8):
             times.append(time.perf_counter() - t0)
         member_p50_ms[name] = statistics.median(times[2:]) * 1e3
 
-    coll = build_collection(mtt, preds.device)
-    for i in range(3):  # warm-up; compute groups form at the first update
-        coll.update(*batch(i))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(3, 3 + batches):
-            coll.update(*batch(i))
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    emit({"phase": "profile", "member_update_p50_ms": member_p50_ms, **profile_summary(prof, wall_s, batches)})
+    # after three warm-up updates: compute groups form at the first
+    profiled = profile_updates(build_collection(mtt, preds.device), preds, target, BATCH)
+    emit({"phase": "profile", "member_update_p50_ms": member_p50_ms, **profiled})
 
 
 def _level_run(n, count, gen, dev, ties=False):
@@ -991,16 +1032,7 @@ def phase_stream_profile(x, batches=6):
     for i in range(3):  # warm-up; compute groups form at the first update
         coll.update(batch(i))
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for i in range(3, 3 + batches):
-                coll.update(batch(i))
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    blocking = [str(w.message).splitlines()[0] for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    blocking = blocking_reads(lambda i: coll.update(batch(3 + i)), batches)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2685,6 +2717,498 @@ def k2_times(dev, max_abs_err):
     }
 
 
+# ---------------------------------------------------------------------------
+# the rest of classification: the confusion-matrix family (K2), calibration,
+# hinge, KL, multilabel ranking and metric arithmetic
+# ---------------------------------------------------------------------------
+
+
+def build_full_classification(pkg, device, bap=True):
+    """The ImageNet-1k evaluation with every classification metric of the
+    port: the confusion-matrix family as one compute group (one K2 count per
+    batch), specificity and Dice as another, calibration, hinge, an F1 built
+    as metric arithmetic, and BAP (K1) unless ``bap`` is false. The groups
+    are declared, so that the first batch, too, counts the confusion matrix
+    once."""
+    p = pkg.Precision(num_classes=CLASSES, average="macro", device=device)
+    r = pkg.Recall(num_classes=CLASSES, average="macro", device=device)
+    members = {
+        "cm": pkg.ConfusionMatrix(CLASSES, device=device),
+        "kappa": pkg.CohenKappa(CLASSES, device=device),
+        "mcc": pkg.MatthewsCorrCoef(CLASSES, device=device),
+        "jaccard": pkg.JaccardIndex(CLASSES, device=device),
+        "spec": pkg.Specificity(num_classes=CLASSES, average="macro", device=device),
+        "dice": pkg.Dice(num_classes=CLASSES, average="macro", device=device),
+        "hamming": pkg.HammingDistance(device=device),
+        # binned: (n_bins,) sum states, so a sync makes no gather
+        "ce": pkg.CalibrationError(n_bins=CE_BINS, binned=True, device=device),
+        "hinge": pkg.HingeLoss(multiclass_mode="crammer-singer", device=device),
+        "f1": 2 * p * r / (p + r),
+    }
+    if not bap:
+        return pkg.MetricCollection(members, compute_groups=[g for g in FULL_GROUPS if g != ["bap"]])
+    members["bap"] = pkg.BinnedAveragePrecision(num_classes=CLASSES, thresholds=THRESHOLDS, device=device)
+    return pkg.MetricCollection(members, compute_groups=FULL_GROUPS)
+
+
+def make_second_model(device):
+    """The class distributions of a second seeded model over the epoch, for
+    KL(first model || second model)."""
+    import torch
+
+    _, target = make_data(device)
+    g = torch.Generator(device=device).manual_seed(SEED + 21)
+    logits = torch.randn((ROWS, CLASSES), generator=g, device=device)
+    logits[torch.arange(ROWS, device=device), target] += SIGNAL / 2
+    return torch.softmax(logits, dim=1)
+
+
+def run_full_classification(coll, kl, preds, target, q, sync, rows=None):
+    """Update-only 1024-row batches (the last one ragged); returns per-update seconds."""
+    update_s = []
+    for start in range(0, preds.shape[0] if rows is None else rows, BATCH):
+        p, y = preds[start:start + BATCH], target[start:start + BATCH]
+        t0 = time.perf_counter()
+        coll.update(p, y)
+        if kl is not None:
+            kl.update(p, q[start:start + BATCH])
+        sync()
+        update_s.append(time.perf_counter() - t0)
+    return update_s
+
+
+def _full_values(result):
+    """Floats of a full-classification result; the confusion matrix as an array."""
+    out = {}
+    for k, v in result.items():
+        if k == "cm":
+            out[k] = v.cpu()
+        elif isinstance(v, list):
+            out[k] = [float(x) for x in v]
+        else:
+            out[k] = float(v)
+    return out
+
+
+def compare_full_values(card, cpu, what):
+    """The card's values against the CPU run's: the confusion matrix bit-equal,
+    values from counts within AP_ATOL, float32 sums of the epoch's rows
+    within FLOAT_SUM_RTOL; returns the largest differences."""
+    import torch
+
+    if not torch.equal(card["cm"], cpu["cm"]):
+        raise AssertionError(f"{what}: the confusion matrix differs from the CPU run")
+    err = {}
+    for k in card:
+        if k == "cm":
+            continue
+        a = card[k] if isinstance(card[k], list) else [card[k]]
+        b = cpu[k] if isinstance(cpu[k], list) else [cpu[k]]
+        if not all(math.isfinite(x) for x in a) or len(a) != len(b):
+            raise AssertionError(f"{what}: {k} = {card[k]} is not finite or has another shape")
+        err[k] = max(abs(x - y) for x, y in zip(a, b))
+        tol = FLOAT_SUM_RTOL * max(1.0, max(abs(y) for y in b)) if k in FLOAT_SUM_VALUES else AP_ATOL
+        if err[k] > tol:
+            raise AssertionError(f"{what}: {k} = {card[k]} against {cpu[k]} on the CPU (tolerance {tol})")
+    return err
+
+
+def blocking_reads(fn, calls):
+    """Blocking device-to-host reads over ``calls`` calls of ``fn`` (sync
+    debug mode warns at each one)."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in range(calls):
+                fn(i)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0] for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def profile_updates(coll, preds, target, batch):
+    """Where an update of ``coll`` spends its time: a ``torch.profiler``
+    window over PROFILE_BATCHES updates after three of warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def rows(i):
+        return preds[i * batch:(i + 1) * batch], target[i * batch:(i + 1) * batch]
+
+    for i in range(3):
+        coll.update(*rows(i))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3, 3 + PROFILE_BATCHES):
+            coll.update(*rows(i))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    return profile_summary(prof, wall_s, PROFILE_BATCHES)
+
+
+def phase_full_classification(preds, target, cpu_bap):
+    """The epoch through every classification metric on the card and on the
+    CPU; K1 and K2 once per batch; a guarded ConfusionMatrix update reads
+    nothing back. BAP's values are held against ``cpu_bap``, the main
+    path's CPU run of the same BAP on the same epoch, so the CPU reference
+    here leaves BAP out."""
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import binned_counters as k1
+    from metrics_tpu_torch.ops import histogram as k2
+
+    dev = preds.device
+    n_batches = -(-ROWS // BATCH)
+    q = make_second_model(dev)
+    coll = build_full_classification(mtt, dev)
+    kl = mtt.KLDivergence(device=dev)
+    torch.cuda.synchronize()
+    k1.reset_launch_count()
+    k2.reset_launch_count()
+    t0 = time.perf_counter()
+    update_s = run_full_classification(coll, kl, preds, target, q, torch.cuda.synchronize)
+    loop_s = time.perf_counter() - t0
+    launches = {"binned_counters": k1.launch_count, "histogram": k2.launch_count}
+    t1 = time.perf_counter()
+    card = _full_values({**coll.compute(), "kl": kl.compute()})
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t1
+    if launches != {"binned_counters": n_batches, "histogram": n_batches}:
+        raise AssertionError(f"full classification path: launches {launches} over {n_batches} batches, predicted one of each per batch")
+    members = dict(coll.items(keep_base=True, copy_state=False))
+    if members["cm"].update_count != n_batches or [sorted(g) for g in coll.compute_groups.values()] != [sorted(g) for g in FULL_GROUPS]:
+        raise AssertionError(f"full classification path: groups {coll.compute_groups}")
+
+    # what comes out is right: every row counted once, the diagonal is top-1
+    cm = card["cm"]
+    top1 = int((preds.argmax(dim=1) == target).sum())
+    if cm.shape != (CLASSES, CLASSES) or int(cm.sum()) != ROWS or int(cm.diagonal().sum()) != top1:
+        raise AssertionError(f"full classification path: confusion matrix sums to {int(cm.sum())}, diagonal {int(cm.diagonal().sum())}, top-1 rows {top1}")
+    if abs(card["hamming"] - 2 * (ROWS - top1) / (ROWS * CLASSES)) > AP_ATOL:
+        raise AssertionError(f"full classification path: hamming {card['hamming']} against {2 * (ROWS - top1) / (ROWS * CLASSES)}")
+
+    # the same run of the port on the CPU (K2 is its plain version there),
+    # BAP's from the main path
+    t2 = time.perf_counter()
+    cpu_coll = build_full_classification(mtt, "cpu", bap=False)
+    cpu_kl = mtt.KLDivergence(device="cpu")
+    run_full_classification(cpu_coll, cpu_kl, preds.cpu(), target.cpu(), q.cpu(), lambda: None)
+    cpu = _full_values({**cpu_coll.compute(), "kl": cpu_kl.compute(), "bap": cpu_bap})
+    cpu_s = time.perf_counter() - t2
+    err = compare_full_values(card, cpu, "full classification path")
+    ce_card, ce_cpu = members["ce"].metric_state, dict(cpu_coll.items(keep_base=True, copy_state=False))["ce"].metric_state
+    if not torch.equal(ce_card["bin_count"].cpu(), ce_cpu["bin_count"]):
+        raise AssertionError("full classification path: calibration bin counts differ from the CPU run")
+    bin_rel = {k: float(((ce_card[k].cpu() - ce_cpu[k]).abs() / ce_cpu[k].abs().clamp(min=1e-30)).max()) for k in ("bin_conf", "bin_acc")}
+    if max(bin_rel.values()) > FLOAT_SUM_RTOL:
+        raise AssertionError(f"full classification path: calibration bin sums off by {bin_rel} (rtol {FLOAT_SUM_RTOL})")
+    del q
+
+    # a guarded ConfusionMatrix update: no blocking read on the card (K2
+    # counts without reading the ids' range back)
+    guarded = mtt.ConfusionMatrix(CLASSES, on_invalid="warn", device=dev)
+    plain_cm = mtt.ConfusionMatrix(CLASSES, device=dev)
+    for i in range(2):  # warm-up
+        guarded.update(preds[i * BATCH:(i + 1) * BATCH], target[i * BATCH:(i + 1) * BATCH])
+    torch.cuda.synchronize()
+    reads = blocking_reads(lambda i: guarded.update(preds[i * BATCH:(i + 1) * BATCH], target[i * BATCH:(i + 1) * BATCH]), GUARDED_UPDATES)
+    plain_reads = blocking_reads(lambda i: plain_cm.update(preds[i * BATCH:(i + 1) * BATCH], target[i * BATCH:(i + 1) * BATCH]), GUARDED_UPDATES)
+    if reads:
+        raise AssertionError(f"a guarded ConfusionMatrix update read back {len(reads) / GUARDED_UPDATES} times per update: {reads[:3]}")
+
+    profiled = profile_updates(build_full_classification(mtt, dev), preds, target, BATCH)
+
+    emit({
+        "phase": "full_classification_path",
+        "config": {"rows": ROWS, "classes": CLASSES, "batch": BATCH, "thresholds": THRESHOLDS, "ce_bins": CE_BINS, "seed": SEED,
+                   "members": sorted(members), "compute_groups": FULL_GROUPS, "kl": "KLDivergence(first model || second model), outside the collection"},
+        "batches": n_batches,
+        "rows_per_s": ROWS / loop_s,
+        "epoch_s": loop_s,
+        "first_update_ms": update_s[0] * 1e3,
+        "update_p50_ms": statistics.median(update_s) * 1e3,
+        "compute_s": compute_s,
+        "launches": launches,
+        "values": {k: (v if not isinstance(v, list) else sum(v) / len(v)) for k, v in card.items() if k != "cm"},
+        "cm_trace": int(cm.diagonal().sum()),
+        "max_abs_err_vs_cpu": err,
+        "ce_bin_sum_max_rel_err_vs_cpu": bin_rel,
+        "guarded_confmat_blocking_reads_per_update": len(reads) / GUARDED_UPDATES,
+        "unguarded_confmat_blocking_reads_per_update": len(plain_reads) / GUARDED_UPDATES,
+        "unguarded_blocking_reads_seen": plain_reads[:3],
+        "profile": profiled,
+        "cpu_reference_s": cpu_s,
+        "matches_cpu_run": True,
+    })
+    return launches, cpu
+
+
+def make_multilabel_data(device):
+    """A COCO-2014-val-shaped multilabel evaluation: 40,504 images, 80
+    labels, about 2.9 labels an image; the scores are sigmoids of unit
+    normal logits centred at ML_POS_LOGIT for a true label and ML_NEG_LOGIT
+    for a false one."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SEED + 31)
+    target = (torch.rand((ML_ROWS, ML_LABELS), generator=g, device=device) < ML_LABELS_PER_ROW / ML_LABELS).to(torch.int64)
+    centre = torch.where(target.bool(), ML_POS_LOGIT, ML_NEG_LOGIT)
+    logits = torch.randn((ML_ROWS, ML_LABELS), generator=g, device=device) + centre
+    return torch.sigmoid(logits), target
+
+
+def build_multilabel(pkg, device):
+    return pkg.MetricCollection({
+        "coverage": pkg.CoverageError(device=device),
+        "lrap": pkg.LabelRankingAveragePrecision(device=device),
+        "lrl": pkg.LabelRankingLoss(device=device),
+        "hamming": pkg.HammingDistance(device=device),
+        "cm": pkg.ConfusionMatrix(ML_LABELS, multilabel=True, device=device),
+    })
+
+
+def run_multilabel(coll, preds, target, sync):
+    update_s = []
+    for start in range(0, preds.shape[0], ML_BATCH):
+        t0 = time.perf_counter()
+        coll.update(preds[start:start + ML_BATCH], target[start:start + ML_BATCH])
+        sync()
+        update_s.append(time.perf_counter() - t0)
+    return update_s
+
+
+def phase_multilabel(device):
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import histogram as k2
+
+    preds, target = make_multilabel_data(device)
+    n_batches = -(-ML_ROWS // ML_BATCH)
+    coll = build_multilabel(mtt, device)
+    torch.cuda.synchronize()
+    k2.reset_launch_count()
+    t0 = time.perf_counter()
+    update_s = run_multilabel(coll, preds, target, torch.cuda.synchronize)
+    loop_s = time.perf_counter() - t0
+    launches = k2.launch_count
+    result = coll.compute()
+    cm = result["cm"].cpu()
+    profiled = profile_updates(build_multilabel(mtt, device), preds, target, ML_BATCH)
+    card = {k: float(v) for k, v in result.items() if k != "cm"}
+    if launches != n_batches:
+        raise AssertionError(f"multilabel path: K2 launched {launches} times over {n_batches} batches")
+    # every (image, label) pair counted once in its label's 2 x 2 matrix
+    if cm.shape != (ML_LABELS, 2, 2) or not bool((cm.sum(dim=(1, 2)) == ML_ROWS).all()):
+        raise AssertionError("multilabel path: a label's confusion matrix does not count every image once")
+    if not (1.0 <= card["coverage"] <= ML_LABELS and 0.0 <= card["lrap"] <= 1.0 and 0.0 <= card["lrl"] <= 1.0):
+        raise AssertionError(f"multilabel path: implausible values {card}")
+
+    t1 = time.perf_counter()
+    cpu_coll = build_multilabel(mtt, "cpu")
+    run_multilabel(cpu_coll, preds.cpu(), target.cpu(), lambda: None)
+    cpu_result = cpu_coll.compute()
+    cpu_s = time.perf_counter() - t1
+    if not torch.equal(cm, cpu_result["cm"]):
+        raise AssertionError("multilabel path: the confusion matrices differ from the CPU run")
+    err = {k: abs(card[k] - float(cpu_result[k])) for k in card}
+    # means over the images' float32 values, summed in another order on the card
+    tol = {k: FLOAT_SUM_RTOL * max(1.0, abs(float(cpu_result[k]))) for k in card}
+    if card["hamming"] != float(cpu_result["hamming"]) or any(err[k] > tol[k] for k in card):
+        raise AssertionError(f"multilabel path: card against CPU {err}, tolerances {tol}")
+    emit({
+        "phase": "multilabel_path",
+        "config": {"rows": ML_ROWS, "labels": ML_LABELS, "batch": ML_BATCH, "labels_per_row": ML_LABELS_PER_ROW, "seed": SEED + 31,
+                   "shape_of": "COCO 2014 val (40,504 images, 80 categories)"},
+        "batches": n_batches,
+        "rows_per_s": ML_ROWS / loop_s,
+        "update_p50_ms": statistics.median(update_s) * 1e3,
+        "k2_launches": launches,
+        "profile": profiled,
+        "values": card,
+        "max_abs_err_vs_cpu": err,
+        "cpu_reference_s": cpu_s,
+        "matches_cpu_run": True,
+    })
+    return launches
+
+
+def full_classification_rank(rank, world, port, results, device):
+    """One rank of the four-rank full classification check: its quarter of the epoch."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        dev, sync = _rank_device(device)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+        import metrics_tpu_torch as mtt
+        from metrics_tpu_torch.ops import binned_counters as k1
+        from metrics_tpu_torch.ops import histogram as k2
+
+        preds, target = make_data(dev)
+        shard = -(-ROWS // world)
+        p, y = preds[rank * shard:(rank + 1) * shard].clone(), target[rank * shard:(rank + 1) * shard].clone()
+        del preds, target
+        coll = build_full_classification(mtt, dev)
+        sync()
+        dist.barrier()
+        k1.reset_launch_count()
+        k2.reset_launch_count()
+        with CollectiveRecorder() as during_updates:
+            update_s = run_full_classification(coll, None, p, y, None, sync)
+        launches = {"binned_counters": k1.launch_count, "histogram": k2.launch_count}
+        dist.barrier()
+        t0 = time.perf_counter()
+        with CollectiveRecorder() as rec:
+            values = coll.compute()
+            sync()
+        compute_s = time.perf_counter() - t0
+        out = {
+            "rank": rank,
+            "rows": int(p.shape[0]),
+            "batches": len(update_s),
+            "update_p50_ms": statistics.median(update_s) * 1e3,
+            "compute_s": compute_s,
+            "collectives_in_updates": during_updates.all_reduce + during_updates.other,
+            "all_reduce": rec.all_reduce,
+            "all_reduce_lanes": rec.sizes,
+            "other_collectives": rec.other,
+            "bytes_sent": rec.bytes,
+            "launches": launches,
+            "values": {k: (v.numpy() if k == "cm" else v) for k, v in _full_values(values).items()},
+            "jax_loaded": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "metrics_tpu")),
+        }
+        dist.barrier()
+        dist.destroy_process_group()
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def phase_full_classification_dist(cpu_values):
+    """The full classification collection over four ranks on the shards of
+    the epoch: one all_reduce per bucket, no gather, the values of one
+    process on the CPU (``cpu_values``, from phase_full_classification)."""
+    import torch
+
+    t0 = time.perf_counter()
+    ranks = run_world(full_classification_rank, "full classification over four ranks")
+    world_s = time.perf_counter() - t0
+    want = {k: v for k, v in cpu_values.items() if k != "kl"}
+    errs = []
+    for r in ranks:
+        if r["jax_loaded"]:
+            raise AssertionError(f"rank {r['rank']} loaded {r['jax_loaded']}")
+        if r["collectives_in_updates"]:
+            raise AssertionError(f"rank {r['rank']}: updates made collectives {r['collectives_in_updates']}")
+        if sorted(r["all_reduce"]) != FULL_EVAL_BUCKETS or r["other_collectives"]:
+            raise AssertionError(f"rank {r['rank']}: compute() made all_reduce {r['all_reduce']} and {r['other_collectives']}; predicted {FULL_EVAL_BUCKETS}")
+        if r["launches"] != {"binned_counters": r["batches"], "histogram": r["batches"]}:
+            raise AssertionError(f"rank {r['rank']}: launches {r['launches']} over {r['batches']} batches")
+        card = dict(r["values"], cm=torch.from_numpy(r["values"]["cm"]))
+        errs.append(compare_full_values(card, want, f"rank {r['rank']} of the four-rank world"))
+    emit({
+        "phase": "full_classification_dist",
+        "config": {"world": DIST_WORLD, "rows_per_rank": [r["rows"] for r in ranks], "batch": BATCH,
+                   "backend": "gloo, four processes on one card (loopback TCP; not NCCL)"},
+        "world_s": world_s,
+        "compute_s": [r["compute_s"] for r in ranks],
+        "update_p50_ms": [r["update_p50_ms"] for r in ranks],
+        "buckets": FULL_EVAL_BUCKETS,
+        "all_reduce_calls": ranks[0]["all_reduce"],
+        "all_reduce_lanes": ranks[0]["all_reduce_lanes"],
+        "other_collectives_per_compute": [len(r["other_collectives"]) for r in ranks],
+        "bytes_sent_per_rank": [r["bytes_sent"] for r in ranks],
+        "launches_per_rank": [r["launches"] for r in ranks],
+        "max_abs_err_vs_cpu": errs[0],
+        "matches_cpu_run": True,
+    })
+    return sum(r["launches"]["binned_counters"] for r in ranks), sum(r["launches"]["histogram"] for r in ranks)
+
+
+def k2_confmat_times(preds, target, launches):
+    """K2 at the full classification path's shape (1024 ids over 10^6 bins,
+    the confusion matrix of 1000 classes, through the global-atomic path),
+    beside torch.bincount at the same shape, and its launches there x
+    (device time - bound).
+
+    The kernel only adds into counts its caller has zeroed, so two pairs are
+    reported, each time beside the bound of the same work: the wrapper's
+    whole device work (the 4 MB zeroing and the launch, as the path runs
+    them) against the counts written once and the ids read once; and the
+    kernel alone against the ids read once and one read and one write of
+    each count that this batch touches. Events time the wrapper beside
+    torch.bincount's call; the profiler times the card's work of both."""
+    import torch
+
+    from metrics_tpu_torch.ops import histogram as k2
+
+    dev = preds.device
+    ids = (target[:BATCH] * CLASSES + preds[:BATCH].argmax(dim=1)).to(torch.int32).contiguous()
+    n, nb = int(ids.shape[0]), CLASSES * CLASSES
+    touched = int(torch.unique(ids).numel())
+    lib = k2._library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.zeros(nb, dtype=torch.int32, device=dev)
+
+    def raw():
+        out.zero_()
+        err = lib.histogram_launch(ids.data_ptr(), n, nb, out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"histogram launch failed with cudaError {err}")
+
+    raw()
+    if not torch.equal(out, k2.histogram_plain(ids, nb)):
+        raise AssertionError("K2 disagrees with its plain version at the confusion matrix's shape")
+    fns = {
+        "wrapper": lambda: k2.histogram(ids, nb),
+        "plain": lambda: k2.histogram_plain(ids, nb),
+        "library": lambda: torch.bincount(ids, minlength=nb),
+    }
+    times = {}
+    for label in ["plain", "wrapper", "library", "library", "wrapper", "plain"]:
+        times.setdefault(label, []).append(cuda_time_ms(fns[label]))
+    ms = {label: statistics.mean(v) for label, v in times.items()}
+    ops_ms = n / FP32_OPS_PER_S * 1e3  # one atomic add per id
+
+    def bound(bytes_moved):
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+    bound_ms, bound_by = bound(4 * n + 4 * nb)  # int32 ids in, every int32 count written
+    kernel_bound_ms, kernel_bound_by = bound(4 * n + 8 * touched)  # ids in, touched counts read and written
+    kernel_device = device_ms_per_launch(raw, "histogram_kernel")
+    wrapper = device_profile(fns["wrapper"], "histogram_kernel")
+    wrapper_device = wrapper["all_device_ms_per_call"]
+    return {
+        "shape": {"n": n, "bins": nb, "touched_bins": touched},
+        # the path's work per batch: zeroing and launch, on the card
+        "wrapper_device_ms": wrapper_device,
+        "wrapper_device_ops_per_call": wrapper["device_ops_per_call"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "launches": launches,
+        "launches_x_gap_ms": launches * (wrapper_device - bound_ms),
+        # the kernel alone, into zeroed counts
+        "kernel_device_ms": kernel_device,
+        "kernel_bound_ms": kernel_bound_ms,
+        "kernel_bound_by": kernel_bound_by,
+        # by events, each a whole call
+        "ms": ms["wrapper"],
+        "plain_ms": ms["plain"],
+        "library_ms": ms["library"],
+        "library_call": f"torch.bincount(ids, minlength={nb})",
+        "library_device_ms": device_profile(fns["library"], "")["all_device_ms_per_call"],
+    }
+
+
 def k2_path_launches(entry, launches):
     """K2's launches on the dist path into its kernels entry, and their
     launches x (device time - bound): each rank calls
@@ -2738,8 +3262,10 @@ def main():
     k2_err = phase_k2_parity(device)
     k3_fold_err = phase_k3_parity(device)
     k3_err = phase_k3_cascade_parity(device)
-    k1_launches = phase_main_path(preds, target)
+    k1_launches, cpu_bap = phase_main_path(preds, target)
     phase_windowed(preds, target)
+    full_launches, full_cpu_values = phase_full_classification(preds, target, cpu_bap)
+    k2_multilabel_launches = phase_multilabel(device)
     stream = make_stream(device)
     k3_launches, q_state = phase_stream(stream)
     phase_profile(preds, target)
@@ -2752,6 +3278,7 @@ def main():
         k2_times(device, k2_err),
         k3_times(device, k3_launches, k3_err, k3_fold_err, q_state, first_batch),
     ]
+    kernels[1]["confmat_shape"] = k2_confmat_times(preds, target, full_launches["histogram"])
     del preds, target, q_state, first_batch
     torch.cuda.empty_cache()
     k2_launches = phase_dist(device)
@@ -2759,10 +3286,17 @@ def main():
     k1_fused_launches, fused_values = phase_fused_eval(device)
     k3_fused_launches = phase_fused_sketch(device)
     k1_overlapped_launches, k3_quantized_launches = phase_sync_layer(device, fused_values)
+    k1_full_dist_launches, k2_full_dist_launches = phase_full_classification_dist(full_cpu_values)
     # each kernel's launches on every path that runs it, each path counted
     # from zero just before it
-    kernels[0]["launches_by_path"] = {"main_path": k1_launches, "fused_dist_path": k1_fused_launches, "overlapped_path": k1_overlapped_launches}
-    kernels[1]["launches_by_path"] = {"dist_path": k2_launches}
+    kernels[0]["launches_by_path"] = {
+        "main_path": k1_launches, "fused_dist_path": k1_fused_launches, "overlapped_path": k1_overlapped_launches,
+        "full_classification_path": full_launches["binned_counters"], "full_classification_dist": k1_full_dist_launches,
+    }
+    kernels[1]["launches_by_path"] = {
+        "dist_path": k2_launches, "full_classification_path": full_launches["histogram"],
+        "multilabel_path": k2_multilabel_launches, "full_classification_dist": k2_full_dist_launches,
+    }
     kernels[2]["launches_by_path"] = {"stream_path": k3_launches, "fused_sketch_path": k3_fused_launches, "quantized_sketch_path": k3_quantized_launches}
     print(smi, flush=True)
     emit({"kernels": kernels})

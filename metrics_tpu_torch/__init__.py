@@ -16,13 +16,24 @@ from metrics_tpu_torch.classification.binned_precision_recall import (
     BinnedPrecisionRecallCurve,
     BinnedRecallAtFixedPrecision,
 )
+from metrics_tpu_torch.classification.calibration_error import CalibrationError
+from metrics_tpu_torch.classification.cohen_kappa import CohenKappa
+from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix
+from metrics_tpu_torch.classification.dice import Dice
 from metrics_tpu_torch.classification.f_beta import F1Score, FBetaScore
+from metrics_tpu_torch.classification.hamming import HammingDistance
+from metrics_tpu_torch.classification.hinge import HingeLoss
+from metrics_tpu_torch.classification.jaccard import JaccardIndex
+from metrics_tpu_torch.classification.kl_divergence import KLDivergence
+from metrics_tpu_torch.classification.matthews_corrcoef import MatthewsCorrCoef
 from metrics_tpu_torch.classification.precision_recall import Precision, Recall
 from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve
+from metrics_tpu_torch.classification.ranking import CoverageError, LabelRankingAveragePrecision, LabelRankingLoss
 from metrics_tpu_torch.classification.roc import ROC
+from metrics_tpu_torch.classification.specificity import Specificity
 from metrics_tpu_torch.classification.stat_scores import StatScores
 from metrics_tpu_torch.collections import MetricCollection
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.metric import CompositionalMetric, Metric
 from metrics_tpu_torch.utilities.guard import FaultCounters
 from metrics_tpu_torch.streaming import (
     CountMinSketch,
@@ -44,15 +55,28 @@ __all__ = [
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "CalibrationError",
     "CatMetric",
+    "CohenKappa",
+    "CompositionalMetric",
+    "ConfusionMatrix",
     "CountMinSketch",
     "CountMinState",
+    "CoverageError",
     "DecayedMetric",
+    "Dice",
     "F1Score",
     "FBetaScore",
     "FaultCounters",
+    "HammingDistance",
+    "HingeLoss",
     "HllState",
     "HyperLogLog",
+    "JaccardIndex",
+    "KLDivergence",
+    "LabelRankingAveragePrecision",
+    "LabelRankingLoss",
+    "MatthewsCorrCoef",
     "MaxMetric",
     "MeanMetric",
     "Metric",
@@ -64,6 +88,7 @@ __all__ = [
     "QuantileSketchState",
     "ROC",
     "Recall",
+    "Specificity",
     "StatScores",
     "SumMetric",
     "WindowedMetric",

@@ -33,6 +33,7 @@ class Accuracy(StatScores):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    _snapshot_attrs = ("mode", "subset_accuracy")  # inferred from the data at update
 
     @property
     def _valid_mask_always(self) -> bool:

@@ -39,6 +39,7 @@ class AUROC(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    _snapshot_attrs = ("mode",)  # inferred from the data at update
 
     def __init__(
         self,

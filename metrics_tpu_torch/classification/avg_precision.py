@@ -35,6 +35,7 @@ class AveragePrecision(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    _snapshot_attrs = ("num_classes", "pos_label", "mode")  # inferred from the data at update
 
     def __init__(
         self,

@@ -36,6 +36,7 @@ class PrecisionRecallCurve(Metric):
     is_differentiable = False
     higher_is_better: Optional[bool] = None
     full_state_update = False
+    _snapshot_attrs = ("num_classes", "pos_label", "mode")  # inferred from the data at update
 
     def __init__(
         self,

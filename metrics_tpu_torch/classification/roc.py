@@ -37,6 +37,7 @@ class ROC(Metric):
     is_differentiable = False
     higher_is_better: Optional[bool] = None
     full_state_update = False
+    _snapshot_attrs = ("num_classes", "pos_label", "mode")  # inferred from the data at update
 
     def __init__(
         self,

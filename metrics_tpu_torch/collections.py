@@ -35,6 +35,7 @@ from typing import Any, Dict, Hashable, Iterable, List, Optional, Sequence, Tupl
 import torch
 
 from metrics_tpu_torch.metric import (
+    CompositionalMetric,
     Metric,
     _clone,
     _cycle_error_recorder,
@@ -114,27 +115,28 @@ class MetricCollection:
     def compute(self, fresh: bool = False) -> Dict[str, Any]:
         """Every member's value; in a world of more than one process from
         one fused sync of the members that do not read an overlapped view
-        (every member with ``fresh=True``)."""
+        (every member with ``fresh=True``) and do not opt out with
+        ``sync_on_compute=False`` (those compute their local values)."""
         self._compute_groups_create_state_ref()
         self._ensure_overlap_scheduler()
         readers = set() if fresh else {k for k, m in self._modules.items() if m.sync_mode == "overlapped"}
         blocking = [k for k in self._modules if k not in readers]
+        synced = [k for k in blocking if self._modules[k].sync_on_compute]
         res = {}
-        if distributed_available() and any(self._modules[k]._computed is None for k in blocking):
-            local = self._sync_members(None, blocking)
+        if distributed_available() and any(self._modules[k]._computed is None for k in synced):
+            units, local = self._sync_members(None, synced)
             try:
-                for k in blocking:
-                    m = self._modules[k]
+                for m in units:
                     m._to_sync = False  # the states are synced already
-                    try:
-                        res[k] = m.compute()
-                    finally:
+                try:
+                    res.update({k: self._modules[k].compute() for k in synced})
+                finally:
+                    for m in units:
                         m._to_sync = True
             finally:
-                for k, state in zip(blocking, local):
-                    object.__setattr__(self._modules[k], "_state", state)
-        else:
-            res.update({k: self._modules[k].compute() for k in blocking})
+                for m, state in zip(units, local):
+                    object.__setattr__(m, "_state", state)
+        res.update({k: self._modules[k].compute() for k in blocking if k not in res})
         res.update({k: self._modules[k].compute() for k in readers})
         res = _flatten_dict({k: res[k] for k in self._modules})
         return {self._set_name(k): v for k, v in res.items()}
@@ -152,31 +154,41 @@ class MetricCollection:
                 for k in head._defaults:
                     self._modules[name]._state[k] = head._state[k]
 
-    def _sync_members(self, group: Optional[Any], names: Optional[List[str]] = None) -> List[Dict[str, Any]]:
-        """Every member's state replaced by its synced value, from one fused
-        sync; returns the local states, which the sync left untouched.
+    def _sync_members(self, group: Optional[Any], names: Optional[List[str]] = None) -> Tuple[List[Metric], List[Dict[str, Any]]]:
+        """Every state under ``names`` replaced by its synced value, from one
+        fused sync; returns the metrics synced and their local states, which
+        the sync left untouched.
 
         Every member goes into the sync, since compute groups form from each
         rank's own data (a rank without a batch forms none) and every rank
         must send the same collectives. A member that shares its head's
         tensors says so (``same_as``): its gathered states then come from
-        the head's gather when every rank agrees."""
+        the head's gather when every rank agrees. A
+        :class:`~metrics_tpu_torch.metric.CompositionalMetric` holds no state:
+        its operands go into the same sync, each once (stated difference
+        D23)."""
         names = list(self._modules) if names is None else names
-        members = [self._modules[n] for n in names]
-        group = members[0].process_group if group is None else group
+        plain = [n for n in names if not isinstance(self._modules[n], CompositionalMetric)]
+        units: List[Metric] = [self._modules[n] for n in plain]
+        for n in names:
+            m = self._modules[n]
+            if isinstance(m, CompositionalMetric):
+                units.extend(x for x in m.operand_leaves() if not any(x is u for u in units))
+        same_as = self._same_as(plain) + [None] * (len(units) - len(plain))
+        group = units[0].process_group if group is None and units else group
         synced = fused_sync(
-            [m._state for m in members],
-            [m._reductions for m in members],
+            [m._state_for_sync(m._state) for m in units],
+            [m._reductions for m in units],
             group,
-            [m._sync_defaults() for m in members],
-            comm=members[0].dist_sync_fn,
-            same_as=self._same_as(names),
+            [m._sync_defaults() for m in units],
+            comm=units[0].dist_sync_fn if units else None,
+            same_as=same_as,
             transport="exact",
         )
-        local = [m._state for m in members]
-        for m, s in zip(members, synced):
+        local = [m._state for m in units]
+        for m, s in zip(units, synced):
             object.__setattr__(m, "_state", s)
-        return local
+        return units, local
 
     def _same_as(self, names: List[str]) -> List[Optional[int]]:
         """For each of ``names``, the index among them of the group head
@@ -316,6 +328,29 @@ class MetricCollection:
         for k, m in self._modules.items():
             if k in state_dict:
                 m.load_state_dict(state_dict[k])
+        # loaded states override group aliasing until the next update
+        self._state_is_copy = True
+
+    def snapshot_state(self) -> Dict[str, Any]:
+        """Every member's :meth:`~metrics_tpu_torch.metric.Metric.snapshot_state`,
+        keyed by base name."""
+        return {"members": {k: m.snapshot_state() for k, m in self.items(keep_base=True, copy_state=True)}}
+
+    def load_snapshot_state(self, payload: Dict[str, Any]) -> None:
+        """Restore a :meth:`snapshot_state` payload (this package's or the
+        JAX package's). Every member's payload is validated before any
+        member commits, so a refused snapshot leaves the whole collection
+        as it was; a member the collection lacks is refused by name."""
+        members = payload.get("members", {})
+        for name in members:
+            if name not in self._modules:
+                raise ValueError(
+                    f"MetricCollection.load_snapshot_state: snapshot carries member {name!r} "
+                    f"this collection does not have (members: {list(self._modules)})"
+                )
+        prepared = {name: self._modules[name]._prepare_snapshot_state(sub) for name, sub in members.items()}
+        for name, sub in prepared.items():
+            self._modules[name]._commit_snapshot_state(sub)
         # loaded states override group aliasing until the next update
         self._state_is_copy = True
 

@@ -30,8 +30,16 @@ load like any other state, and the window or the decay goes on from them.
 An overlapped metric (``sync_mode="overlapped"``) loads its live state; its
 view is not carried, and the next cycle builds it.
 
+The classification states carry the same way: a confusion matrix
+(``confmat``, int32), a calibration error's lists or bins, a hinge or KL
+sum, a KL ring (``capacity=``), the ranking sums.
+
 States only: an attribute that a metric infers from its first batch, such
-as ``Accuracy.mode``, is set again by the port's next ``update``.
+as ``Accuracy.mode``, is set again by the port's next ``update``. A whole
+metric, its update count, inferred attributes and child metrics included,
+carries over as a snapshot: ``Metric.load_snapshot_state`` (and the
+collection's) reads the JAX package's ``snapshot_state()`` payload as it
+is, and the JAX package reads the port's.
 """
 from typing import Any, Dict, Mapping, Union
 

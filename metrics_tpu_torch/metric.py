@@ -50,21 +50,37 @@ rows, and ``"warn"``/``"error"`` act at ``compute()`` from the synced
 counts. Such an update runs without the value checks of
 ``utilities/checks.py`` and reads nothing back (stated difference D1).
 
-Not in this module yet: snapshots and ``CompositionalMetric``.
+Constructor knobs, with the JAX package's meaning: ``compute_on_cpu`` moves
+the list (``cat``) states to host memory after each update and computes
+from host copies of every state (the value lies on the CPU; a sync first
+brings the lists back to the metric's device); ``dist_sync_on_step`` syncs
+the batch value of ``forward`` across processes (every rank must then call
+``forward`` in step); ``sync_on_compute=False`` computes the local value.
+
+Metric arithmetic (``a + b``, ``2 * p * r / (p + r)``, ``m[0]``) builds a
+:class:`CompositionalMetric`, which updates, resets and computes its
+operands. The overloads include ``==``, so a metric hashes by identity
+(stated difference D22). :meth:`Metric.snapshot_state` and
+:meth:`Metric.load_snapshot_state` save and restore every state of the
+whole tree of metrics, validated before anything is committed, in a form
+that the JAX package's ``load_snapshot_state`` reads, and the reverse.
 """
 import contextlib
 import functools
 import inspect
+import operator
 import threading
 import time
 from copy import deepcopy
-from typing import Any, Callable, Dict, Iterator, Optional, Union
+from enum import Enum
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from metrics_tpu_torch.ops.quantize import resolve_codec, validate_transport
 from metrics_tpu_torch.parallel.sync import distributed_available, fused_sync
+from metrics_tpu_torch.utilities import enums
 from metrics_tpu_torch.utilities.checks import value_checks_off
 from metrics_tpu_torch.utilities.data import _squeeze_if_scalar, _tensor_leaves
 from metrics_tpu_torch.utilities.exceptions import MetricsTPUUserError
@@ -183,9 +199,17 @@ class Metric:
     higher_is_better: Optional[bool] = None
     full_state_update: bool = False
 
+    # attributes that an update infers from the data (an input mode), which
+    # a snapshot carries so that a fresh instance computes right after a
+    # restore
+    _snapshot_attrs: Sequence[str] = ()
+
     def __init__(
         self,
         device: Union[str, torch.device, None] = None,
+        compute_on_cpu: bool = False,
+        dist_sync_on_step: bool = False,
+        sync_on_compute: bool = True,
         on_overflow: str = "warn",
         on_invalid: str = "ignore",
         process_group: Optional[Any] = None,
@@ -203,6 +227,9 @@ class Metric:
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {list(kwargs)}")
         self.device = resolve_device(device)
+        self.compute_on_cpu = compute_on_cpu
+        self.dist_sync_on_step = dist_sync_on_step
+        self.sync_on_compute = sync_on_compute
         if on_overflow not in ("warn", "error", "ignore"):
             raise ValueError(f"`on_overflow` must be 'warn', 'error' or 'ignore', got {on_overflow!r}")
         # what compute() does when a state has run past its capacity
@@ -392,9 +419,22 @@ class Metric:
         self._update_count += 1
         self._update_called = True
         self._last_update_unix = time.time()
+        if self._is_synced:
+            raise MetricsTPUUserError(
+                "The Metric shouldn't be synced when performing ``update``. HINT: Did you forget to call ``unsync``?"
+            )
         args = tuple(self._to_device(a) for a in args)
         kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
         update(*args, **kwargs)
+        if self.compute_on_cpu:
+            self._move_list_states_to_host()
+
+    def _move_list_states_to_host(self) -> None:
+        """``compute_on_cpu``: the list states' tensors move to host memory,
+        in place in their lists (compute groups share the list objects)."""
+        for value in self._state.values():
+            if isinstance(value, list):
+                value[:] = [v.cpu() for v in value]
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
@@ -408,7 +448,15 @@ class Metric:
                     "method which may lead to errors, as metric states have not yet been updated.",
                     UserWarning,
                 )
-            if self.sync_mode == "overlapped" and not fresh and self._to_sync and not self._is_synced:
+            if (
+                self.sync_mode == "overlapped"
+                and not fresh
+                and self._to_sync
+                and self.sync_on_compute
+                and not self._is_synced
+                # a batch value inside forward never reads the accumulated view
+                and not self._in_forward
+            ):
                 value = self._overlapped_read(*args, **kwargs)
                 if value is not _NO_SYNC_VIEW:
                     return value
@@ -417,8 +465,8 @@ class Metric:
             if self._computed is not None:
                 return self._computed
             with self._state_swap_guard():
-                with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync):
-                    value = compute(*args, **kwargs)
+                with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync and self.sync_on_compute):
+                    value = self._compute_unsynced(compute, *args, **kwargs)
                     # checked while synced: ``dropped`` and the fault counts
                     # are then global, so every rank takes the same branch
                     self._check_cat_overflow()
@@ -427,6 +475,19 @@ class Metric:
             return self._computed
 
         return wrapped_func
+
+    def _compute_unsynced(self, compute: Callable, *args: Any, **kwargs: Any) -> Any:
+        """``compute`` over the current state; with ``compute_on_cpu`` over
+        host copies of every state, so the value lies on the CPU, while the
+        metric's own states stay where they are for the next update."""
+        if not self.compute_on_cpu:
+            return compute(*args, **kwargs)
+        state = self._state
+        object.__setattr__(self, "_state", {k: _map_state(torch.Tensor.cpu, v) for k, v in state.items()})
+        try:
+            return compute(*args, **kwargs)
+        finally:
+            object.__setattr__(self, "_state", state)
 
     # ------------------------------------------------------------------
     # forward protocol
@@ -444,7 +505,7 @@ class Metric:
         with self._state_swap_guard():
             object.__setattr__(self, "_in_forward", True)
             try:
-                if self.full_state_update:
+                if self.full_state_update or self.dist_sync_on_step:
                     batch_val = self._forward_full_state_update(*args, **kwargs)
                 else:
                     batch_val = self._forward_reduce_state_update(*args, **kwargs)
@@ -458,10 +519,11 @@ class Metric:
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """Two updates: one into the global state, one into a fresh state that
-        gives the batch value."""
+        gives the batch value (synced across processes with
+        ``dist_sync_on_step``)."""
         self.update(*args, **kwargs)
         saved = self._copy_state(), self._update_count
-        self._to_sync = False
+        self._to_sync = self.dist_sync_on_step
         self._restore_defaults()
         self._update_count = 0
         self.update(*args, **kwargs)
@@ -777,9 +839,23 @@ class Metric:
         is the overlapped cycle's host wire; without it the sync is exact."""
         group = self.process_group if process_group is None else process_group
         (synced,) = fused_sync(
-            [state], [self._reductions], group, [self._sync_defaults()], comm=dist_sync_fn, transport="exact", host_codec=codec
+            [self._state_for_sync(state)],
+            [self._reductions],
+            group,
+            [self._sync_defaults()],
+            comm=dist_sync_fn,
+            transport="exact",
+            host_codec=codec,
         )
         return synced
+
+    def _state_for_sync(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """``state`` as a sync sends it: with ``compute_on_cpu`` the host
+        list states go back to the metric's device (an NCCL group gathers
+        CUDA tensors only)."""
+        if not self.compute_on_cpu:
+            return state
+        return {k: [t.to(self.device) for t in v] if isinstance(v, list) else v for k, v in state.items()}
 
     def sync(
         self,
@@ -902,31 +978,32 @@ class Metric:
             for key in self._defaults
             if prefix + key in state_dict
         }
-        self._check_ring_capacity_consistency({**self._state, **loaded})
+        self._check_ring_capacity_consistency("load_state_dict", {**self._state, **loaded})
         if loaded:
             self._state.update(loaded)
             self._update_called = True
             self._computed = None
 
-    def _check_ring_capacity_consistency(self, state: Dict[str, Any]) -> None:
+    def _check_ring_capacity_consistency(self, via: str, state: Dict[str, Any]) -> None:
         """Rings that fill in lockstep pair their rows by position, so they
         must share one capacity; checked before anything is loaded."""
         caps = {key: v.capacity for key, v in state.items() if isinstance(v, CatBuffer)}
         if len(set(caps.values())) > 1:
             raise ValueError(
-                f"{type(self).__name__}.load_state_dict: lockstep ring states loaded at different "
+                f"{type(self).__name__}.{via}: lockstep ring states loaded at different "
                 f"capacities ({caps}); their rows pair positionally, so a partial or mismatched load "
                 "would silently misalign them. Load all rings of this metric at one capacity."
             )
 
-    def _validated_state_value(self, key: str, v: Any) -> Any:
+    def _validated_state_value(self, key: str, v: Any, via: str = "load_state_dict") -> Any:
         """One loaded value, checked against ``self._defaults[key]``, as a
-        copy on the metric's device in the default's dtype."""
+        copy on the metric's device in the default's dtype; ``via`` names
+        the entry point in the error."""
         default = self._defaults[key]
 
         def fail(why: str) -> None:
             raise ValueError(
-                f"{type(self).__name__}.load_state_dict: state {key!r} {why}; refusing to load a corrupt checkpoint."
+                f"{type(self).__name__}.{via}: state {key!r} {why}; refusing to load a corrupt checkpoint."
             )
 
         def as_tensor(value: Any) -> Tensor:
@@ -989,6 +1066,135 @@ class Metric:
             fail(f"has dtype {value.dtype}, incompatible with expected {default.dtype}")
         return value.to(device=self.device, dtype=default.dtype, copy=True)
 
+    # ------------------------------------------------------------------
+    # crash-recovery snapshots
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _serialize_state_value(current: Any) -> Any:
+        """One state as plain numpy data, as the JAX package writes it: a
+        list of arrays, a ring as a ``{"data", "mask", "dropped"}`` dict,
+        the fault counters as their counts vector, a sketch state as its
+        ``to_primitives()`` mapping."""
+
+        def host(t: Tensor) -> np.ndarray:
+            # a copy: the numpy view of a CPU tensor would share the live
+            # state, which updates write in place
+            return t.detach().to("cpu", copy=True).numpy()
+
+        if isinstance(current, list):
+            return [host(x) for x in current]
+        if isinstance(current, CatBuffer):
+            return {"data": host(current.data), "mask": host(current.mask), "dropped": host(current.dropped)}
+        if isinstance(current, FaultCounters):
+            return host(current.counts)
+        if _is_sketch_state(current):
+            return {k: host(v) for k, v in current.to_primitives().items()}
+        return host(current)
+
+    def _named_child_metrics(self) -> Iterator[Any]:
+        """``(name, child)`` for every metric held in an attribute or in an
+        attribute's list or tuple (a wrapped metric, a composition's
+        operands): the tree a snapshot covers."""
+        for key, v in self.__dict__.items():
+            if isinstance(v, Metric):
+                yield key, v
+            elif isinstance(v, (list, tuple)):
+                for i, x in enumerate(v):
+                    if isinstance(x, Metric):
+                        yield f"{key}[{i}]", x
+
+    def snapshot_state(self) -> Dict[str, Any]:
+        """Every state (persistence flags ignored), the update count, the
+        time of the last update, the attributes an update inferred
+        (``_snapshot_attrs``) and, recursively, the child metrics' own
+        snapshots, as plain data. An overlapped metric snapshots under its
+        swap lock, so the state is never one that a cycle is swapping."""
+        with self._state_swap_guard():
+            out: Dict[str, Any] = {
+                "states": {key: self._serialize_state_value(self._state[key]) for key in self._defaults},
+                "update_count": self._update_count,
+            }
+            if self._last_update_unix is not None:
+                out["last_update_unix"] = self._last_update_unix
+            attrs = {name: getattr(self, name) for name in self._snapshot_attrs if getattr(self, name, None) is not None}
+            if attrs:
+                out["attrs"] = attrs
+            children = {name: child.snapshot_state() for name, child in self._named_child_metrics()}
+            if children:
+                out["children"] = children
+            return out
+
+    def load_snapshot_state(self, payload: Dict[str, Any]) -> None:
+        """Restore a :meth:`snapshot_state` payload, this package's or the
+        JAX package's. Every state of the whole tree is validated (as
+        :meth:`load_state_dict` validates) before anything is committed: a
+        payload with an unknown state, attribute or child, or a value of the
+        wrong shape or dtype, raises and leaves every metric untouched."""
+        self._commit_snapshot_state(self._prepare_snapshot_state(payload))
+
+    def _prepare_snapshot_state(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """The validating half of :meth:`load_snapshot_state`: changes
+        nothing and returns what :meth:`_commit_snapshot_state` applies."""
+        name = type(self).__name__
+        states = payload.get("states", {})
+        unknown = [key for key in states if key not in self._defaults]
+        if unknown:
+            raise ValueError(
+                f"{name}.load_snapshot_state: snapshot carries unknown state {unknown[0]!r}; "
+                "refusing to load (metric config mismatch?)"
+            )
+        loaded = {key: self._validated_state_value(key, value, via="load_snapshot_state") for key, value in states.items()}
+        self._check_ring_capacity_consistency("load_snapshot_state", {**self._state, **loaded})
+        attrs = {}
+        for attr, value in payload.get("attrs", {}).items():
+            if attr not in self._snapshot_attrs:
+                raise ValueError(
+                    f"{name}.load_snapshot_state: snapshot carries data-inferred attribute {attr!r} "
+                    "this class does not declare in `_snapshot_attrs`"
+                )
+            attrs[attr] = _own_enum(value)
+        mine = dict(self._named_child_metrics())
+        children = {}
+        for child_name, child_payload in payload.get("children", {}).items():
+            if child_name not in mine:
+                raise ValueError(
+                    f"{name}.load_snapshot_state: snapshot carries child metric {child_name!r} "
+                    "this instance does not have; refusing to load"
+                )
+            children[child_name] = (mine[child_name], mine[child_name]._prepare_snapshot_state(child_payload))
+        return {
+            "loaded": loaded,
+            "update_count": int(payload.get("update_count", self._update_count)),
+            "last_update_unix": payload.get("last_update_unix"),
+            "attrs": attrs,
+            "children": children,
+        }
+
+    def _commit_snapshot_state(self, prepared: Dict[str, Any]) -> None:
+        self._state.update(prepared["loaded"])
+        self._update_count = prepared["update_count"]
+        self._update_called = self._update_count > 0
+        if prepared["last_update_unix"] is not None:
+            self._last_update_unix = prepared["last_update_unix"]
+        elif self._update_count > 0 and self._last_update_unix is None:
+            # a fed metric from a snapshot without the clock: "restored now"
+            self._last_update_unix = time.time()
+        self._computed = None
+        self._is_synced = False
+        self._cache = None
+        for attr, value in prepared["attrs"].items():
+            current = getattr(self, attr, None)
+            if current is not None and current != value:
+                rank_zero_warn(
+                    f"{type(self).__name__}.load_snapshot_state: overriding {attr}={current!r} with the "
+                    f"snapshot's {value!r} (the restored states were accumulated under it)",
+                    UserWarning,
+                )
+            setattr(self, attr, value)
+        for child, child_prepared in prepared["children"].values():
+            child._commit_snapshot_state(child_prepared)
+
     def __getstate__(self) -> Dict[str, Any]:
         # no scheduler thread, lock or stream travels: the copy builds its
         # own on first use
@@ -998,6 +1204,9 @@ class Metric:
         self.__dict__.update(state)
         self.__dict__.setdefault("sync_mode", "blocking")
         self.__dict__.setdefault("_last_update_unix", None)
+        self.__dict__.setdefault("compute_on_cpu", False)
+        self.__dict__.setdefault("dist_sync_on_step", False)
+        self.__dict__.setdefault("sync_on_compute", True)
         self._init_overlap()
         self._wrap_methods()
 
@@ -1016,6 +1225,135 @@ class Metric:
     # misc
     # ------------------------------------------------------------------
 
+    # ------------------------------------------------------------------
+    # dtype, identity and arithmetic
+    # ------------------------------------------------------------------
+
+    def type(self, *_: Any, **__: Any) -> "Metric":
+        """A no-op, as ``float``, ``double`` and ``half`` are: the states
+        keep their dtypes (:meth:`set_dtype` casts them)."""
+        return self
+
+    float = double = half = type
+
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Cast every floating state, its default and a list state's
+        template to ``dst_type``; integer states keep their dtypes."""
+
+        def cast(t: Tensor) -> Tensor:
+            return t.to(dst_type) if t.is_floating_point() else t
+
+        object.__setattr__(self, "_state", {k: _map_state(cast, v) for k, v in self._state.items()})
+        object.__setattr__(self, "_defaults", {k: _map_state(cast, v) for k, v in self._defaults.items()})
+        templates = self.__dict__.get("_list_templates")
+        if templates:
+            self.__dict__["_list_templates"] = {k: cast(v) for k, v in templates.items()}
+        self._computed = None
+        return self
+
+    # ``==`` builds a composition, so the hash is the identity's, which no
+    # update or reset changes (stated difference D22)
+    __hash__ = object.__hash__
+
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.sub, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.sub, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mul, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mul, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.truediv, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.truediv, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.floordiv, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.floordiv, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mod, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mod, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.and_, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.and_, other, self)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.or_, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.or_, other, self)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.xor, other, self)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(operator.eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(operator.ne, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.ge, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.gt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.le, self, other)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.lt, self, other)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.abs, self, None)
+
+    def __invert__(self) -> "CompositionalMetric":
+        return CompositionalMetric(torch.bitwise_not, self, None)
+
+    def __getitem__(self, idx: Any) -> "CompositionalMetric":
+        return CompositionalMetric(lambda x: x[idx], self, None)
+
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
         """Keep the kwargs that the update signature takes."""
         _params = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
@@ -1030,3 +1368,135 @@ class Metric:
     def __repr__(self) -> str:
         return f"{type(self).__name__}()"
 
+
+
+def _own_enum(value: Any) -> Any:
+    """A snapshot attribute as this package holds it: an enum of the JAX
+    package (an input mode) becomes the enum of the same name and value
+    here."""
+    if isinstance(value, Enum) and not isinstance(value, enums.EnumStr):
+        own = getattr(enums, type(value).__name__, None)
+        if own is not None:
+            return own(value.value)
+    return value
+
+
+def _neg(x: Tensor) -> Tensor:
+    return -torch.abs(x)
+
+
+class CompositionalMetric(Metric):
+    """The lazy composition of metrics with an operator (counterpart of the
+    JAX package's ``CompositionalMetric``): ``update``, ``reset`` and
+    ``persistent`` go to the operands, and ``compute`` combines their
+    values. It holds no state of its own and no compute cache; the device
+    is its first metric operand's.
+
+    Outside a collection each operand syncs itself at its own ``compute()``,
+    as in the JAX package. Inside a ``MetricCollection`` the operands'
+    states ride the collection's one sync instead (stated difference D23).
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import Precision, Recall
+        >>> p = Precision(num_classes=3, average="macro", device="cpu")
+        >>> r = Recall(num_classes=3, average="macro", device="cpu")
+        >>> f1 = 2 * p * r / (p + r)
+        >>> f1.update(torch.tensor([0, 2, 1, 1]), torch.tensor([0, 1, 1, 2]))
+        >>> round(float(f1.compute()), 4)
+        0.5
+    """
+
+    def __init__(self, operator: Callable, metric_a: Any, metric_b: Any) -> None:
+        operands = [m for m in (metric_a, metric_b) if isinstance(m, Metric)]
+        super().__init__(device=operands[0].device if operands else None)
+        self.op = operator
+        self.metric_a = self._operand(metric_a)
+        self.metric_b = self._operand(metric_b)
+
+    def _operand(self, value: Any) -> Any:
+        """A metric, a Python number (kept as it is, so that it takes part
+        in type promotion as a scalar) or an array as a tensor here."""
+        if value is None or isinstance(value, (Metric, bool, int, float)):
+            return value
+        return torch.as_tensor(value, device=self.device)
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        pass  # the operands sync themselves
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        # no cache here: each operand caches its own value, and a cached
+        # composition would outlive a reset of its operands
+        return compute
+
+    def operand_leaves(self) -> list:
+        """Every metric under this composition that holds states, each once,
+        in the order of the tree."""
+        out: list = []
+        for m in (self.metric_a, self.metric_b):
+            if isinstance(m, CompositionalMetric):
+                leaves = m.operand_leaves()
+            elif isinstance(m, Metric):
+                leaves = [m]
+            else:
+                leaves = []
+            out.extend(x for x in leaves if not any(x is y for y in out))
+        return out
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    @property
+    def _update_called(self) -> bool:
+        a = self.metric_a._update_called if isinstance(self.metric_a, Metric) else True
+        b = self.metric_b._update_called if isinstance(self.metric_b, Metric) else True
+        return a and b
+
+    @_update_called.setter
+    def _update_called(self, value: bool) -> None:
+        pass  # the operands own the flag
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a = (
+            self.metric_a(*args, **self.metric_a._filter_kwargs(**kwargs))
+            if isinstance(self.metric_a, Metric)
+            else self.metric_a
+        )
+        val_b = (
+            self.metric_b(*args, **self.metric_b._filter_kwargs(**kwargs))
+            if isinstance(self.metric_b, Metric)
+            else self.metric_b
+        )
+        if val_a is None:
+            return None
+        if val_b is None:
+            if isinstance(self.metric_b, Metric):
+                return None
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+
+    def persistent(self, mode: bool = False) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.persistent(mode=mode)
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.persistent(mode=mode)
+
+    def __repr__(self) -> str:
+        op = getattr(self.op, "__name__", self.op)
+        return f"{type(self).__name__}(\n  {op}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"

@@ -161,6 +161,19 @@ def ascending_ranks(x: Tensor) -> Tensor:
     return inverse_permutation(ascending_order(x))
 
 
+def ascending_ranks_rows(x: Tensor) -> Tensor:
+    """:func:`ascending_ranks` of every row of a 2-D tensor at once: bitwise
+    equal to ``jax.vmap(ascending_ranks)(x)``, as int32. The rows' key
+    words sort along dim 1, one stable sort per word."""
+    words, _ = _key_words_ascending(x)
+    n, length = x.shape
+    perm = torch.arange(length, device=x.device).expand(n, length)
+    for word in reversed(words):
+        perm = torch.gather(perm, 1, torch.sort(torch.gather(word, 1, perm), dim=1, stable=True).indices)
+    ranks = torch.arange(length, dtype=torch.int32, device=x.device).expand(n, length)
+    return torch.empty((n, length), dtype=torch.int32, device=x.device).scatter_(1, perm, ranks)
+
+
 def bucket_counts(
     scores: Tensor,
     lo: Tensor,

@@ -11,7 +11,7 @@ as on the JAX package's compiled path (stated difference D1).
 """
 import contextlib
 import contextvars
-from typing import Iterator, Optional, Tuple
+from typing import Any, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,15 @@ def _value_checks() -> bool:
 
 def _check_for_empty_tensors(preds: Tensor, target: Tensor) -> bool:
     return preds.numel() == 0 and target.numel() == 0
+
+
+def _check_same_shape(preds: Tensor, target: Tensor) -> None:
+    """Both inputs of one shape, else a ``RuntimeError`` naming the two."""
+    if preds.shape != target.shape:
+        raise RuntimeError(
+            f"Predictions and targets are expected to have the same shape, "
+            f"but got {tuple(preds.shape)} and {tuple(target.shape)}."
+        )
 
 
 def _basic_input_validation(
@@ -309,3 +318,101 @@ def _input_format_classification(
         preds, target = preds.squeeze(-1), target.squeeze(-1)
 
     return preds.to(torch.int32), target.to(torch.int32), case
+
+
+def _allclose_recursive(res1: Any, res2: Any, atol: float = 1e-6) -> bool:
+    """Elementwise closeness over nested dict/sequence results."""
+    if isinstance(res1, dict):
+        return all(_allclose_recursive(res1[k], res2[k], atol) for k in res1)
+    if isinstance(res1, (list, tuple)):
+        return all(_allclose_recursive(r1, r2, atol) for r1, r2 in zip(res1, res2))
+
+    def host(x: Any) -> np.ndarray:
+        return x.detach().cpu().numpy() if isinstance(x, Tensor) else np.asarray(x)
+
+    return bool(np.allclose(host(res1), host(res2), atol=atol, equal_nan=True))
+
+
+def check_forward_full_state_property(
+    metric_class: Any,
+    init_args: Optional[dict] = None,
+    input_args: Optional[dict] = None,
+    num_update_to_compare: Sequence[int] = (10, 100, 1000),
+    reps: int = 5,
+) -> None:
+    """Whether ``full_state_update=False`` is safe, and faster, for a metric
+    class: its ``forward`` runs under both protocols on the same inputs; if
+    the batch values and the final ``compute()`` agree, both are timed and
+    the recommended flag is printed.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import ConfusionMatrix
+        >>> g = torch.Generator().manual_seed(0)
+        >>> check_forward_full_state_property(
+        ...     ConfusionMatrix,
+        ...     init_args={'num_classes': 3, 'device': 'cpu'},
+        ...     input_args={'preds': torch.randint(3, (10,), generator=g), 'target': torch.randint(3, (10,), generator=g)},
+        ...     num_update_to_compare=(2, 4),
+        ...     reps=2,
+        ... )  # doctest: +ELLIPSIS
+        Full state for 2 steps took: ...
+        Recommended setting `full_state_update=...`
+    """
+    from time import perf_counter
+
+    from metrics_tpu_torch.utilities.exceptions import MetricsTPUUserError
+
+    init_args = init_args or {}
+    input_args = input_args or {}
+
+    class FullState(metric_class):
+        full_state_update = True
+
+    class PartState(metric_class):
+        full_state_update = False
+
+    fullstate = FullState(**init_args)
+    partstate = PartState(**init_args)
+
+    equal = True
+    for _ in range(num_update_to_compare[0]):
+        out1 = fullstate(**input_args)
+        try:  # a failure usually means the update needs the full prior state
+            out2 = partstate(**input_args)
+        except (RuntimeError, MetricsTPUUserError):
+            equal = False
+            break
+        equal = equal and _allclose_recursive(out1, out2)
+
+    if equal:
+        res1 = fullstate.compute()
+        try:
+            res2 = partstate.compute()
+        except (RuntimeError, MetricsTPUUserError):
+            equal = False
+        else:
+            equal = equal and _allclose_recursive(res1, res2)
+
+    if not equal:
+        print("Recommended setting `full_state_update=True`")
+        return
+
+    timings = np.zeros((2, len(num_update_to_compare), reps))
+    for i, metric in enumerate((fullstate, partstate)):
+        for j, steps in enumerate(num_update_to_compare):
+            for r in range(reps):
+                start = perf_counter()
+                for _ in range(steps):
+                    metric(**input_args)
+                timings[i, j, r] = perf_counter() - start
+                metric.reset()
+
+    mean = timings.mean(-1)
+    std = timings.std(-1)
+    for j, steps in enumerate(num_update_to_compare):
+        print(f"Full state for {steps} steps took: {mean[0, j]:0.3f}+-{std[0, j]:0.3f}")
+        print(f"Partial state for {steps} steps took: {mean[1, j]:0.3f}+-{std[1, j]:0.3f}")
+
+    faster = bool(mean[1, -1] < mean[0, -1])
+    print(f"Recommended setting `full_state_update={not faster}`")

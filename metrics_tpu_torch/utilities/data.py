@@ -4,6 +4,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import torch
 
 from metrics_tpu_torch.ops.bucketed_rank import flush_denormals
+from metrics_tpu_torch.ops.histogram import histogram
 
 Tensor = torch.Tensor
 
@@ -130,7 +131,19 @@ def jax_linspace(start: float, stop: float, num: int, device: Union[str, torch.d
 def _bincount(x: Tensor, minlength: int) -> Tensor:
     """int32 counts of the integer values of ``x`` over ``[0, minlength)``;
     values outside that range are not counted (a plain ``bincount`` would
-    refuse negatives and grow past ``minlength``)."""
-    x = x.reshape(-1).to(torch.int64)
+    refuse negatives and grow past ``minlength``).
+
+    On a CUDA tensor the counts come from the histogram kernel (K2,
+    ``ops/histogram.py``), which reads nothing back to the host, where
+    ``torch.bincount`` reads the input's minimum and maximum; values are
+    first narrowed to int32 with those out of range sent to -1, so no wide
+    value wraps into range. A CPU tensor keeps the plain ``bincount``.
+    """
+    x = x.reshape(-1)
+    if x.device.type == "cuda":
+        if x.dtype != torch.int32:
+            x = torch.where((x >= 0) & (x < minlength), x, -1).to(torch.int32)
+        return histogram(x, minlength)
+    x = x.to(torch.int64)
     safe = torch.where((x >= 0) & (x < minlength), x, minlength)
     return torch.bincount(safe, minlength=minlength + 1)[:minlength].to(torch.int32)

@@ -147,17 +147,61 @@ def test_fused_sync_rank_helper_imports_no_jax():
     assert not bad, bad
 
 
+def test_classification_and_runtime_imports_load_no_jax_and_build_nothing():
+    """The confusion-matrix family, calibration, hinge, KL, ranking and the
+    runtime's arithmetic and snapshots import no JAX and nothing of
+    ``metrics_tpu``, and build no kernel until a CUDA tensor asks."""
+    code = (
+        "import sys\n"
+        "import metrics_tpu_torch.classification.confusion_matrix, metrics_tpu_torch.classification.cohen_kappa\n"
+        "import metrics_tpu_torch.classification.matthews_corrcoef, metrics_tpu_torch.classification.jaccard\n"
+        "import metrics_tpu_torch.classification.specificity, metrics_tpu_torch.classification.dice\n"
+        "import metrics_tpu_torch.classification.hamming, metrics_tpu_torch.classification.calibration_error\n"
+        "import metrics_tpu_torch.classification.hinge, metrics_tpu_torch.classification.kl_divergence\n"
+        "import metrics_tpu_torch.classification.ranking, metrics_tpu_torch.functional.classification\n"
+        "from metrics_tpu_torch.metric import CompositionalMetric\n"
+        "from metrics_tpu_torch.ops import _build, histogram\n"
+        "assert _build._loaded == {} and _build.build_info == {} and histogram.launch_count == 0\n"
+        "assert 'triton' not in sys.modules and not any(m.split('.')[0] in ('jax', 'metrics_tpu') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_classification_rank_helper_imports_no_jax():
+    """The ranks of ``tests/test_torch_compositional.py`` run this module."""
+    path = ROOT / "tests" / "helpers" / "torch_classification_ranks.py"
+    bad = [m for m in _imported_modules(path) if _is_forbidden(m)]
+    assert not bad, bad
+
+
+# the constructor arguments a class needs besides its device
+_NEEDS = {
+    "ConfusionMatrix": {"num_classes": 3},
+    "CohenKappa": {"num_classes": 3},
+    "MatthewsCorrCoef": {"num_classes": 3},
+    "JaccardIndex": {"num_classes": 3},
+    "Specificity": {"num_classes": 3, "average": "macro"},
+    "Dice": {"num_classes": 3, "average": "macro"},
+}
+
+
 @pytest.mark.parametrize(
     "name",
     [
         "Accuracy", "StatScores", "BinnedAveragePrecision", "AUROC", "AveragePrecision", "ROC", "PrecisionRecallCurve", "AUC",
         "Precision", "Recall", "F1Score", "FBetaScore", "MaxMetric", "MinMetric", "SumMetric", "MeanMetric", "CatMetric",
         "WindowedMetric", "DecayedMetric",
+        "ConfusionMatrix", "CohenKappa", "MatthewsCorrCoef", "JaccardIndex", "Specificity", "Dice", "HammingDistance",
+        "CalibrationError", "HingeLoss", "KLDivergence", "CoverageError", "LabelRankingAveragePrecision", "LabelRankingLoss",
     ],
 )
 def test_metric_without_device_asks_for_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    kwargs = {"num_classes": 3} if name.startswith("Binned") else {}
+    kwargs = {"num_classes": 3} if name.startswith("Binned") else dict(_NEEDS.get(name, {}))
     if name in ("Precision", "Recall", "F1Score", "FBetaScore"):
         kwargs = {"num_classes": 3, "average": "macro", "on_invalid": "drop"}
     if name in ("WindowedMetric", "DecayedMetric"):
@@ -179,3 +223,12 @@ def test_metric_without_device_asks_for_cuda(name, monkeypatch):
     if name in ("AUROC", "AveragePrecision", "ROC", "PrecisionRecallCurve", "AUC"):
         ring = getattr(metrics_tpu_torch, name)(device="cpu", capacity=8)
         assert all(t.device.type == "cpu" for v in ring.metric_state.values() for t in v)
+
+
+def test_a_composition_takes_its_operands_device(monkeypatch):
+    """A ``CompositionalMetric`` asks for no device of its own: it runs where
+    its metric operands run, and one of CPU metrics never asks for CUDA."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = metrics_tpu_torch.Precision(num_classes=3, average="macro", device="cpu")
+    r = metrics_tpu_torch.Recall(num_classes=3, average="macro", device="cpu")
+    assert (2 * p * r / (p + r)).device == torch.device("cpu")
