@@ -94,7 +94,39 @@ Phases, each printing one JSON line, and any failure exits non-zero:
 14. full classification over four ranks (after the sync layer's world): the
    collection of phase 12 on the shards of the epoch; ``compute()`` makes
    one ``all_reduce`` per predicted bucket and no gather, and its values
-   are those of the one-process CPU run.
+   are those of the one-process CPU run;
+15. pure path (before the kernels line): the fused evaluation epoch through
+   ``functionalize(MetricCollection({acc, prec, rec, f1, bap, per_class:
+   ClasswiseWrapper(Recall(average=None))}))`` (BAP under ``"warn"``: the
+   pure layer refuses ``"drop"`` on it): after every batch the pure state
+   bit-equal to the stateful collection's and the input state unchanged,
+   ``compute`` equal to the stateful ``compute()``, two half-epoch states
+   merged equal to the epoch's, the fault counts those injected, K1 once
+   per pure update, no blocking read in a guarded pure update;
+16. bootstrap path: ``bootstrap_functionalize(Accuracy(num_classes=1000),
+   100)`` over the epoch with a generator on the card: the vmapped update
+   bit-equal to one ``functionalize`` update per replica on the same
+   indices, the mean within 3 std of top-1, the std within 2x of
+   sqrt(p(1-p)/N);
+17. regression path: a MovieLens-20M held-out split (2,000,026 seeded
+   half-star ratings, 8192-row batches) through thirteen regression
+   metrics and wrappers for three epochs under ``MetricTracker``, against
+   the CPU run (counts and Spearman's ranks exact) and float64; a
+   QM9-shaped 13,083 x 12 check of ``MultioutputWrapper`` and
+   ``CosineSimilarity``;
+18. pairwise path: the four ``pairwise_*`` functions on 4096 x 768 float32
+   embeddings, against themselves and against 1024 rows, held against
+   float64 on the CPU, with their peak memory;
+19. in the world of phase 8: the pure collection over the group (one
+   ``all_reduce`` per bucket of the fused members, then the wrapper's own,
+   no gather), its overlapped cycle (one fused sync) and read (no
+   collective, bit-equal to the fresh read), the bootstrap of phase 16 over
+   the group, guarded (the 100 replicas' stacked state in one ``all_reduce``
+   per bucket, no gather; the mean within 3 std of the stateful accuracy of
+   the clean rows, the std within 2x of the binomial one), and a quarter of the
+   MovieLens rows per rank through ``{PearsonCorrCoef, SpearmanCorrCoef,
+   R2Score, MeanSquaredError}`` (Pearson's moments stacked, Spearman's
+   rings gathered), equal to one process.
 
 The parent process builds every kernel before it spawns the ranks, so the
 ranks only load the libraries. A rank that fails makes the script fail.
@@ -212,6 +244,30 @@ LOOP_SOURCE = "binned_counters_loop.cu"  # K1's previous design, built only to t
 MATCH_SOURCE = "histogram_match.cu"  # K2's previous design, built only to time K2 against
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the tensor cores
+# the pure layer, regression and pairwise
+BOOTSTRAPS = 100  # bootstrap_path's replicas
+MOVIELENS_RATINGS = 20_000_263  # MovieLens-20M's ratings (GroupLens ml-20m README)
+MOVIELENS_ROWS = 2_000_026  # a 10 % held-out split of them
+MOVIELENS_BATCH = 8192
+# the ratings of ml-20m's ratings.csv per half star, 0.5 to 5.0 (GroupLens
+# ml-20m; they sum to the README's 20,000,263, mean 3.5255): the weights of
+# the seeded draw
+MOVIELENS_RATING_COUNTS = (239_125, 680_732, 279_252, 1_430_997, 883_398, 4_291_193, 2_200_156, 5_561_926, 1_534_824, 2_898_660)
+MOVIELENS_NOISE = (1.0, 0.9, 0.8)  # the prediction noise of the three tracked epochs: the last is the best
+MOVIELENS_RING = 1 << 21  # the whole split fits
+MOVIELENS_WORLD_RING = 1 << 19  # a rank's quarter fits
+MOVIELENS_BOOTSTRAPS = 10
+REG_F64_ATOL = 1e-4  # RMSE, Pearson and Spearman of 2 * 10^6 float32 rows against float64
+REG_F64_RTOL = 1e-5  # QM9's per-target MAE and mean cosine against float64
+QM9_ROWS = 13_083  # the 10 % test split of QM9's 130,831 molecules
+QM9_TARGETS = 12
+QM9_BATCH = 1024
+PAIR_N, PAIR_M, PAIR_D = 4096, 1024, 768  # BERT-base-wide embeddings
+PAIR_CHECK_ROWS = 256  # rows of each output held against float64 on the CPU
+# float32 sums over 768 terms against float64: products (cosine, linear),
+# a difference of norms (euclidean), absolute differences (manhattan)
+PAIR_ATOL = {"pairwise_cosine_similarity": 1e-5, "pairwise_euclidean_distance": 1e-3,
+             "pairwise_linear_similarity": 2e-3, "pairwise_manhattan_distance": 5e-3}
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -1745,6 +1801,11 @@ def fused_eval_rank(rank, world, port, results, device):
         sync()
         out["sync_s"] = time.perf_counter() - t1
         out["synced_faults"] = {k: m.fault_counts for k, m in members.items()}
+        # the pure layer over the same world, then a quarter of the MovieLens split
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # BAP's "warn" policy reports the injected faults
+            out.update(pure_world(mtt, dist, dev, p, y, sync))
+        out.update(movielens_world(mtt, dist, dev, rank, world, sync))
         out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "metrics_tpu"))
         dist.barrier()
         dist.destroy_process_group()
@@ -1754,7 +1815,7 @@ def fused_eval_rank(rank, world, port, results, device):
         raise
 
 
-def phase_fused_eval(dev):
+def phase_fused_eval(dev, pure_values, ml_values):
     import torch
 
     import metrics_tpu_torch as mtt
@@ -1833,7 +1894,76 @@ def phase_fused_eval(dev):
         "cpu_reference_s": cpu_s,
         "matches_cpu_run": True,
     })
+    check_pure_world(ranks, card, pure_values, ml_values)
     return sum(r["launches"]["binned_counters"] for r in ranks), card
+
+
+def check_pure_world(ranks, stateful, pure_values, ml_values):
+    """The pure layer and the MovieLens quarter of the four-rank world:
+    ``compute`` makes one ``all_reduce`` per bucket of the fused members,
+    then the wrapper's own, and no gather, with the stateful values (the
+    members that share its configuration) and the one-process pure values;
+    a cycle is one fused sync and a read none, bit-equal to the fresh read;
+    the regression collection gathers Pearson's moments and Spearman's
+    rings and matches one process."""
+    r0 = ranks[0]
+    fused, wrapper = r0["pure_buckets"]["fused"], r0["pure_buckets"]["wrapper"]
+    for r in ranks:
+        calls = [c[0] for c in r["pure_all_reduce"]]
+        if (r["pure_other"] or sorted(calls[:len(fused)]) != fused or sorted(calls[len(fused):]) != wrapper
+                or any(c[1] != "SUM" for c in r["pure_all_reduce"])):
+            raise AssertionError(f"pure_dist_path: rank {r['rank']} compute made {r['pure_all_reduce']} and {r['pure_other']}; "
+                                 f"predicted the buckets {fused} then {wrapper}")
+        if len(r["faults_collectives"]) != 1:
+            raise AssertionError(f"pure_dist_path: rank {r['rank']} faults() made {r['faults_collectives']}")
+        if r["cycle_other"] or sorted(c[0] for c in r["cycle_all_reduce"]) != sorted(set(fused + wrapper)):
+            raise AssertionError(f"pure_dist_path: rank {r['rank']} cycle made {r['cycle_all_reduce']} and {r['cycle_other']}")
+        if r["read_collectives"] or r["lag"] != 0 or not r["read_bit_equal_fresh"]:
+            raise AssertionError(f"pure_dist_path: rank {r['rank']} read made {r['read_collectives']}, lag {r['lag']}, "
+                                 f"bit-equal to the fresh read: {r['read_bit_equal_fresh']}")
+        if r["pure_values"] != r0["pure_values"] or r["ml_values"] != r0["ml_values"] or r["pure_faults"] != r0["pure_faults"]:
+            raise AssertionError(f"pure_dist_path: rank {r['rank']} computed other values than rank 0")
+        if not any(c.startswith("all_gather") for c in r["ml_other"]):
+            raise AssertionError(f"pure_dist_path: the regression collection gathered nothing: {r['ml_other']}")
+        # the replicas' stacked state syncs in one collective per bucket
+        if (r["boot_other"] or sorted(c[0] for c in r["boot_all_reduce"]) != r0["boot_buckets"]
+                or len(r["boot_faults_collectives"]) != 1):
+            raise AssertionError(f"pure_dist_path: rank {r['rank']} bootstrap compute made {r['boot_all_reduce']} and "
+                                 f"{r['boot_other']}, faults {r['boot_faults_collectives']}; predicted the buckets {r0['boot_buckets']}")
+        if r["boot_raw"] != r0["boot_raw"]:
+            raise AssertionError(f"pure_dist_path: rank {r['rank']} bootstrapped other values than rank 0")
+    for key in ("acc", "prec", "rec", "f1"):
+        if r0["pure_values"][key] != [stateful[key]]:
+            raise AssertionError(f"pure_dist_path: {key} {r0['pure_values'][key]} against the stateful {stateful[key]}")
+    # the bootstrap estimates the guarded accuracy of the clean rows: the stateful collection's
+    rows, top1 = sum(r["boot_rows"] for r in ranks), stateful["acc"]
+    boot_mean, boot_std, binomial_std = r0["boot_mean"], r0["boot_std"], math.sqrt(top1 * (1 - top1) / rows)
+    if len(r0["boot_raw"]) != BOOTSTRAPS or not all(math.isfinite(v) for v in r0["boot_raw"]):
+        raise AssertionError(f"pure_dist_path: bootstrap raw values {r0['boot_raw'][:4]}... ({len(r0['boot_raw'])})")
+    if abs(boot_mean - top1) > 3 * boot_std or not 0.5 <= boot_std / binomial_std <= 2.0:
+        raise AssertionError(f"pure_dist_path: bootstrap mean {boot_mean}, std {boot_std} against top-1 {top1}, "
+                             f"sqrt(p(1-p)/N) {binomial_std}")
+    _values_close(r0["pure_values"], pure_values, 0.0, AP_ATOL, "pure_dist_path: four ranks against one process")
+    _values_close(r0["ml_values"], ml_values, FLOAT_SUM_RTOL, 1e-6, "pure_dist_path: MovieLens over four ranks against one process")
+    emit({
+        "phase": "pure_dist_path",
+        "config": {"world": DIST_WORLD, "rows": ROWS, "batch": BATCH, "members": ["acc", "prec", "rec", "f1", "bap", "per_class"],
+                   "movielens_rows_per_rank": [r["ml_rows"] for r in ranks], "spearman_ring_per_rank": MOVIELENS_WORLD_RING,
+                   "backend": "gloo, four processes on one card (loopback TCP; not NCCL)"},
+        "compute_all_reduce": r0["pure_all_reduce"], "compute_s": [r["pure_compute_s"] for r in ranks],
+        "buckets": {"fused": fused, "wrapper": wrapper},
+        "cycle_all_reduce": r0["cycle_all_reduce"], "cycle_s": [r["cycle_s"] for r in ranks],
+        "read_collectives": 0, "read_bit_equal_fresh": True,
+        "synced_faults": r0["pure_faults"],
+        "bootstrap": {"replicas": BOOTSTRAPS, "all_reduce": r0["boot_all_reduce"], "gathers": len(r0["boot_other"]),
+                      "compute_s": [r["boot_s"] for r in ranks], "mean": boot_mean, "std": boot_std, "stateful_acc": top1,
+                      "binomial_std": binomial_std},
+        "acc": r0["pure_values"]["acc"][0], "bap_mean": statistics.mean(r0["pure_values"]["bap"]),
+        "movielens": {"values": {k: v[0] for k, v in r0["ml_values"].items()}, "all_reduce": r0["ml_all_reduce"],
+                      "gathers": len(r0["ml_other"]), "compute_s": [r["ml_compute_s"] for r in ranks],
+                      "one_process": {k: v[0] for k, v in ml_values.items()}},
+        "matches_one_process": True,
+    })
 
 
 def make_rank_stream(device, rank):
@@ -3229,6 +3359,602 @@ def k2_path_launches(entry, launches):
     }
 
 
+# ---------------------------------------------------------------------------
+# the pure layer, the wrappers, regression and pairwise
+# ---------------------------------------------------------------------------
+
+
+def build_pure_eval(pkg, device):
+    """The fused evaluation path's members for the pure layer, with a
+    per-class recall through ``ClasswiseWrapper``. BAP counts its faults
+    under ``"warn"``: under ``"drop"`` a binned metric boolean-indexes its
+    rows, a read back that the pure layer refuses, as the JAX package's
+    does inside compiled code."""
+    kw = dict(num_classes=CLASSES, on_invalid="drop", device=device)
+    return pkg.MetricCollection({
+        "acc": pkg.Accuracy(**kw),
+        "prec": pkg.Precision(average="macro", **kw),
+        "rec": pkg.Recall(average="macro", **kw),
+        "f1": pkg.F1Score(average="macro", **kw),
+        "bap": pkg.BinnedAveragePrecision(num_classes=CLASSES, thresholds=THRESHOLDS, on_invalid="warn", device=device),
+        "per_class": pkg.ClasswiseWrapper(pkg.Recall(average=None, **kw)),
+    })
+
+
+def _tree_leaves(state, prefix=""):
+    """A pure state's tensors by path: dict keys, list positions, tuple
+    states by field."""
+    if isinstance(state, dict):
+        out = {}
+        for k in sorted(state):
+            out.update(_tree_leaves(state[k], f"{prefix}/{k}"))
+        return out
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return {f"{prefix}.{f}": t for f, t in zip(state._fields, state)}
+    if isinstance(state, list):
+        out = {}
+        for i, v in enumerate(state):
+            out.update(_tree_leaves(v, f"{prefix}[{i}]"))
+        return out
+    return {prefix: state}
+
+
+def _tree_bit_equal(a, b):
+    import torch
+
+    la, lb = _tree_leaves(a), _tree_leaves(b)
+    if la.keys() != lb.keys():
+        return False
+    for k, x in la.items():
+        y = lb[k]
+        if x.dtype != y.dtype or x.shape != y.shape or x.device != y.device:
+            return False
+        if x.is_floating_point():
+            view = {8: torch.int64, 4: torch.int32, 2: torch.int16}[x.element_size()]
+            x, y = x.view(view), y.view(view)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def _tree_bytes(state):
+    return sum(t.numel() * t.element_size() for t in _tree_leaves(state).values())
+
+
+def _flat_values(values):
+    """A collection's values as ``{key: [floats]}``."""
+    import torch
+
+    out = {}
+    for k, v in values.items():
+        t = torch.stack(v) if isinstance(v, list) else torch.as_tensor(v)
+        out[k] = [float(x) for x in t.reshape(-1).cpu()]
+    return out
+
+
+def _stateful_tree(coll):
+    """A stateful ``build_pure_eval`` collection's states in the pure layout."""
+    members = dict(coll.items(keep_base=True, copy_state=False))
+    return {
+        name: [m.metric_state, m.metric.metric_state] if name == "per_class" else m.metric_state
+        for name, m in members.items()
+    }
+
+
+def phase_pure(dev):
+    """The ImageNet epoch of the fused evaluation path through
+    ``functionalize(collection)``, against the stateful collection."""
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import binned_counters as k1
+    from metrics_tpu_torch.pure import _owned_tree
+
+    preds, target, nan_rows, label_rows = make_fused_eval_data(dev)
+    starts = list(range(0, ROWS, BATCH))
+    mdef = mtt.functionalize(build_pure_eval(mtt, dev))
+    state = mdef.init()
+    states, pure_s = [], []
+    torch.cuda.synchronize()
+    k1.reset_launch_count()
+    for start in starts:
+        before = _owned_tree(state)
+        t0 = time.perf_counter()
+        new = mdef.update(state, preds[start:start + BATCH], target[start:start + BATCH])
+        torch.cuda.synchronize()
+        pure_s.append(time.perf_counter() - t0)
+        if not _tree_bit_equal(before, state):
+            raise AssertionError(f"pure_path: the update of batch {len(states)} changed its input state")
+        states.append(new)
+        state = new
+    launches = k1.launch_count
+    if launches != len(starts):
+        raise AssertionError(f"pure_path: K1 launched {launches} times over {len(starts)} pure updates")
+
+    # the stateful collection on the same batches, state by state
+    stateful = build_pure_eval(mtt, dev)
+    stateful_s = []
+    for i, start in enumerate(starts):
+        t0 = time.perf_counter()
+        stateful.update(preds[start:start + BATCH], target[start:start + BATCH])
+        torch.cuda.synchronize()
+        stateful_s.append(time.perf_counter() - t0)
+        if not _tree_bit_equal(states[i], _stateful_tree(stateful)):
+            raise AssertionError(f"pure_path: the pure state after batch {i} differs from the stateful collection's")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # BAP's "warn" policy reports the injected faults
+        t0 = time.perf_counter()
+        values = mdef.compute(state)
+        torch.cuda.synchronize()
+        compute_s = time.perf_counter() - t0
+        want = stateful.compute()
+    pure_values, stateful_values = _flat_values(values), _flat_values(want)
+    if pure_values != stateful_values:
+        raise AssertionError(f"pure_path: compute differs from the stateful compute(): {pure_values} against {stateful_values}")
+
+    # two half-epoch states merged equal the whole-epoch state
+    half = len(starts) // 2
+    parts = []
+    for chunk in (starts[:half], starts[half:]):
+        s = mdef.init()
+        for start in chunk:
+            s = mdef.update(s, preds[start:start + BATCH], target[start:start + BATCH])
+        parts.append(s)
+    if not _tree_bit_equal(mdef.merge(*parts), state):
+        raise AssertionError("pure_path: the merge of the two half-epoch states differs from the whole-epoch state")
+
+    # the fault channel: each "drop" member the injected rows, BAP ("warn") the same faults with no row dropped
+    dropped = nan_rows + label_rows
+    want_drop = {"nonfinite_preds": nan_rows, "label_out_of_range": label_rows, "dropped_rows": dropped}
+    want_warn = {"nonfinite_preds": nan_rows, "label_out_of_range": label_rows}
+    members = {name: (s[1] if name == "per_class" else s) for name, s in state.items()}
+    faults_by_member = {name: s["_faults"].as_dict() for name, s in members.items()}
+    for name, got in faults_by_member.items():
+        want_m = want_warn if name == "bap" else want_drop
+        if {k: v for k, v in got.items() if v} != want_m:
+            raise AssertionError(f"pure_path: {name} counted faults {got}, injected {want_m}")
+    total = mdef.faults(state)
+    summed = sum(s["_faults"].counts for s in members.values())
+    if not torch.equal(total, summed):
+        raise AssertionError(f"pure_path: faults() {total.tolist()} is not the members' sum {summed.tolist()}")
+
+    # a guarded pure update reads nothing back to the host
+    reads = blocking_reads(lambda i: mdef.update(state, preds[i * BATCH:(i + 1) * BATCH], target[i * BATCH:(i + 1) * BATCH]), GUARDED_UPDATES)
+    if reads:
+        raise AssertionError(f"pure_path: {len(reads)} blocking reads in {GUARDED_UPDATES} guarded pure updates: {reads[:3]}")
+    emit({
+        "phase": "pure_path",
+        "config": {"rows": ROWS, "classes": CLASSES, "batch": BATCH, "thresholds": THRESHOLDS, "fault_share": FAULT_SHARE,
+                   "members": list(state), "seed": SEED},
+        "batches": len(starts),
+        "k1_launches": launches,
+        "pure_update_p50_ms": statistics.median(pure_s) * 1e3,
+        "stateful_update_p50_ms": statistics.median(stateful_s) * 1e3,
+        "pure_update_bytes_copied": _tree_bytes(state),
+        "pure_compute_s": compute_s,
+        "blocking_reads_per_guarded_update": len(reads) / GUARDED_UPDATES,
+        "states_equal_stateful_after_every_batch": True,
+        "inputs_unchanged": True,
+        "merge_of_halves_equals_epoch": True,
+        "injected": {"nonfinite_preds": nan_rows, "label_out_of_range": label_rows},
+        "faults_by_member": faults_by_member,
+        "acc": pure_values["acc"][0], "prec": pure_values["prec"][0], "rec": pure_values["rec"][0], "f1": pure_values["f1"][0],
+        "bap_mean": statistics.mean(pure_values["bap"]),
+    })
+    return launches, pure_values
+
+
+def phase_bootstrap(preds, target):
+    """``bootstrap_functionalize(Accuracy)`` over the ImageNet epoch with a
+    generator on the card: the vmapped update against one update per
+    replica, and the bootstrap's mean and spread against the epoch."""
+    import torch
+
+    import metrics_tpu_torch as mtt
+
+    dev = preds.device
+    metric = mtt.Accuracy(num_classes=CLASSES, device=dev)
+    bdef, mdef = mtt.bootstrap_functionalize(metric, BOOTSTRAPS), mtt.functionalize(metric)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    # the first and the last (ragged) batch: the vmapped update against
+    # BOOTSTRAPS separate updates on the same indices, bit for bit
+    checked = 0
+    for start in (0, (ROWS // BATCH) * BATCH):
+        p, y = preds[start:start + BATCH], target[start:start + BATCH]
+        n = p.shape[0]
+        idx = torch.randint(0, n, (BOOTSTRAPS, n), generator=gen, device=dev)
+        vm = bdef.update.with_indices(bdef.init(), idx, p, y)
+        for r in range(BOOTSTRAPS):
+            one = mdef.update(mdef.init(), p[idx[r]], y[idx[r]])
+            if not _tree_bit_equal({k: v[r] for k, v in vm.items()}, one):
+                raise AssertionError(f"bootstrap_path: replica {r} of the vmapped update differs from its own update")
+            checked += 1
+
+    state, update_s = bdef.init(), []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for start in range(0, ROWS, BATCH):
+        t0 = time.perf_counter()
+        state = bdef.update(state, gen, preds[start:start + BATCH], target[start:start + BATCH])
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t0)
+    out = bdef.compute(state)
+    mean, std = float(out["mean"]), float(out["std"])
+    top1 = float((preds.argmax(dim=1) == target).to(torch.float64).mean())
+    expected_std = math.sqrt(top1 * (1 - top1) / ROWS)
+    if out["raw"].shape != (BOOTSTRAPS,) or not bool(torch.isfinite(out["raw"]).all()):
+        raise AssertionError(f"bootstrap_path: raw values of shape {tuple(out['raw'].shape)}")
+    if abs(mean - top1) > 3 * std:
+        raise AssertionError(f"bootstrap_path: mean {mean} is more than 3 std ({std}) from the epoch's top-1 {top1}")
+    if not 0.5 <= std / expected_std <= 2.0:
+        raise AssertionError(f"bootstrap_path: std {std} against sqrt(p(1-p)/N) = {expected_std}")
+    emit({
+        "phase": "bootstrap_path",
+        "config": {"rows": ROWS, "classes": CLASSES, "batch": BATCH, "replicas": BOOTSTRAPS, "generator": "torch.Generator on the card", "seed": SEED + 20},
+        "replicas_checked_bit_equal": checked,
+        "update_p50_ms": statistics.median(update_s) * 1e3,
+        "epoch_s": sum(update_s),
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "mean": mean, "std": std, "top1": top1, "binomial_std": expected_std, "std_ratio": std / expected_std,
+    })
+
+
+def make_movielens(device):
+    """The held-out ratings on the half-star grid, drawn with ml-20m's
+    shares of each rating (mean 3.5255), and a standard normal draw per
+    row, from a seed."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SEED + 30)
+    grid = torch.arange(1, 11, device=device, dtype=torch.float32) / 2
+    weights = torch.tensor(MOVIELENS_RATING_COUNTS, dtype=torch.float32, device=device)
+    target = grid[torch.multinomial(weights, MOVIELENS_ROWS, replacement=True, generator=g)]
+    noise = torch.randn(MOVIELENS_ROWS, generator=g, device=device)
+    return target, noise
+
+
+def movielens_preds(target, noise, scale):
+    import torch
+
+    return torch.clamp(target + scale * noise, 0.5, 5.0)
+
+
+def build_movielens(pkg, device, generator):
+    kw = dict(device=device)
+    return pkg.MetricCollection({
+        "rmse": pkg.MeanSquaredError(squared=False, **kw),
+        "mae": pkg.MeanAbsoluteError(**kw),
+        "msle": pkg.MeanSquaredLogError(**kw),
+        "mape": pkg.MeanAbsolutePercentageError(**kw),
+        "smape": pkg.SymmetricMeanAbsolutePercentageError(**kw),
+        "wmape": pkg.WeightedMeanAbsolutePercentageError(**kw),
+        "pearson": pkg.PearsonCorrCoef(**kw),
+        "spearman": pkg.SpearmanCorrCoef(capacity=MOVIELENS_RING, **kw),
+        "r2": pkg.R2Score(**kw),
+        "ev": pkg.ExplainedVariance(**kw),
+        "tweedie": pkg.TweedieDevianceScore(power=1.5, **kw),
+        "rmse_range": pkg.MinMaxMetric(pkg.MeanSquaredError(squared=False, **kw)),
+        "rmse_boot": pkg.BootStrapper(pkg.MeanSquaredError(squared=False, **kw), num_bootstraps=MOVIELENS_BOOTSTRAPS, generator=generator),
+    })
+
+
+def build_movielens_world(pkg, device, capacity):
+    """The four-rank MovieLens collection: Pearson's stacked moments,
+    Spearman's rings, and two sum metrics."""
+    kw = dict(device=device)
+    return pkg.MetricCollection({
+        "pearson": pkg.PearsonCorrCoef(**kw),
+        "spearman": pkg.SpearmanCorrCoef(capacity=capacity, **kw),
+        "r2": pkg.R2Score(**kw),
+        "mse": pkg.MeanSquaredError(**kw),
+    })
+
+
+def run_movielens(device, target, noise, sync):
+    """Three tracked epochs over the held-out split, the prediction noise
+    shrinking; returns the tracker, per-batch seconds and compute seconds."""
+    import torch
+
+    import metrics_tpu_torch as mtt
+
+    gen = torch.Generator().manual_seed(SEED + 31)  # resamples drawn on the host for both runs
+    tracker = mtt.MetricTracker(build_movielens(mtt, device, gen), maximize=False)
+    update_s, compute_s = [], []
+    for scale in MOVIELENS_NOISE:
+        tracker.increment()
+        preds = movielens_preds(target, noise, scale)
+        for start in range(0, MOVIELENS_ROWS, MOVIELENS_BATCH):
+            t0 = time.perf_counter()
+            tracker.update(preds[start:start + MOVIELENS_BATCH], target[start:start + MOVIELENS_BATCH])
+            sync()
+            update_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        tracker.compute()
+        sync()
+        compute_s.append(time.perf_counter() - t0)
+    return tracker, update_s, compute_s
+
+
+def _values_close(card, cpu, rtol, atol, what):
+    for k in cpu:
+        a, b = card[k], cpu[k]
+        if len(a) != len(b) or any(not math.isfinite(x) for x in a) or any(abs(x - y) > atol + rtol * abs(y) for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: {k} = {a} against {b} (rtol {rtol}, atol {atol})")
+
+
+def make_qm9(device):
+    """QM9-shaped targets (the 10 % test split, 12 regression targets),
+    each on its own scale, and a model's predictions."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SEED + 40)
+    scale = torch.exp(torch.randn(QM9_TARGETS, generator=g, device=device))
+    target = torch.randn((QM9_ROWS, QM9_TARGETS), generator=g, device=device) * scale
+    preds = target + 0.1 * scale * torch.randn((QM9_ROWS, QM9_TARGETS), generator=g, device=device)
+    return preds, target
+
+
+def phase_regression(dev):
+    """MovieLens-20M's held-out split through the regression collection
+    under ``MetricTracker``, on the card and on the CPU, and a QM9-shaped
+    multi-target check."""
+    import numpy as np
+    import scipy.stats
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.functional.regression.spearman import _rank_data
+
+    target, noise = make_movielens(dev)
+    if abs(float(target.mean()) - 3.5) > 0.1:
+        raise AssertionError(f"regression_path: seeded ratings have mean {float(target.mean())}")
+    t0 = time.perf_counter()
+    card, update_s, compute_s = run_movielens(dev, target, noise, torch.cuda.synchronize)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu, _, _ = run_movielens("cpu", target.cpu(), noise.cpu(), lambda: None)
+    cpu_s = time.perf_counter() - t0
+
+    card_all = {k: [float(x) for x in v.reshape(-1).cpu()] for k, v in card.compute_all().items()}
+    cpu_all = {k: [float(x) for x in v.reshape(-1)] for k, v in cpu.compute_all().items()}
+    _values_close(card_all, cpu_all, FLOAT_SUM_RTOL, 1e-6, "regression_path: card against CPU")
+    last_card = dict(card._metrics[-1].items(keep_base=True, copy_state=False))
+    last_cpu = dict(cpu._metrics[-1].items(keep_base=True, copy_state=False))
+    for name, m in last_card.items():
+        for key, value in m.metric_state.items():
+            if isinstance(value, tuple) or value.is_floating_point():
+                continue
+            if not torch.equal(value.cpu(), last_cpu[name].metric_state[key]):
+                raise AssertionError(f"regression_path: count {name}.{key} differs between the card and the CPU")
+    ring_card, ring_cpu = last_card["spearman"].metric_state, last_cpu["spearman"].metric_state
+    for key in ("preds", "target"):
+        if not torch.equal(_rank_data(ring_card[key].data, ring_card[key].mask).cpu(), _rank_data(ring_cpu[key].data, ring_cpu[key].mask)):
+            raise AssertionError(f"regression_path: Spearman's ranks of {key} differ between the card and the CPU")
+    steps, best = card.best_metric(return_step=True)
+    if steps["rmse"] != len(MOVIELENS_NOISE) - 1 or best["rmse"] != card_all["rmse"][-1]:
+        raise AssertionError(f"regression_path: best RMSE {best['rmse']} at epoch {steps['rmse']}")
+
+    # the last epoch against float64 on the card's draw
+    p64 = movielens_preds(target, noise, MOVIELENS_NOISE[-1]).cpu().numpy().astype(np.float64)
+    t64 = target.cpu().numpy().astype(np.float64)
+    f64 = {
+        "rmse": float(np.sqrt(np.mean((p64 - t64) ** 2))),
+        "pearson": float(np.corrcoef(p64, t64)[0, 1]),
+        "spearman": float(scipy.stats.spearmanr(p64, t64)[0]),
+    }
+    f64_err = {k: abs(card_all[k][-1] - v) for k, v in f64.items()}
+    if max(f64_err.values()) > REG_F64_ATOL:
+        raise AssertionError(f"regression_path: against float64 {f64_err} (atol {REG_F64_ATOL})")
+
+    # the four-rank check's reference: one process over every row
+    world_ref = build_movielens_world(mtt, dev, MOVIELENS_RING)
+    p_last = movielens_preds(target, noise, MOVIELENS_NOISE[-1])
+    for start in range(0, MOVIELENS_ROWS, MOVIELENS_BATCH):
+        world_ref.update(p_last[start:start + MOVIELENS_BATCH], target[start:start + MOVIELENS_BATCH])
+    world_values = {k: [float(v)] for k, v in world_ref.compute().items()}
+
+    # QM9-shaped multi-target regression
+    qp, qt = make_qm9(dev)
+    qm9 = {}
+    for device in (dev, "cpu"):
+        coll = mtt.MetricCollection({
+            "mae": mtt.MultioutputWrapper(mtt.MeanAbsoluteError(device=device), num_outputs=QM9_TARGETS),
+            "cos": mtt.CosineSimilarity(reduction="mean", device=device),
+        })
+        times = []
+        for start in range(0, QM9_ROWS, QM9_BATCH):
+            t0 = time.perf_counter()
+            coll.update(qp[start:start + QM9_BATCH].to(device), qt[start:start + QM9_BATCH].to(device))
+            if device == dev:
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        vals = coll.compute()
+        qm9[str(device)] = {"values": {"mae": [float(v) for v in vals["mae"]], "cos": [float(vals["cos"])]},
+                            "update_p50_ms": statistics.median(times) * 1e3, "rows_per_s": QM9_ROWS / sum(times),
+                            "compute_s": time.perf_counter() - t0}
+    q_card, q_cpu = qm9[str(dev)]["values"], qm9["cpu"]["values"]
+    _values_close(q_card, q_cpu, FLOAT_SUM_RTOL, 1e-6, "regression_path (QM9): card against CPU")
+    qp64, qt64 = qp.cpu().numpy().astype(np.float64), qt.cpu().numpy().astype(np.float64)
+    q64 = {"mae": list(np.abs(qp64 - qt64).mean(axis=0)),
+           "cos": [float(np.mean((qp64 * qt64).sum(1) / (np.linalg.norm(qp64, axis=1) * np.linalg.norm(qt64, axis=1))))]}
+    _values_close(q_card, q64, REG_F64_RTOL, 1e-6, "regression_path (QM9): card against float64")
+
+    batches = -(-MOVIELENS_ROWS // MOVIELENS_BATCH)
+    emit({
+        "phase": "regression_path",
+        "config": {"ratings": MOVIELENS_RATINGS, "held_out_rows": MOVIELENS_ROWS, "batch": MOVIELENS_BATCH, "batches_per_epoch": batches,
+                   "last_batch": MOVIELENS_ROWS - (batches - 1) * MOVIELENS_BATCH, "epochs_noise": list(MOVIELENS_NOISE),
+                   "spearman_capacity": MOVIELENS_RING, "bootstraps": MOVIELENS_BOOTSTRAPS, "members": list(last_card), "seed": SEED + 30},
+        "update_p50_ms": statistics.median(update_s) * 1e3,
+        "rows_per_s": len(MOVIELENS_NOISE) * MOVIELENS_ROWS / sum(update_s),
+        "compute_s": compute_s,
+        "card_s": card_s, "cpu_s": cpu_s,
+        "values_last_epoch": {k: v[-1] for k, v in card_all.items()},
+        "best_rmse_epoch": steps["rmse"],
+        "float64": f64, "float64_abs_err": f64_err,
+        "matches_cpu_run": True,
+        "qm9": {"rows": QM9_ROWS, "targets": QM9_TARGETS, "batch": QM9_BATCH, "mae": q_card["mae"], "cos": q_card["cos"][0],
+                "update_p50_ms": qm9[str(dev)]["update_p50_ms"], "rows_per_s": qm9[str(dev)]["rows_per_s"],
+                "compute_s": qm9[str(dev)]["compute_s"], "matches_cpu_run": True},
+    })
+    return world_values
+
+
+def phase_pairwise(dev):
+    """The four pairwise functions on BERT-base-wide embeddings on the
+    card, against float64 on the CPU over a block of rows."""
+    import torch
+
+    import metrics_tpu_torch.functional.pairwise as pw
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("pairwise_path: TF32 matmuls are on; the products must run in float32")
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    x = torch.randn((PAIR_N, PAIR_D), generator=g, device=dev)
+    y = torch.randn((PAIR_M, PAIR_D), generator=g, device=dev)
+    xr, x64, y64 = slice(0, PAIR_CHECK_ROWS), x.cpu().double(), y.cpu().double()
+
+    def ref(name, a, b, zero_diag):
+        a = a[xr]
+        if name == "pairwise_cosine_similarity":
+            d = (a / a.norm(dim=1, keepdim=True)) @ (b / b.norm(dim=1, keepdim=True)).T
+        elif name == "pairwise_euclidean_distance":
+            d = torch.cdist(a, b)
+        elif name == "pairwise_linear_similarity":
+            d = a @ b.T
+        else:
+            d = torch.cdist(a, b, p=1.0)
+        if zero_diag:
+            d[torch.arange(d.shape[0]), torch.arange(d.shape[0])] = 0.0
+        return d
+
+    rows = []
+    for name in ("pairwise_cosine_similarity", "pairwise_euclidean_distance", "pairwise_linear_similarity", "pairwise_manhattan_distance"):
+        fn = getattr(pw, name)
+        for label, args, b64, zero_diag in (("x_x", (x,), x64, True), ("x_y", (x, y), y64, False)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            ms = cuda_time_ms(lambda: fn(*args), iters=10, warmup=2)
+            want = ref(name, x64, b64, zero_diag)
+            err = float((out[xr].cpu().double() - want).abs().max())
+            tol = PAIR_ATOL[name]
+            if out.shape != (PAIR_N, args[-1].shape[0]) or out.dtype != torch.float32 or not (err <= tol):
+                raise AssertionError(f"pairwise_path: {name} {label}: shape {tuple(out.shape)}, max abs err {err} (atol {tol})")
+            rows.append({"fn": name, "inputs": label, "shape": list(out.shape), "ms": ms, "peak_mem_bytes": peak,
+                         "max_abs_err_vs_float64": err, "atol": tol})
+            del out
+    emit({"phase": "pairwise_path", "config": {"n": PAIR_N, "m": PAIR_M, "d": PAIR_D, "checked_rows": PAIR_CHECK_ROWS,
+                                                "tf32": False, "seed": SEED + 50}, "calls": rows})
+
+
+def _values_tree(values):
+    """A collection's values with each list stacked: a tree of tensors."""
+    import torch
+
+    return {k: torch.stack(v) if isinstance(v, list) else torch.as_tensor(v) for k, v in values.items()}
+
+
+def pure_world(mtt, dist, dev, p, y, sync):
+    """One rank of the pure layer over the fused evaluation world: the
+    collection's compute and fault counts over the group, the overlapped
+    form's cycle, read and fresh read, then the bootstrap's compute."""
+    import torch
+
+    group = dist.group.WORLD
+    coll = build_pure_eval(mtt, dev)
+    cdef = mtt.functionalize(coll, group=group)
+    state = cdef.init()
+    for start in range(0, p.shape[0], BATCH):
+        state = cdef.update(state, p[start:start + BATCH], y[start:start + BATCH])
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with CollectiveRecorder() as rec:
+        values = cdef.compute(state)
+        sync()
+    compute_s = time.perf_counter() - t0
+    with CollectiveRecorder() as frec:
+        faults = cdef.faults(state)
+        sync()
+
+    def dtypes(tree):
+        return sorted({str(t.dtype).replace("torch.", "") for t in _tree_leaves(tree).values()})
+
+    odef = mtt.overlapped_functionalize(coll, group=group)
+    ostate = odef.init()
+    for start in range(0, p.shape[0], BATCH):
+        ostate = odef.update(ostate, p[start:start + BATCH], y[start:start + BATCH])
+    sync()
+    dist.barrier()
+    t1 = time.perf_counter()
+    with CollectiveRecorder() as cyc:
+        ostate = odef.cycle(ostate)
+        sync()
+    cycle_s = time.perf_counter() - t1
+    with CollectiveRecorder() as rd:
+        read = odef.read(ostate)
+        lag = int(odef.lag(ostate))
+        sync()
+    fresh = odef.read_fresh(ostate)
+
+    bdef = mtt.bootstrap_functionalize(mtt.Accuracy(num_classes=CLASSES, on_invalid="drop", device=dev), BOOTSTRAPS, group=group)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60 + dist.get_rank())
+    bstate = bdef.init()
+    for start in range(0, p.shape[0], BATCH):
+        bstate = bdef.update(bstate, gen, p[start:start + BATCH], y[start:start + BATCH])
+    sync()
+    dist.barrier()
+    t2 = time.perf_counter()
+    with CollectiveRecorder() as brec:
+        boot = bdef.compute(bstate)
+        sync()
+    boot_s = time.perf_counter() - t2
+    with CollectiveRecorder() as bfrec:
+        bdef.faults(bstate)
+        sync()
+    return {
+        "pure_all_reduce": rec.all_reduce, "pure_other": rec.other, "pure_compute_s": compute_s,
+        "pure_buckets": {"fused": dtypes({k: v for k, v in state.items() if k != "per_class"}), "wrapper": dtypes(state["per_class"])},
+        "pure_values": _flat_values(values), "pure_faults": [int(v) for v in faults.cpu()],
+        "faults_collectives": frec.all_reduce + frec.other,
+        "cycle_all_reduce": cyc.all_reduce, "cycle_other": cyc.other, "cycle_s": cycle_s,
+        "read_collectives": rd.all_reduce + rd.other, "lag": lag,
+        "read_bit_equal_fresh": _tree_bit_equal(_values_tree(read), _values_tree(fresh)),
+        "boot_all_reduce": brec.all_reduce, "boot_other": brec.other, "boot_s": boot_s, "boot_buckets": dtypes(bstate),
+        "boot_faults_collectives": bfrec.all_reduce + bfrec.other,
+        "boot_raw": [float(v) for v in boot["raw"].cpu()], "boot_mean": float(boot["mean"]), "boot_std": float(boot["std"]),
+        "boot_rows": int((torch.isfinite(p).all(dim=1) & (y < CLASSES)).sum()),  # the rows "drop" keeps
+    }
+
+
+def movielens_world(mtt, dist, dev, rank, world, sync):
+    """One rank's quarter of the MovieLens split through the four-rank
+    regression collection, and its synced compute."""
+    target, noise = make_movielens(dev)
+    preds = movielens_preds(target, noise, MOVIELENS_NOISE[-1])
+    shard = -(-MOVIELENS_ROWS // world)
+    p, t = preds[rank * shard:(rank + 1) * shard], target[rank * shard:(rank + 1) * shard]
+    coll = build_movielens_world(mtt, dev, MOVIELENS_WORLD_RING)
+    for start in range(0, p.shape[0], MOVIELENS_BATCH):
+        coll.update(p[start:start + MOVIELENS_BATCH], t[start:start + MOVIELENS_BATCH])
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with CollectiveRecorder() as rec:
+        values = coll.compute()
+        sync()
+    return {
+        "ml_rows": int(p.shape[0]), "ml_values": {k: [float(v)] for k, v in values.items()},
+        "ml_all_reduce": rec.all_reduce, "ml_other": rec.other, "ml_compute_s": time.perf_counter() - t0,
+    }
+
+
 def main():
     try:
         import torch
@@ -3272,6 +3998,10 @@ def main():
     phase_stream_profile(stream)
     first_batch = stream[:STREAM_BATCH].clone()
     del stream
+    k1_pure_launches, pure_values = phase_pure(device)
+    phase_bootstrap(preds, target)
+    ml_world_values = phase_regression(device)
+    phase_pairwise(device)
     # the kernels' times, before any path spawns its ranks
     kernels = [
         k1_times(preds, target, k1_launches, k1_err),
@@ -3283,7 +4013,7 @@ def main():
     torch.cuda.empty_cache()
     k2_launches = phase_dist(device)
     k2_path_launches(kernels[1], k2_launches)
-    k1_fused_launches, fused_values = phase_fused_eval(device)
+    k1_fused_launches, fused_values = phase_fused_eval(device, pure_values, ml_world_values)
     k3_fused_launches = phase_fused_sketch(device)
     k1_overlapped_launches, k3_quantized_launches = phase_sync_layer(device, fused_values)
     k1_full_dist_launches, k2_full_dist_launches = phase_full_classification_dist(full_cpu_values)
@@ -3292,6 +4022,7 @@ def main():
     kernels[0]["launches_by_path"] = {
         "main_path": k1_launches, "fused_dist_path": k1_fused_launches, "overlapped_path": k1_overlapped_launches,
         "full_classification_path": full_launches["binned_counters"], "full_classification_dist": k1_full_dist_launches,
+        "pure_path": k1_pure_launches,
     }
     kernels[1]["launches_by_path"] = {
         "dist_path": k2_launches, "full_classification_path": full_launches["histogram"],

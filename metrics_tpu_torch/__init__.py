@@ -34,6 +34,27 @@ from metrics_tpu_torch.classification.specificity import Specificity
 from metrics_tpu_torch.classification.stat_scores import StatScores
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import CompositionalMetric, Metric
+from metrics_tpu_torch.pure import (
+    MetricDef,
+    OverlappedDef,
+    bootstrap_functionalize,
+    functionalize,
+    overlapped_functionalize,
+)
+from metrics_tpu_torch.regression import (
+    CosineSimilarity,
+    ExplainedVariance,
+    MeanAbsoluteError,
+    MeanAbsolutePercentageError,
+    MeanSquaredError,
+    MeanSquaredLogError,
+    PearsonCorrCoef,
+    R2Score,
+    SpearmanCorrCoef,
+    SymmetricMeanAbsolutePercentageError,
+    TweedieDevianceScore,
+    WeightedMeanAbsolutePercentageError,
+)
 from metrics_tpu_torch.utilities.guard import FaultCounters
 from metrics_tpu_torch.streaming import (
     CountMinSketch,
@@ -46,6 +67,13 @@ from metrics_tpu_torch.streaming import (
     WindowedMetric,
 )
 from metrics_tpu_torch.resilience.health import health_report
+from metrics_tpu_torch.wrappers import (
+    BootStrapper,
+    ClasswiseWrapper,
+    MetricTracker,
+    MinMaxMetric,
+    MultioutputWrapper,
+)
 
 __all__ = [
     "AUC",
@@ -55,16 +83,20 @@ __all__ = [
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "BootStrapper",
     "CalibrationError",
     "CatMetric",
+    "ClasswiseWrapper",
     "CohenKappa",
     "CompositionalMetric",
     "ConfusionMatrix",
+    "CosineSimilarity",
     "CountMinSketch",
     "CountMinState",
     "CoverageError",
     "DecayedMetric",
     "Dice",
+    "ExplainedVariance",
     "F1Score",
     "FBetaScore",
     "FaultCounters",
@@ -78,19 +110,37 @@ __all__ = [
     "LabelRankingLoss",
     "MatthewsCorrCoef",
     "MaxMetric",
+    "MeanAbsoluteError",
+    "MeanAbsolutePercentageError",
     "MeanMetric",
+    "MeanSquaredError",
+    "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
+    "MetricDef",
+    "MetricTracker",
+    "MinMaxMetric",
     "MinMetric",
+    "MultioutputWrapper",
+    "OverlappedDef",
+    "PearsonCorrCoef",
     "Precision",
     "PrecisionRecallCurve",
     "QuantileSketch",
     "QuantileSketchState",
+    "R2Score",
     "ROC",
     "Recall",
+    "SpearmanCorrCoef",
     "Specificity",
     "StatScores",
     "SumMetric",
+    "SymmetricMeanAbsolutePercentageError",
+    "TweedieDevianceScore",
+    "WeightedMeanAbsolutePercentageError",
     "WindowedMetric",
+    "bootstrap_functionalize",
+    "functionalize",
     "health_report",
+    "overlapped_functionalize",
 ]

@@ -55,6 +55,10 @@ class BaseAggregator(Metric):
         self.nan_strategy = nan_strategy
         template = torch.zeros((0,), dtype=torch.float32) if isinstance(default_value, list) else None
         self.add_state("value", default=default_value, dist_reduce_fx=fn, template=template)
+        if nan_strategy == "error" or (nan_strategy == "warn" and self.on_invalid == "ignore") or isinstance(default_value, list):
+            # the update reads values back to raise or warn, or removes NaN
+            # rows from a list (a shape that depends on the data)
+            self.jittable_update = False
 
     def _as_float(self, x: Union[float, Tensor]) -> Tensor:
         return torch.as_tensor(x, device=self.device).to(torch.float32)

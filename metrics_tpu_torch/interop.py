@@ -34,6 +34,18 @@ The classification states carry the same way: a confusion matrix
 (``confmat``, int32), a calibration error's lists or bins, a hinge or KL
 sum, a KL ring (``capacity=``), the ranking sums.
 
+A pure state (``pure.py``) carries both ways, in every layout: a
+``MetricDef`` state dict, a wrapper's list of per-node dicts, a
+collection's dict of those, the overlapped ``{live, reduced, steps,
+covered}`` and a bootstrap's stacked state. :func:`load_jax_pure_state`
+reads the JAX package's state into the layout of a port state of the same
+definition (``mdef.init()`` as the template: each leaf takes the
+template's device and dtype, a ring its own capacity);
+:func:`to_jax_pure_state` writes a port state as numpy leaves in the layout
+and dtypes of a JAX state (``jax_mdef.init()``), with the JAX package's
+classes of its rings, fault counters and sketches taken from it, which
+the JAX functions accept as they are.
+
 States only: an attribute that a metric infers from its first batch, such
 as ``Accuracy.mode``, is set again by the port's next ``update``. A whole
 metric, its update count, inferred attributes and child metrics included,
@@ -94,3 +106,39 @@ def load_jax_state(
         target.load_state_dict(_to_tensors(target, state, "load_jax_state"))
     else:
         raise TypeError(f"load_jax_state loads into a Metric or a MetricCollection, got {type(target).__name__}")
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def load_jax_pure_state(template: Any, jax_state: Any) -> Any:
+    """A JAX pure state as the port's: ``template`` is a port state of the
+    same definition (its ``init()``), whose layout, NamedTuple classes,
+    devices and dtypes the result takes; the values are the JAX state's."""
+    if isinstance(template, dict):
+        if set(jax_state) != set(template):
+            raise ValueError(f"load_jax_pure_state: the JAX state has keys {sorted(jax_state)}, the port's {sorted(template)}")
+        return {k: load_jax_pure_state(v, jax_state[k]) for k, v in template.items()}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        get = jax_state.get if isinstance(jax_state, Mapping) else (lambda f: getattr(jax_state, f))
+        return type(template)(*(load_jax_pure_state(v, get(f)) for f, v in zip(template._fields, template)))
+    if isinstance(template, (list, tuple)):
+        if len(jax_state) != len(template):
+            raise ValueError(f"load_jax_pure_state: the JAX state has {len(jax_state)} nodes, the port's {len(template)}")
+        return [load_jax_pure_state(v, j) for v, j in zip(template, jax_state)]
+    arr = np.array(jax_state).astype(_numpy_dtype(template.dtype))
+    return torch.from_numpy(arr).to(template.device)
+
+
+def to_jax_pure_state(state: Any, like: Any) -> Any:
+    """A port pure state as numpy leaves in the layout and dtypes of the JAX
+    state ``like`` (the JAX definition's ``init()``)."""
+    if isinstance(like, dict):
+        return {k: to_jax_pure_state(state[k], v) for k, v in like.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        # a ring, the fault counters, a sketch: the JAX class, by field name
+        return type(like)(**{f: to_jax_pure_state(getattr(state, f), getattr(like, f)) for f in state._fields})
+    if isinstance(like, (list, tuple)):
+        return [to_jax_pure_state(s, v) for s, v in zip(state, like)]
+    return state.detach().to("cpu", copy=True).numpy().astype(np.asarray(like).dtype)

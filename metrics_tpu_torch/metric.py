@@ -199,10 +199,24 @@ class Metric:
     higher_is_better: Optional[bool] = None
     full_state_update: bool = False
 
+    # whether ``update`` and ``compute`` run on tensors alone, without
+    # reading values back to decide what to do; the pure layer
+    # (``pure.py``) refuses a metric that declares either False. The JAX
+    # package also turns a flag off after a failed trace of the jitted
+    # method; the port compiles nothing, so only the declared flags count
+    # (stated difference D30)
+    jittable_update: bool = True
+    jittable_compute: bool = True
+
     # attributes that an update infers from the data (an input mode), which
     # a snapshot carries so that a fresh instance computes right after a
     # restore
     _snapshot_attrs: Sequence[str] = ()
+
+    # how the ``CatBuffer`` rings overflow together: False for rings filled
+    # in lockstep (preds and target drop the same rows, counted once), True
+    # for rings filled independently (their drops add up)
+    _independent_ring_drops: bool = False
 
     def __init__(
         self,
@@ -520,12 +534,13 @@ class Metric:
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """Two updates: one into the global state, one into a fresh state that
         gives the batch value (synced across processes with
-        ``dist_sync_on_step``)."""
+        ``dist_sync_on_step``). The save and restore take in the child
+        metrics (a wrapper's), so the second update never counts into a
+        child's accumulated state."""
         self.update(*args, **kwargs)
-        saved = self._copy_state(), self._update_count
+        saved = self._deep_copy_state()
         self._to_sync = self.dist_sync_on_step
-        self._restore_defaults()
-        self._update_count = 0
+        self._deep_reset()
         self.update(*args, **kwargs)
         reported = self._faults_reported
         try:
@@ -533,18 +548,17 @@ class Metric:
         finally:
             # the accumulated state survives a compute that raises; the warn
             # watermark was the batch's own inside that compute
-            object.__setattr__(self, "_state", saved[0])
-            self._update_count = saved[1]
+            self._deep_restore(saved)
             self._faults_reported = reported
             self._to_sync = True
             self._computed = None
         return batch_val
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
-        """One update on a fresh state, then a merge into the global state."""
-        global_state, global_count = self._copy_state(), self._update_count
-        self._restore_defaults()
-        self._update_count = 0
+        """One update on a fresh state, then a merge into the global state,
+        the child metrics' included."""
+        global_snap = self._deep_copy_state()
+        self._deep_reset()
         self.update(*args, **kwargs)
         self._to_sync = False
         reported = self._faults_reported
@@ -554,11 +568,44 @@ class Metric:
             # the batch is merged even when compute raises; the warn
             # watermark was the batch's own inside that compute
             self._faults_reported = reported
-            object.__setattr__(self, "_state", self._reduce_states(global_state, self._state, global_count))
-            self._update_count = global_count + 1
+            self._deep_merge(global_snap)
             self._to_sync = True
             self._computed = None
         return batch_val
+
+    def _child_metrics(self) -> Iterator["Metric"]:
+        """The metrics held in an attribute or in an attribute's list or
+        tuple (a wrapper's children), whose states the forward protocol
+        saves, resets and merges with this metric's. A composition's
+        operands are left out: its own ``forward`` drives them."""
+        for _, child in self._named_child_metrics():
+            yield child
+
+    def _deep_copy_state(self) -> tuple:
+        return self._copy_state(), self._update_count, [c._deep_copy_state() for c in self._child_metrics()]
+
+    def _deep_restore(self, snapshot: tuple) -> None:
+        state, count, children = snapshot
+        object.__setattr__(self, "_state", state)
+        self._update_count = count
+        self._computed = None
+        for c, cs in zip(self._child_metrics(), children):
+            c._deep_restore(cs)
+
+    def _deep_reset(self) -> None:
+        self._restore_defaults()
+        self._update_count = 0
+        self._computed = None
+        for c in self._child_metrics():
+            c._deep_reset()
+
+    def _deep_merge(self, global_snap: tuple) -> None:
+        g_state, g_count, g_children = global_snap
+        object.__setattr__(self, "_state", self._reduce_states(g_state, self._state, g_count))
+        self._update_count = g_count + 1
+        self._computed = None  # the cache holds the batch value
+        for c, cs in zip(self._child_metrics(), g_children):
+            c._deep_merge(cs)
 
     def _reduce_states(
         self,
@@ -620,10 +667,11 @@ class Metric:
     @property
     def dropped_count(self) -> int:
         """Rows dropped by the ``CatBuffer`` rings: the largest count over
-        the rings, which fill in lockstep (preds and target drop the same
-        rows). 0 when nothing overflowed or there is no ring. Reads the
-        counts back from the device."""
-        return max((int(v.dropped) for v in self._state.values() if isinstance(v, CatBuffer)), default=0)
+        rings that fill in lockstep (preds and target drop the same rows),
+        the sum with ``_independent_ring_drops``. 0 when nothing overflowed
+        or there is no ring. Reads the counts back from the device."""
+        counts = [int(v.dropped) for v in self._state.values() if isinstance(v, CatBuffer)]
+        return sum(counts) if self._independent_ring_drops else max(counts, default=0)
 
     def _check_cat_overflow(self) -> None:
         """Called by ``compute`` after the value is computed: when a ring
@@ -987,6 +1035,8 @@ class Metric:
     def _check_ring_capacity_consistency(self, via: str, state: Dict[str, Any]) -> None:
         """Rings that fill in lockstep pair their rows by position, so they
         must share one capacity; checked before anything is loaded."""
+        if self._independent_ring_drops:
+            return
         caps = {key: v.capacity for key, v in state.items() if isinstance(v, CatBuffer)}
         if len(set(caps.values())) > 1:
             raise ValueError(
@@ -1407,6 +1457,9 @@ class CompositionalMetric(Metric):
         0.5
     """
 
+    jittable_update = False
+    jittable_compute = False
+
     def __init__(self, operator: Callable, metric_a: Any, metric_b: Any) -> None:
         operands = [m for m in (metric_a, metric_b) if isinstance(m, Metric)]
         super().__init__(device=operands[0].device if operands else None)
@@ -1423,6 +1476,9 @@ class CompositionalMetric(Metric):
 
     def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
         pass  # the operands sync themselves
+
+    def _child_metrics(self) -> Iterator[Metric]:
+        return iter(())  # the composition's own forward drives its operands
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         # no cache here: each operand caches its own value, and a cached

@@ -30,6 +30,7 @@ from metrics_tpu_torch.ops.histogram import histogram
 Tensor = torch.Tensor
 
 _U32_MAX = 0xFFFFFFFF
+_F32_TINY = torch.finfo(torch.float32).tiny  # 2^-126, the smallest normal float32
 _SIGN32 = 1 << 31
 _SIGN64 = 1 << 63
 
@@ -53,7 +54,11 @@ def flush_denormals(x: Tensor) -> Tensor:
     score ties with zero there as it does in the JAX package."""
     if x.dtype != torch.float32:
         return x
-    return torch.where((x.view(torch.int32) & 0x7F800000) == 0, torch.zeros_like(x), x)
+    # below the smallest normal magnitude: zeros and denormals (a compare
+    # that itself flushed denormals would agree). No bit view: a view as
+    # another dtype has no batching rule under ``torch.func.vmap`` in every
+    # PyTorch the port meets
+    return torch.where(torch.abs(x) < _F32_TINY, torch.zeros_like(x), x)
 
 
 def _float32_ascending_word(s: Tensor) -> Tensor:

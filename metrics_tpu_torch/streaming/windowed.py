@@ -64,6 +64,8 @@ class _StreamingWrapper(Metric):
 
     is_differentiable = False
     full_state_update = True  # the merge of a batch into the rings has no rule of its own
+    # the pure layer runs it over explicit states, the wrapped metric's included
+    _wrapper_trace_safe = True
     _KIND_NAME = "streaming wrapper"
 
     def __init__(self, metric: Metric, **kwargs: Any) -> None:

@@ -1,5 +1,5 @@
 """Shared tensor utilities (counterpart of ``metrics_tpu/utilities/data.py``)."""
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -54,6 +54,27 @@ def _flatten_dict(x: Dict) -> Dict:
     return new_dict
 
 
+def apply_to_collection(
+    data: Any,
+    dtype: Union[type, tuple],
+    function: Callable,
+    *args: Any,
+    wrong_dtype: Optional[Union[type, tuple]] = None,
+    **kwargs: Any,
+) -> Any:
+    """``function`` applied to every element of type ``dtype`` in nested
+    dicts, lists, tuples and NamedTuples (the structure is kept)."""
+    if isinstance(data, dtype) and (wrong_dtype is None or not isinstance(data, wrong_dtype)):
+        return function(data, *args, **kwargs)
+    if isinstance(data, dict):
+        return {k: apply_to_collection(v, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for k, v in data.items()}
+    if isinstance(data, tuple) and hasattr(data, "_fields"):  # a NamedTuple
+        return type(data)(*(apply_to_collection(d, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for d in data))
+    if isinstance(data, (list, tuple)):
+        return type(data)(apply_to_collection(d, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs) for d in data)
+    return data
+
+
 def _tensor_leaves(value: Any) -> Iterator[Tensor]:
     """Every tensor of a state: a tensor, or a list or NamedTuple of them
     (a ``cat`` list, a ring, a sketch state, the fault counters)."""
@@ -99,7 +120,9 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
         idx = torch.argmax(flush_denormals(x), dim=dim, keepdim=True)
     else:
         idx = torch.sort(x, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
-    mask = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    # zeros_like, so that under ``torch.func.vmap`` the scatter writes into
+    # a batched tensor (the pure layer's bootstrap)
+    mask = torch.zeros_like(x, dtype=torch.int32)
     return mask.scatter_(dim, idx, 1)
 
 

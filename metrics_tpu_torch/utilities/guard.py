@@ -285,6 +285,24 @@ def _consumes_valid_mask(metric: Any) -> bool:
     return getattr(metric, "capacity", None) is not None or bool(getattr(metric, "_valid_mask_always", False))
 
 
+def can_drop_traced(metric: Any) -> bool:
+    """Whether ``on_invalid="drop"`` needs no boolean indexing, which reads
+    the row count back: the metric's own body neutralises invalid values
+    (the aggregators' NaN masking or imputation), its update consumes a
+    ``valid`` row mask (capacity mode, ``_valid_mask_always``), or it is a
+    wrapper whose update passes its keyword arguments on to such a
+    ``wrapped`` metric. The pure layer refuses ``"drop"`` on any other
+    metric, as the JAX package's does inside compiled code."""
+    if any(_body_neutralizes(metric)) or _consumes_valid_mask(metric):
+        return True
+    sig = getattr(metric, "_update_signature", None)
+    wrapped = getattr(metric, "wrapped", None)
+    if sig is None or wrapped is None or "valid" in sig.parameters:
+        return False
+    forwards = any(p.kind == inspect.Parameter.VAR_KEYWORD for p in sig.parameters.values())
+    return forwards and _consumes_valid_mask(wrapped)
+
+
 def _normalize_call(metric: Any, args: tuple, kwargs: dict) -> Optional[Dict[str, Any]]:
     """The call bound to the update's signature, ``{param: value}`` in
     declaration order, or None when it cannot be bound (the update then

@@ -133,7 +133,7 @@ def test_sync_layer_imports_load_no_jax_build_nothing_and_start_no_thread():
     assert proc.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("name", ["torch_thread_world.py", "torch_twin_world.py"])
+@pytest.mark.parametrize("name", ["torch_thread_world.py", "torch_twin_world.py", "torch_pure_ranks.py", "torch_twins.py"])
 def test_rank_helpers_import_no_jax(name):
     path = ROOT / "tests" / "helpers" / name
     bad = [m for m in _imported_modules(path) if _is_forbidden(m)]
@@ -171,6 +171,27 @@ def test_classification_and_runtime_imports_load_no_jax_and_build_nothing():
     assert proc.stdout.strip() == "ok"
 
 
+def test_pure_regression_and_wrapper_imports_load_no_jax_and_build_nothing():
+    """The pure layer, the wrappers, regression and pairwise import no JAX
+    and nothing of ``metrics_tpu``, and build no kernel until a CUDA tensor
+    asks."""
+    code = (
+        "import sys\n"
+        "import metrics_tpu_torch.pure, metrics_tpu_torch.wrappers, metrics_tpu_torch.regression\n"
+        "import metrics_tpu_torch.functional.regression, metrics_tpu_torch.functional.pairwise\n"
+        "from metrics_tpu_torch.interop import load_jax_pure_state, to_jax_pure_state\n"
+        "from metrics_tpu_torch.ops import _build, binned_counters, histogram\n"
+        "assert _build._loaded == {} and _build.build_info == {}\n"
+        "assert binned_counters.launch_count == histogram.launch_count == 0\n"
+        "assert 'triton' not in sys.modules and not any(m.split('.')[0] in ('jax', 'metrics_tpu') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_classification_rank_helper_imports_no_jax():
     """The ranks of ``tests/test_torch_compositional.py`` run this module."""
     path = ROOT / "tests" / "helpers" / "torch_classification_ranks.py"
@@ -197,6 +218,10 @@ _NEEDS = {
         "WindowedMetric", "DecayedMetric",
         "ConfusionMatrix", "CohenKappa", "MatthewsCorrCoef", "JaccardIndex", "Specificity", "Dice", "HammingDistance",
         "CalibrationError", "HingeLoss", "KLDivergence", "CoverageError", "LabelRankingAveragePrecision", "LabelRankingLoss",
+        "MeanSquaredError", "MeanAbsoluteError", "MeanSquaredLogError", "MeanAbsolutePercentageError",
+        "SymmetricMeanAbsolutePercentageError", "WeightedMeanAbsolutePercentageError", "CosineSimilarity",
+        "ExplainedVariance", "PearsonCorrCoef", "R2Score", "SpearmanCorrCoef", "TweedieDevianceScore",
+        "ClasswiseWrapper", "MinMaxMetric", "MultioutputWrapper", "BootStrapper",
     ],
 )
 def test_metric_without_device_asks_for_cuda(name, monkeypatch):
@@ -204,6 +229,14 @@ def test_metric_without_device_asks_for_cuda(name, monkeypatch):
     kwargs = {"num_classes": 3} if name.startswith("Binned") else dict(_NEEDS.get(name, {}))
     if name in ("Precision", "Recall", "F1Score", "FBetaScore"):
         kwargs = {"num_classes": 3, "average": "macro", "on_invalid": "drop"}
+    if name in ("ClasswiseWrapper", "MinMaxMetric", "MultioutputWrapper", "BootStrapper"):
+        # a wrapper takes its device from the metric it wraps
+        extra = {"num_outputs": 2} if name == "MultioutputWrapper" else {}
+        metric = getattr(metrics_tpu_torch, name)(metrics_tpu_torch.MeanSquaredError(device="cpu"), **extra)
+        assert metric.device == torch.device("cpu")
+        with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
+            getattr(metrics_tpu_torch, name)(metrics_tpu_torch.MeanSquaredError(), **extra)
+        return
     if name in ("WindowedMetric", "DecayedMetric"):
         # a wrapper takes its device from the metric it wraps
         extra = {"window": 8, "buckets": 2} if name == "WindowedMetric" else {"halflife": 4.0}
