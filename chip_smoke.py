@@ -126,7 +126,34 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    the clean rows, the std within 2x of the binomial one), and a quarter of the
    MovieLens rows per rank through ``{PearsonCorrCoef, SpearmanCorrCoef,
    R2Score, MeanSquaredError}`` (Pearson's moments stacked, Spearman's
-   rings gathered), equal to one process.
+   rings gathered), equal to one process;
+20. retrieval path: an MS MARCO passage-ranking dev evaluation (6,980
+   queries, 6,668,967 BM25 top-1000 candidate rows, about 1.07 relevant
+   passages a query, 14 % of the queries without a relevant candidate;
+   seeded N(0, 1) scores, N(1.97, 1) for relevant passages) streamed 64 queries
+   a batch through ten retrieval metrics (MRR, MAP, nDCG@10, P@10, R@100,
+   HitRate@10, FallOut@10, R-precision, the precision/recall curve to 100
+   and the recall at precision 0.1), in the list mode and with
+   ``capacity=2**23``: each mode against the port's CPU run (exact
+   per-query values bit-equal), the modes against each other, MRR, MAP and
+   nDCG@10 against float64 numpy, no read back in a capacity update;
+21. sliced path: the fused evaluation epoch split into 256 cohorts,
+   ``{acc, prec, rec, f1}`` each a ``SlicedMetric(..., pad_batches=True)``
+   of a guarded (``"drop"``) metric beside an unsliced BAP: the rings equal
+   to the CPU run, eight slices equal to demuxed instances, the rollup
+   equal to the unsliced metrics on the in-range rows, the quarantined,
+   discarded and padded rows and the faults as injected, K1 once per
+   batch, the BAP against the fused evaluation's CPU run of the same epoch
+   (within ``AP_ATOL``), a sliced Binned metric and a sliced confusion
+   matrix refused on the card where K1 and K2 would launch, and the update
+   at K = 256 beside K = 1;
+22. in the world of phase 8: the MS MARCO rows in 4096-row chunks dealt
+   round-robin through MRR, MAP and nDCG@10 in both modes (the gathers
+   counted, equal to one process over the union), the sliced collection's
+   overlapped cycle (no more ``all_reduce`` than the unsliced one, no
+   gather) and ``sliced_functionalize(Accuracy, 256,
+   shard_slices=WORLD)`` (each rank's 64 slices equal to one process, one
+   ``all_reduce`` and six ``reduce_scatter``).
 
 The parent process builds every kernel before it spawns the ranks, so the
 ranks only load the libraries. A rank that fails makes the script fail.
@@ -268,6 +295,27 @@ PAIR_CHECK_ROWS = 256  # rows of each output held against float64 on the CPU
 # a difference of norms (euclidean), absolute differences (manhattan)
 PAIR_ATOL = {"pairwise_cosine_similarity": 1e-5, "pairwise_euclidean_distance": 1e-3,
              "pairwise_linear_similarity": 2e-3, "pairwise_manhattan_distance": 5e-3}
+# the retrieval path: MS MARCO passage ranking, dev "small" (6,980 queries;
+# BM25's top-1000 candidates, 6,668,967 rows in top1000.dev; 7,437 qrels,
+# about 1.07 a query; BM25 recall@1000 about 0.86)
+MSMARCO_QUERIES = 6980
+MSMARCO_ROWS = 6_668_967
+MSMARCO_DEPTH = 1000
+MSMARCO_SHORT_QUERIES = 640  # queries with fewer than 1000 candidates, drawn so the counts sum to MSMARCO_ROWS
+MSMARCO_RECALL = 0.86  # queries with a relevant candidate
+MSMARCO_SECOND_REL = 0.07  # of those, the share with two
+MSMARCO_MU = 1.97  # relevant scores N(mu, 1) against N(0, 1): MRR near BM25's 0.18-0.19
+MSMARCO_QUERY_BATCH = 64  # whole queries a batch: 110 batches of about 61k rows
+MSMARCO_CAPACITY = 1 << 23  # the capacity mode's rings: every row fits
+MSMARCO_WORLD_CAPACITY = 1 << 21  # a rank's quarter fits
+MSMARCO_WORLD_CHUNK = 4096  # rows dealt round-robin to the ranks
+MSMARCO_WORLD_BATCH = 65536
+MSMARCO_WORLD_METRICS = ("mrr", "map", "ndcg@10")
+# per-query values exact in float32 (sums of 0/1): bit-equal between runs
+RETRIEVAL_EXACT = ("mrr", "p@10", "r@100", "hit@10", "fallout@10", "rprec")
+# the sliced path: the JAX registry's acceptance K (_SLICED_K)
+SLICES = 256
+SLICE_SAMPLES = 8  # slices held against demuxed instances
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -1734,6 +1782,24 @@ def _values(result):
     return {k: [float(x) for x in v] if isinstance(v, list) else float(v) for k, v in result.items()}
 
 
+_FUSED_EVAL_CPU = {}
+
+
+def fused_eval_cpu_reference(preds, target):
+    """The fused evaluation's collection over the epoch of
+    :func:`make_fused_eval_data`, through the port on the CPU: its values
+    and the seconds the run took. Made once a run, by whichever of
+    ``sliced_path`` (its unsliced BAP) and ``fused_dist_path`` asks first."""
+    import metrics_tpu_torch as mtt
+
+    if not _FUSED_EVAL_CPU:
+        t0 = time.perf_counter()
+        ref = build_fused_eval(mtt, "cpu")
+        run_fused_eval(ref, preds.cpu(), target.cpu(), lambda: None)
+        _FUSED_EVAL_CPU.update(values=_values(ref.compute()), seconds=time.perf_counter() - t0)
+    return _FUSED_EVAL_CPU["values"], _FUSED_EVAL_CPU["seconds"]
+
+
 def _rank_device(device):
     """The rank's device, and a synchronise on it."""
     import torch
@@ -1806,6 +1872,10 @@ def fused_eval_rank(rank, world, port, results, device):
             warnings.simplefilter("ignore")  # BAP's "warn" policy reports the injected faults
             out.update(pure_world(mtt, dist, dev, p, y, sync))
         out.update(movielens_world(mtt, dist, dev, rank, world, sync))
+        # the retrieval and sliced additions of this world
+        out.update(retrieval_world(mtt, dist, dev, rank, world, sync))
+        ids = torch.from_numpy(make_slice_ids(ROWS, BATCH, SLICES)[rank * shard:(rank + 1) * shard]).to(dev)
+        out.update(sliced_world(mtt, dist, dev, p, y, ids, sync))
         out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "metrics_tpu"))
         dist.barrier()
         dist.destroy_process_group()
@@ -1853,11 +1923,7 @@ def phase_fused_eval(dev, pure_values, ml_values):
             raise AssertionError(f"rank {r['rank']} computed other values than rank 0")
 
     # the same rows and faults through the port in one process on the CPU
-    t1 = time.perf_counter()
-    ref = build_fused_eval(mtt, "cpu")
-    run_fused_eval(ref, preds.cpu(), target.cpu(), lambda: None)
-    ref_values = _values(ref.compute())
-    cpu_s = time.perf_counter() - t1
+    ref_values, cpu_s = fused_eval_cpu_reference(preds, target)
     card = ranks[0]["values"]
     if card["acc"] != ref_values["acc"]:
         raise AssertionError(f"fused evaluation path: accuracy {card['acc']} on the card, {ref_values['acc']} on the CPU")
@@ -1895,6 +1961,7 @@ def phase_fused_eval(dev, pure_values, ml_values):
         "matches_cpu_run": True,
     })
     check_pure_world(ranks, card, pure_values, ml_values)
+    check_retrieval_sliced_world(ranks, dev)
     return sum(r["launches"]["binned_counters"] for r in ranks), card
 
 
@@ -3955,6 +4022,632 @@ def movielens_world(mtt, dist, dev, rank, world, sync):
     }
 
 
+# ----------------------------------------------------------------------
+# retrieval: an MS MARCO passage-ranking dev evaluation
+# ----------------------------------------------------------------------
+
+
+def make_msmarco():
+    """The MS MARCO dev "small" shape, drawn with numpy on the host:
+    ``MSMARCO_QUERIES`` queries whose BM25 candidate counts sum to
+    ``MSMARCO_ROWS`` (most 1000, some fewer); ``MSMARCO_RECALL`` of the
+    queries hold a relevant candidate, 7 % of those two; N(0, 1) scores,
+    N(``MSMARCO_MU``, 1) for relevant ones. Rows grouped by query, as in
+    ``top1000.dev``. Returns int32 ids, float32 scores, int32 targets and
+    the per-query counts, all numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 70)
+    q = MSMARCO_QUERIES
+    counts = np.full(q, MSMARCO_DEPTH, np.int64)
+    deficit = q * MSMARCO_DEPTH - MSMARCO_ROWS
+    short = rng.choice(q, size=MSMARCO_SHORT_QUERIES, replace=False)
+    cut = rng.integers(1, MSMARCO_DEPTH, short.shape[0])  # each short query keeps 1..999
+    while cut.sum() != deficit:
+        step = 1 if cut.sum() < deficit else -1
+        room = np.nonzero((cut + step >= 1) & (cut + step <= MSMARCO_DEPTH - 1))[0]
+        cut[room[:abs(int(deficit - cut.sum()))]] += step
+    counts[short] -= cut
+    starts = np.cumsum(counts) - counts
+    has_rel = rng.random(q) < MSMARCO_RECALL
+    two = has_rel & (rng.random(q) < MSMARCO_SECOND_REL) & (counts > 1)
+    first = (rng.random(q) * counts).astype(np.int64)
+    second = (first + 1 + (rng.random(q) * (counts - 1)).astype(np.int64)) % counts
+    target = np.zeros(MSMARCO_ROWS, np.int32)
+    target[(starts + first)[has_rel]] = 1
+    target[(starts + second)[two]] = 1
+    preds = rng.standard_normal(MSMARCO_ROWS, dtype=np.float32) + np.float32(MSMARCO_MU) * target
+    idx = np.repeat(np.arange(q, dtype=np.int32), counts)
+    return idx, preds.astype(np.float32), target, counts
+
+
+def msmarco_bounds(counts):
+    """Row offsets of the batches: ``MSMARCO_QUERY_BATCH`` whole queries each."""
+    import numpy as np
+
+    ends = np.cumsum(counts)
+    return [0] + [int(ends[min(q + MSMARCO_QUERY_BATCH, MSMARCO_QUERIES) - 1]) for q in range(0, MSMARCO_QUERIES, MSMARCO_QUERY_BATCH)]
+
+
+def build_retrieval(pkg, device, capacity=None, names=None):
+    """The evaluation's metrics by name, in the list mode or, with
+    ``capacity``, the capacity mode."""
+    mode = {} if capacity is None else {"capacity": capacity, "num_queries": MSMARCO_QUERIES, "max_docs_per_query": MSMARCO_DEPTH}
+    kw = dict(device=device, **mode)
+    make = {
+        "mrr": lambda: pkg.RetrievalMRR(**kw),
+        "map": lambda: pkg.RetrievalMAP(**kw),
+        "ndcg@10": lambda: pkg.RetrievalNormalizedDCG(k=10, **kw),
+        "p@10": lambda: pkg.RetrievalPrecision(k=10, **kw),
+        "r@100": lambda: pkg.RetrievalRecall(k=100, **kw),
+        "hit@10": lambda: pkg.RetrievalHitRate(k=10, **kw),
+        "fallout@10": lambda: pkg.RetrievalFallOut(k=10, **kw),
+        "rprec": lambda: pkg.RetrievalRPrecision(**kw),
+        "pr_curve@100": lambda: pkg.RetrievalPrecisionRecallCurve(max_k=100, **kw),
+        "r@p0.1": lambda: pkg.RetrievalRecallAtFixedPrecision(min_precision=0.1, max_k=100, **kw),
+    }
+    return {name: make[name]() for name in (names or make)}
+
+
+def run_retrieval(metrics, idx, preds, target, bounds, sync):
+    """Every batch through every metric, then each ``compute()``."""
+    update_s = []
+    for a, z in zip(bounds[:-1], bounds[1:]):
+        t0 = time.perf_counter()
+        for m in metrics.values():
+            m.update(preds[a:z], target[a:z], indexes=idx[a:z])
+        sync()
+        update_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    values = {name: m.compute() for name, m in metrics.items()}
+    sync()
+    return update_s, values, time.perf_counter() - t0
+
+
+def _retrieval_values(values):
+    """``{name: [floats]}``; a curve's three tensors concatenated."""
+    out = {}
+    for k, v in values.items():
+        parts = v if isinstance(v, tuple) else (v,)
+        out[k] = [float(x) for p in parts for x in p.reshape(-1).cpu()]
+    return out
+
+
+def retrieval_per_query(metrics, idx, preds, target):
+    """The exact metrics' per-query values, ``(num_queries,)`` each: the
+    list mode's grouped values, the capacity mode's row kernel over its
+    dense layout."""
+    out = {}
+    for name in RETRIEVAL_EXACT:
+        m = metrics[name]
+        if m.capacity is None:
+            out[name] = m._per_query_values(idx, preds, target)
+        else:
+            out[name] = m._row_metric(*m._grouped_capacity_matrices())
+    return out
+
+
+def msmarco_float64(idx, preds, target, counts):
+    """MRR, MAP and nDCG@10 of the draw in float64 numpy: documents ranked
+    by descending score, ties in row order."""
+    import numpy as np
+
+    n = idx.shape[0]
+    order = np.lexsort((np.arange(n), -preds.astype(np.float64), idx))
+    st = target[order].astype(np.float64)
+    starts = np.cumsum(counts) - counts
+    rank = np.arange(n) - np.repeat(starts, counts) + 1.0
+    n_rel = np.add.reduceat(st, starts)
+    first = np.minimum.reduceat(np.where(st > 0, rank, np.inf), starts)
+    rr = np.where(n_rel > 0, 1.0 / first, 0.0)
+    hits = np.cumsum(st)
+    hits_in_query = hits - np.repeat(hits[starts] - st[starts], counts)
+    ap = np.where(n_rel > 0, np.add.reduceat(hits_in_query / rank * st, starts) / np.maximum(n_rel, 1), 0.0)
+    dcg = np.add.reduceat(np.where(rank <= 10, st / np.log2(rank + 1.0), 0.0), starts)
+    ideal_rank = np.arange(1, 11, dtype=np.float64)
+    idcg = np.array([np.sum(1.0 / np.log2(ideal_rank[:int(min(r, 10))] + 1.0)) for r in n_rel])
+    ndcg = np.where(idcg > 0, dcg / np.where(idcg > 0, idcg, 1.0), 0.0)
+    return {"mrr": float(rr.mean()), "map": float(ap.mean()), "ndcg@10": float(ndcg.mean())}
+
+
+def phase_retrieval(dev):
+    """The MS MARCO evaluation in both modes on the card, against the same
+    run on the CPU, each other and float64 numpy; K1-K3 launch nowhere on
+    it. Returns the card's list-mode values (the four-rank check's
+    reference is computed after the world)."""
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import binned_counters as k1
+    from metrics_tpu_torch.ops import compactor as k3
+    from metrics_tpu_torch.ops import histogram as k2
+
+    t_start = time.perf_counter()
+    idx_np, p_np, t_np, counts = make_msmarco()
+    bounds = msmarco_bounds(counts)
+    idx, preds, target = (torch.from_numpy(x).to(dev) for x in (idx_np, p_np, t_np))
+    modes = (("list", None), ("capacity", MSMARCO_CAPACITY))
+    card, perq, report = {}, {}, {}
+    for kernel in (k1, k2, k3):
+        kernel.reset_launch_count()
+    for mode, cap in modes:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        metrics = build_retrieval(mtt, dev, cap)
+        update_s, values, compute_s = run_retrieval(metrics, idx, preds, target, bounds, torch.cuda.synchronize)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        card[mode] = _retrieval_values(values)
+        perq[mode] = retrieval_per_query(metrics, idx, preds, target)
+        report[mode] = {
+            "update_p50_ms": statistics.median(update_s) * 1e3,
+            "rows_per_s": MSMARCO_ROWS / sum(update_s),
+            "compute_s": compute_s,
+            "peak_memory_bytes": peak,
+        }
+        del metrics
+    launches = {"binned_counters": k1.launch_count, "histogram": k2.launch_count, "compactor_fold": k3.launch_count}
+    if any(launches.values()):
+        raise AssertionError(f"retrieval_path: kernels launched {launches}; retrieval groups by sorts")
+
+    # the capacity update reads nothing back
+    m = mtt.RetrievalMRR(capacity=MSMARCO_CAPACITY, num_queries=MSMARCO_QUERIES, device=dev)
+    reads = blocking_reads(lambda i: m.update(preds[bounds[i]:bounds[i + 1]], target[bounds[i]:bounds[i + 1]],
+                                              indexes=idx[bounds[i]:bounds[i + 1]]), GUARDED_UPDATES)
+    if reads:
+        raise AssertionError(f"retrieval_path: {len(reads)} blocking reads in {GUARDED_UPDATES} capacity updates: {reads[:3]}")
+    del m
+
+    # the same draw through the port on the CPU: the metrics in one
+    # collection, whose single compute group updates once a batch; in the
+    # list mode an exact metric's value is the mean of its per-query values
+    # (what its compute() takes)
+    t_cpu = time.perf_counter()
+    cpu = {}
+    ci, cp, ct = (torch.from_numpy(x) for x in (idx_np, p_np, t_np))
+    for mode, cap in modes:
+        metrics = build_retrieval(mtt, "cpu", cap)
+        coll = mtt.MetricCollection(metrics)
+        for a, z in zip(bounds[:-1], bounds[1:]):
+            coll.update(cp[a:z], ct[a:z], indexes=ci[a:z])
+        if len(coll.compute_groups) != 1:
+            raise AssertionError(f"retrieval_path: the CPU collection formed groups {coll.compute_groups}")
+        if mode == "list":
+            cpu_perq = retrieval_per_query(metrics, ci, cp, ct)
+            values = {name: cpu_perq[name].mean() if name in RETRIEVAL_EXACT else m.compute() for name, m in metrics.items()}
+        else:
+            values = {name: m.compute() for name, m in metrics.items()}
+        cpu[mode] = _retrieval_values(values)
+        del metrics, coll
+    cpu_s = time.perf_counter() - t_cpu
+
+    # exact values per query: bit-equal on the card and the CPU, and in both modes
+    for name in RETRIEVAL_EXACT:
+        for mode in ("list", "capacity"):
+            if not _tree_bit_equal({name: perq[mode][name].cpu()}, {name: cpu_perq[name]}):
+                raise AssertionError(f"retrieval_path: {mode} per-query {name} on the card differs from the CPU run")
+    for mode, _ in modes:
+        _values_close(card[mode], cpu[mode], FLOAT_SUM_RTOL, 1e-6, f"retrieval_path: {mode} mode on the card against the CPU")
+    _values_close(card["capacity"], card["list"], FLOAT_SUM_RTOL, 1e-6, "retrieval_path: the capacity mode against the list mode")
+    # the k values (the curve's last 100, the best k) are integers: exact
+    for name, ks in (("pr_curve@100", slice(200, None)), ("r@p0.1", slice(1, None))):
+        runs = [card["list"][name][ks], card["capacity"][name][ks], cpu["list"][name][ks], cpu["capacity"][name][ks]]
+        if any(r != runs[0] for r in runs):
+            raise AssertionError(f"retrieval_path: {name}'s k values differ between the runs: {runs}")
+    exact64 = msmarco_float64(idx_np, p_np, t_np, counts)
+    for name, want in exact64.items():
+        for mode in ("list", "capacity"):
+            got = card[mode][name][0]
+            if abs(got - want) > FLOAT_SUM_RTOL * abs(want):
+                raise AssertionError(f"retrieval_path: {mode} {name} {got} against float64 {want} (rtol {FLOAT_SUM_RTOL})")
+    if len(card["list"]["pr_curve@100"]) != 300 or not all(math.isfinite(x) for v in card["list"].values() for x in v):
+        raise AssertionError(f"retrieval_path: malformed values {card['list']}")
+    emit({
+        "phase": "retrieval_path",
+        "config": {"queries": MSMARCO_QUERIES, "rows": MSMARCO_ROWS, "depth": MSMARCO_DEPTH, "short_queries": MSMARCO_SHORT_QUERIES,
+                   "queries_with_relevant": int((np.bincount(idx_np, weights=t_np, minlength=MSMARCO_QUERIES) > 0).sum()),
+                   "relevant_rows": int(t_np.sum()), "relevant_mu": MSMARCO_MU, "query_batch": MSMARCO_QUERY_BATCH,
+                   "batches": len(bounds) - 1, "capacity": MSMARCO_CAPACITY, "seed": SEED},
+        "modes": report,
+        "values": {k: v[0] for k, v in card["list"].items() if len(v) == 1},
+        "r@p0.1": card["list"]["r@p0.1"],
+        "capacity_values": {k: v[0] for k, v in card["capacity"].items() if len(v) == 1},
+        "float64": exact64,
+        "capacity_update_blocking_reads": 0,
+        "per_query_bit_equal": list(RETRIEVAL_EXACT),
+        "cpu_reference_s": cpu_s,
+        "phase_s": time.perf_counter() - t_start,
+        "kernel_launches": launches,
+    })
+    return card["list"]
+
+
+# ----------------------------------------------------------------------
+# sliced: the fused ImageNet epoch split into 256 cohorts
+# ----------------------------------------------------------------------
+
+
+def make_slice_ids(rows, batch, num_slices):
+    """Seeded slice ids in ``[0, num_slices)``, the last two rows of every
+    batch out of range (``num_slices + 7`` and ``-3``), as the JAX
+    registry's sliced entry injects them; int32 on the host."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 80)
+    ids = rng.integers(0, num_slices, rows).astype(np.int32)
+    for start in range(0, rows, batch):
+        end = min(start + batch, rows)
+        ids[end - 2:end] = (num_slices + 7, -3)
+    return ids
+
+
+def build_sliced_eval(pkg, device, num_slices, bap=True):
+    """``{acc, prec, rec, f1}`` guarded (``"drop"``), each sliced and padded
+    up the ladder, and BinnedAveragePrecision unsliced beside them."""
+    kw = dict(num_classes=CLASSES, on_invalid="drop", device=device)
+
+    def sliced(metric):
+        return pkg.SlicedMetric(metric, num_slices=num_slices, pad_batches=True)
+
+    members = {
+        "acc": sliced(pkg.Accuracy(**kw)),
+        "prec": sliced(pkg.Precision(average="macro", **kw)),
+        "rec": sliced(pkg.Recall(average="macro", **kw)),
+        "f1": sliced(pkg.F1Score(average="macro", **kw)),
+    }
+    if bap:
+        members["bap"] = pkg.BinnedAveragePrecision(thresholds=THRESHOLDS, **kw)
+    return pkg.MetricCollection(members)
+
+
+def run_sliced(coll, preds, target, ids, sync):
+    update_s = []
+    for start in range(0, preds.shape[0], BATCH):
+        sl = slice(start, start + BATCH)
+        t0 = time.perf_counter()
+        coll.update(preds[sl], target[sl], slice_ids=ids[sl])
+        sync()
+        update_s.append(time.perf_counter() - t0)
+    return update_s
+
+
+def _unsliced_eval(pkg, device):
+    kw = dict(num_classes=CLASSES, on_invalid="drop", device=device)
+    return {"acc": pkg.Accuracy(**kw), "prec": pkg.Precision(average="macro", **kw),
+            "rec": pkg.Recall(average="macro", **kw), "f1": pkg.F1Score(average="macro", **kw)}
+
+
+def phase_sliced(dev):
+    """The fused evaluation epoch split into ``SLICES`` cohorts on the card:
+    the rings against the CPU run, sampled slices against demuxed
+    instances, the rollup against the unsliced metrics on the in-range
+    rows, the quarantine, discard and pad counts, the faults, K1's
+    launches, and the update at K = 1 for comparison."""
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import binned_counters as k1
+    from metrics_tpu_torch.ops import histogram as k2
+
+    t_start = time.perf_counter()
+    preds, target, nan_rows, label_rows = make_fused_eval_data(dev)
+    ids_np = make_slice_ids(ROWS, BATCH, SLICES)
+    ids = torch.from_numpy(ids_np).to(dev)
+    batches = -(-ROWS // BATCH)
+    pad_rows = batches * BATCH - ROWS
+    quarantined = 2 * batches
+
+    coll = build_sliced_eval(mtt, dev, SLICES)
+    torch.cuda.synchronize()
+    k1.reset_launch_count()
+    k2.reset_launch_count()
+    update_s = run_sliced(coll, preds, target, ids, torch.cuda.synchronize)
+    launches = {"binned_counters": k1.launch_count, "histogram": k2.launch_count}
+    if launches != {"binned_counters": batches, "histogram": 0}:
+        raise AssertionError(f"sliced_path: launches {launches} over {batches} batches")
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        values = coll.compute()
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t0
+    members = dict(coll.items(keep_base=True, copy_state=False))
+    sliced_names = ["acc", "prec", "rec", "f1"]
+
+    # the same stream at K = 1 (without BAP): the update's cost of K
+    coll1 = build_sliced_eval(mtt, dev, 1, bap=False)
+    update1_s = run_sliced(coll1, preds, target, ids, torch.cuda.synchronize)
+    coll_nobap = build_sliced_eval(mtt, dev, SLICES, bap=False)
+    update256_s = run_sliced(coll_nobap, preds, target, ids, torch.cuda.synchronize)
+    del coll1, coll_nobap
+
+    # counts: the quarantine, the discard (the pad rows), the faults
+    want_faults = {"nonfinite_preds": nan_rows, "label_out_of_range": label_rows, "dropped_rows": nan_rows + label_rows,
+                   "padded_rows": pad_rows}
+    for name in sliced_names:
+        m = members[name]
+        if m.quarantined_rows != quarantined or m.discarded_rows != pad_rows:
+            raise AssertionError(f"sliced_path: {name} quarantined {m.quarantined_rows} (injected {quarantined}), "
+                                 f"discarded {m.discarded_rows} (pad rows {pad_rows})")
+        got = {k: v for k, v in m.fault_counts.items() if v}
+        if got != want_faults:
+            raise AssertionError(f"sliced_path: {name} counted faults {got}, injected {want_faults}")
+        if int(values[name].quarantined_rows) != quarantined:
+            raise AssertionError(f"sliced_path: {name} computed {int(values[name].quarantined_rows)} quarantined rows")
+
+    # the unsliced BAP beside the sliced members: K1's work on this path,
+    # against the fused evaluation's CPU run of the same epoch
+    want_bap = fused_eval_cpu_reference(preds, target)[0]["bap"]
+    got_bap = [float(v) for v in values["bap"]]
+    if len(got_bap) != CLASSES or not all(math.isfinite(v) for v in got_bap):
+        raise AssertionError(f"sliced_path: bap gave {len(got_bap)} values, not {CLASSES} finite ones")
+    bap_err = max(abs(a - b) for a, b in zip(got_bap, want_bap))
+    if bap_err > AP_ATOL:
+        raise AssertionError(f"sliced_path: bap differs from the CPU run by {bap_err} (atol {AP_ATOL})")
+    # a kernel-backed member cannot be sliced on the card (ROADMAP D32): the
+    # kernel's wrapper refuses the per-row deltas where it would launch
+    for kernel, child in (("K1", mtt.BinnedAveragePrecision(thresholds=THRESHOLDS, num_classes=CLASSES, device=dev)),
+                          ("K2", mtt.ConfusionMatrix(num_classes=CLASSES, device=dev))):
+        try:
+            mtt.SlicedMetric(child, num_slices=SLICES).update(preds[:8], target[:8], slice_ids=ids[:8])
+        except ValueError as err:
+            if "sliced K1/K2" not in str(err) or not str(err).startswith(kernel):
+                raise
+        else:
+            raise AssertionError(f"sliced_path: a sliced {type(child).__name__} updated on the card")
+    if (k1.launch_count, k2.launch_count) != (batches, 0):
+        raise AssertionError(f"sliced_path: the refused updates launched ({k1.launch_count}, {k2.launch_count})")
+
+    # the rings against the port's CPU run (integer rings: bit-equal)
+    t_cpu = time.perf_counter()
+    cpu = build_sliced_eval(mtt, "cpu", SLICES, bap=False)
+    run_sliced(cpu, preds.cpu(), target.cpu(), ids.cpu(), lambda: None)
+    cpu_s = time.perf_counter() - t_cpu
+    cpu_members = dict(cpu.items(keep_base=True, copy_state=False))
+    for name in sliced_names:
+        a = {k: v.cpu() if isinstance(v, torch.Tensor) else type(v)(*(x.cpu() for x in v)) for k, v in members[name].metric_state.items()}
+        if not _tree_bit_equal(a, cpu_members[name].metric_state):
+            raise AssertionError(f"sliced_path: {name}'s rings on the card differ from the CPU run")
+    cpu_values = cpu.compute()
+
+    # eight sampled slices against demuxed unsliced instances on their own rows
+    sampled = [int(k) for k in np.random.default_rng(SEED + 81).choice(SLICES, SLICE_SAMPLES, replace=False)]
+    per_slice = {name: values[name].per_slice.cpu() for name in sliced_names}
+    for k in sampled:
+        rows = torch.from_numpy(np.nonzero(ids_np == k)[0]).to(dev)
+        demux = _unsliced_eval(mtt, dev)
+        for name, m in demux.items():
+            m.update(preds[rows], target[rows])
+            rings = members[name].metric_state
+            for state, v in m.metric_state.items():
+                if not torch.equal(rings[f"sl__{state}"][k], getattr(v, "counts", v)):
+                    raise AssertionError(f"sliced_path: slice {k} {name}.{state} differs from a demuxed instance's")
+            got, want = float(per_slice[name][k]), float(m.compute())
+            if abs(got - want) > 1e-6:
+                raise AssertionError(f"sliced_path: slice {k} {name} {got} against a demuxed instance's {want}")
+    # the rollup against the unsliced metrics on the in-range rows
+    in_range = torch.from_numpy(np.nonzero((ids_np >= 0) & (ids_np < SLICES))[0]).to(dev)
+    whole = _unsliced_eval(mtt, dev)
+    rollup = {}
+    for name, m in whole.items():
+        for start in range(0, in_range.shape[0], BATCH):
+            rows = in_range[start:start + BATCH]
+            m.update(preds[rows], target[rows])
+        got, want = float(values[name].global_value), float(m.compute())
+        rollup[name] = got
+        if abs(got - want) > 1e-6:
+            raise AssertionError(f"sliced_path: rollup {name} {got} against the unsliced metric's {want} on the in-range rows")
+        if abs(got - float(cpu_values[name].global_value)) > 1e-6:
+            raise AssertionError(f"sliced_path: rollup {name} {got} on the card, {float(cpu_values[name].global_value)} on the CPU")
+    ring_bytes = {name: sum(t.numel() * t.element_size() for k, v in members[name].metric_state.items() if k.startswith("sl__")
+                            for t in [getattr(v, "counts", v)]) for name in sliced_names}
+    scrape = members["acc"].scrape_slices()
+    emit({
+        "phase": "sliced_path",
+        "config": {"rows": ROWS, "classes": CLASSES, "batch": BATCH, "slices": SLICES, "fault_share": FAULT_SHARE,
+                   "out_of_range_ids_per_batch": 2, "on_invalid": "drop", "pad_batches": True,
+                   "members": sliced_names + ["bap (unsliced)"], "seed": SEED},
+        "batches": batches,
+        "k1_launches": launches["binned_counters"],
+        "update_p50_ms": statistics.median(update_s) * 1e3,
+        "update_p50_ms_k256_without_bap": statistics.median(update256_s) * 1e3,
+        "update_p50_ms_k1_without_bap": statistics.median(update1_s) * 1e3,
+        "k256_over_k1": statistics.median(update256_s) / statistics.median(update1_s),
+        "compute_s": compute_s,
+        "quarantined_rows": quarantined, "discarded_rows": pad_rows, "padded_rows": pad_rows,
+        "faults": want_faults,
+        "ring_bytes": ring_bytes,
+        "rollup": rollup,
+        "bap_mean": sum(got_bap) / len(got_bap),
+        "bap_max_abs_err_vs_cpu": bap_err,
+        "kernel_backed_members_refused": ["K1", "K2"],
+        "sampled_slices": sampled,
+        "scrape_slices": scrape,
+        "cpu_reference_s": cpu_s,
+        "phase_s": time.perf_counter() - t_start,
+        "rings_equal_cpu_run": True,
+    })
+    return launches["binned_counters"]
+
+
+def msmarco_rank_rows(n, rank, world):
+    """The rows of ``rank``: ``MSMARCO_WORLD_CHUNK``-row chunks dealt
+    round-robin, so a query's candidates can sit on two ranks."""
+    import numpy as np
+
+    step = MSMARCO_WORLD_CHUNK
+    return np.concatenate([np.arange(s, min(s + step, n)) for s in range(rank * step, n, world * step)])
+
+
+def retrieval_world(mtt, dist, dev, rank, world, sync):
+    """One rank's share of the MS MARCO rows through the world's retrieval
+    metrics in both modes, and each synced ``compute()``."""
+    import torch
+
+    idx_np, p_np, t_np, _ = make_msmarco()
+    take = msmarco_rank_rows(idx_np.shape[0], rank, world)
+    idx, preds, target = (torch.from_numpy(x[take]).to(dev) for x in (idx_np, p_np, t_np))
+    out = {}
+    for mode, cap in (("list", None), ("capacity", MSMARCO_WORLD_CAPACITY)):
+        metrics = build_retrieval(mtt, dev, cap, names=MSMARCO_WORLD_METRICS)
+        for a in range(0, idx.shape[0], MSMARCO_WORLD_BATCH):
+            for m in metrics.values():
+                m.update(preds[a:a + MSMARCO_WORLD_BATCH], target[a:a + MSMARCO_WORLD_BATCH], indexes=idx[a:a + MSMARCO_WORLD_BATCH])
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with CollectiveRecorder() as rec:
+            values = {name: m.compute() for name, m in metrics.items()}
+            sync()
+        out[f"retrieval_{mode}"] = {"values": _retrieval_values(values), "all_reduce": rec.all_reduce, "other": rec.other,
+                                    "compute_s": time.perf_counter() - t0, "rows": int(idx.shape[0])}
+        del metrics
+    return out
+
+
+def sliced_world(mtt, dist, dev, p, y, ids, sync):
+    """One rank's quarter of the sliced evaluation: the overlapped cycle of
+    the sliced collection beside the unsliced one's, and the sharded
+    slices of a guarded accuracy."""
+    group = dist.group.WORLD
+    out = {}
+    for kind, coll in (("sliced", build_sliced_eval(mtt, dev, SLICES, bap=False)),
+                       ("unsliced", mtt.MetricCollection(_unsliced_eval(mtt, dev)))):
+        odef = mtt.overlapped_functionalize(coll, group=group)
+        state = odef.init()
+        for start in range(0, p.shape[0], BATCH):
+            kw = {"slice_ids": ids[start:start + BATCH]} if kind == "sliced" else {}
+            state = odef.update(state, p[start:start + BATCH], y[start:start + BATCH], **kw)
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with CollectiveRecorder() as rec:
+            state = odef.cycle(state)
+            sync()
+        cycle_s = time.perf_counter() - t0
+        with CollectiveRecorder() as rd:
+            read = odef.read(state)
+            sync()
+        fresh = odef.read_fresh(state)
+        same = all(_tree_bit_equal(_sliced_value_tree(read[k]), _sliced_value_tree(fresh[k])) for k in read)
+        out[f"{kind}_cycle"] = {"all_reduce": rec.all_reduce, "other": rec.other, "cycle_s": cycle_s, "bytes": rec.bytes,
+                                "read_collectives": rd.all_reduce + rd.other, "read_bit_equal_fresh": same}
+    sdef = mtt.sliced_functionalize(mtt.Accuracy(num_classes=CLASSES, on_invalid="drop", device=dev), SLICES, shard_slices=group)
+    state = sdef.init()
+    for start in range(0, p.shape[0], BATCH):
+        state = sdef.update(state, p[start:start + BATCH], y[start:start + BATCH], slice_ids=ids[start:start + BATCH])
+    sync()
+    dist.barrier()
+    t0 = time.perf_counter()
+    with CollectiveRecorder() as rec:
+        value = sdef.compute(state)
+        sync()
+    out["sharded"] = {
+        "per_slice": [float(v) for v in value["per_slice"].cpu()], "slice_rows": [int(v) for v in value["slice_rows"].cpu()],
+        "slice_offset": int(value["slice_offset"]), "global_value": float(value["global_value"]),
+        "quarantined_rows": int(value["quarantined_rows"]), "all_reduce": rec.all_reduce, "other": rec.other,
+        "compute_s": time.perf_counter() - t0,
+    }
+    return out
+
+
+def _sliced_value_tree(value):
+    """A sliced member's value (or a plain one) as a tree of tensors."""
+    import torch
+
+    if hasattr(value, "_fields"):
+        return {f: torch.as_tensor(v) for f, v in zip(value._fields, value)}
+    return {"value": torch.as_tensor(value)}
+
+
+def check_retrieval_sliced_world(ranks, dev):
+    """The world's retrieval and sliced additions against one process on
+    the card: the retrieval metrics over the union of the ranks' rows in
+    the order the sync gathers them, and the unsharded sliced accuracy."""
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+
+    idx_np, p_np, t_np, _ = make_msmarco()
+    union = np.concatenate([msmarco_rank_rows(idx_np.shape[0], r, DIST_WORLD) for r in range(DIST_WORLD)])
+    idx, preds, target = (torch.from_numpy(x[union]).to(dev) for x in (idx_np, p_np, t_np))
+    report = {}
+    for mode, cap in (("list", None), ("capacity", DIST_WORLD * MSMARCO_WORLD_CAPACITY)):
+        metrics = build_retrieval(mtt, dev, cap, names=MSMARCO_WORLD_METRICS)
+        for a in range(0, idx.shape[0], MSMARCO_WORLD_BATCH):
+            for m in metrics.values():
+                m.update(preds[a:a + MSMARCO_WORLD_BATCH], target[a:a + MSMARCO_WORLD_BATCH], indexes=idx[a:a + MSMARCO_WORLD_BATCH])
+        want = _retrieval_values({name: m.compute() for name, m in metrics.items()})
+        del metrics
+        key = f"retrieval_{mode}"
+        n = len(MSMARCO_WORLD_METRICS)
+        want_gathers = ["all_gather"] * (6 if mode == "list" else 12) * n
+        want_reduce = [] if mode == "list" else [["int32", "SUM"]] * n
+        for r in ranks:
+            got = r[key]
+            if got["other"] != want_gathers or got["all_reduce"] != want_reduce:
+                raise AssertionError(f"retrieval world: rank {r['rank']} {mode} compute made {got['all_reduce']} and {got['other']}; "
+                                     f"predicted {want_reduce} and {len(want_gathers)} all_gather")
+            if got["values"] != ranks[0][key]["values"]:
+                raise AssertionError(f"retrieval world: rank {r['rank']} computed other {mode} values than rank 0")
+        _values_close(ranks[0][key]["values"], want, FLOAT_SUM_RTOL, 1e-6, f"retrieval world: {mode} mode against one process")
+        report[mode] = {"values": {k: v[0] for k, v in want.items()}, "all_gather_per_compute": len(want_gathers),
+                        "all_reduce_per_compute": want_reduce, "compute_s": [r[key]["compute_s"] for r in ranks],
+                        "rows_per_rank": [r[key]["rows"] for r in ranks]}
+
+    # the sliced collection's cycle: no more all_reduce than unsliced, and no gather
+    for r in ranks:
+        s, u = r["sliced_cycle"], r["unsliced_cycle"]
+        if s["other"] or u["other"] or len(s["all_reduce"]) > len(u["all_reduce"]) or len(s["all_reduce"]) > 2:
+            raise AssertionError(f"sliced world: rank {r['rank']} cycle made {s['all_reduce']} and {s['other']}; unsliced "
+                                 f"{u['all_reduce']} and {u['other']}")
+        if s["read_collectives"] or not s["read_bit_equal_fresh"] or not u["read_bit_equal_fresh"]:
+            raise AssertionError(f"sliced world: rank {r['rank']} read made {s['read_collectives']} or differs from the fresh read")
+
+    # the sharded slices against the unsharded sliced accuracy in one process
+    preds_e, target_e, _, _ = make_fused_eval_data(dev)
+    ids = torch.from_numpy(make_slice_ids(ROWS, BATCH, SLICES)).to(dev)
+    udef = mtt.sliced_functionalize(mtt.Accuracy(num_classes=CLASSES, on_invalid="drop", device=dev), SLICES)
+    state = udef.init()
+    for start in range(0, ROWS, BATCH):
+        state = udef.update(state, preds_e[start:start + BATCH], target_e[start:start + BATCH], slice_ids=ids[start:start + BATCH])
+    whole = udef.compute(state)
+    per_slice = [float(v) for v in whole.per_slice.cpu()]
+    rows = [int(v) for v in state[0]["sl__rows"][:SLICES].cpu()]
+    kloc = SLICES // DIST_WORLD
+    # JAX: one psum of the rollup tree, one psum_scatter of the rows and of
+    # each sum ring (tp, fp, tn, fn and the fault ring)
+    want_calls = ([["int64", "SUM"]], ["reduce_scatter"] * 6)
+    for r in ranks:
+        sh = r["sharded"]
+        lo = r["rank"] * kloc
+        if sh["slice_offset"] != lo or sh["slice_rows"] != rows[lo:lo + kloc]:
+            raise AssertionError(f"sharded slices: rank {r['rank']} owns offset {sh['slice_offset']}, rows {sh['slice_rows'][:4]}...")
+        if any(abs(a - b) > 1e-6 for a, b in zip(sh["per_slice"], per_slice[lo:lo + kloc])):
+            raise AssertionError(f"sharded slices: rank {r['rank']}'s owned values differ from one process")
+        if abs(sh["global_value"] - float(whole.global_value)) > 1e-6 or sh["quarantined_rows"] != int(whole.quarantined_rows):
+            raise AssertionError(f"sharded slices: rank {r['rank']} rollup {sh['global_value']}, quarantine {sh['quarantined_rows']}")
+        if (sh["all_reduce"], sh["other"]) != want_calls:
+            raise AssertionError(f"sharded slices: rank {r['rank']} compute made {sh['all_reduce']} and {sh['other']}; predicted {want_calls}")
+    emit({
+        "phase": "retrieval_sliced_dist",
+        "config": {"world": DIST_WORLD, "retrieval_metrics": list(MSMARCO_WORLD_METRICS), "chunk": MSMARCO_WORLD_CHUNK,
+                   "capacity_per_rank": MSMARCO_WORLD_CAPACITY, "slices": SLICES,
+                   "backend": "gloo, four processes on one card (loopback TCP; not NCCL)"},
+        "retrieval": report,
+        "sliced_cycle": {"all_reduce": ranks[0]["sliced_cycle"]["all_reduce"], "unsliced_all_reduce": ranks[0]["unsliced_cycle"]["all_reduce"],
+                         "gathers": 0, "cycle_s": [r["sliced_cycle"]["cycle_s"] for r in ranks],
+                         "unsliced_cycle_s": [r["unsliced_cycle"]["cycle_s"] for r in ranks],
+                         "bytes_per_rank": ranks[0]["sliced_cycle"]["bytes"], "unsliced_bytes_per_rank": ranks[0]["unsliced_cycle"]["bytes"]},
+        "sharded": {"all_reduce": ranks[0]["sharded"]["all_reduce"], "other": ranks[0]["sharded"]["other"],
+                    "compute_s": [r["sharded"]["compute_s"] for r in ranks], "owned_slices_per_rank": kloc,
+                    "global_value": float(whole.global_value), "matches_one_process": True},
+    })
+
+
 def main():
     try:
         import torch
@@ -4011,6 +4704,8 @@ def main():
     kernels[1]["confmat_shape"] = k2_confmat_times(preds, target, full_launches["histogram"])
     del preds, target, q_state, first_batch
     torch.cuda.empty_cache()
+    phase_retrieval(device)
+    k1_sliced_launches = phase_sliced(device)
     k2_launches = phase_dist(device)
     k2_path_launches(kernels[1], k2_launches)
     k1_fused_launches, fused_values = phase_fused_eval(device, pure_values, ml_world_values)
@@ -4022,7 +4717,7 @@ def main():
     kernels[0]["launches_by_path"] = {
         "main_path": k1_launches, "fused_dist_path": k1_fused_launches, "overlapped_path": k1_overlapped_launches,
         "full_classification_path": full_launches["binned_counters"], "full_classification_dist": k1_full_dist_launches,
-        "pure_path": k1_pure_launches,
+        "pure_path": k1_pure_launches, "sliced_path": k1_sliced_launches,
     }
     kernels[1]["launches_by_path"] = {
         "dist_path": k2_launches, "full_classification_path": full_launches["histogram"],

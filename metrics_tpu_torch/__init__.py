@@ -40,6 +40,7 @@ from metrics_tpu_torch.pure import (
     bootstrap_functionalize,
     functionalize,
     overlapped_functionalize,
+    sliced_functionalize,
 )
 from metrics_tpu_torch.regression import (
     CosineSimilarity,
@@ -55,6 +56,19 @@ from metrics_tpu_torch.regression import (
     TweedieDevianceScore,
     WeightedMeanAbsolutePercentageError,
 )
+from metrics_tpu_torch.retrieval import (
+    RetrievalFallOut,
+    RetrievalHitRate,
+    RetrievalMAP,
+    RetrievalMRR,
+    RetrievalNormalizedDCG,
+    RetrievalPrecision,
+    RetrievalPrecisionRecallCurve,
+    RetrievalRecall,
+    RetrievalRecallAtFixedPrecision,
+    RetrievalRPrecision,
+)
+from metrics_tpu_torch.sliced import SlicedMetric, SlicedValue
 from metrics_tpu_torch.utilities.guard import FaultCounters
 from metrics_tpu_torch.streaming import (
     CountMinSketch,
@@ -131,6 +145,18 @@ __all__ = [
     "R2Score",
     "ROC",
     "Recall",
+    "RetrievalFallOut",
+    "RetrievalHitRate",
+    "RetrievalMAP",
+    "RetrievalMRR",
+    "RetrievalNormalizedDCG",
+    "RetrievalPrecision",
+    "RetrievalPrecisionRecallCurve",
+    "RetrievalRPrecision",
+    "RetrievalRecall",
+    "RetrievalRecallAtFixedPrecision",
+    "SlicedMetric",
+    "SlicedValue",
     "SpearmanCorrCoef",
     "Specificity",
     "StatScores",
@@ -143,4 +169,5 @@ __all__ = [
     "functionalize",
     "health_report",
     "overlapped_functionalize",
+    "sliced_functionalize",
 ]

@@ -48,6 +48,17 @@ from metrics_tpu_torch.parallel.sync import distributed_available, fused_sync
 from metrics_tpu_torch.utilities.data import _flatten_dict
 
 
+def _allclose(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``np.allclose`` of two states, as the JAX package compares them: the
+    dtypes promote (an int32 and a float32 state of equal values are
+    equal, as nDCG's float targets beside another retrieval metric's
+    integer ones)."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    if dtype == torch.bool:
+        return torch.equal(a, b)
+    return torch.allclose(a.to(dtype), b.to(dtype))
+
+
 class MetricCollection:
     """Chain metrics with the same call pattern.
 
@@ -403,9 +414,9 @@ class MetricCollection:
             elif isinstance(state1, list):
                 if len(state1) != len(state2):
                     return False
-                if not all(s1.shape == s2.shape and torch.allclose(s1, s2) for s1, s2 in zip(state1, state2)):
+                if not all(s1.shape == s2.shape and _allclose(s1, s2) for s1, s2 in zip(state1, state2)):
                     return False
-            elif state1.shape != state2.shape or state1.device != state2.device or not torch.allclose(state1, state2):
+            elif state1.shape != state2.shape or state1.device != state2.device or not _allclose(state1, state2):
                 return False
         return True
 

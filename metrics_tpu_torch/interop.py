@@ -34,10 +34,18 @@ The classification states carry the same way: a confusion matrix
 (``confmat``, int32), a calibration error's lists or bins, a hinge or KL
 sum, a KL ring (``capacity=``), the ranking sums.
 
+The retrieval metrics carry the same way: their ``cat`` lists of ids,
+scores and targets, or, with ``capacity=``, their three rings. A
+``SlicedMetric``'s ``(K + 2)``-leading rings (``sl__<state>``, the fault
+ring ``sl___faults`` given as the JAX package's uint32 counts, which the
+port holds as int64) and its row counts (``sl__rows``) load like any other
+state, and the slices go on from them.
+
 A pure state (``pure.py``) carries both ways, in every layout: a
 ``MetricDef`` state dict, a wrapper's list of per-node dicts, a
 collection's dict of those, the overlapped ``{live, reduced, steps,
-covered}`` and a bootstrap's stacked state. :func:`load_jax_pure_state`
+covered}``, a bootstrap's stacked state and a sliced state (the
+wrapper's rings and its metric's state, or a collection of those). :func:`load_jax_pure_state`
 reads the JAX package's state into the layout of a port state of the same
 definition (``mdef.init()`` as the template: each leaf takes the
 template's device and dtype, a ring its own capacity);

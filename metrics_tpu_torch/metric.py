@@ -50,6 +50,12 @@ rows, and ``"warn"``/``"error"`` act at ``compute()`` from the synced
 counts. Such an update runs without the value checks of
 ``utilities/checks.py`` and reads nothing back (stated difference D1).
 
+The padding ladder (``pad_batches=True``, ``ops/padding.py``): every update
+batch pads up to a ladder tier on its own device, the pad rows masked
+through the ``valid`` row mask (a metric that cannot consume one is
+refused at its first update) and counted in the fault channel's
+informational ``padded_rows`` class.
+
 Constructor knobs, with the JAX package's meaning: ``compute_on_cpu`` moves
 the list (``cat``) states to host memory after each update and computes
 from host copies of every state (the value lies on the CPU; a sync first
@@ -78,6 +84,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from metrics_tpu_torch.ops.padding import pad_update_args
 from metrics_tpu_torch.ops.quantize import resolve_codec, validate_transport
 from metrics_tpu_torch.parallel.sync import distributed_available, fused_sync
 from metrics_tpu_torch.utilities import enums
@@ -226,6 +233,7 @@ class Metric:
         sync_on_compute: bool = True,
         on_overflow: str = "warn",
         on_invalid: str = "ignore",
+        pad_batches: bool = False,
         process_group: Optional[Any] = None,
         dist_sync_fn: Optional[Callable] = None,
         sync_mode: str = "blocking",
@@ -256,6 +264,10 @@ class Metric:
         self.on_invalid = on_invalid
         # the fault total that the warn policy last reported
         self._faults_reported = 0
+        # the padding ladder (ops/padding.py): every update batch pads up to
+        # a ladder tier, its pad rows masked through ``valid`` and counted
+        # in the fault channel's informational ``padded_rows`` class
+        self.pad_batches = bool(pad_batches)
         # the multi-process sync: the group to sync over, and optionally a
         # communicator that replaces ``torch.distributed`` (an object with
         # its all_reduce, all_gather, get_world_size and get_rank)
@@ -292,7 +304,7 @@ class Metric:
         self._to_sync = True
 
         self._wrap_methods()
-        if on_invalid != "ignore":
+        if on_invalid != "ignore" or self.pad_batches:
             self.add_state("_faults", default=FaultCounters.zeros(), dist_reduce_fx="sum")
 
     def _init_overlap(self) -> None:
@@ -439,7 +451,15 @@ class Metric:
             )
         args = tuple(self._to_device(a) for a in args)
         kwargs = {k: self._to_device(v) for k, v in kwargs.items()}
+        n_padded = 0
+        if self.pad_batches:
+            args, kwargs, n_padded = pad_update_args(self, args, kwargs)
         update(*args, **kwargs)
+        if n_padded:
+            # the pad count is a shape difference, known on the host; a fill
+            # puts it on the device without a copy that blocks
+            count = torch.full((), n_padded, dtype=torch.int64, device=self.device)
+            self._faults = self._faults + FaultCounters.single(device=self.device, padded_rows=count)
         if self.compute_on_cpu:
             self._move_list_states_to_host()
 

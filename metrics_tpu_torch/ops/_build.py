@@ -17,6 +17,8 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+import torch
+
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -41,6 +43,22 @@ def _nvcc() -> str:
     if candidate.exists():
         return str(candidate)
     raise RuntimeError("nvcc was not found (looked on PATH and under $CUDA_HOME/bin); it is needed to build the CUDA kernels")
+
+
+def refuse_batched(kernel: str, *tensors: "torch.Tensor") -> None:
+    """Raise if any of ``tensors`` is batched by ``torch.func.vmap``.
+
+    A kernel reads raw device pointers, which a batched tensor does not
+    have, and a CUDA tensor is never routed to the plain version. The
+    per-row deltas of a ``SlicedMetric`` run under ``vmap``, so a member
+    whose update launches ``kernel`` is refused here, where it launches.
+    """
+    if any(torch._C._functorch.is_batchedtensor(t) for t in tensors):
+        raise ValueError(
+            f"{kernel} cannot launch under torch.func.vmap (a SlicedMetric's per-row deltas), and a CUDA "
+            "tensor is never routed to its plain version. Keep the metric unsliced beside the sliced "
+            "members; the sliced form of the kernel is a later item (ROADMAP.md, Queue 2, 'sliced K1/K2')."
+        )
 
 
 def library_path(source: str) -> pathlib.Path:

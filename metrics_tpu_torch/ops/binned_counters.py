@@ -72,6 +72,7 @@ def _binned_counter_update_cuda(
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Launch the Hopper kernel on PyTorch's current stream."""
     global launch_count
+    _build.refuse_batched("K1 (ops/binned_counters.py)", preds, target, thresholds)
     n, c = preds.shape
     t = thresholds.shape[0]
     if n >= MAX_ROWS:

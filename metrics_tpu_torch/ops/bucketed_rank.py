@@ -148,7 +148,8 @@ def stable_key_order(keys: Tensor, num_buckets: int) -> Tensor:
                 f"stable_key_order keys must be in [0, {num_buckets}), got [{kmin}, {kmax}] — low-bit "
                 "packing would wrap them onto other buckets and silently mis-sort"
             )
-    return ascending_order(keys.to(torch.int64))
+    # keys below 2**31 sort as one int32 word, wider ones as two int64 words
+    return ascending_order(keys.to(torch.int32 if num_buckets <= 1 << 31 else torch.int64))
 
 
 def inverse_permutation(perm: Tensor) -> Tensor:
@@ -166,15 +167,32 @@ def ascending_ranks(x: Tensor) -> Tensor:
     return inverse_permutation(ascending_order(x))
 
 
-def ascending_ranks_rows(x: Tensor) -> Tensor:
-    """:func:`ascending_ranks` of every row of a 2-D tensor at once: bitwise
-    equal to ``jax.vmap(ascending_ranks)(x)``, as int32. The rows' key
-    words sort along dim 1, one stable sort per word."""
+def _ascending_order_rows(x: Tensor) -> Tensor:
+    """Stable ascending order of every row of a 2-D tensor, as int64
+    positions: one stable sort along dim 1 per key word."""
     words, _ = _key_words_ascending(x)
     n, length = x.shape
     perm = torch.arange(length, device=x.device).expand(n, length)
     for word in reversed(words):
         perm = torch.gather(perm, 1, torch.sort(torch.gather(word, 1, perm), dim=1, stable=True).indices)
+    return perm
+
+
+def descending_order_rows(x: Tensor) -> Tensor:
+    """:func:`descending_order` of every row of a 2-D tensor at once:
+    bitwise equal to ``jax.vmap(descending_order)(x)``, as int32. Ties keep
+    their index order, and ``-0.0``, denormals and NaNs order as in
+    :func:`descending_order`."""
+    if x.dtype == torch.bool:
+        raise TypeError("descending_order has no negation for bool keys")
+    return _ascending_order_rows(-x).to(torch.int32)
+
+
+def ascending_ranks_rows(x: Tensor) -> Tensor:
+    """:func:`ascending_ranks` of every row of a 2-D tensor at once: bitwise
+    equal to ``jax.vmap(ascending_ranks)(x)``, as int32."""
+    perm = _ascending_order_rows(x)
+    n, length = x.shape
     ranks = torch.arange(length, dtype=torch.int32, device=x.device).expand(n, length)
     return torch.empty((n, length), dtype=torch.int32, device=x.device).scatter_(1, perm, ranks)
 

@@ -55,6 +55,7 @@ def _library() -> ctypes.CDLL:
 def _histogram_cuda(bucket_ids: Tensor, num_buckets: int) -> Tensor:
     """Launch the Hopper kernel on PyTorch's current stream."""
     global launch_count
+    _build.refuse_batched("K2 (ops/histogram.py)", bucket_ids)
     ids = _ids(bucket_ids).contiguous()
     out = torch.zeros(num_buckets, dtype=torch.int32, device=ids.device)
     n = ids.shape[0]

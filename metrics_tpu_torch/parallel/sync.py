@@ -307,6 +307,23 @@ class RetryingGather:
 
         return DEGRADED if self._call(run) is DEGRADED else None
 
+    def reduce_scatter(self, output: Tensor, inputs: List[Tensor], op: Any = dist.ReduceOp.SUM, group: Any = None) -> Any:
+        """``torch.distributed.reduce_scatter``, bounded like the others:
+        ``output`` is written only when the collective completed."""
+        stream = _caller_stream(output)
+
+        def run() -> Tensor:
+            with _on_stream(stream):
+                buf = torch.empty_like(output)
+                _complete(self._issue("reduce_scatter", buf, list(inputs), op=op, group=group), stream)
+                return buf
+
+        out = self._call(run)
+        if out is DEGRADED:
+            return DEGRADED
+        output.copy_(out)
+        return None
+
     def _issue(self, name: str, *args: Any, **kwargs: Any) -> Any:
         if self.comm is dist:
             kwargs["async_op"] = True

@@ -38,8 +38,10 @@ Differences from the JAX package, each stated in ROADMAP Queue 3:
   ``jittable_compute`` flags only (D30): the port compiles nothing, so no
   failed trace turns a flag off.
 
-``sliced_functionalize`` waits for the sliced metrics (ROADMAP Queue 1,
-item 10).
+- ``sliced_functionalize(..., shard_slices=group)`` reduce-scatters the
+  slice rings over the group (``torch.distributed.reduce_scatter`` through
+  the default communicator, bounded like every other collective), where
+  JAX's ``psum_scatter`` runs over a mesh axis (D31).
 """
 import contextlib
 from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional
@@ -48,8 +50,10 @@ import torch
 
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric, _is_sketch_state
+from metrics_tpu_torch.ops.padding import SLICE_STATE_PREFIX
 from metrics_tpu_torch.ops.quantize import validate_transport
-from metrics_tpu_torch.parallel.sync import fused_sync, resolve_sync_chunks
+from metrics_tpu_torch.parallel.sync import DEGRADED, _default_transport, fused_sync, resolve_sync_chunks
+from metrics_tpu_torch.sliced.slicing import SlicedMetric
 from metrics_tpu_torch.utilities.checks import value_checks_off
 from metrics_tpu_torch.utilities.data import _flatten_dict, apply_to_collection
 from metrics_tpu_torch.utilities.guard import NUM_FAULT_CLASSES, FaultCounters, can_drop_traced
@@ -141,10 +145,16 @@ def _dropped_in_state(state: Dict[str, Any], device: torch.device, independent: 
 
 
 def _faults_in_state(state: Dict[str, Any], device: torch.device) -> Tensor:
-    """The metric's fault counts, zeros when it is unguarded."""
+    """The metric's fault counts, zeros when it is unguarded. A
+    ``SlicedMetric`` without counters of its own keeps its wrapped metric's
+    counts in the ``sl___faults`` ring: every row of it, the quarantine and
+    the discard included."""
     fc = state.get("_faults")
     if isinstance(fc, FaultCounters):
         return fc.counts
+    ring = state.get(f"{SLICE_STATE_PREFIX}_faults")
+    if ring is not None:
+        return ring.sum(dim=0)
     return torch.zeros((NUM_FAULT_CLASSES,), dtype=torch.int64, device=device)
 
 
@@ -527,6 +537,141 @@ def overlapped_functionalize(
         return mdef.dropped(state["reduced"])
 
     return OverlappedDef(init=init, update=update, cycle=cycle, read=read, read_fresh=read_fresh, lag=lag, faults=faults, dropped=dropped)
+
+
+def sliced_functionalize(
+    metric: Any,
+    num_slices: int,
+    group: Optional[Any] = None,
+    shard_slices: Optional[Any] = None,
+) -> MetricDef:
+    """Per-cohort pure functions: ``metric`` (or every member of a
+    collection) wrapped in :class:`~metrics_tpu_torch.SlicedMetric` and
+    functionalized, so ``update(state, *batch, slice_ids=ids)`` folds all
+    ``num_slices`` slices at once and ``compute`` returns per-slice values
+    and the rollup. The rings are plain sum, max and min states: with
+    ``group`` they ride ``fused_sync``'s buckets.
+
+    **Sharded slices** (``shard_slices=<process group>``): each of the
+    group's ``S`` processes owns ``K / S`` slices, rank ``r`` the slices
+    ``r * K / S`` on. ``update`` keeps the full local rings; ``compute``
+    sums the rollup's slice-summed states in one ``all_reduce`` (one more
+    for float states), reduce-scatters each sum ring (the row counts first)
+    so that each process holds its own slices summed over the group, and
+    reduces max and min rings whole (one ``all_reduce`` per operation and
+    dtype). It returns ``{"per_slice": <values of the owned slices>,
+    "slice_offset", "slice_rows", "global_value", "quarantined_rows"}``.
+    A single metric only; ``K`` must divide over ``S``; ``group`` must be
+    omitted (the slice shard is the data group, and ``S`` is its size).
+    A collective that degrades leaves this process's own values.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import SumMetric
+        >>> mdef = sliced_functionalize(SumMetric(device="cpu"), num_slices=2)
+        >>> state = mdef.update(mdef.init(), torch.tensor([1.0, 2.0, 4.0]), slice_ids=torch.tensor([0, 1, 1]))
+        >>> [float(v) for v in mdef.compute(state).per_slice]
+        [1.0, 6.0]
+    """
+    if isinstance(metric, SlicedMetric):
+        wrapped: Any = metric
+    elif isinstance(metric, MetricCollection):
+        if shard_slices is not None:
+            raise ValueError(
+                "sliced_functionalize(shard_slices=...) shards a single metric's slice "
+                "axis; shard each collection member separately."
+            )
+        wrapped = MetricCollection({
+            name: m if isinstance(m, SlicedMetric) else SlicedMetric(m, num_slices=num_slices)
+            for name, m in metric.items(keep_base=True, copy_state=False)
+        })
+    else:
+        wrapped = SlicedMetric(metric, num_slices=num_slices)
+
+    if shard_slices is None:
+        return functionalize(wrapped, group=group)
+    if group is not None:
+        raise ValueError(
+            "sliced_functionalize: pass `shard_slices` alone — the slice shard IS the data group."
+        )
+    count = torch.distributed.get_world_size(shard_slices)
+    if wrapped.num_slices % count:
+        raise ValueError(
+            f"num_slices ({wrapped.num_slices}) must divide evenly over "
+            f"the group's {count} processes so every one owns the same slice quota"
+        )
+    return _sliced_sharded_def(wrapped, shard_slices, count)
+
+
+def _sliced_sharded_def(w: SlicedMetric, group: Any, count: int) -> MetricDef:
+    """The sharded-slice ``compute`` over a ``SlicedMetric``'s state (see
+    :func:`sliced_functionalize`)."""
+    mdef = functionalize(w)  # local update and merge; state = [wrapper, child]
+    K, kloc = w.num_slices, w.num_slices // count
+    specs = dict(w._specs)
+    sum_kinds = ("sum", "mean", "faults", "sketch_sum")
+
+    def scatter_sum(x: Tensor, rank: int) -> Tensor:
+        """This process's ``kloc`` rows of ``x`` summed over the group."""
+        parts = [p.contiguous() for p in x.chunk(count, dim=0)]
+        out = torch.empty_like(parts[rank])
+        if _default_transport().reduce_scatter(out, parts, group=group) is DEGRADED:
+            return parts[rank].clone()
+        return out
+
+    def compute(states: List[Dict[str, Any]]) -> Dict[str, Any]:
+        wstate = dict(states[0])
+        rank = torch.distributed.get_rank(group)
+        rows_full = wstate[f"{SLICE_STATE_PREFIX}rows"]
+        rows_body = rows_full[:K]
+        # the rollup: one all_reduce of the slice-summed states, the
+        # integer ones carried as int64 (exact) so they share one bucket
+        tree: Dict[str, Tensor] = {"rows_tail": rows_full[K:], "rows_total": rows_body.sum().reshape(1)}
+        for name, kind in specs.items():
+            if kind in sum_kinds:
+                tree[name] = wstate[f"{SLICE_STATE_PREFIX}{name}"][:K].sum(dim=0)
+        dtypes = {k: v.dtype for k, v in tree.items()}
+        wide = {k: v if v.is_floating_point() else v.to(torch.int64) for k, v in tree.items()}
+        summed = fused_sync([wide], [{k: "sum" for k in wide}], group)[0]
+        tree = {k: v.to(dtypes[k]) for k, v in summed.items()}
+
+        rows_owned = scatter_sum(rows_body, rank)
+        total = torch.clamp_min(tree["rows_total"][0], 1).to(torch.float32)
+        raw_owned: Dict[str, Tensor] = {}
+        raw_roll: Dict[str, Tensor] = {}
+        for name, kind in specs.items():
+            if kind not in sum_kinds:
+                continue
+            owned = scatter_sum(wstate[f"{SLICE_STATE_PREFIX}{name}"][:K], rank)
+            if kind == "mean":
+                denom = torch.clamp_min(rows_owned, 1).to(torch.float32)
+                raw_owned[name] = owned / denom.reshape((kloc,) + (1,) * (owned.ndim - 1))
+                raw_roll[name] = tree[name] / total
+            else:
+                raw_owned[name] = owned
+                raw_roll[name] = tree[name]
+        extremes = {name: wstate[f"{SLICE_STATE_PREFIX}{name}"][:K] for name, kind in specs.items() if kind not in sum_kinds}
+        if extremes:
+            reds = {name: "max" if specs[name] in ("max", "sketch_max") else "min" for name in extremes}
+            whole = fused_sync([extremes], [reds], group)[0]
+            for name, g in whole.items():
+                raw_owned[name] = g[rank * kloc:(rank + 1) * kloc]
+                raw_roll[name] = g.amax(dim=0) if reds[name] == "max" else g.amin(dim=0)
+        return {
+            "per_slice": w._per_slice_values(raw_owned),
+            "slice_offset": torch.tensor(rank * kloc, dtype=torch.int32, device=rows_full.device),
+            "slice_rows": rows_owned,
+            "global_value": w._run_raw(raw_roll),
+            "quarantined_rows": tree["rows_tail"][0],
+        }
+
+    def dropped(states: List[Dict[str, Any]]) -> Tensor:
+        return _sum_over(group, mdef.dropped(states))
+
+    def faults(states: List[Dict[str, Any]]) -> Tensor:
+        return _sum_over(group, mdef.faults(states))
+
+    return MetricDef(init=mdef.init, update=mdef.update, compute=compute, merge=mdef.merge, dropped=dropped, faults=faults)
 
 
 def _merge_by_reduction(

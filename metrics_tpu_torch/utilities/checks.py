@@ -230,6 +230,66 @@ def _check_classification_inputs(
     return case
 
 
+def _check_retrieval_target_and_prediction_types(
+    preds: Tensor, target: Tensor, allow_non_binary_target: bool = False
+) -> Tuple[Tensor, Tensor]:
+    """Dtype and value checks of a retrieval pair; both flattened, ``preds``
+    as float32, ``target`` as int32 (float32 when non-binary targets are
+    allowed). The binary-values check reads the target's range back (a
+    value check, skipped inside :func:`value_checks_off`)."""
+    if target.is_floating_point() and not allow_non_binary_target:
+        raise ValueError("`target` must be a tensor of booleans or integers")
+    if not preds.is_floating_point():
+        raise ValueError("`preds` must be a tensor of floats")
+    if not allow_non_binary_target and _value_checks() and target.numel():
+        bounds = torch.stack([target.max(), target.min()]).to(torch.int64).tolist()
+        if bounds[0] > 1 or bounds[1] < 0:
+            raise ValueError("`target` must contain `binary` values")
+    target = target.to(torch.float32) if allow_non_binary_target else target.to(torch.int32)
+    return preds.to(torch.float32).reshape(-1), target.reshape(-1)
+
+
+def _check_retrieval_functional_inputs(
+    preds: Tensor,
+    target: Tensor,
+    allow_non_binary_target: bool = False,
+) -> Tuple[Tensor, Tensor]:
+    """The checks of one query's ``(preds, target)`` pair."""
+    preds, target = torch.as_tensor(preds), torch.as_tensor(target)
+    if preds.shape != target.shape:
+        raise ValueError("`preds` and `target` must be of the same shape")
+    if preds.numel() == 0 or preds.ndim == 0:
+        raise ValueError("`preds` and `target` must be non-empty and non-scalar tensors")
+    return _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
+
+
+def _check_retrieval_inputs(
+    indexes: Tensor,
+    preds: Tensor,
+    target: Tensor,
+    allow_non_binary_target: bool = False,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The checks of an ``(indexes, preds, target)`` triple, the rows whose
+    target is ``ignore_index`` left out (a boolean gather, which reads the
+    count back), all three flattened; ``indexes`` as int32."""
+    indexes, preds, target = torch.as_tensor(indexes), torch.as_tensor(preds), torch.as_tensor(target)
+    if indexes.shape != preds.shape or preds.shape != target.shape:
+        raise ValueError("`indexes`, `preds` and `target` must be of the same shape")
+    if indexes.is_floating_point() or indexes.is_complex() or indexes.dtype == torch.bool:
+        raise ValueError("`indexes` must be a tensor of long integers")
+
+    if ignore_index is not None:
+        keep = target != ignore_index
+        indexes, preds, target = indexes[keep], preds[keep], target[keep]
+
+    if indexes.numel() == 0 or indexes.ndim == 0:
+        raise ValueError("`indexes`, `preds` and `target` must be non-empty and non-scalar tensors")
+
+    preds, target = _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
+    return indexes.to(torch.int32).reshape(-1), preds, target
+
+
 def _input_squeeze(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
     """Remove excess size-1 dimensions, keeping the batch axis."""
     if preds.shape and preds.shape[0] == 1:

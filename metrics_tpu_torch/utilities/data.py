@@ -86,11 +86,14 @@ def _tensor_leaves(value: Any) -> Iterator[Tensor]:
 
 
 def _squeeze_if_scalar(data: Any) -> Any:
-    """Squeeze single-element tensors to 0-d, through lists, tuples and dicts."""
+    """Squeeze single-element tensors to 0-d, through lists, tuples,
+    NamedTuples and dicts."""
     if isinstance(data, Tensor):
         return data.reshape(()) if data.numel() == 1 and data.ndim > 0 else data
     if isinstance(data, dict):
         return {k: _squeeze_if_scalar(v) for k, v in data.items()}
+    if isinstance(data, tuple) and hasattr(data, "_fields"):
+        return type(data)(*(_squeeze_if_scalar(v) for v in data))
     if isinstance(data, (list, tuple)):
         return type(data)(_squeeze_if_scalar(v) for v in data)
     return data
@@ -121,9 +124,10 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     else:
         idx = torch.sort(x, dim=dim, descending=True, stable=True).indices.narrow(dim, 0, topk)
     # zeros_like, so that under ``torch.func.vmap`` the scatter writes into
-    # a batched tensor (the pure layer's bootstrap)
-    mask = torch.zeros_like(x, dtype=torch.int32)
-    return mask.scatter_(dim, idx, 1)
+    # a batched tensor (the pure layer's bootstrap, the sliced metrics'
+    # per-row deltas); out of place, which ``vmap`` batches (its in-place
+    # form runs once per batch entry)
+    return torch.zeros_like(x, dtype=torch.int32).scatter(dim, idx, 1)
 
 
 def jax_linspace(start: float, stop: float, num: int, device: Union[str, torch.device, None] = None) -> Tensor:

@@ -277,30 +277,33 @@ def _body_neutralizes(metric: Any) -> Tuple[bool, bool]:
 
 def _consumes_valid_mask(metric: Any) -> bool:
     """The update takes a ``valid`` row mask and uses it: a ring metric
-    (``capacity``), or a class whose ``_valid_mask_always`` holds (the
-    stat-scores family, whose update zeroes a masked row's counts)."""
+    (``capacity``), a class whose ``_valid_mask_always`` holds (the
+    stat-scores family, whose update zeroes a masked row's counts), or a
+    wrapper whose update passes its keyword arguments on to such a
+    ``wrapped`` metric (the streaming wrappers, which also count their
+    window quota from the mask). The one predicate of the drop guard, of
+    :func:`can_drop_traced` and of the padding ladder
+    (``ops/padding.py::supports_row_mask``)."""
     sig = getattr(metric, "_update_signature", None)
-    if sig is None or "valid" not in sig.parameters:
+    if sig is None:
         return False
-    return getattr(metric, "capacity", None) is not None or bool(getattr(metric, "_valid_mask_always", False))
+    params = sig.parameters
+    if "valid" in params:
+        return getattr(metric, "capacity", None) is not None or bool(getattr(metric, "_valid_mask_always", False))
+    wrapped = getattr(metric, "wrapped", None)
+    if wrapped is not None and any(p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values()):
+        return _consumes_valid_mask(wrapped)
+    return False
 
 
 def can_drop_traced(metric: Any) -> bool:
     """Whether ``on_invalid="drop"`` needs no boolean indexing, which reads
     the row count back: the metric's own body neutralises invalid values
-    (the aggregators' NaN masking or imputation), its update consumes a
-    ``valid`` row mask (capacity mode, ``_valid_mask_always``), or it is a
-    wrapper whose update passes its keyword arguments on to such a
-    ``wrapped`` metric. The pure layer refuses ``"drop"`` on any other
-    metric, as the JAX package's does inside compiled code."""
-    if any(_body_neutralizes(metric)) or _consumes_valid_mask(metric):
-        return True
-    sig = getattr(metric, "_update_signature", None)
-    wrapped = getattr(metric, "wrapped", None)
-    if sig is None or wrapped is None or "valid" in sig.parameters:
-        return False
-    forwards = any(p.kind == inspect.Parameter.VAR_KEYWORD for p in sig.parameters.values())
-    return forwards and _consumes_valid_mask(wrapped)
+    (the aggregators' NaN masking or imputation), or its update consumes a
+    ``valid`` row mask (:func:`_consumes_valid_mask`). The pure layer
+    refuses ``"drop"`` on any other metric, as the JAX package's does
+    inside compiled code."""
+    return any(_body_neutralizes(metric)) or _consumes_valid_mask(metric)
 
 
 def _normalize_call(metric: Any, args: tuple, kwargs: dict) -> Optional[Dict[str, Any]]:

@@ -68,9 +68,10 @@ def _put_rows(dst: Tensor, idx: Tensor, keep: Tensor, rows: Tensor) -> None:
     """
     rows = rows.to(dst.dtype)
     has = keep.any()
-    first = torch.argmax(keep.to(torch.uint8))
-    fallback_slot = torch.where(has, idx[first], 0)
-    fallback_row = torch.where(has, rows[first], dst[0])
+    # a (1,) index, not a 0-d one: indexing by a 0-d tensor reads it back
+    first = torch.argmax(keep.to(torch.uint8)).reshape(1)
+    fallback_slot = torch.where(has, idx.index_select(0, first)[0], 0)
+    fallback_row = torch.where(has, rows.index_select(0, first)[0], dst[0])
     shape = (-1,) + (1,) * (rows.ndim - 1)
     dst.index_put_(
         (torch.where(keep, idx, fallback_slot),),
@@ -101,7 +102,7 @@ def cat_append(buffer: CatBuffer, rows: Tensor, valid: Optional[Tensor] = None) 
     if valid is None:
         idx = count + torch.arange(n, device=rows.device)
         keep = idx < buffer.capacity
-        n_new = torch.tensor(n, dtype=torch.int64, device=rows.device)
+        n_new = torch.full((), n, dtype=torch.int64, device=rows.device)  # a fill, not a blocking copy
     else:
         valid = torch.as_tensor(valid, device=rows.device).to(torch.bool).reshape(-1)
         idx = count + torch.cumsum(valid, 0) - 1

@@ -133,7 +133,13 @@ def test_sync_layer_imports_load_no_jax_build_nothing_and_start_no_thread():
     assert proc.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("name", ["torch_thread_world.py", "torch_twin_world.py", "torch_pure_ranks.py", "torch_twins.py"])
+@pytest.mark.parametrize(
+    "name",
+    [
+        "torch_thread_world.py", "torch_twin_world.py", "torch_pure_ranks.py", "torch_twins.py",
+        "torch_retrieval_ranks.py", "torch_sliced_ranks.py",
+    ],
+)
 def test_rank_helpers_import_no_jax(name):
     path = ROOT / "tests" / "helpers" / name
     bad = [m for m in _imported_modules(path) if _is_forbidden(m)]
@@ -192,6 +198,44 @@ def test_pure_regression_and_wrapper_imports_load_no_jax_and_build_nothing():
     assert proc.stdout.strip() == "ok"
 
 
+def test_retrieval_sliced_and_padding_imports_load_no_jax_and_build_nothing():
+    """Retrieval, the sliced metrics, the padding ladder and the sliced pure
+    layer import no JAX and nothing of ``metrics_tpu``, and build no kernel
+    until a CUDA tensor asks."""
+    code = (
+        "import sys\n"
+        "import metrics_tpu_torch.retrieval, metrics_tpu_torch.functional.retrieval, metrics_tpu_torch.functional\n"
+        "import metrics_tpu_torch.sliced, metrics_tpu_torch.ops.padding\n"
+        "from metrics_tpu_torch.pure import sliced_functionalize\n"
+        "from metrics_tpu_torch.ops import _build, binned_counters, histogram\n"
+        "assert _build._loaded == {} and _build.build_info == {}\n"
+        "assert binned_counters.launch_count == histogram.launch_count == 0\n"
+        "assert 'triton' not in sys.modules and not any(m.split('.')[0] in ('jax', 'metrics_tpu') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_sliced_metric_and_retrieval_rings_ask_for_cuda(monkeypatch):
+    """A ``SlicedMetric`` takes its device from the metric it wraps; a
+    retrieval metric in the capacity mode keeps its rings on its device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
+        metrics_tpu_torch.SlicedMetric(metrics_tpu_torch.SumMetric(device="cpu"), num_slices=3, device="cuda")
+    with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
+        metrics_tpu_torch.SlicedMetric(metrics_tpu_torch.SumMetric(), num_slices=3)
+    metric = metrics_tpu_torch.SlicedMetric(metrics_tpu_torch.SumMetric(device="cpu"), num_slices=3)
+    assert metric.device == torch.device("cpu")
+    assert all(t.device.type == "cpu" for v in metric.metric_state.values() for t in getattr(v, "counts", v).reshape(1, -1))
+    with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
+        metrics_tpu_torch.RetrievalMAP(capacity=8, num_queries=2)
+    ring = metrics_tpu_torch.RetrievalMAP(capacity=8, num_queries=2, device="cpu")
+    assert all(t.device.type == "cpu" for v in ring.metric_state.values() for t in v)
+
+
 def test_classification_rank_helper_imports_no_jax():
     """The ranks of ``tests/test_torch_compositional.py`` run this module."""
     path = ROOT / "tests" / "helpers" / "torch_classification_ranks.py"
@@ -222,6 +266,9 @@ _NEEDS = {
         "SymmetricMeanAbsolutePercentageError", "WeightedMeanAbsolutePercentageError", "CosineSimilarity",
         "ExplainedVariance", "PearsonCorrCoef", "R2Score", "SpearmanCorrCoef", "TweedieDevianceScore",
         "ClasswiseWrapper", "MinMaxMetric", "MultioutputWrapper", "BootStrapper",
+        "RetrievalMAP", "RetrievalMRR", "RetrievalPrecision", "RetrievalRecall", "RetrievalFallOut",
+        "RetrievalNormalizedDCG", "RetrievalHitRate", "RetrievalRPrecision", "RetrievalPrecisionRecallCurve",
+        "RetrievalRecallAtFixedPrecision",
     ],
 )
 def test_metric_without_device_asks_for_cuda(name, monkeypatch):
