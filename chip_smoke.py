@@ -153,7 +153,35 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    overlapped cycle (no more ``all_reduce`` than the unsliced one, no
    gather) and ``sliced_functionalize(Accuracy, 256,
    shard_slices=WORLD)`` (each rank's 64 slices equal to one process, one
-   ``all_reduce`` and six ``reduce_scatter``).
+   ``all_reduce`` and six ``reduce_scatter``);
+23. compiled path (after the kernels line): the ImageNet epoch through the
+   main path's collection, guarded and padded (``{acc1, acc5}`` with
+   ``on_invalid="drop"``, BAP with ``"warn"``: it takes no row mask), once
+   with its updates captured into CUDA graphs and once eager
+   (``jittable_update = False``), in turns: the states bit-equal after every
+   batch and again after a ``reset``, a ``load_state_dict`` and a
+   ``sync``/``unsync`` (each followed by updates), every member replaying,
+   K1's launches counted through the replays equal to BAP's updates, the
+   card's records of K1 inside a profiled window of replays; update p50,
+   operations, blocking reads and the idle share of both, the graph pools'
+   bytes; one update of K2 (a guarded ``ConfusionMatrix(1000)``) and of K3
+   (``QuantileSketch(eps=0.01)`` over 2^20 rows) captured and held bit-equal
+   to its eager twin over replays. The retrieval path (20) also runs its
+   capacity mode padded up the ladder, captured and eager, bit-equal;
+24. serving path: the same collection behind ``ServeLoop(workers=4,
+   warmup=Warmup(<one 1024-row batch>))`` on the ladder ``(64, 256, 1024)``,
+   the epoch's 50,000 rows offered as ragged requests (a tier drawn
+   uniformly, then a size within it): ``accepted + shed == offered``, the
+   merged states bit-equal to one eager collection over the accepted
+   requests, K1 once per BAP update, no capture on the request path after
+   ``wait_warmup()``; per-request update p50/p99 by tier, ``report()``
+   stale and fresh;
+25. cold start: the first request at each tier on fresh loops, with and
+   without warmup, p50/p99 over five loops each, and the warmup's wall time.
+
+Every CUDA metric of the earlier phases captures its update as well (the
+port's default on the card); their checks against the CPU runs hold the
+captured updates to the plain ones.
 
 The parent process builds every kernel before it spawns the ranks, so the
 ranks only load the libraries. A rank that fails makes the script fail.
@@ -316,6 +344,14 @@ RETRIEVAL_EXACT = ("mrr", "p@10", "r@100", "hit@10", "fallout@10", "rprec")
 # the sliced path: the JAX registry's acceptance K (_SLICED_K)
 SLICES = 256
 SLICE_SAMPLES = 8  # slices held against demuxed instances
+# the compiled update and serving: the JAX bench's serving ladder and its
+# ragged request sizes (a tier drawn uniformly, then a size within it)
+SERVE_LADDER = (64, 256, 1024)
+SERVE_SPANS = {64: (1, 64), 256: (65, 256), 1024: (257, 1024)}
+SERVE_WORKERS = 4
+W5_BATCHES = 4  # updates after each event that changes the states' identity
+CAPTURE_UPDATES = 10  # updates of each kernel's capture check: eager, capture, then replays
+COLDSTART_LOOPS = 5  # fresh serving loops timed with and without warmup
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
@@ -756,10 +792,15 @@ def profile_summary(prof, wall_s, batches):
         "top_host_ms_per_batch": [[e.key, e.self_cpu_time_total / 1e3 / batches, e.count // batches] for e in top_cpu],
         # operations on the card (kernels, copies, memsets) per batch
         "device_ops_per_batch": sum(e.count for e in on_device) / batches,
-        # the port's own kernels, wherever they rank
+        # the port's own kernels, wherever they rank: time, and the card's
+        # records of them (a kernel inside a replayed graph has its records too)
         "port_kernels_ms_per_batch": {
             name: sum(dev_us(e) for e in on_device if name in e.key) / 1e3 / batches
             for name in ("binned_counters_kernel", "histogram_kernel", "compactor_fold_kernel", "compactor_cascade_kernel")
+        },
+        "port_kernel_records_per_batch": {
+            name: sum(e.count for e in on_device if name in e.key) / batches
+            for name in ("binned_counters_kernel", "histogram_kernel", "compactor_cascade_kernel")
         },
         # a blocking device-to-host read waits in one stream synchronisation
         "stream_syncs_per_batch": sum(e.count for e in events if e.key == "cudaStreamSynchronize") / batches,
@@ -4069,10 +4110,12 @@ def msmarco_bounds(counts):
     return [0] + [int(ends[min(q + MSMARCO_QUERY_BATCH, MSMARCO_QUERIES) - 1]) for q in range(0, MSMARCO_QUERIES, MSMARCO_QUERY_BATCH)]
 
 
-def build_retrieval(pkg, device, capacity=None, names=None):
+def build_retrieval(pkg, device, capacity=None, names=None, pad=False):
     """The evaluation's metrics by name, in the list mode or, with
-    ``capacity``, the capacity mode."""
+    ``capacity``, the capacity mode (with ``pad``, padded up the ladder)."""
     mode = {} if capacity is None else {"capacity": capacity, "num_queries": MSMARCO_QUERIES, "max_docs_per_query": MSMARCO_DEPTH}
+    if pad:
+        mode["pad_batches"] = True
     kw = dict(device=device, **mode)
     make = {
         "mrr": lambda: pkg.RetrievalMRR(**kw),
@@ -4187,6 +4230,34 @@ def phase_retrieval(dev):
             "peak_memory_bytes": peak,
         }
         del metrics
+    # the capacity mode padded up the ladder (its rings take the pad mask),
+    # so every batch meets one captured graph, beside its eager twin: the
+    # values bit-equal to each other and to the unpadded capacity mode's
+    for name, captured in (("capacity_padded_captured", True), ("capacity_padded_eager", False)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        metrics = build_retrieval(mtt, dev, MSMARCO_CAPACITY, pad=True)
+        if not captured:
+            for m in metrics.values():
+                object.__setattr__(m, "jittable_update", False)
+        update_s, values, compute_s = run_retrieval(metrics, idx, preds, target, bounds, torch.cuda.synchronize)
+        report[name] = {
+            "update_p50_ms": statistics.median(update_s) * 1e3,
+            "update_p99_ms": _p(update_s, 99),
+            "rows_per_s": MSMARCO_ROWS / sum(update_s),
+            "compute_s": compute_s,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev) - base,
+        }
+        if _retrieval_values(values) != card["capacity"]:
+            raise AssertionError(f"retrieval_path: {name} values differ from the unpadded capacity mode's")
+        if captured:
+            stats = graph_stats(metrics)
+            if any(not st["jittable_update"] or not st["replays"] for st in stats.values()):
+                raise AssertionError(f"retrieval_path: a padded capacity-mode metric is not replaying its captured update: {stats}")
+            report[name]["graphs"] = {k: {f: st[f] for f in ("captures", "replays", "eager_updates")} for k, st in stats.items()}
+            report[name]["graph_pool_bytes"] = graph_pool_bytes(metrics.values())
+        del metrics, values
     launches = {"binned_counters": k1.launch_count, "histogram": k2.launch_count, "compactor_fold": k3.launch_count}
     if any(launches.values()):
         raise AssertionError(f"retrieval_path: kernels launched {launches}; retrieval groups by sorts")
@@ -4648,6 +4719,468 @@ def check_retrieval_sliced_world(ranks, dev):
     })
 
 
+# ----------------------------------------------------------------------
+# the compiled update (CUDA-graph capture) and serving
+# ----------------------------------------------------------------------
+
+
+def build_compiled(pkg, device):
+    """The main path's collection, guarded and padded. BinnedAveragePrecision
+    takes no row mask in either package, so it is guarded by ``"warn"``
+    (counted, not dropped) and not padded."""
+    return pkg.MetricCollection({
+        "acc1": pkg.Accuracy(num_classes=CLASSES, on_invalid="drop", pad_batches=True, device=device),
+        "acc5": pkg.Accuracy(num_classes=CLASSES, top_k=5, on_invalid="drop", pad_batches=True, device=device),
+        "bap": pkg.BinnedAveragePrecision(num_classes=CLASSES, thresholds=THRESHOLDS, on_invalid="warn", device=device),
+    })
+
+
+def _coll_members(coll):
+    return dict(coll.items(keep_base=True, copy_state=False))
+
+
+def eager_twin(coll):
+    """``coll`` with every member's update kept eager: ``jittable_update =
+    False``, the opt-out the JAX package's runtime uses."""
+    for m in _coll_members(coll).values():
+        object.__setattr__(m, "jittable_update", False)
+    return coll
+
+
+def _metric_leaves(m):
+    from metrics_tpu_torch._capture import _value_leaves
+
+    return [(k, t) for k, v in m._state.items() for t in _value_leaves(v)]
+
+
+def states_bit_equal(a, b, what):
+    import torch
+
+    ma, mb = _coll_members(a), _coll_members(b)
+    for name in ma:
+        la, lb = _metric_leaves(ma[name]), _metric_leaves(mb[name])
+        if len(la) != len(lb):
+            raise AssertionError(f"{what}: {name} has {len(la)} state tensors against {len(lb)}")
+        for (k, x), (_, y) in zip(la, lb):
+            if not (x.dtype == y.dtype and torch.equal(x, y)):
+                raise AssertionError(f"{what}: state {name}.{k} differs between the captured and the eager update")
+
+
+def graph_stats(metrics):
+    """Each metric's table of captured graphs, ``{name: metric}``."""
+    out = {}
+    for name, m in metrics.items():
+        t = m.__dict__.get("_update_graphs")
+        out[name] = {
+            "jittable_update": bool(m.jittable_update),
+            "captures": t.captures if t else 0,
+            "capture_ms_mean": t.capture_s / t.captures * 1e3 if t and t.captures else None,
+            "replays": t.replays if t else 0,
+            "eager_updates": t.eager_updates if t else 0,
+            "graphs_dropped": t.dropped if t else 0,
+            "graphs_held": len(t.entries) if t else 0,
+            "capture_error": t.error if t else None,
+        }
+    return out
+
+
+def graph_pool_bytes(metrics):
+    """Bytes of the card's memory segments in the graph pools of
+    ``metrics`` (one pool a metric), from the allocator's snapshot."""
+    import torch
+
+    pools = {tuple(m._update_graphs.pool) for m in metrics if m.__dict__.get("_update_graphs") is not None and m._update_graphs.pool is not None}
+    segments = torch.cuda.memory_snapshot()
+    if segments and "segment_pool_id" not in segments[0]:
+        raise AssertionError("the allocator's snapshot names no segment pools")
+    return sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) in pools)
+
+
+class _OneRank:
+    """A communicator of a world of one process (a sync that changes
+    nothing), so ``sync``/``unsync`` run in this one process."""
+
+    def get_world_size(self, group=None):
+        return 1
+
+    def get_rank(self, group=None):
+        return 0
+
+    def all_reduce(self, tensor, op=None, group=None):
+        pass
+
+    def all_gather(self, parts, tensor, group=None):
+        parts[0].copy_(tensor)
+
+
+def _p(values, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values) * 1e3, q)) if values else None
+
+
+def capture_check(make, batches, counter):
+    """One kernel's update captured beside its eager twin: the states
+    bit-equal after every update, and the launches counted through the
+    replays equal to the eager twin's."""
+    import torch
+
+    a, e = make(), make()
+    object.__setattr__(e, "jittable_update", False)
+    launches = {"captured": 0, "eager": 0}
+    for i, args in enumerate(batches):
+        for name, m in (("captured", a), ("eager", e)):
+            before = counter()
+            m.update(*args)
+            launches[name] += counter() - before
+        for (k, x), (_, y) in zip(_metric_leaves(a), _metric_leaves(e)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"capture check {type(a).__name__}: state {k} differs after update {i}")
+    t = a.__dict__.get("_update_graphs")
+    out = {"updates": len(batches), "captures": t.captures if t else 0, "replays": t.replays if t else 0,
+           "launches": launches, "capture_error": t.error if t else None, "jittable_update": bool(a.jittable_update)}
+    if t is not None and t.error is None and launches["captured"] != launches["eager"]:
+        raise AssertionError(f"capture check {type(a).__name__}: launches {launches}")
+    return out
+
+
+def phase_compiled(preds, target):
+    """The ImageNet epoch twice, captured and eager, in turns; states
+    bit-equal after every batch and after reset, load and sync/unsync."""
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import binned_counters as k1
+    from metrics_tpu_torch.ops import compactor as k3
+    from metrics_tpu_torch.ops import histogram as k2
+
+    dev = preds.device
+    n_batches = -(-ROWS // BATCH)
+    cap, eag = build_compiled(mtt, dev), eager_twin(build_compiled(mtt, dev))
+    times = {name: {"update": [], "forward": []} for name in ("captured", "eager")}
+    k1_captured = 0
+    for i, start in enumerate(range(0, ROWS, BATCH)):
+        p, y = preds[start:start + BATCH], target[start:start + BATCH]
+        order = (("captured", cap), ("eager", eag)) if i % 2 == 0 else (("eager", eag), ("captured", cap))
+        for name, coll in order:
+            before = k1.launch_count
+            t0 = time.perf_counter()
+            if i % FORWARD_EVERY == 0:
+                coll(p, y)
+                kind = "forward"
+            else:
+                coll.update(p, y)
+                kind = "update"
+            torch.cuda.synchronize()
+            times[name][kind].append(time.perf_counter() - t0)
+            if name == "captured":
+                k1_captured += k1.launch_count - before
+        states_bit_equal(cap, eag, f"compiled_path batch {i}")
+    bap_updates = _coll_members(cap)["bap"].update_count
+    if not (k1_captured == bap_updates == n_batches):
+        raise AssertionError(f"compiled_path: K1 counted {k1_captured} launches for {bap_updates} BAP updates over {n_batches} batches")
+    epoch_graphs = graph_stats(_coll_members(cap))
+    for name, st in epoch_graphs.items():
+        if not st["jittable_update"] or st["replays"] == 0 or st["capture_error"]:
+            raise AssertionError(f"compiled_path: {name} is not replaying its captured update: {st}")
+    vc, ve = cap.compute(), eag.compute()
+    for k in ve:
+        x, z = (torch.stack(vc[k]), torch.stack(ve[k])) if isinstance(ve[k], list) else (vc[k], ve[k])
+        if not torch.equal(x, z):
+            raise AssertionError(f"compiled_path: compute() {k} differs between the captured and the eager update")
+    pool_bytes = graph_pool_bytes(_coll_members(cap).values())
+
+    # the events that change the states' identity, each followed by updates
+    def more(what, offset):
+        replays = sum(st["replays"] for st in graph_stats(_coll_members(cap)).values())
+        for j in range(W5_BATCHES):
+            s0 = (offset + j) * BATCH
+            for coll in (cap, eag):
+                coll.update(preds[s0:s0 + BATCH], target[s0:s0 + BATCH])
+            states_bit_equal(cap, eag, f"compiled_path after {what}, update {j}")
+        return sum(st["replays"] for st in graph_stats(_coll_members(cap)).values()) - replays
+
+    events = {}
+    for coll in (cap, eag):
+        coll.reset()
+    events["reset"] = more("reset", 0)
+    for coll in (cap, eag):
+        coll.persistent(True)
+    saved = eag.state_dict()
+    more("the saved state", W5_BATCHES)
+    for coll in (cap, eag):
+        coll.load_state_dict(saved)
+    events["load_state_dict"] = more("load_state_dict", 2 * W5_BATCHES)
+    for coll in (cap, eag):
+        for m in _coll_members(coll).values():
+            m.sync(dist_sync_fn=_OneRank(), distributed_available_fn=lambda: True)
+            m.unsync()
+    events["sync_unsync"] = more("sync and unsync", 3 * W5_BATCHES)
+    vc, ve = cap.compute(), eag.compute()
+    for k in ve:
+        x, z = (torch.stack(vc[k]), torch.stack(ve[k])) if isinstance(ve[k], list) else (vc[k], ve[k])
+        if not torch.equal(x, z):
+            raise AssertionError(f"compiled_path: compute() {k} differs after the events")
+    if min(events.values()) <= 0:
+        raise AssertionError(f"compiled_path: no replay after an event: {events}")
+    after_events = graph_stats(_coll_members(cap))
+    del cap, eag
+
+    # where an update's time goes, captured and eager (after three warm-up
+    # updates: eager, capture, replay)
+    prof = {
+        "captured": profile_updates(build_compiled(mtt, dev), preds, target, BATCH),
+        "eager": profile_updates(eager_twin(build_compiled(mtt, dev)), preds, target, BATCH),
+    }
+    # every batch of the window is a replay: K1's records on the card show
+    # that the kernel runs inside the graphs (late in a run the profiler can
+    # drop a few records, so the share is reported, not required whole)
+    if not prof["captured"]["port_kernel_records_per_batch"]["binned_counters_kernel"] > 0:
+        raise AssertionError(f"compiled_path: no record of K1 on the card in a window of replays: {prof['captured']['port_kernel_records_per_batch']}")
+
+    # one update of each kernel captured and held bit-equal over replays
+    cm_batches = [(preds[i * BATCH:(i + 1) * BATCH], target[i * BATCH:(i + 1) * BATCH]) for i in range(CAPTURE_UPDATES)]
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    q_batches = [(torch.empty(STREAM_BATCH, device=dev).log_normal_(0.0, 1.0, generator=g),) for _ in range(CAPTURE_UPDATES)]
+    kernel_checks = {
+        "histogram": capture_check(lambda: mtt.ConfusionMatrix(CLASSES, on_invalid="warn", device=dev), cm_batches, lambda: k2.launch_count),
+        "compactor_fold": capture_check(lambda: mtt.QuantileSketch(eps=0.01, device=dev), q_batches, lambda: k3.launch_count),
+    }
+    if kernel_checks["histogram"]["replays"] != CAPTURE_UPDATES - 1:
+        raise AssertionError(f"compiled_path: the guarded ConfusionMatrix did not replay: {kernel_checks['histogram']}")
+    del q_batches
+
+    def side(name):
+        t = times[name]
+        return {
+            "update_p50_ms": _p(t["update"], 50),
+            "update_p99_ms": _p(t["update"], 99),
+            "forward_p50_ms": _p(t["forward"], 50),
+            "first_update_ms": t["update"][0] * 1e3,
+            "rows_per_s": ROWS / (sum(t["update"]) + sum(t["forward"])),
+            "device_ops_per_batch": prof[name]["device_ops_per_batch"],
+            "blocking_reads_per_batch": prof[name]["stream_syncs_per_batch"],
+            "device_idle_share": prof[name]["device_idle_share"],
+            "profile": prof[name],
+        }
+
+    emit({
+        "phase": "compiled_path",
+        "config": {"rows": ROWS, "classes": CLASSES, "thresholds": THRESHOLDS, "batch": BATCH, "seed": SEED, "forward_every": FORWARD_EVERY,
+                   "members": {"acc1": "Accuracy, drop, padded", "acc5": "Accuracy(top_k=5), drop, padded", "bap": "BinnedAveragePrecision(100), warn, unpadded"}},
+        "batches": n_batches,
+        "captured": side("captured"),
+        "eager": side("eager"),
+        "update_p50_eager_over_captured": _p(times["eager"]["update"], 50) / _p(times["captured"]["update"], 50),
+        "graphs_after_epoch": epoch_graphs,
+        "graphs_after_events": after_events,
+        "replays_after_event": events,
+        "k1_launches_through_replays": k1_captured,
+        "bap_updates": bap_updates,
+        "graph_pool_bytes": pool_bytes,
+        "kernel_captures": kernel_checks,
+        "states_bit_equal_after_every_batch": True,
+    })
+    return k1_captured, kernel_checks
+
+
+def serve_plan(rows, seed):
+    """Ragged requests over ``rows``: a tier drawn uniformly, then a size
+    uniformly within it; ``[(start, size), ...]``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    plan, off = [], 0
+    while off < rows:
+        lo, hi = SERVE_SPANS[SERVE_LADDER[int(rng.integers(0, len(SERVE_LADDER)))]]
+        n = min(int(rng.integers(lo, hi + 1)), rows - off)
+        plan.append((off, n))
+        off += n
+    return plan
+
+
+def _serving_proto(mtt, dev):
+    """The served collection. BAP cannot pad (no row mask), so ragged
+    requests would capture a graph for every size: it is served eager."""
+    proto = build_compiled(mtt, dev)
+    object.__setattr__(_coll_members(proto)["bap"], "jittable_update", False)
+    return proto
+
+
+def _replica_captures(loop):
+    return sum(st["captures"] for r in loop._replicas for st in graph_stats(_coll_members(r)).values())
+
+
+def phase_with_ladder(ladder, fn, *args):
+    """``fn(*args)`` with ``METRICS_TPU_PAD_LADDER`` set to ``ladder``."""
+    import os
+
+    from metrics_tpu_torch.ops import padding
+
+    old = os.environ.get("METRICS_TPU_PAD_LADDER")
+    os.environ["METRICS_TPU_PAD_LADDER"] = ",".join(str(t) for t in ladder)
+    padding.reset_padding_state()
+    try:
+        return fn(*args)
+    finally:
+        if old is None:
+            os.environ.pop("METRICS_TPU_PAD_LADDER", None)
+        else:
+            os.environ["METRICS_TPU_PAD_LADDER"] = old
+        padding.reset_padding_state()
+
+
+def phase_serving(preds, target):
+    """The served ImageNet evaluation: the epoch's rows as ragged requests
+    into ``ServeLoop(workers=4, warmup=...)``."""
+    import threading
+
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import binned_counters as k1
+    from metrics_tpu_torch.ops import padding
+
+    dev = preds.device
+    plan = serve_plan(ROWS, SEED + 11)
+    example = (preds[:BATCH].cpu().numpy(), target[:BATCH].cpu().numpy())
+    k1.reset_launch_count()
+    t0 = time.perf_counter()
+    loop = mtt.ServeLoop(_serving_proto(mtt, dev), workers=SERVE_WORKERS, queue_size=len(plan) + 1, warmup=mtt.Warmup(example))
+    latencies = []
+    timed_updates(loop, latencies, threading.Lock())
+    if not loop.wait_warmup(300):
+        raise AssertionError("serving_path: the warmup did not end")
+    warm = loop.health()["serving"]["warmup"]
+    warm_total_s = time.perf_counter() - t0
+    captured_at_warmup = _replica_captures(loop)
+    expected_graphs = SERVE_WORKERS * 2 * len(SERVE_LADDER)
+    if warm["status"] != "done" or warm["graphs_captured"] != expected_graphs or captured_at_warmup != expected_graphs:
+        raise AssertionError(f"serving_path: warmup {warm}, {captured_at_warmup} graphs held, expected {expected_graphs}")
+    accepted = []
+    t1 = time.perf_counter()
+    for off, n in plan:
+        if loop.offer(preds[off:off + n], target[off:off + n]):
+            accepted.append((off, n))
+    if not loop.drain(300):
+        raise AssertionError("serving_path: the loop did not drain")
+    serve_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    loop.report()
+    stale_ms = (time.perf_counter() - t2) * 1e3
+    t3 = time.perf_counter()
+    view = loop.report(fresh=True, deadline_s=120)
+    fresh_ms = (time.perf_counter() - t3) * 1e3
+    loop.stop()
+    stats = view["stats"]
+    if not view["fresh"] or stats["accepted"] + stats["shed"] != stats["offered"] or stats["failed"] or stats["processed"] != stats["accepted"]:
+        raise AssertionError(f"serving_path: report {view['fresh']}, stats {stats}")
+    request_captures = _replica_captures(loop) - captured_at_warmup
+    if request_captures:
+        raise AssertionError(f"serving_path: {request_captures} captures on the request path after wait_warmup()")
+    bap_updates = sum(_coll_members(r)["bap"].update_count for r in loop._replicas)
+    k1_serving = k1.launch_count
+    if not (k1_serving == bap_updates == len(accepted)):
+        raise AssertionError(f"serving_path: K1 {k1_serving} launches, {bap_updates} BAP updates, {len(accepted)} accepted requests")
+    replays = sum(st["replays"] for r in loop._replicas for st in graph_stats(_coll_members(r)).values())
+    # one eager collection over the accepted requests, as they were sized
+    ref = eager_twin(build_compiled(mtt, dev))
+    for off, n in accepted:
+        ref.update(preds[off:off + n], target[off:off + n])
+    states_bit_equal(loop._last_reporter, ref, "serving_path: the merged view against one eager collection")
+    want = ref.compute()
+    for k in want:
+        x, z = (torch.stack(view["value"][k]), torch.stack(want[k])) if isinstance(want[k], list) else (view["value"][k], want[k])
+        if not torch.equal(x, z):
+            raise AssertionError(f"serving_path: reported {k} differs from the eager collection over the accepted rows")
+    by_tier = {}
+    for n, dt in latencies:
+        by_tier.setdefault(padding.tier_for(n), []).append(dt)
+    emit({
+        "phase": "serving_path",
+        "config": {"rows": ROWS, "classes": CLASSES, "workers": SERVE_WORKERS, "ladder": list(SERVE_LADDER),
+                   "requests": len(plan), "seed": SEED + 11, "bap": "served eager: it takes no row mask, so it cannot pad"},
+        "stats": stats,
+        "rows_per_s": sum(n for _, n in accepted) / serve_s,
+        "request_update_ms_by_tier": {str(t): {"p50": _p(v, 50), "p99": _p(v, 99), "requests": len(v)} for t, v in sorted(by_tier.items())},
+        "report_stale_ms": stale_ms,
+        "report_fresh_ms": fresh_ms,
+        "warmup": warm,
+        "warmup_and_start_s": warm_total_s,
+        "graphs_captured": captured_at_warmup,
+        "graphs_expected": f"{SERVE_WORKERS} replicas x 2 padded members x {len(SERVE_LADDER)} tiers = {expected_graphs}",
+        "captures_on_request_path": request_captures,
+        "replays": replays,
+        "k1_launches": k1_serving,
+        "bap_updates": bap_updates,
+        "values_equal_eager_over_accepted_rows": True,
+    })
+    return k1_serving
+
+
+def timed_updates(loop, out, lock):
+    """Wrap each replica's ``update`` to append ``(rows, seconds)`` to
+    ``out``: the update and a synchronize of the worker's stream."""
+    import torch
+
+    for replica in loop._replicas:
+        def timed(*args, _update=replica.update, **kwargs):
+            t = time.perf_counter()
+            _update(*args, **kwargs)
+            torch.cuda.current_stream().synchronize()
+            with lock:
+                out.append((args[0].shape[0], time.perf_counter() - t))
+        replica.update = timed
+
+
+def phase_coldstart(preds, target):
+    """The first request at each tier on fresh loops, with and without
+    warmup, timed on the worker (the update and a synchronize)."""
+    import threading
+
+    import torch
+
+    import metrics_tpu_torch as mtt
+
+    dev = preds.device
+    example = (preds[:BATCH].cpu().numpy(), target[:BATCH].cpu().numpy())
+    first = {"cold": {t: [] for t in SERVE_LADDER}, "warm": {t: [] for t in SERVE_LADDER}}
+    warm_wall = []
+    for kind in ("cold", "warm", "cold", "warm") * ((COLDSTART_LOOPS + 1) // 2):
+        if len(first[kind][SERVE_LADDER[0]]) >= COLDSTART_LOOPS:
+            continue
+        spec = mtt.Warmup(example) if kind == "warm" else None
+        loop = mtt.ServeLoop(_serving_proto(mtt, dev), workers=1, warmup=spec)
+        latencies = []
+        timed_updates(loop, latencies, threading.Lock())
+        try:
+            if spec is not None:
+                if not loop.wait_warmup(300) or loop.health()["serving"]["warmup"]["status"] != "done":
+                    raise AssertionError(f"coldstart_path: warmup {loop.health()['serving']['warmup']}")
+                warm_wall.append(loop.health()["serving"]["warmup"]["wall_s"])
+            for tier in sorted(SERVE_LADDER, reverse=True):
+                torch.cuda.synchronize()
+                loop.offer(preds[:tier], target[:tier])
+                if not loop.drain(120):
+                    raise AssertionError("coldstart_path: a first request did not finish")
+            captures = _replica_captures(loop)
+        finally:
+            loop.stop()
+        for n, dt in latencies:
+            first[kind][n].append(dt)
+        if kind == "warm" and captures != 2 * len(SERVE_LADDER):
+            raise AssertionError(f"coldstart_path: a warmed loop holds {captures} graphs")
+    emit({
+        "phase": "coldstart_path",
+        "config": {"loops": COLDSTART_LOOPS, "workers": 1, "ladder": list(SERVE_LADDER), "order": "largest tier first",
+                   "timed": "on the worker: the update and a synchronize of its stream"},
+        "first_request_ms": {kind: {str(t): {"p50": _p(v, 50), "p99": _p(v, 99)} for t, v in tiers.items()} for kind, tiers in first.items()},
+        "warmup_wall_s_p50": statistics.median(warm_wall),
+        "warmup_wall_s": warm_wall,
+    })
+
+
 def main():
     try:
         import torch
@@ -4702,6 +5235,10 @@ def main():
         k3_times(device, k3_launches, k3_err, k3_fold_err, q_state, first_batch),
     ]
     kernels[1]["confmat_shape"] = k2_confmat_times(preds, target, full_launches["histogram"])
+    # the compiled update and serving, after the kernels line's profiler windows
+    k1_compiled_launches, capture_checks = phase_compiled(preds, target)
+    k1_serving_launches = phase_with_ladder(SERVE_LADDER, phase_serving, preds, target)
+    phase_with_ladder(SERVE_LADDER, phase_coldstart, preds, target)
     del preds, target, q_state, first_batch
     torch.cuda.empty_cache()
     phase_retrieval(device)
@@ -4718,12 +5255,15 @@ def main():
         "main_path": k1_launches, "fused_dist_path": k1_fused_launches, "overlapped_path": k1_overlapped_launches,
         "full_classification_path": full_launches["binned_counters"], "full_classification_dist": k1_full_dist_launches,
         "pure_path": k1_pure_launches, "sliced_path": k1_sliced_launches,
+        "compiled_path": k1_compiled_launches, "serving_path": k1_serving_launches,
     }
     kernels[1]["launches_by_path"] = {
         "dist_path": k2_launches, "full_classification_path": full_launches["histogram"],
         "multilabel_path": k2_multilabel_launches, "full_classification_dist": k2_full_dist_launches,
+        "compiled_path_capture_check": capture_checks["histogram"]["launches"]["captured"],
     }
-    kernels[2]["launches_by_path"] = {"stream_path": k3_launches, "fused_sketch_path": k3_fused_launches, "quantized_sketch_path": k3_quantized_launches}
+    kernels[2]["launches_by_path"] = {"stream_path": k3_launches, "fused_sketch_path": k3_fused_launches, "quantized_sketch_path": k3_quantized_launches,
+                                      "compiled_path_capture_check": capture_checks["compactor_fold"]["launches"]["captured"]}
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -6,7 +6,7 @@ passes ``device="cpu"``; the kernels that the JAX package wrote in Pallas for
 the TPU are CUDA kernels for Hopper here (``csrc/``), built on first use.
 This package imports neither JAX nor ``metrics_tpu``.
 """
-from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
+from metrics_tpu_torch.aggregation import BaseAggregator, CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.classification.accuracy import Accuracy
 from metrics_tpu_torch.classification.auc import AUC
 from metrics_tpu_torch.classification.auroc import AUROC
@@ -34,6 +34,7 @@ from metrics_tpu_torch.classification.specificity import Specificity
 from metrics_tpu_torch.classification.stat_scores import StatScores
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import CompositionalMetric, Metric
+from metrics_tpu_torch.parallel.async_sync import AsyncSyncScheduler
 from metrics_tpu_torch.pure import (
     MetricDef,
     OverlappedDef,
@@ -68,8 +69,8 @@ from metrics_tpu_torch.retrieval import (
     RetrievalRecallAtFixedPrecision,
     RetrievalRPrecision,
 )
-from metrics_tpu_torch.sliced import SlicedMetric, SlicedValue
-from metrics_tpu_torch.utilities.guard import FaultCounters
+from metrics_tpu_torch.sliced import SlicedMetric, SlicedValue, slices_max_labels
+from metrics_tpu_torch.utilities.guard import FAULT_CLASSES, FaultCounters
 from metrics_tpu_torch.streaming import (
     CountMinSketch,
     CountMinState,
@@ -81,6 +82,7 @@ from metrics_tpu_torch.streaming import (
     WindowedMetric,
 )
 from metrics_tpu_torch.resilience.health import health_report
+from metrics_tpu_torch.serving import ServeLoop, Warmup
 from metrics_tpu_torch.wrappers import (
     BootStrapper,
     ClasswiseWrapper,
@@ -91,6 +93,9 @@ from metrics_tpu_torch.wrappers import (
 
 __all__ = [
     "AUC",
+    "AsyncSyncScheduler",
+    "BaseAggregator",
+    "FAULT_CLASSES",
     "AUROC",
     "Accuracy",
     "AveragePrecision",
@@ -155,6 +160,7 @@ __all__ = [
     "RetrievalRPrecision",
     "RetrievalRecall",
     "RetrievalRecallAtFixedPrecision",
+    "ServeLoop",
     "SlicedMetric",
     "SlicedValue",
     "SpearmanCorrCoef",
@@ -164,10 +170,12 @@ __all__ = [
     "SymmetricMeanAbsolutePercentageError",
     "TweedieDevianceScore",
     "WeightedMeanAbsolutePercentageError",
+    "Warmup",
     "WindowedMetric",
     "bootstrap_functionalize",
     "functionalize",
     "health_report",
     "overlapped_functionalize",
     "sliced_functionalize",
+    "slices_max_labels",
 ]

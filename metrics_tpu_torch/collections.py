@@ -4,7 +4,9 @@
 Compute groups: after the first ``update`` the members whose states are
 equal (tensors, lists, rings and sketch states alike) form a group, and from then on only the group's first member (its
 head) runs ``update``. The other members' states point at the head's
-tensors, which the head updates in place. ``items``/``values``/``[]`` hand
+tensors, which the head updates in place (on the card the head's update
+is captured, ``_capture.py``, and its replays write into those same
+tensors). ``items``/``values``/``[]`` hand
 out copies by default, so a caller cannot write into a shared state by
 accident; loaded states stand until the next update.
 

@@ -3,7 +3,7 @@
 A metric holds named state tensors on one device, registered with
 :meth:`Metric.add_state`. ``update`` accumulates a batch into them,
 ``compute`` turns them into a value, and ``forward`` does both, returning the
-batch's own value. Updates run eagerly; there is no compiled update.
+batch's own value.
 
 The device is explicit: ``Metric(device=None)`` means ``"cuda"`` and raises
 where there is no CUDA device, so a metric never runs on the CPU unless the
@@ -43,12 +43,24 @@ the card the cycle runs on a stream of its own after the clone's event, and
 a read waits on the view's event. ``reset``, ``clone``, deepcopy and
 pickling drop the scheduler and its thread.
 
+The compiled update (``_capture.py``, the counterpart of
+``_make_update_jit``): on a CUDA metric whose update can be compiled
+(``jittable_update``, no list state) and that neither computes on the CPU
+nor runs ``debug_checks``, the first update at a key (argument shapes, the
+data-inferred attributes, the states' identity) runs eagerly with the value
+checks, the next captures the update into a CUDA graph, and every later one
+replays it. A capture that fails turns ``jittable_update`` off and runs the
+update eagerly. ``forward``'s updates and ``compute`` stay eager.
+``debug_checks=True`` keeps the update eager and fails after it when a
+float state holds NaN or an infinity (one read back).
+
 The fault channel (``on_invalid``, ``utilities/guard.py``): with a policy
 other than ``"ignore"`` every update is validated by tensor ops, the faults
 are counted in the ``_faults`` sum state, ``"drop"`` masks the offending
 rows, and ``"warn"``/``"error"`` act at ``compute()`` from the synced
 counts. Such an update runs without the value checks of
-``utilities/checks.py`` and reads nothing back (stated difference D1).
+``utilities/checks.py`` and reads nothing back; so does a captured update
+(stated difference D1).
 
 The padding ladder (``pad_batches=True``, ``ops/padding.py``): every update
 batch pads up to a ladder tier on its own device, the pad rows masked
@@ -84,6 +96,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from metrics_tpu_torch._capture import UpdateGraphs, capturing
 from metrics_tpu_torch.ops.padding import pad_update_args
 from metrics_tpu_torch.ops.quantize import resolve_codec, validate_transport
 from metrics_tpu_torch.parallel.sync import distributed_available, fused_sync
@@ -110,7 +123,14 @@ Reduction = Union[str, Callable, None]
 # attributes rebuilt per instance, never copied or pickled: the bound
 # methods, and the overlapped mode's scheduler, lock and streams
 _BOUND = ("update", "compute", "_original_update", "_original_compute", "_update_signature")
-_PER_INSTANCE = _BOUND + ("_sync_scheduler", "_overlap_lock", "_sync_view_key", "_update_stream", "_side_stream", "_in_forward")
+_PER_INSTANCE = _BOUND + (
+    "_sync_scheduler", "_overlap_lock", "_sync_view_key", "_update_stream", "_side_stream", "_in_forward", "_update_graphs",
+)
+
+
+def jit_distributed_available() -> bool:
+    """Whether a sync would run (the JAX package's name for it)."""
+    return distributed_available()
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -208,10 +228,10 @@ class Metric:
 
     # whether ``update`` and ``compute`` run on tensors alone, without
     # reading values back to decide what to do; the pure layer
-    # (``pure.py``) refuses a metric that declares either False. The JAX
-    # package also turns a flag off after a failed trace of the jitted
-    # method; the port compiles nothing, so only the declared flags count
-    # (stated difference D30)
+    # (``pure.py``) refuses a metric that declares either False, and an
+    # update is captured only while ``jittable_update`` holds (a failed
+    # capture turns it off on the instance, as a failed trace does in the
+    # JAX package)
     jittable_update: bool = True
     jittable_compute: bool = True
 
@@ -233,6 +253,7 @@ class Metric:
         sync_on_compute: bool = True,
         on_overflow: str = "warn",
         on_invalid: str = "ignore",
+        debug_checks: bool = False,
         pad_batches: bool = False,
         process_group: Optional[Any] = None,
         dist_sync_fn: Optional[Callable] = None,
@@ -262,6 +283,9 @@ class Metric:
         # what an update does with invalid rows, and compute() with their
         # counts (utilities/guard.py)
         self.on_invalid = on_invalid
+        # strict mode: eager updates, each followed by a check that no float
+        # state holds NaN or an infinity
+        self.debug_checks = bool(debug_checks)
         # the fault total that the warn policy last reported
         self._faults_reported = 0
         # the padding ladder (ops/padding.py): every update batch pads up to
@@ -440,6 +464,27 @@ class Metric:
 
         return wrapped_func
 
+    def _can_jit_update(self) -> bool:
+        return self.jittable_update and not any(isinstance(d, list) for d in self._defaults.values())
+
+    def _update_graph_table(self) -> Optional[UpdateGraphs]:
+        """This metric's CUDA graphs (``_capture.py``), made at the first
+        update that may capture; None where nothing is captured (the CPU,
+        ``debug_checks``, an update that cannot be compiled, the updates
+        inside ``forward`` or inside another metric's captured update)."""
+        if self._in_forward or capturing() or self.compute_on_cpu or self.debug_checks or not self._can_jit_update():
+            return None
+        table = self.__dict__.get("_update_graphs")
+        if table is None and self.device.type == "cuda":
+            table = UpdateGraphs()
+            object.__setattr__(self, "_update_graphs", table)
+        return table
+
+    def _drop_update_graphs(self) -> None:
+        table = self.__dict__.get("_update_graphs")
+        if table is not None:
+            table.drop()
+
     def _run_update(self, update: Callable, args: tuple, kwargs: dict) -> None:
         self._computed = None
         self._update_count += 1
@@ -454,14 +499,40 @@ class Metric:
         n_padded = 0
         if self.pad_batches:
             args, kwargs, n_padded = pad_update_args(self, args, kwargs)
-        update(*args, **kwargs)
+        table = self._update_graph_table()
+        if table is not None:
+            table.run(self, update, args, kwargs)
+        else:
+            update(*args, **kwargs)
+        if self.debug_checks:
+            self._check_finite_states()
         if n_padded:
-            # the pad count is a shape difference, known on the host; a fill
-            # puts it on the device without a copy that blocks
-            count = torch.full((), n_padded, dtype=torch.int64, device=self.device)
-            self._faults = self._faults + FaultCounters.single(device=self.device, padded_rows=count)
+            # the pad count is a shape difference, known on the host: one
+            # add in place, outside any graph, without a copy that blocks
+            idx = _IDX["padded_rows"]
+            self._faults.counts[idx:idx + 1].add_(n_padded)
         if self.compute_on_cpu:
             self._move_list_states_to_host()
+
+    def _check_finite_states(self) -> None:
+        """``debug_checks``: fail when a float state (a tensor or a list's
+        tensors) holds NaN or an infinity, with one read back. JAX's
+        ``checkify.float_checks`` traps a NaN made by any operation of the
+        update; this traps it in the states (stated difference D36)."""
+        names, flags = [], []
+        for name, value in self._state.items():
+            for t in value if isinstance(value, list) else [value]:
+                if isinstance(t, Tensor) and t.is_floating_point():
+                    names.append(name)
+                    flags.append(torch.isfinite(t).all())
+        if not flags:
+            return
+        bad = sorted({n for n, ok in zip(names, torch.stack(flags).tolist()) if not ok})
+        if bad:
+            raise MetricsTPUUserError(
+                f"{type(self).__name__}(debug_checks=True): the update left NaN or an infinity in "
+                f"state(s) {bad}"
+            )
 
     def _move_list_states_to_host(self) -> None:
         """``compute_on_cpu``: the list states' tensors move to host memory,
@@ -1003,6 +1074,8 @@ class Metric:
         self._is_synced = False
         # the counts restart with the state, and so does the warn watermark
         self._faults_reported = 0
+        # new state tensors: the graphs that wrote into the old ones go
+        self._drop_update_graphs()
         self._restore_defaults()
 
     def clone(self) -> "Metric":
@@ -1048,6 +1121,7 @@ class Metric:
         }
         self._check_ring_capacity_consistency("load_state_dict", {**self._state, **loaded})
         if loaded:
+            self._drop_update_graphs()
             self._state.update(loaded)
             self._update_called = True
             self._computed = None
@@ -1242,6 +1316,7 @@ class Metric:
         }
 
     def _commit_snapshot_state(self, prepared: Dict[str, Any]) -> None:
+        self._drop_update_graphs()
         self._state.update(prepared["loaded"])
         self._update_count = prepared["update_count"]
         self._update_called = self._update_count > 0
@@ -1277,6 +1352,7 @@ class Metric:
         self.__dict__.setdefault("compute_on_cpu", False)
         self.__dict__.setdefault("dist_sync_on_step", False)
         self.__dict__.setdefault("sync_on_compute", True)
+        self.__dict__.setdefault("debug_checks", False)
         self._init_overlap()
         self._wrap_methods()
 

@@ -13,6 +13,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from typing import Dict, List, Optional
@@ -32,6 +33,39 @@ _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 # what the last build of each source took and what ptxas said about it
 build_info: Dict[str, Dict[str, object]] = {}
+
+
+# the wrappers' launch counts: one lock for every module's counter, and a
+# per-thread record of the launches that a CUDA-graph capture made (the
+# capture launches nothing; each replay of the graph launches them)
+_count_lock = threading.Lock()
+_recording = threading.local()
+
+
+def count_launch(module: str, counter: str = "launch_count", n: int = 1) -> None:
+    """Add ``n`` to ``<module>.<counter>``, the count that a kernel's wrapper
+    keeps of its launches, and to this thread's record while a capture
+    records (:func:`record_launches`)."""
+    mod = sys.modules[module]
+    with _count_lock:
+        setattr(mod, counter, getattr(mod, counter) + n)
+    record = getattr(_recording, "launches", None)
+    if record is not None:
+        record[(module, counter)] = record.get((module, counter), 0) + n
+
+
+class record_launches:
+    """Within the block, the launches that this thread's wrappers count are
+    also kept in ``self.launches``, ``{(module, counter): n}``."""
+
+    def __enter__(self) -> "record_launches":
+        self._outer = getattr(_recording, "launches", None)
+        self.launches: Dict[tuple, int] = {}
+        _recording.launches = self.launches
+        return self
+
+    def __exit__(self, *exc: object) -> None:
+        _recording.launches = self._outer
 
 
 def _nvcc() -> str:

@@ -71,7 +71,6 @@ def _binned_counter_update_cuda(
     preds: Tensor, target: Tensor, thresholds: Tensor, order: Optional[Tuple[Tensor, Tensor]] = None
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Launch the Hopper kernel on PyTorch's current stream."""
-    global launch_count
     _build.refuse_batched("K1 (ops/binned_counters.py)", preds, target, thresholds)
     n, c = preds.shape
     t = thresholds.shape[0]
@@ -93,7 +92,7 @@ def _binned_counter_update_cuda(
             )
         if err != 0:
             raise RuntimeError(f"binned_counters kernel launch failed with cudaError {err}")
-        launch_count += 1
+        _build.count_launch(__name__)
     tps, fps, fns = out.unbind(0)
     return tps, fps, fns
 

@@ -117,7 +117,6 @@ def _compactor_fold_cuda(
     a: Tensor, a_count: Tensor, b: Tensor, b_count: Tensor, k: int
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Launch the single-fold kernel on PyTorch's current stream."""
-    global fold_launch_count
     na, nb = a.shape[0], b.shape[0]
     a, b = a.contiguous(), b.contiguous()
     a_count = a_count.to(torch.int32).contiguous()
@@ -134,7 +133,7 @@ def _compactor_fold_cuda(
     )
     if err != 0:
         raise RuntimeError(f"compactor_fold kernel launch failed with cudaError {err}")
-    fold_launch_count += 1
+    _build.count_launch(__name__, "fold_launch_count")
     return items, count, promoted, pcount
 
 
@@ -262,7 +261,6 @@ def _cascade_cuda(
     other_counts: Optional[Tensor],
 ) -> Tuple[Tensor, Tensor]:
     """One launch of the cascade kernel on PyTorch's current stream."""
-    global launch_count
     L, k = items.shape
     merge = other_items is not None
     items = items.contiguous()
@@ -289,7 +287,7 @@ def _cascade_cuda(
         )
     if err != 0:
         raise RuntimeError(f"compactor_cascade kernel launch failed with cudaError {err}")
-    launch_count += 1
+    _build.count_launch(__name__)
     return out_items, out_counts
 
 

@@ -54,7 +54,6 @@ def _library() -> ctypes.CDLL:
 
 def _histogram_cuda(bucket_ids: Tensor, num_buckets: int) -> Tensor:
     """Launch the Hopper kernel on PyTorch's current stream."""
-    global launch_count
     _build.refuse_batched("K2 (ops/histogram.py)", bucket_ids)
     ids = _ids(bucket_ids).contiguous()
     out = torch.zeros(num_buckets, dtype=torch.int32, device=ids.device)
@@ -66,7 +65,7 @@ def _histogram_cuda(bucket_ids: Tensor, num_buckets: int) -> Tensor:
             err = fn(ids.data_ptr(), n, num_buckets, out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"histogram kernel launch failed with cudaError {err}")
-        launch_count += 1
+        _build.count_launch(__name__)
     return out
 
 

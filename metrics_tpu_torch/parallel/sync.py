@@ -891,3 +891,82 @@ def _quantized_wire_sync(
             out[i][name] = merged
         offset += size
 
+
+
+# --------------------------------------------------------------------------
+# one state, one leaf, one sketch (``group=`` in place of ``axis_name``)
+# --------------------------------------------------------------------------
+
+
+def sync_state(
+    state: Dict[str, Any],
+    reductions: Dict[str, Reduction],
+    group: Optional[Any] = None,
+    defaults: Optional[Dict[str, Any]] = None,
+    comm: Optional[Any] = None,
+) -> Dict[str, Any]:
+    """One metric's states synced over ``group`` through one
+    :func:`fused_sync`. As in the JAX package, a list state syncs to one
+    tensor, the concatenation of every rank's rows (an empty rank sends the
+    list's template from ``defaults``), and a ``None``-reduced tensor to the
+    ranks' values stacked on a new leading axis."""
+    flat: Dict[str, Any] = {}
+    reds: Dict[str, Reduction] = {}
+    for name, value in state.items():
+        fx = reductions[name]
+        if isinstance(value, list) or type(value) is tuple:
+            template = defaults.get(name) if defaults else None
+            value = _list_local(list(value), template, state)
+            fx = "cat" if fx in ("cat", None) else fx
+        flat[name], reds[name] = value, fx
+    (synced,) = fused_sync([flat], [reds], group, comm=comm, transport="exact")
+    return synced
+
+
+def sync_leaf(value: Tensor, reduce_fx: Reduction, group: Optional[Any] = None, comm: Optional[Any] = None) -> Tensor:
+    """One tensor synced by its reduction tag: one ``all_reduce`` for
+    ``sum``/``mean``/``max``/``min``, a gather for ``cat`` (the rows
+    concatenated), ``None`` (stacked) and a callable (applied to the
+    stacked rows)."""
+    return sync_state({"leaf": value}, {"leaf": reduce_fx}, group, comm=comm)["leaf"]
+
+
+def sync_sketch_state(value: Any, group: Optional[Any] = None, comm: Optional[Any] = None) -> Any:
+    """The union of every rank's sketch state: an elementwise sketch in one
+    ``all_reduce``, a quantile sketch through its packed payload and
+    ``sketch_merge`` in rank order (every rank computes the same sketch)."""
+    return sync_state({"sketch": value}, {"sketch": None}, group, comm=comm)["sketch"]
+
+
+# --------------------------------------------------------------------------
+# plain local reductions, kept for the reference's API
+# --------------------------------------------------------------------------
+
+
+def reduce(x: Tensor, reduction: Optional[str]) -> Tensor:
+    """``elementwise_mean``, ``sum`` or ``none`` of a tensor (local, no
+    communication)."""
+    if reduction == "elementwise_mean":
+        return torch.mean(x)
+    if reduction == "sum":
+        return torch.sum(x)
+    if reduction in ("none", None):
+        return x
+    raise ValueError("Reduction parameter unknown.")
+
+
+def class_reduce(num: Tensor, denom: Tensor, weights: Tensor, class_reduction: Optional[str] = "none") -> Tensor:
+    """A per-class fraction reduced ``micro``, ``macro``, ``weighted`` or
+    not at all; a class with a zero denominator counts as 0."""
+    valid = ("micro", "macro", "weighted", "none", None)
+    if class_reduction not in valid:
+        raise ValueError(f"Reduction parameter {class_reduction!r} unknown, choose from {valid}")
+    if class_reduction == "micro":
+        return torch.sum(num) / torch.sum(denom)
+    fraction = num.to(torch.float32) / torch.where(denom == 0, torch.ones_like(denom), denom)
+    fraction = torch.where(denom == 0, torch.zeros_like(fraction), fraction)
+    if class_reduction == "macro":
+        return torch.mean(fraction)
+    if class_reduction == "weighted":
+        return torch.sum(fraction * (weights.to(torch.float32) / torch.sum(weights)))
+    return fraction

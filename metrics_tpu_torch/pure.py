@@ -84,6 +84,13 @@ class MetricDef(NamedTuple):
     dropped: Optional[Callable[[Any], Tensor]] = None
     faults: Optional[Callable[[Any], Tensor]] = None
 
+    def entry_points(self) -> Dict[str, Callable]:
+        """The entry points a warmup would compile, by name, as the JAX
+        package names them: ``update`` takes ``(state, *batch)``,
+        ``compute`` takes ``(state,)``. The pure update is not captured
+        yet: it copies its state (D28) and runs every member (D27)."""
+        return {"update": self.update, "compute": self.compute}
+
 
 def _owned_tree(state: Any) -> Any:
     """A copy of every tensor of ``state`` (nested dicts, lists and
@@ -430,6 +437,18 @@ class OverlappedDef(NamedTuple):
     lag: Callable[[Dict[str, Any]], Tensor]
     faults: Optional[Callable[[Dict[str, Any]], Tensor]] = None
     dropped: Optional[Callable[[Dict[str, Any]], Tensor]] = None
+
+    def entry_points(self) -> Dict[str, Callable]:
+        """The entry points by name, as the JAX package names them:
+        ``update`` takes ``(state, *batch)``; ``cycle``, ``read``,
+        ``read_fresh`` and ``lag`` take ``(state,)``."""
+        return {
+            "update": self.update,
+            "cycle": self.cycle,
+            "read": self.read,
+            "read_fresh": self.read_fresh,
+            "lag": self.lag,
+        }
 
 
 def _fused_sync_tree(

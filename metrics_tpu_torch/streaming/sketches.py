@@ -64,6 +64,11 @@ _U32 = 0xFFFFFFFF
 _INF = float("inf")
 
 
+def is_sketch_state(value: Any) -> bool:
+    """Whether ``value`` is a sketch state, by its class marker."""
+    return getattr(type(value), "is_sketch_state", False)
+
+
 def _hash_keys(values: Tensor) -> Tensor:
     """uint32 hash keys as int64: a float by its float32 bits (``-0.0`` and
     denormals as ``+0.0``, so equal values hash equally), an integer

@@ -1,6 +1,7 @@
 """Shared tensor utilities (counterpart of ``metrics_tpu/utilities/data.py``)."""
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from metrics_tpu_torch.ops.bucketed_rank import flush_denormals
@@ -130,6 +131,13 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     return torch.zeros_like(x, dtype=torch.int32).scatter(dim, idx, 1)
 
 
+def to_categorical(x: Tensor, argmax_dim: int = 1) -> Tensor:
+    """Probabilities or one-hot rows to integer labels by argmax (the first
+    maximum wins, as ``jnp.argmax``); denormals compare as zero, as XLA's
+    do."""
+    return torch.argmax(flush_denormals(x), dim=argmax_dim)
+
+
 def jax_linspace(start: float, stop: float, num: int, device: Union[str, torch.device, None] = None) -> Tensor:
     """float32 ``jnp.linspace(start, stop, num)``, bit for bit.
 
@@ -174,3 +182,16 @@ def _bincount(x: Tensor, minlength: int) -> Tensor:
     x = x.to(torch.int64)
     safe = torch.where((x >= 0) & (x < minlength), x, minlength)
     return torch.bincount(safe, minlength=minlength + 1)[:minlength].to(torch.int32)
+
+
+def get_group_indexes(indexes: Any) -> List[np.ndarray]:
+    """The positions of each query id, in the order the ids first appear
+    (a host-side helper kept for the reference's API; the retrieval metrics
+    group on the device)."""
+    if isinstance(indexes, Tensor):
+        indexes = indexes.detach().cpu().numpy()
+    idx = np.asarray(indexes).reshape(-1)
+    groups: Dict[int, List[int]] = {}
+    for i, v in enumerate(idx.tolist()):
+        groups.setdefault(v, []).append(i)
+    return [np.asarray(g, dtype=np.int64) for g in groups.values()]

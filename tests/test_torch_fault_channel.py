@@ -305,12 +305,28 @@ def _no_readback():
 
 
 def test_d1_value_checks_against_jax():
+    from metrics_tpu_torch._capture import UpdateGraphs
+
     preds = np.array([[0.2, 0.5, 0.3], [0.6, 0.3, 0.1]], np.float32)
     target = np.array([0, 3])
-    # unguarded: the port checks the label and raises; JAX's compiled update does not
+    # unguarded and eager (the CPU): the port checks the label and raises;
+    # JAX's compiled update does not
     with pytest.raises(ValueError, match="highest label"):
         mtt.Accuracy(num_classes=3, device="cpu").update(torch.from_numpy(preds), torch.from_numpy(target))
     mt.Accuracy(num_classes=3).update(jnp.asarray(preds), jnp.asarray(target))
+    # unguarded and captured (the card; here a stand-in capture step that
+    # replays the body eagerly): the first update at a key is eager and
+    # checks, a replay does not, as JAX's jitted update never does
+    good = np.array([0, 2])
+    captured = mtt.Accuracy(num_classes=3, device="cpu")
+    object.__setattr__(captured, "_update_graphs", UpdateGraphs(capture=lambda run, pool: run))
+    for y in (good, good, target):
+        captured.update(torch.from_numpy(preds), torch.from_numpy(y))
+    jm = mt.Accuracy(num_classes=3)
+    for y in (good, good, target):
+        jm.update(jnp.asarray(preds), jnp.asarray(y))
+    assert captured.__dict__["_update_graphs"].replays == 2
+    assert float(captured.compute()) == float(jm.compute())
     for policy in ("warn", "drop"):
         ours, ref = _twins("Accuracy", policy, num_classes=3)
         tp, tt = torch.from_numpy(preds), torch.from_numpy(target)

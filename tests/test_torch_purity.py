@@ -219,6 +219,24 @@ def test_retrieval_sliced_and_padding_imports_load_no_jax_and_build_nothing():
     assert proc.stdout.strip() == "ok"
 
 
+def test_serving_and_capture_imports_load_no_jax_build_nothing_and_start_no_thread():
+    """The compiled update and serving import no JAX and nothing of
+    ``metrics_tpu``, build no kernel and start no thread."""
+    code = (
+        "import sys, threading\n"
+        "import metrics_tpu_torch, metrics_tpu_torch.serving, metrics_tpu_torch._capture\n"
+        "from metrics_tpu_torch.ops import _build\n"
+        "assert _build._loaded == {} and _build.build_info == {}\n"
+        "assert threading.active_count() == 1\n"
+        "assert 'triton' not in sys.modules and not any(m.split('.')[0] in ('jax', 'metrics_tpu') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_sliced_metric_and_retrieval_rings_ask_for_cuda(monkeypatch):
     """A ``SlicedMetric`` takes its device from the metric it wraps; a
     retrieval metric in the capacity mode keeps its rings on its device."""
