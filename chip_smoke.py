@@ -177,7 +177,39 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    ``wait_warmup()``; per-request update p50/p99 by tier, ``report()``
    stale and fresh;
 25. cold start: the first request at each tier on fresh loops, with and
-   without warmup, p50/p99 over five loops each, and the warmup's wall time.
+   without warmup, p50/p99 over five loops each, and the warmup's wall time;
+26. image functional path (after the multi-process phases): every
+   functional image metric on one seeded batch on the card against the
+   port's CPU run (PSNR, SSIM, MS-SSIM, UQI and the gradients at
+   16x3x256x256, ERGAS, SAM and D-lambda at 16x8x128x128), and SSIM p50 at
+   2x3x512x512 (``bench.py``'s shape) in both forms of the separable window;
+27. FID-50K: the protocol of class-conditional ImageNet 256x256 generation
+   (DiT), cut to FID-10K for the script's time: 10,000 seeded "real" and
+   10,000 "generated" 3x256x256 uint8 images made on the card a batch at a
+   time, through one
+   ``InceptionV3Extractor`` (fid variant, seeded weights, resize 256 ->
+   299) in batches of 250, each forward giving the 2048 features and the
+   1008 logits; ``FrechetInceptionDistance`` and ``KernelInceptionDistance``
+   (100 subsets of 1000) in the list mode, ``InceptionScore`` (10 splits)
+   on the generated logits, and ``FrechetInceptionDistance(capacity=65536)``
+   whose update must be captured (one graph a side) and replayed on every
+   later batch. FID within ``1e-3`` of a float64 FID whose ``sqrtm`` scipy
+   takes on the host, the capacity mode within ``1e-3`` of the list mode,
+   the real set against itself within ``1e-4`` of the traces that cancel in
+   it in float32 (the card's float32 products give it a floor of about
+   3e-5 of them: ``tools/fid_float32_floor.py``) and within ``1e-3`` in
+   float64, KID (float64 on the
+   card) and IS (float64 numpy) on the same subsets and permutation, the
+   first 32 features and logits of each set against the port's CPU run; images/s in float32
+   and, on eight batches, in TF32, the extractor's peak memory (and what
+   earlier phases still held when its loop began), each
+   compute's seconds and the ladder's rung;
+28. LPIPS and SSIM path: 50,000 pairs made the same way through
+   ``LearnedPerceptualImagePatchSimilarity(net_type="alex")``, streaming
+   SSIM and MS-SSIM and PSNR (each update captured but LPIPS's), each held
+   against the port's CPU run on the first 128 pairs and the streamed SSIM
+   against the accumulate mode over the first 1024; pairs/s and update
+   p50 of each. The image phases launch none of K1-K3 (their counts read 0).
 
 Every CUDA metric of the earlier phases captures its update as well (the
 port's default on the card); their checks against the CPU runs hold the
@@ -189,6 +221,7 @@ ranks only load the libraries. A rank that fails makes the script fail.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout of the repository, the script prints no result and exits 1.
 """
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -357,6 +390,42 @@ FP32_OPS_PER_S = 67e12
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")  # host calls that launch a kernel, as the profiler names them
 RECORDED_SHARE = 0.95  # least share of a profiler window's launches whose records on the card it must keep
+# the image slice (phases 26-28)
+IMG_SIZE = 256  # ImageNet 256x256, the class-conditional generation protocol (DiT)
+# FID-50K's 50,000 real and 50,000 generated images, cut to FID-10K: the
+# float32 extractor reads 1,162-1,460 images/s on the card, and at 100,000
+# images the three image phases took over their 150 s (PERF.md §4)
+FID_IMAGES = 10_000
+PAIR_IMAGES = 50_000  # the LPIPS and SSIM phase's pairs: FID-50K's count
+FID_BATCH = 250
+FID_CAPACITY = 65_536  # the capacity mode's rings: every feature row fits
+IS_SPLITS = 10  # the 50,000-sample, 10-split protocol of Salimans et al. (2016)
+KID_SUBSETS = 100  # KernelInceptionDistance's defaults
+KID_SUBSET_SIZE = 1000
+FID_CPU_IMAGES = 32  # images of each set held against the port's CPU run (cut from 128 for the phase's time)
+TF32_BATCHES = 8  # batches timed through the extractor in TF32 beside float32
+PAIR_CPU = 128  # pairs held against the port's CPU run
+PAIR_STREAM_CHECK = 1024  # pairs of the streamed-against-accumulated SSIM check
+IMG_FUNCTIONAL_RGB = (16, 3, 256, 256)
+IMG_FUNCTIONAL_MS = (16, 8, 128, 128)  # multispectral bands for ERGAS, SAM and D-lambda
+SSIM_BENCH_SHAPE = (2, 3, 512, 512)  # bench.py's _phase_ssim
+SSIM_BENCH_ITERS = 30
+IMG_RTOL = 1e-5  # float32 windows, pools and convolutions summed in another order on the card
+IMG_ATOL = 1e-5
+FID_RTOL = 1e-3  # against scipy's float64 sqrtm, and the capacity mode against the list mode,
+FID_ATOL = 1e-3  # with this atol: the bound of tests/image/test_image.py:229
+# FID of the real set against itself in float32, over the two traces
+# (2 tr(sigma)) that cancel in it: the card read -1.02e-3 on traces of
+# 16.69, 3.1e-5 of them, with float32 products 5.8e-7 off float64 (not
+# TF32) and the same ladder in float64 on the same covariances at -4.6e-13;
+# on the CPU JAX's float32 ladder read -2.7e-4 and the port's -2.0e-4 there
+# (tools/fid_float32_floor.py): the floor is the card's float32 products
+FID_SELF_RTOL = 1e-4
+FID_SELF_ATOL = 1e-3  # the same in float64 (frechet_inception_distance_from_features, D47)
+KID_IS_RTOL = 1e-4  # float32 on the card against float64 numpy on the same subsets and permutation
+KID_ATOL = 1e-6  # besides KID_IS_RTOL: a subset's MMD sums 10^6 float32 kernel values of order 1
+FEATURE_RTOL = 1e-3  # InceptionV3 features and logits, card against CPU, float32 convolutions on both
+FEATURE_ATOL = 5e-4  # 1.25e-3 of the features' mean magnitude (about 0.4): the card read up to 2.1e-4 off (cuDNN's float32 algorithms)
 
 
 def emit(obj):
@@ -5181,6 +5250,512 @@ def phase_coldstart(preds, target):
     })
 
 
+# -- the image slice (phases 26-28) ------------------------------------------
+
+
+def _kernel_counts():
+    from metrics_tpu_torch.ops import binned_counters, compactor, histogram
+
+    return {"binned_counters": binned_counters.launch_count, "histogram": histogram.launch_count,
+            "compactor_fold": compactor.launch_count, "compactor_fold_single": compactor.fold_launch_count}
+
+
+def _reset_kernel_counts():
+    from metrics_tpu_torch.ops import binned_counters, compactor, histogram
+
+    for kernel in (binned_counters, compactor, histogram):
+        kernel.reset_launch_count()
+
+
+def _check_no_kernel_launched(phase):
+    """The image path launches none of K1-K3: their counts, set to 0 just
+    before the phase, read 0 after it."""
+    counts = _kernel_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: the image path launched {counts}")
+    return counts
+
+
+def _close_or_fail(card, cpu, rtol, atol, what):
+    """``card`` within ``rtol``/``atol`` of ``cpu`` (and finite); returns the
+    largest absolute difference."""
+    import torch
+
+    card, cpu = card.detach().double().cpu(), cpu.detach().double()
+    if card.shape != cpu.shape or not bool(torch.isfinite(card).all()) or not torch.allclose(card, cpu, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: the card's {card.flatten()[:4].tolist()} against the CPU's {cpu.flatten()[:4].tolist()} (rtol={rtol}, atol={atol})")
+    return float((card - cpu).abs().max())
+
+
+def _feature_err(card, cpu):
+    """A net's outputs on the card against the CPU run: the largest absolute
+    difference, the largest relative one where the CPU's value is at least
+    0.05, and whether every element is within FEATURE_RTOL/FEATURE_ATOL."""
+    import torch
+
+    card, cpu = card.detach().double().cpu(), cpu.detach().double()
+    diff = (card - cpu).abs()
+    big = cpu.abs() >= 0.05
+    return {"max_abs_err": float(diff.max()), "max_rel_err_where_at_least_0.05": float((diff[big] / cpu.abs()[big]).max()) if bool(big.any()) else None,
+            "within": bool(torch.isfinite(card).all()) and bool(torch.allclose(card, cpu, rtol=FEATURE_RTOL, atol=FEATURE_ATOL))}
+
+
+def _timed_p50_ms(fn, iters):
+    """p50 of ``fn`` in ms, each call between two synchronizes, after one warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return _p(times, 50)
+
+
+def _separable_banded(x, factors):
+    """The JAX package's form of the separable window, for the timing: each
+    pass a product with the banded matrix ``B[i, j] = f[i - j]`` over its
+    axis (its convolution past 2048 pixels is not needed at 512)."""
+    import torch
+
+    out = x
+    for dim, f in enumerate(factors):
+        axis = 2 + dim
+        k, size_in = f.shape[-1], out.shape[axis]
+        d = torch.arange(size_in, device=f.device)[:, None] - torch.arange(size_in - k + 1, device=f.device)[None, :]
+        band = torch.where((d >= 0) & (d < k), f[d.clamp(0, k - 1)], torch.zeros((), dtype=f.dtype, device=f.device))
+        out = torch.matmul(out.movedim(axis, -1), band).movedim(-1, axis)
+    return out
+
+
+def phase_image_functional(dev):
+    """Every functional image metric on one seeded batch on the card
+    against the port's CPU run, and SSIM p50 at 2x3x512x512 in both forms
+    of the separable window."""
+    import torch
+
+    import metrics_tpu_torch.functional.image as tf
+    from metrics_tpu_torch.functional.image import ssim as ssim_module
+    from metrics_tpu_torch.utilities.compute import full_float32
+
+    t_phase = time.perf_counter()
+    _reset_kernel_counts()
+    g = torch.Generator().manual_seed(SEED + 12)
+    rgb = torch.rand(IMG_FUNCTIONAL_RGB, generator=g)
+    rgb_t = (rgb + 0.05 * torch.randn(IMG_FUNCTIONAL_RGB, generator=g)).clamp(0, 1)
+    ms = torch.rand(IMG_FUNCTIONAL_MS, generator=g) + 0.1
+    ms_t = (ms * (1 + 0.05 * torch.randn(IMG_FUNCTIONAL_MS, generator=g))).clamp(min=0.01)
+    cases = {
+        "psnr": (tf.peak_signal_noise_ratio, rgb, rgb_t, {"data_range": 1.0}),
+        "psnr_dim": (tf.peak_signal_noise_ratio, rgb, rgb_t, {"data_range": 1.0, "dim": (1, 2, 3), "reduction": "none"}),
+        "ssim": (tf.structural_similarity_index_measure, rgb, rgb_t, {"data_range": 1.0, "reduction": "none"}),
+        "ssim_box": (tf.structural_similarity_index_measure, rgb, rgb_t, {"data_range": 1.0, "gaussian_kernel": False}),
+        "ms_ssim": (tf.multiscale_structural_similarity_index_measure, rgb, rgb_t, {"data_range": 1.0, "reduction": "none"}),
+        "uqi": (tf.universal_image_quality_index, rgb, rgb_t, {}),
+        "ergas": (tf.error_relative_global_dimensionless_synthesis, ms, ms_t, {"reduction": "none"}),
+        "sam": (tf.spectral_angle_mapper, ms, ms_t, {}),
+        "d_lambda": (tf.spectral_distortion_index, ms, ms_t, {}),
+    }
+    out = {}
+    for name, (fn, p, t, kw) in cases.items():
+        cpu = fn(p, t, **kw)
+        pd, td = p.to(dev), t.to(dev)
+        card = fn(pd, td, **kw)
+        out[name] = {"max_abs_err": _close_or_fail(card, cpu, IMG_RTOL, IMG_ATOL, f"image_functional_path {name}"),
+                     "value": float(card.float().mean())}
+        out[name]["ms_p50"] = _timed_p50_ms(lambda: fn(pd, td, **kw), 10)
+    for i, (card, cpu) in enumerate(zip(tf.image_gradients(rgb.to(dev)), tf.image_gradients(rgb))):
+        out[("dy", "dx")[i]] = {"max_abs_err": _close_or_fail(card, cpu, 0.0, 0.0, "image_gradients")}
+    # the window's two forms at bench.py's SSIM shape, in turns
+    g512 = torch.Generator(device=dev).manual_seed(SEED + 13)
+    p512 = torch.rand(SSIM_BENCH_SHAPE, generator=g512, device=dev)
+    t512 = (p512 + 0.05 * torch.randn(SSIM_BENCH_SHAPE, generator=g512, device=dev)).clamp(0, 1)
+    def banded(x, factors):
+        with full_float32(x.is_cuda):
+            return _separable_banded(x, factors)
+
+    path_window = ssim_module._depthwise_conv_separable
+    forms, values = {}, {}
+    try:
+        for form in ("conv", "banded", "banded", "conv"):
+            # JAX's banded product put in the place of the path's convolution
+            ssim_module._depthwise_conv_separable = banded if form == "banded" else path_window
+            forms.setdefault(form, []).append(_timed_p50_ms(lambda: tf.structural_similarity_index_measure(p512, t512, data_range=1.0), SSIM_BENCH_ITERS))
+            values[form] = tf.structural_similarity_index_measure(p512, t512, data_range=1.0)
+    finally:
+        ssim_module._depthwise_conv_separable = path_window
+    form_err = _close_or_fail(values["banded"], values["conv"], IMG_RTOL, IMG_ATOL, "the two window forms")
+    emit({
+        "phase": "image_functional_path",
+        "nvidia_smi": nvidia_smi_line(),
+        "shapes": {"rgb": list(IMG_FUNCTIONAL_RGB), "multispectral": list(IMG_FUNCTIONAL_MS)},
+        "tolerance": {"rtol": IMG_RTOL, "atol": IMG_ATOL, "gradients": "exact"},
+        "against_cpu": out,
+        "ssim_512": {"shape": list(SSIM_BENCH_SHAPE), "p50_ms_by_form": forms, "path_form": "conv",
+                     "forms_max_abs_err": form_err, "value": float(values["conv"])},
+        "kernel_launches": _check_no_kernel_launched("image_functional_path"),
+        "seconds": time.perf_counter() - t_phase,
+    })
+
+
+def image_pair_batch(index, n, dev):
+    """``n`` seeded 3x256x256 uint8 pairs, made on the card: a real image is
+    a random 16x16 field upsampled (bicubic) to 256 plus pixel noise; its
+    generated twin is the real image shifted two pixels to the right,
+    brightened by 4 and given noise of its own."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(SEED * 1_000_003 + index)
+    field = F.interpolate(torch.rand((n, 3, 16, 16), generator=g, device=dev), size=(IMG_SIZE, IMG_SIZE), mode="bicubic", align_corners=False)
+    real = (field * 255 + 8 * torch.randn((n, 3, IMG_SIZE, IMG_SIZE), generator=g, device=dev)).clamp(0, 255).round()
+    fake = (real.roll(2, dims=3) + 4 + 6 * torch.randn((n, 3, IMG_SIZE, IMG_SIZE), generator=g, device=dev)).clamp(0, 255).round()
+    return real.to(torch.uint8), fake.to(torch.uint8)
+
+
+@contextlib.contextmanager
+def _tf32_allowed(on):
+    """TF32 in cuDNN and in the products inside the block when ``on``; the
+    previous settings after it."""
+    import torch
+
+    if not on:
+        yield
+        return
+    cudnn = torch.backends.cudnn
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic, allow_tf32=True):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def _quiet(make):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return make()
+
+
+def _float64_kid(real, fake, subsets, subset_size, seed):
+    """KID in float64 on the card, on the subsets that
+    ``np.random.seed(seed)`` draws, in the metric's order (numpy draws the
+    subsets, as the metric does; the float64 products run on the card:
+    the host took 20 s for them)."""
+    import numpy as np
+    import torch
+
+    np.random.seed(seed)
+    real, fake = real.double(), fake.double()
+    gamma = 1.0 / real.shape[1]
+    m = subset_size
+    scores = []
+    for _ in range(subsets):
+        x = real[torch.from_numpy(np.random.permutation(real.shape[0])[:m]).to(real.device)]
+        y = fake[torch.from_numpy(np.random.permutation(fake.shape[0])[:m]).to(fake.device)]
+        kxx, kyy, kxy = ((a @ b.T * gamma + 1.0) ** 3 for a, b in ((x, x), (y, y), (x, y)))
+        scores.append((kxx.sum() - kxx.trace() + kyy.sum() - kyy.trace()) / (m * (m - 1)) - 2 * kxy.sum() / m**2)
+    scores = torch.stack(scores)
+    return float(scores.mean()), float(scores.std())
+
+
+def _numpy_is(logits, splits, seed):
+    import numpy as np
+
+    np.random.seed(seed)
+    x = logits[np.random.permutation(logits.shape[0])].astype(np.float64)
+    x = x - x.max(axis=1, keepdims=True)
+    log_p = x - np.log(np.exp(x).sum(axis=1, keepdims=True))
+    p = np.exp(log_p)
+    kl = []
+    for pc, lpc in zip(np.array_split(p, splits), np.array_split(log_p, splits)):
+        kl.append(np.exp((pc * (lpc - np.log(pc.mean(axis=0, keepdims=True)))).sum(axis=1).mean()))
+    kl = np.asarray(kl)
+    return kl.mean(), kl.std(ddof=1)
+
+
+def _scipy_fid(real, fake):
+    """FID in float64: the means and covariances on the card, ``sqrtm`` on
+    the host by scipy."""
+    import numpy as np
+    import scipy.linalg
+    import torch
+
+    stats = []
+    for f in (real, fake):
+        f = f.double()
+        mu = f.mean(0)
+        c = f - mu
+        stats.append((mu, c.T @ c / (f.shape[0] - 1)))
+    (mu1, s1), (mu2, s2) = stats
+    s1, s2 = s1.cpu().numpy(), s2.cpu().numpy()
+    covmean = scipy.linalg.sqrtm(s1 @ s2)
+    return float(((mu1 - mu2) ** 2).sum().item() + np.trace(s1) + np.trace(s2) - 2 * np.trace(covmean).real)
+
+
+def phase_fid50k(dev):
+    """The FID-50K protocol of class-conditional ImageNet 256x256
+    generation, cut to FID-10K (``FID_IMAGES``): real and generated uint8
+    images through one
+    seeded InceptionV3 (fid variant, resize 256 -> 299) in batches of 250,
+    into FID and KID (list mode, 2048 features), IS (the generated images'
+    logits, 10 splits) and FID with ``capacity=65536`` (captured update)."""
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.functional.image.fid import frechet_inception_distance_from_features as fid_from_features
+    from metrics_tpu_torch.nets import InceptionV3Extractor
+
+    t_phase = time.perf_counter()
+    _reset_kernel_counts()
+    extractor = _quiet(lambda: InceptionV3Extractor(2048, variant="fid", seed=SEED, device=dev))
+    fid = mtt.FrechetInceptionDistance(feature=2048, device=dev)
+    kid = mtt.KernelInceptionDistance(feature=2048, subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE, device=dev)
+    inception = mtt.InceptionScore(feature=1008, splits=IS_SPLITS, device=dev)
+    ring = mtt.FrechetInceptionDistance(feature=2048, capacity=FID_CAPACITY, device=dev)
+    batches = FID_IMAGES // FID_BATCH
+    host_real, host_fake, host_logits = [], [], []
+    extract_ms = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold counts in the peak: reported apart
+    held_before = torch.cuda.memory_allocated()
+    t_loop = time.perf_counter()
+    with torch.no_grad():
+        for i in range(batches):
+            real, fake = image_pair_batch(i, FID_BATCH, dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            tr = extractor.taps(real, (2048,))
+            tg = extractor.taps(fake, (2048,))
+            end.record()
+            extract_ms.append((start, end))
+            fid.update(tr[2048], real=True)
+            fid.update(tg[2048], real=False)
+            kid.update(tr[2048], real=True)
+            kid.update(tg[2048], real=False)
+            inception.update(tg["logits"])
+            ring.update(tr[2048], real=True)
+            ring.update(tg[2048], real=False)
+            host_real.append(tr[2048].cpu())
+            host_fake.append(tg[2048].cpu())
+            host_logits.append(tg["logits"].cpu())
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    peak = torch.cuda.max_memory_allocated()
+    extract_s = sum(s.elapsed_time(e) for s, e in extract_ms) / 1e3
+    real_f, fake_f, logits = torch.cat(host_real), torch.cat(host_fake), torch.cat(host_logits)
+    table = ring.__dict__.get("_update_graphs")
+    graphs = {"captures": table.captures if table else 0, "replays": table.replays if table else 0,
+              "eager_updates": table.eager_updates if table else 0, "capture_error": table.error if table else None,
+              "jittable_update": bool(ring.jittable_update)}
+    want = {"captures": 2, "replays": 2 * batches - 2, "eager_updates": 2, "capture_error": None, "jittable_update": True}
+    if graphs != want:
+        raise AssertionError(f"fid50k_path: the capacity update's graphs {graphs}, expected {want}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        return value, time.perf_counter() - t0
+
+    fid_value, fid_s = timed(lambda: float(fid.compute()))
+    ring_value, ring_s = timed(lambda: float(ring.compute()))
+    np.random.seed(SEED + 1)
+    (kid_mean, kid_std), kid_s = timed(lambda: tuple(float(v) for v in kid.compute()))
+    np.random.seed(SEED + 2)
+    (is_mean, is_std), is_s = timed(lambda: tuple(float(v) for v in inception.compute()))
+    # the real set against itself
+    self_fid = mtt.FrechetInceptionDistance(feature=2048, device=dev)
+    self_fid.update(real_f.to(dev), real=True)
+    self_fid.update(real_f.to(dev), real=False)
+    self_value = float(self_fid.compute())
+    self_trace = float(real_f.to(dev).var(dim=0).sum())
+    self_value64 = float(fid_from_features(real_f.to(dev).double(), real_f.to(dev).double()))
+    # the float64 references, on the card's own features
+    t_ref = time.perf_counter()
+    scipy_fid = _scipy_fid(real_f.to(dev), fake_f.to(dev))
+    kid_ref = _float64_kid(real_f.to(dev), fake_f.to(dev), kid.subsets, kid.subset_size, SEED + 1)
+    is_ref = _numpy_is(logits.numpy(), IS_SPLITS, SEED + 2)
+    ref_s = time.perf_counter() - t_ref
+    checks = {
+        # float32 on the card, where the trace terms cancel to the FID
+        "fid_vs_scipy_err": abs(fid_value - scipy_fid),
+        "capacity_vs_list_err": abs(ring_value - fid_value),
+        # held to the traces that cancel in it (float32 Newton-Schulz)
+        "self_fid_over_traces": abs(self_value) / (2 * self_trace),
+        "self_fid_float64": abs(self_value64),
+        # KID: float32 sums of 10^6 kernel values a subset, against float64
+        "kid_mean_err": abs(kid_mean - kid_ref[0]),
+        "kid_std_err": abs(kid_std - kid_ref[1]),
+        "is_mean_rel": abs(is_mean - is_ref[0]) / abs(is_ref[0]),
+        # the std of ten float32 exponentials: held to the scale of the mean
+        "is_std_err_over_mean": abs(is_std - is_ref[1]) / abs(is_ref[0]),
+    }
+    limits = {"fid_vs_scipy_err": FID_ATOL + FID_RTOL * abs(scipy_fid), "capacity_vs_list_err": FID_ATOL + FID_RTOL * abs(fid_value),
+              "self_fid_over_traces": FID_SELF_RTOL, "self_fid_float64": FID_SELF_ATOL,
+              "kid_mean_err": KID_ATOL + KID_IS_RTOL * abs(kid_ref[0]), "kid_std_err": KID_ATOL + KID_IS_RTOL * abs(kid_ref[1]),
+              "is_mean_rel": KID_IS_RTOL, "is_std_err_over_mean": KID_IS_RTOL}
+    failures = [f"{k} = {v}, over {limits[k]}" for k, v in checks.items() if not abs(v) <= limits[k]]
+    # features of the first images of each set against the port's CPU run
+    t_cpu = time.perf_counter()
+    cpu_extractor = _quiet(lambda: InceptionV3Extractor(2048, variant="fid", seed=SEED, device="cpu"))
+    feature_err = {}
+    with torch.no_grad():
+        real0, fake0 = image_pair_batch(0, FID_BATCH, dev)
+        for name, imgs, card in (("real", real0, real_f), ("fake", fake0, fake_f)):
+            cpu = cpu_extractor.taps(imgs[:FID_CPU_IMAGES].cpu(), (2048,))
+            feature_err[name] = _feature_err(card[:FID_CPU_IMAGES], cpu[2048])
+            if name == "fake":
+                feature_err["logits"] = _feature_err(logits[:FID_CPU_IMAGES], cpu["logits"])
+    failures += [f"{k} features against the CPU: {v}" for k, v in feature_err.items() if not v["within"]]
+    cpu_s = time.perf_counter() - t_cpu
+    # TF32 once beside float32, on the same batches and weights: the
+    # extractor's net called without the extractor's float32 block, with
+    # TF32 on around those calls only (this script turns it off for the
+    # process)
+    def tf32_features(imgs):
+        return extractor.module(extractor.preprocess(imgs), features=(2048,))[2048]
+
+    tf32_ms, fp32_ms, drift = [], [], 0.0
+    with torch.no_grad():
+        for i in range(TF32_BATCHES):
+            real, _ = image_pair_batch(i, FID_BATCH, dev)
+            for name, fn, sink in (("fp32", extractor, fp32_ms), ("tf32", tf32_features, tf32_ms)):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                with _tf32_allowed(name == "tf32"):
+                    start.record()
+                    feats = fn(real)
+                    end.record()
+                end.synchronize()
+                sink.append(start.elapsed_time(end))
+                if name == "tf32":
+                    drift = max(drift, float((feats - real_f[i * FID_BATCH:(i + 1) * FID_BATCH].to(dev)).abs().max()))
+    emit({
+        "phase": "fid50k_path",
+        "nvidia_smi": nvidia_smi_line(),
+        "config": {"images_per_side": FID_IMAGES, "size": IMG_SIZE, "batch": FID_BATCH, "net": "InceptionV3 fid variant, seeded random weights (uncalibrated)",
+                   "resize": "256 -> 299 bilinear", "kid": {"subsets": kid.subsets, "subset_size": kid.subset_size}, "is_splits": IS_SPLITS,
+                   "capacity": FID_CAPACITY},
+        "values": {"fid": fid_value, "fid_capacity": ring_value, "fid_scipy_float64": scipy_fid, "self_fid": self_value,
+                   "self_fid_float64": self_value64,
+                   "kid": [kid_mean, kid_std], "kid_float64": list(kid_ref), "is": [is_mean, is_std], "is_float64": list(is_ref),
+                   "fid_rung": fid.ladder_rung, "fid_capacity_rung": ring.ladder_rung, "self_fid_rung": self_fid.ladder_rung},
+        "checks": checks, "limits": limits, "fid_vs_scipy_rel": abs(fid_value - scipy_fid) / abs(scipy_fid),
+        "features_against_cpu": {"images": FID_CPU_IMAGES, "rtol": FEATURE_RTOL, "atol": FEATURE_ATOL,
+                                 **feature_err},
+        "extractor": {"images": 2 * FID_IMAGES, "float32_images_per_s": 2 * FID_IMAGES / extract_s, "float32_s": extract_s,
+                      "tf32_images_per_s": TF32_BATCHES * FID_BATCH / (sum(tf32_ms) / 1e3),
+                      "float32_images_per_s_same_batches": TF32_BATCHES * FID_BATCH / (sum(fp32_ms) / 1e3),
+                      "tf32_max_abs_feature_drift": drift, "peak_memory_bytes": peak,
+                      "held_before_loop_bytes": held_before, "peak_over_held_bytes": peak - held_before},
+        "compute_s": {"fid": fid_s, "fid_capacity": ring_s, "kid": kid_s, "is": is_s},
+        "capacity_graphs": graphs,
+        "loop_s": loop_s, "host_references_s": ref_s, "cpu_features_s": cpu_s,
+        "kernel_launches": _check_no_kernel_launched("fid50k_path"),
+        "failures": failures,
+        "seconds": time.perf_counter() - t_phase,
+    })
+    if failures:
+        raise AssertionError(f"fid50k_path: {failures}")
+
+
+def phase_lpips_ssim(dev):
+    """The 50,000 real/generated pairs through LPIPS (AlexNet), streaming
+    SSIM, streaming MS-SSIM and PSNR; each held against the port's CPU run
+    on the first 128 pairs, the streamed SSIM against the accumulate mode
+    over the first 1024 pairs."""
+    import torch
+
+    import metrics_tpu_torch as mtt
+
+    t_phase = time.perf_counter()
+    _reset_kernel_counts()
+
+    def build(device):
+        return {
+            "lpips": _quiet(lambda: mtt.LearnedPerceptualImagePatchSimilarity(net_type="alex", device=device)),
+            "ssim": mtt.StructuralSimilarityIndexMeasure(data_range=1.0, streaming=True, device=device),
+            "ms_ssim": mtt.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, streaming=True, device=device),
+            "psnr": mtt.PeakSignalNoiseRatio(data_range=1.0, device=device),
+        }
+
+    def inputs(name, real, fake):
+        if name == "lpips":
+            return real.float() / 127.5 - 1.0, fake.float() / 127.5 - 1.0
+        return real.float() / 255.0, fake.float() / 255.0
+
+    # the first 128 pairs, on the card and on the CPU
+    real0, fake0 = image_pair_batch(0, PAIR_CPU, dev)
+    card_m, cpu_m = build(dev), build("cpu")
+    against_cpu = {}
+    t_cpu = time.perf_counter()
+    with torch.no_grad():
+        for name in card_m:
+            card_m[name].update(*inputs(name, real0, fake0))
+            cpu_m[name].update(*inputs(name, real0.cpu(), fake0.cpu()))
+            err = _close_or_fail(card_m[name].compute(), cpu_m[name].compute(), IMG_RTOL, IMG_ATOL, f"lpips_ssim_path {name}")
+            against_cpu[name] = {"max_abs_err": err, "card": float(card_m[name].compute()), "cpu": float(cpu_m[name].compute())}
+    cpu_s = time.perf_counter() - t_cpu
+    # streamed SSIM against the accumulate mode on the card
+    stream = mtt.StructuralSimilarityIndexMeasure(data_range=1.0, streaming=True, device=dev)
+    accumulate = mtt.StructuralSimilarityIndexMeasure(data_range=1.0, device=dev)
+    with torch.no_grad():
+        for i in range(PAIR_STREAM_CHECK // FID_BATCH + 1):
+            real, fake = image_pair_batch(i, FID_BATCH, dev)
+            n = min(FID_BATCH, PAIR_STREAM_CHECK - i * FID_BATCH)
+            if n <= 0:
+                break
+            for m in (stream, accumulate):
+                m.update(*inputs("ssim", real[:n], fake[:n]))
+    stream_err = _close_or_fail(stream.compute(), accumulate.compute(), IMG_RTOL, IMG_ATOL, "streamed against accumulated SSIM")
+    del accumulate
+    torch.cuda.empty_cache()
+    # the whole set
+    metrics = build(dev)
+    update_s = {name: [] for name in metrics}
+    batches = PAIR_IMAGES // FID_BATCH
+    with torch.no_grad():
+        for i in range(batches):
+            real, fake = image_pair_batch(i, FID_BATCH, dev)
+            for name, m in metrics.items():
+                args = inputs(name, real, fake)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m.update(*args)
+                torch.cuda.synchronize()
+                update_s[name].append(time.perf_counter() - t0)
+    graphs = graph_stats({k: v for k, v in metrics.items() if k != "lpips"})
+    for name, g in graphs.items():
+        if (g["captures"], g["replays"], g["capture_error"]) != (1, batches - 1, None):
+            raise AssertionError(f"lpips_ssim_path: {name}'s update was not captured once and replayed: {g}")
+    values = {name: float(m.compute()) for name, m in metrics.items()}
+    if not (0 < values["ssim"] < 1 and 0 < values["ms_ssim"] < 1 and values["lpips"] > 0 and math.isfinite(values["psnr"])):
+        raise AssertionError(f"lpips_ssim_path: values {values}")
+    emit({
+        "phase": "lpips_ssim_path",
+        "nvidia_smi": nvidia_smi_line(),
+        "config": {"pairs": PAIR_IMAGES, "size": IMG_SIZE, "batch": FID_BATCH, "lpips_net": "alex, seeded random weights (uncalibrated)",
+                   "ssim_mode": "streaming", "ms_ssim_mode": "streaming", "psnr_data_range": 1.0},
+        "values": values,
+        "against_cpu": {"pairs": PAIR_CPU, "rtol": IMG_RTOL, "atol": IMG_ATOL, **against_cpu},
+        "stream_vs_accumulate": {"pairs": PAIR_STREAM_CHECK, "max_abs_err": stream_err},
+        "pairs_per_s": {name: PAIR_IMAGES / sum(v) for name, v in update_s.items()},
+        "update_p50_ms": {name: _p(v, 50) for name, v in update_s.items()},
+        "update_p99_ms": {name: _p(v, 99) for name, v in update_s.items()},
+        "graphs": graphs,
+        "cpu_reference_s": cpu_s,
+        "kernel_launches": _check_no_kernel_launched("lpips_ssim_path"),
+        "seconds": time.perf_counter() - t_phase,
+    })
+
+
 def main():
     try:
         import torch
@@ -5249,6 +5824,11 @@ def main():
     k3_fused_launches = phase_fused_sketch(device)
     k1_overlapped_launches, k3_quantized_launches = phase_sync_layer(device, fused_values)
     k1_full_dist_launches, k2_full_dist_launches = phase_full_classification_dist(full_cpu_values)
+    # the image slice: no kernel of K1-K3 on its path
+    torch.cuda.empty_cache()
+    phase_image_functional(device)
+    phase_fid50k(device)
+    phase_lpips_ssim(device)
     # each kernel's launches on every path that runs it, each path counted
     # from zero just before it
     kernels[0]["launches_by_path"] = {

@@ -33,6 +33,19 @@ from metrics_tpu_torch.classification.roc import ROC
 from metrics_tpu_torch.classification.specificity import Specificity
 from metrics_tpu_torch.classification.stat_scores import StatScores
 from metrics_tpu_torch.collections import MetricCollection
+from metrics_tpu_torch.image import (
+    ErrorRelativeGlobalDimensionlessSynthesis,
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    LearnedPerceptualImagePatchSimilarity,
+    MultiScaleStructuralSimilarityIndexMeasure,
+    PeakSignalNoiseRatio,
+    SpectralAngleMapper,
+    SpectralDistortionIndex,
+    StructuralSimilarityIndexMeasure,
+    UniversalImageQualityIndex,
+)
 from metrics_tpu_torch.metric import CompositionalMetric, Metric
 from metrics_tpu_torch.parallel.async_sync import AsyncSyncScheduler
 from metrics_tpu_torch.pure import (
@@ -95,6 +108,7 @@ __all__ = [
     "AUC",
     "AsyncSyncScheduler",
     "BaseAggregator",
+    "ErrorRelativeGlobalDimensionlessSynthesis",
     "FAULT_CLASSES",
     "AUROC",
     "Accuracy",
@@ -119,14 +133,18 @@ __all__ = [
     "F1Score",
     "FBetaScore",
     "FaultCounters",
+    "FrechetInceptionDistance",
     "HammingDistance",
     "HingeLoss",
     "HllState",
     "HyperLogLog",
+    "InceptionScore",
     "JaccardIndex",
+    "KernelInceptionDistance",
     "KLDivergence",
     "LabelRankingAveragePrecision",
     "LabelRankingLoss",
+    "LearnedPerceptualImagePatchSimilarity",
     "MatthewsCorrCoef",
     "MaxMetric",
     "MeanAbsoluteError",
@@ -141,7 +159,9 @@ __all__ = [
     "MinMaxMetric",
     "MinMetric",
     "MultioutputWrapper",
+    "MultiScaleStructuralSimilarityIndexMeasure",
     "OverlappedDef",
+    "PeakSignalNoiseRatio",
     "PearsonCorrCoef",
     "Precision",
     "PrecisionRecallCurve",
@@ -165,10 +185,14 @@ __all__ = [
     "SlicedValue",
     "SpearmanCorrCoef",
     "Specificity",
+    "SpectralAngleMapper",
+    "SpectralDistortionIndex",
     "StatScores",
+    "StructuralSimilarityIndexMeasure",
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
     "TweedieDevianceScore",
+    "UniversalImageQualityIndex",
     "WeightedMeanAbsolutePercentageError",
     "Warmup",
     "WindowedMetric",

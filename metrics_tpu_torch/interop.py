@@ -41,6 +41,15 @@ ring ``sl___faults`` given as the JAX package's uint32 counts, which the
 port holds as int64) and its row counts (``sl__rows``) load like any other
 state, and the slices go on from them.
 
+The image metrics carry the same way: FID's and KID's real and fake
+feature lists, or with ``capacity=`` their two rings (``real_features``,
+``fake_features``); InceptionScore's logits list or ring (``features``);
+the accumulate mode's image lists (``preds``, ``target``); the streaming
+mode's float32 sums (``value_sum``, ``n_elements``); PSNR's sum, int32
+count and target extremes; LPIPS's two sums. A JAX ``capacity=`` FID state
+loads into the port and computes the same value. The nets' weights are not
+states: they carry over through ``nets/*.py::load_jax_variables``.
+
 A pure state (``pure.py``) carries both ways, in every layout: a
 ``MetricDef`` state dict, a wrapper's list of per-node dicts, a
 collection's dict of those, the overlapped ``{live, reduced, steps,

@@ -1,4 +1,8 @@
 """Numeric-safety helpers (counterpart of ``metrics_tpu/utilities/compute.py``)."""
+import contextlib
+import threading
+from typing import Iterator
+
 import torch
 
 from metrics_tpu_torch.ops.bucketed_rank import ascending_order, flush_denormals
@@ -58,3 +62,43 @@ def _auc_compute(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
     else:
         sign = float("nan")
     return _auc_compute_without_check(x, y, 1.0) * sign
+
+
+# the blocks of full_float32 open in any thread, and the settings they
+# found when the first of them opened
+_FLOAT32_LOCK = threading.Lock()
+_float32_depth = 0
+_float32_saved = None
+
+
+@contextlib.contextmanager
+def full_float32(enabled: bool = True) -> Iterator[None]:
+    """Matrix products and cuDNN convolutions in full float32 inside the
+    block: TF32 off, as JAX's ``Precision.HIGHEST``. The settings are the
+    process's, so blocks are counted across threads: the first to open turns
+    TF32 off, and the caller's settings come back only when the last one
+    open ends (a thread leaving its block never turns TF32 on under
+    another's). Code outside every block sees TF32 off while any block
+    runs. ``enabled=False`` leaves the settings as they are; on the CPU they
+    change nothing."""
+    global _float32_depth, _float32_saved
+    if not enabled:
+        yield
+        return
+    with _FLOAT32_LOCK:
+        if _float32_depth == 0:
+            # "highest" also turns ``torch.backends.cuda.matmul.allow_tf32``
+            # off, and the saved precision turns it back
+            _float32_saved = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+            torch.backends.cudnn.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
+        _float32_depth += 1
+    try:
+        yield
+    finally:
+        with _FLOAT32_LOCK:
+            _float32_depth -= 1
+            if _float32_depth == 0:
+                cudnn_tf32, precision = _float32_saved
+                torch.set_float32_matmul_precision(precision)
+                torch.backends.cudnn.allow_tf32 = cudnn_tf32

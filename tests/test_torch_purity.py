@@ -3,6 +3,7 @@
 package builds and loads no kernel; and a metric with no device asks for
 CUDA and never falls back to the CPU."""
 import ast
+import contextlib
 import os
 import pathlib
 import subprocess
@@ -36,6 +37,17 @@ def _is_forbidden(module):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path) if _is_forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+PACKAGE_FILES = sorted((ROOT / "metrics_tpu_torch").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", PACKAGE_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_package_imports_no_torchvision_or_scipy(path):
+    """The card's machine has no torchvision, and the package needs no
+    scipy (``chip_smoke.py`` may use it for a host reference)."""
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in ("torchvision", "scipy")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -131,6 +143,43 @@ def test_sync_layer_imports_load_no_jax_build_nothing_and_start_no_thread():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_image_imports_load_no_jax_build_nothing_and_construct_no_net():
+    """The image metrics, their functions and the nets package import no
+    JAX, nothing of ``metrics_tpu``, no torchvision and no scipy, build no
+    kernel, and construct no net (the nets load lazily)."""
+    code = (
+        "import sys\n"
+        "import metrics_tpu_torch, metrics_tpu_torch.image, metrics_tpu_torch.functional.image, metrics_tpu_torch.nets\n"
+        "from metrics_tpu_torch.ops import _build\n"
+        "assert _build._loaded == {} and _build.build_info == {}\n"
+        "assert 'metrics_tpu_torch.nets.inception_v3' not in sys.modules and 'metrics_tpu_torch.nets.lpips_net' not in sys.modules\n"
+        "assert not any(m.split('.')[0] in ('jax', 'metrics_tpu', 'torchvision', 'scipy', 'triton') for m in sys.modules)\n"
+        "metrics_tpu_torch.nets.InceptionV3Extractor, metrics_tpu_torch.image.LPIPSNet\n"
+        "assert 'metrics_tpu_torch.nets.inception_v3' in sys.modules and 'metrics_tpu_torch.nets.lpips_net' in sys.modules\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("name", ["InceptionV3Extractor", "LPIPSNet", "TinyImageEncoder"])
+def test_nets_without_device_ask_for_cuda(name, monkeypatch):
+    """A net's parameters live on its device: CUDA unless the caller asks
+    for the CPU."""
+    import metrics_tpu_torch.image as timage
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
+        getattr(timage, name)()
+    with pytest.warns() if name != "TinyImageEncoder" else contextlib.nullcontext():
+        net = getattr(timage, name)(device="cpu")
+    module = getattr(net, "module", None)
+    tensors = list(module.parameters()) if module is not None else [*net.params, net.head]
+    assert all(t.device.type == "cpu" for t in tensors)
 
 
 @pytest.mark.parametrize(
@@ -287,6 +336,10 @@ _NEEDS = {
         "RetrievalMAP", "RetrievalMRR", "RetrievalPrecision", "RetrievalRecall", "RetrievalFallOut",
         "RetrievalNormalizedDCG", "RetrievalHitRate", "RetrievalRPrecision", "RetrievalPrecisionRecallCurve",
         "RetrievalRecallAtFixedPrecision",
+        "PeakSignalNoiseRatio", "StructuralSimilarityIndexMeasure", "MultiScaleStructuralSimilarityIndexMeasure",
+        "UniversalImageQualityIndex", "ErrorRelativeGlobalDimensionlessSynthesis", "SpectralAngleMapper",
+        "SpectralDistortionIndex", "FrechetInceptionDistance", "KernelInceptionDistance", "InceptionScore",
+        "LearnedPerceptualImagePatchSimilarity",
     ],
 )
 def test_metric_without_device_asks_for_cuda(name, monkeypatch):
@@ -318,9 +371,12 @@ def test_metric_without_device_asks_for_cuda(name, monkeypatch):
     assert metric.device == torch.device("cpu")
     tensors = [t for v in metric.metric_state.values() for t in (v if isinstance(v, (list, tuple)) else [v])]
     assert all(t.device.type == "cpu" for t in tensors)
-    if name in ("AUROC", "AveragePrecision", "ROC", "PrecisionRecallCurve", "AUC"):
-        ring = getattr(metrics_tpu_torch, name)(device="cpu", capacity=8)
+    if name in ("AUROC", "AveragePrecision", "ROC", "PrecisionRecallCurve", "AUC", "FrechetInceptionDistance", "InceptionScore"):
+        extra = {"feature": 8} if name in ("FrechetInceptionDistance", "InceptionScore") else {}
+        ring = getattr(metrics_tpu_torch, name)(device="cpu", capacity=8, **extra)
         assert all(t.device.type == "cpu" for v in ring.metric_state.values() for t in v)
+    if name == "LearnedPerceptualImagePatchSimilarity":
+        assert all(p.device.type == "cpu" for p in metric.net.module.parameters())
 
 
 def test_a_composition_takes_its_operands_device(monkeypatch):
