@@ -209,7 +209,30 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    SSIM and MS-SSIM and PSNR (each update captured but LPIPS's), each held
    against the port's CPU run on the first 128 pairs and the streamed SSIM
    against the accumulate mode over the first 1024; pairs/s and update
-   p50 of each. The image phases launch none of K1-K3 (their counts read 0).
+   p50 of each. The image phases launch none of K1-K3 (their counts read 0);
+29. text summarization path: a CNN/DailyMail-test-sized evaluation (11,490
+   seeded (candidate, reference) summaries of 3-4 newline-joined sentences,
+   about 56 tokens a reference, from a 50,000-word Zipf lexicon) through
+   ``ROUGEScore`` (rouge1, rouge2, rougeL, rougeLsum) and ``BERTScore`` over
+   a seeded BERT-base (``BertEncoder``, layer 9, 128 tokens, a hash
+   WordPiece stand-in tokenizer) in 256-pair batches, then a
+   ``BERTScore(idf=True)`` loaded with its state: ROUGE over the first
+   1,024 pairs equal to the CPU run and over all within 1e-6 of float64
+   means of the same per-pair values; BERTScore on the first 32 pairs
+   against BERT-base on the CPU, the matching against float64 from the
+   card's own embeddings, candidates equal to their references at F1 = 1,
+   the own reference above a shuffled one; pairs/s, update p50, compute
+   seconds with and without IDF, peak memory, ROUGE's host seconds;
+30. text metrics path: every other text class on the card against the
+   CPU run: LibriSpeech-test-clean-sized ASR (2,620 utterances, about 5 %
+   WER) through WER, CER, MER, WIL and WIP (counts equal to the CPU run
+   over the first 1,024 and to a plain Levenshtein on the host over all),
+   WMT14-newstest2014-sized MT (3,003 segments, the first 1,024 on the CPU)
+   through BLEU, SacreBLEU (13a), chrF++, EED and TER (the first 1,000
+   segments; 200 of them on the CPU), SQuAD-v1.1-dev-sized
+   QA (10,570 questions); update p50 of each class and the launches a
+   batch of the edit-distance wavefront and of EED's loop. Neither text
+   phase launches K1-K3.
 
 Every CUDA metric of the earlier phases captures its update as well (the
 port's default on the card); their checks against the CPU runs hold the
@@ -426,6 +449,34 @@ KID_IS_RTOL = 1e-4  # float32 on the card against float64 numpy on the same subs
 KID_ATOL = 1e-6  # besides KID_IS_RTOL: a subset's MMD sums 10^6 float32 kernel values of order 1
 FEATURE_RTOL = 1e-3  # InceptionV3 features and logits, card against CPU, float32 convolutions on both
 FEATURE_ATOL = 5e-4  # 1.25e-3 of the features' mean magnitude (about 0.4): the card read up to 2.1e-4 off (cuDNN's float32 algorithms)
+# the text slice (phases 29-30): seeded corpora made on the host
+LEXICON = 50_000  # pseudo-words, about 4.8 letters on average
+ZIPF_S = 1.1  # word frequencies
+COMMA_SHARE = 0.06  # words followed by a comma
+CNNDM_PAIRS = 11_490  # the CNN/DailyMail test split (See et al. 2017)
+CNNDM_SENTENCES = (3, 4)  # a reference summary's sentences
+CNNDM_WORDS = 56  # a reference summary's mean tokens (the split's statistics)
+SUMM_BATCH = 256
+BERT_LAYER = 9  # bert_score's layer for bert-base-uncased
+BERT_MAX_LENGTH = 128
+CLS_ID, SEP_ID, PAD_ID = 101, 102, 0
+ROUGE_CPU_PAIRS = 1024  # pairs of the ROUGE run held exactly against the port's CPU run
+ROUGE_MEAN_RTOL = 1e-6  # the float32 corpus means against float64 means of the same per-pair values
+BERT_CPU_PAIRS = 32  # pairs of the BERTScore run held against BERT-base on the CPU
+BERT_CPU_ATOL = 1e-5  # P/R/F1, card against CPU: nine float32 layers in another order (1.8e-7 read, PERF.md §6)
+BERT_F64_ATOL = 1e-5  # the matching recomputed in float64 from the card's own embeddings
+BERT_SELF_ATOL = 1e-6  # candidates equal to their references: F1 = 1
+LIBRISPEECH_UTTERANCES = 2_620  # LibriSpeech test-clean
+LIBRISPEECH_WORDS = 20
+ASR_ERRORS = (0.03, 0.01, 0.01)  # substitutions, deletions, insertions: about 5 % WER
+WMT14_SEGMENTS = 3_003  # newstest2014 en-de
+WMT14_WORDS = (10, 40)
+MT_ERRORS = (0.15, 0.07, 0.07, 0.05)  # substitutions, deletions, insertions, adjacent swaps
+SQUAD_QUESTIONS = 10_570  # SQuAD v1.1 dev
+TEXT_BATCH = 256
+TEXT_CPU_BATCHES = 4  # the CPU runs of the ASR and MT classes: their first 4 batches (1,024 rows), cut for the phase's time
+TER_CARD_SEGMENTS = 1000  # TER's host shift search: the first 1,000 segments on the card
+TER_CPU_SEGMENTS = 200  # and the first 200 of them in the CPU run
 
 
 def emit(obj):
@@ -5756,6 +5807,615 @@ def phase_lpips_ssim(dev):
     })
 
 
+# -- the text slice (phases 29-30) -------------------------------------------
+
+
+_TOKEN_RE = None
+
+
+def _tokens(text):
+    """Words and punctuation marks, lowercased (the tokenizer stand-in's split)."""
+    import re
+
+    global _TOKEN_RE
+    if _TOKEN_RE is None:
+        _TOKEN_RE = re.compile(r"\w+|[^\w\s]")
+    return _TOKEN_RE.findall(text.lower())
+
+
+_LEXICONS = {}
+
+
+def make_lexicon(seed):
+    """LEXICON distinct lowercase pseudo-words of 1 + Poisson(3.2) letters
+    (about 4.8, since short words repeat and are drawn again) and their
+    Zipf probabilities, rank k weighing k^-ZIPF_S (made once a seed)."""
+    import numpy as np
+
+    if seed in _LEXICONS:
+        return _LEXICONS[seed]
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words, seen = [], set()
+    while len(words) < LEXICON:
+        lens = 1 + rng.poisson(3.2, LEXICON)
+        chars = rng.choice(letters, int(lens.sum()))
+        ends = np.cumsum(lens)
+        for start, end in zip(ends - lens, ends):
+            w = "".join(chars[start:end])
+            if w not in seen:
+                seen.add(w)
+                words.append(w)
+    p = np.arange(1, LEXICON + 1, dtype=np.float64) ** -ZIPF_S
+    _LEXICONS[seed] = np.array(words[:LEXICON]), p / p.sum()
+    return _LEXICONS[seed]
+
+
+class _WordSource:
+    """Zipf words of the one lexicon, drawn in bulk from a generator seeded
+    with ``seed``."""
+
+    def __init__(self, seed):
+        import numpy as np
+
+        self.lexicon, self.p = make_lexicon(SEED)
+        self.rng = np.random.default_rng(seed + 1)
+        self.buffer, self.at = [], 0
+
+    def take(self, n):
+        if self.at + n > len(self.buffer):
+            self.buffer = list(self.lexicon[self.rng.choice(LEXICON, max(1 << 20, n), p=self.p)])
+            self.at = 0
+        out = self.buffer[self.at:self.at + n]
+        self.at += n
+        return out
+
+
+def _sentence(words, rng):
+    """Words joined by spaces, a comma after COMMA_SHARE of them (not the
+    last), a period at the end."""
+    commas = rng.random(len(words)) < COMMA_SHARE
+    parts = [w + ("," if c and i < len(words) - 1 else "") for i, (w, c) in enumerate(zip(words, commas))]
+    return " ".join(parts) + "."
+
+
+def _edit_words(words, source, rng, sub, dele, ins, swap=0.0):
+    """Seeded word substitutions, deletions, insertions and adjacent swaps."""
+    out = []
+    draws = rng.random((len(words), 3))
+    for w, (a, b, c) in zip(words, draws):
+        if a < dele:
+            continue
+        out.append(source.take(1)[0] if b < sub else w)
+        if c < ins:
+            out.append(source.take(1)[0])
+    if swap:
+        for i in range(len(out) - 1):
+            if rng.random() < swap:
+                out[i], out[i + 1] = out[i + 1], out[i]
+    return out
+
+
+def make_summaries(seed):
+    """CNNDM_PAIRS (candidate, reference) summaries. A reference is 3-4
+    sentences of 1 + Poisson(13.1) Zipf words (about CNNDM_WORDS tokens with
+    its commas and periods), joined by "\\n"; its candidate drops 15 % of
+    the sentences (keeping two, so that every summary splits at a newline),
+    then deletes and substitutes 10 % of the words and inserts after 5 %."""
+    import numpy as np
+
+    source = _WordSource(seed)
+    rng = np.random.default_rng(seed + 2)
+    cands, refs = [], []
+    for _ in range(CNNDM_PAIRS):
+        sents = [source.take(1 + rng.poisson(13.1)) for _ in range(rng.integers(CNNDM_SENTENCES[0], CNNDM_SENTENCES[1] + 1))]
+        refs.append("\n".join(_sentence(s, rng) for s in sents))
+        kept = [s for s in sents if rng.random() >= 0.15]
+        kept = kept if len(kept) >= 2 else sents[:2]
+        cands.append("\n".join(_sentence(_edit_words(s, source, rng, 0.1, 0.1, 0.05) or s[:1], rng) for s in kept))
+    return cands, refs
+
+
+def make_asr(seed):
+    """LIBRISPEECH_UTTERANCES (hypothesis, reference) transcripts: 1 +
+    Poisson(19) Zipf words, no punctuation; hypotheses at ASR_ERRORS."""
+    import numpy as np
+
+    source = _WordSource(seed + 10)
+    rng = np.random.default_rng(seed + 11)
+    hyps, refs = [], []
+    for _ in range(LIBRISPEECH_UTTERANCES):
+        words = source.take(1 + rng.poisson(LIBRISPEECH_WORDS - 1))
+        refs.append(" ".join(words))
+        hyps.append(" ".join(_edit_words(words, source, rng, *ASR_ERRORS)))
+    return hyps, refs
+
+
+def make_mt(seed):
+    """WMT14_SEGMENTS (hypothesis, reference) segments of 10-40 Zipf words
+    with commas and a period; hypotheses at MT_ERRORS (adjacent swaps give
+    TER its shifts)."""
+    import numpy as np
+
+    source = _WordSource(seed + 20)
+    rng = np.random.default_rng(seed + 21)
+    hyps, refs = [], []
+    for _ in range(WMT14_SEGMENTS):
+        words = source.take(int(rng.integers(WMT14_WORDS[0], WMT14_WORDS[1] + 1)))
+        refs.append(_sentence(words, rng))
+        hyps.append(_sentence(_edit_words(words, source, rng, *MT_ERRORS) or words[:1], rng))
+    return hyps, refs
+
+
+def make_squad(seed):
+    """SQUAD_QUESTIONS questions with one to three gold answers (1-5 Zipf
+    words, the later ones a word shorter or longer); predictions: 65 % a
+    gold answer (with "the " in front of a third of them), 25 % a gold
+    answer with a word dropped or added, 10 % other words."""
+    import numpy as np
+
+    source = _WordSource(seed + 30)
+    rng = np.random.default_rng(seed + 31)
+    preds, target = [], []
+    for i in range(SQUAD_QUESTIONS):
+        first = source.take(int(rng.integers(1, 6)))
+        golds = [first]
+        for _ in range(int(rng.integers(0, 3))):
+            golds.append(first[:-1] if len(first) > 1 and rng.random() < 0.5 else first + source.take(1))
+        r = rng.random()
+        if r < 0.65:
+            pred = (["the"] if rng.random() < 1 / 3 else []) + golds[int(rng.integers(0, len(golds)))]
+        elif r < 0.9:
+            pred = first[1:] + source.take(1) if len(first) > 1 else first + source.take(1)
+        else:
+            pred = source.take(int(rng.integers(1, 4)))
+        qid = f"q{i}"
+        preds.append({"prediction_text": " ".join(pred), "id": qid})
+        target.append({"answers": {"answer_start": [0] * len(golds), "text": [" ".join(g) for g in golds]}, "id": qid})
+    return preds, target
+
+
+class HashWordPiece:
+    """The tokenizer stand-in of the summarization phase: no ``vocab.txt``
+    is in the repository, so each lowercased word or punctuation mark is
+    hashed (CRC32) into bert-base's ids past [SEP]; [CLS] 101, [SEP] 102,
+    pad 0, each batch padded to its longest row, at most ``max_length``
+    tokens. ``(texts, max_length) -> (ids, mask)``, int32 numpy."""
+
+    def __init__(self, vocab_size=30522):
+        self.vocab_size = vocab_size
+        self.ids = {}
+
+    def _id(self, token):
+        i = self.ids.get(token)
+        if i is None:
+            import zlib
+
+            i = self.ids[token] = SEP_ID + 1 + zlib.crc32(token.encode("utf-8")) % (self.vocab_size - SEP_ID - 1)
+        return i
+
+    def __call__(self, texts, max_length):
+        import numpy as np
+
+        rows = [[CLS_ID] + [self._id(t) for t in _tokens(s)[: max_length - 2]] + [SEP_ID] for s in texts]
+        length = max(len(r) for r in rows)
+        ids = np.full((len(rows), length), PAD_ID, np.int32)
+        mask = np.zeros((len(rows), length), np.int32)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)] = r
+            mask[i, : len(r)] = 1
+        return ids, mask
+
+
+def _host_launches(fn):
+    """Kernel launches the host makes in one call of ``fn`` (a profiler
+    window over it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type != DeviceType.CUDA and e.key.startswith(LAUNCH_CALLS))
+
+
+def _timed(fn):
+    """``fn()`` between two synchronizes: its value and seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _states_equal(card, cpu, what, rtol=0.0):
+    """Every state of the card's metric equal to the CPU run's (float32
+    sums within ``rtol`` where it is given)."""
+    import torch
+
+    a, b = card.metric_state, cpu.metric_state
+    for key in a:
+        x, y = a[key], b[key]
+        xs, ys = (x, y) if isinstance(x, list) else ([x], [y])
+        if len(xs) != len(ys):
+            raise AssertionError(f"{what}: {key} holds {len(xs)} items on the card, {len(ys)} on the CPU")
+        for u, v in zip(xs, ys):
+            u = u.cpu()
+            ok = torch.equal(u, v) if rtol == 0.0 or not u.is_floating_point() else torch.allclose(u, v, rtol=rtol, atol=0.0)
+            if not ok:
+                raise AssertionError(f"{what}: state {key} is {u.flatten()[:4].tolist()} on the card, {v.flatten()[:4].tolist()} on the CPU")
+
+
+def _bert_float64(metric):
+    """BERTScore's P/R/F1 recomputed in float64 on the card from the
+    metric's own embeddings and masks, batch by batch (uniform weights),
+    as a (3, N) tensor."""
+    import torch
+
+    from metrics_tpu_torch.functional.text.bert import _strip_special_tokens
+
+    def unit(e, m):
+        e = e.double()
+        n = e.norm(dim=-1, keepdim=True)
+        return e / torch.where(n > 0, n, 1.0) * m[..., None]
+
+    def scale(m):
+        d = m.sum(-1, keepdim=True)
+        return m / torch.where(d > 0, d, 1.0)
+
+    out = []
+    for pe, pm, te, tm in zip(metric.pred_embeddings, metric.pred_masks, metric.target_embeddings, metric.target_masks):
+        pm, tm = _strip_special_tokens(pm).double(), _strip_special_tokens(tm).double()
+        cos = torch.bmm(unit(pe, pm), unit(te, tm).transpose(1, 2))
+        p = (cos.max(2).values * scale(pm)).sum(-1)
+        r = (cos.max(1).values * scale(tm)).sum(-1)
+        f = torch.where(p + r > 0, 2 * p * r / torch.where(p + r > 0, p + r, 1.0), 0.0)
+        out.append(torch.stack([p, r, f]))
+    return torch.cat(out, dim=1)
+
+
+def phase_text_summarization(dev):
+    """``configs[4]``'s text half: a CNN/DailyMail-test-sized summarization
+    evaluation (11,490 seeded pairs) through ROUGE and BERTScore with a
+    seeded BERT-base on the card."""
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+    import metrics_tpu_torch.text.rouge as rouge_module
+    from metrics_tpu_torch.functional.text import bert_score
+    from metrics_tpu_torch.functional.text.rouge import ALLOWED_ROUGE_KEYS
+    from metrics_tpu_torch.nets import BertConfigLite, BertEncoder
+
+    t_phase = time.perf_counter()
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    cands, refs = make_summaries(SEED)
+    corpus_s = time.perf_counter() - t0
+    n = len(cands)
+    ref_tokens = [len(_tokens(r)) for r in refs]
+    corpus = {"pairs": n, "reference_tokens_mean": float(np.mean(ref_tokens)), "candidate_tokens_mean": float(np.mean([len(_tokens(c)) for c in cands])),
+              "reference_sentences_mean": float(np.mean([r.count("\n") + 1 for r in refs])), "made_on_host_s": corpus_s}
+
+    # ROUGE over every pair on the card, each batch's per-pair values kept
+    keys = ("rouge1", "rouge2", "rougeL", "rougeLsum")
+    recorded = []
+    original = rouge_module._rouge_score_update
+
+    def recording(*args, **kwargs):
+        out = original(*args, **kwargs)
+        recorded.append(out)
+        return out
+
+    rouge_module._rouge_score_update = recording
+    try:
+        rouge = mtt.ROUGEScore(rouge_keys=keys, device=dev)
+        t0 = time.perf_counter()
+        for lo in range(0, n, SUMM_BATCH):
+            rouge.update(cands[lo:lo + SUMM_BATCH], refs[lo:lo + SUMM_BATCH])
+        rouge_values = {k: float(v) for k, v in rouge.compute().items()}
+        rouge_s = time.perf_counter() - t0
+    finally:
+        rouge_module._rouge_score_update = original
+    mean_err = {}
+    for key in keys:
+        for stat in ("fmeasure", "precision", "recall"):
+            vals = [s[stat] for out in recorded for s in out[ALLOWED_ROUGE_KEYS[key]]]
+            mean64 = math.fsum(vals) / len(vals)
+            name = f"{key}_{stat}"
+            mean_err[name] = abs(rouge_values[name] - mean64) / abs(mean64)
+            if len(vals) != n or mean_err[name] > ROUGE_MEAN_RTOL:
+                raise AssertionError(f"text_summarization_path: {name} {rouge_values[name]} against the float64 mean {mean64} of {len(vals)} pairs")
+    # the first pairs on the card and on the CPU: the same states
+    t0 = time.perf_counter()
+    card_rouge, cpu_rouge = mtt.ROUGEScore(rouge_keys=keys, device=dev), mtt.ROUGEScore(rouge_keys=keys, device="cpu")
+    for lo in range(0, ROUGE_CPU_PAIRS, SUMM_BATCH):
+        for m in (card_rouge, cpu_rouge):
+            m.update(cands[lo:lo + SUMM_BATCH], refs[lo:lo + SUMM_BATCH])
+    _states_equal(card_rouge, cpu_rouge, "text_summarization_path ROUGE")
+    if {k: float(v) for k, v in card_rouge.compute().items()} != {k: float(v) for k, v in cpu_rouge.compute().items()}:
+        raise AssertionError("text_summarization_path: ROUGE on the card and on the CPU differ")
+    rouge_cpu_s = time.perf_counter() - t0
+
+    # BERTScore: seeded BERT-base, layer 9, batches of SUMM_BATCH pairs
+    tokenizer = HashWordPiece()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    encoder = _quiet(lambda: BertEncoder(tokenizer, cfg=BertConfigLite(), layer=BERT_LAYER, max_length=BERT_MAX_LENGTH, device=dev))
+    encoder_init_s = time.perf_counter() - t0
+    seen = set()
+    hook = encoder.module.register_forward_pre_hook(
+        lambda m, a: seen.add((torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32, torch.is_grad_enabled())))
+    metric = mtt.BERTScore(encoder=encoder, max_length=BERT_MAX_LENGTH, device=dev)
+    update_s = []
+    for lo in range(0, n, SUMM_BATCH):
+        _, s = _timed(lambda: metric.update(cands[lo:lo + SUMM_BATCH], refs[lo:lo + SUMM_BATCH]))
+        update_s.append(s)
+    hook.remove()
+    if seen != {("highest", False, False)}:
+        raise AssertionError(f"text_summarization_path: the encoder ran with (matmul precision, TF32, grad) {seen}")
+    real_tokens = sum(int(m.sum()) for m in metric.pred_masks + metric.target_masks)
+    padded_tokens = sum(m.numel() for m in metric.pred_masks + metric.target_masks)
+    state_bytes = sum(t.numel() * t.element_size() for name in ("pred_embeddings", "target_embeddings", "pred_masks", "target_masks", "pred_ids", "target_ids")
+                      for t in getattr(metric, name))
+    values, compute_s = _timed(metric.compute)
+    peak = torch.cuda.max_memory_allocated()
+    p, r, f1 = values["precision"], values["recall"], values["f1"]
+    if f1.shape != (n,) or not bool(torch.isfinite(torch.stack([p, r, f1])).all()) or not bool(((f1 > 0) & (f1 <= 1 + 1e-6)).all()):
+        raise AssertionError(f"text_summarization_path: BERTScore F1 of shape {tuple(f1.shape)}, range [{float(f1.min())}, {float(f1.max())}]")
+    f64 = _bert_float64(metric)
+    f64_err = float((torch.stack([p, r, f1]).double() - f64).abs().max())
+    if f64_err > BERT_F64_ATOL:
+        raise AssertionError(f"text_summarization_path: the matching is {f64_err} off its float64 recomputation")
+    # IDF at the corpus's size: a second metric loads the first one's state
+    metric.persistent(True)
+    idf_metric = mtt.BERTScore(idf=True, encoder=encoder, max_length=BERT_MAX_LENGTH, device=dev)
+    state = metric.state_dict()
+    idf_metric.load_state_dict(state)
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    idf_values, compute_idf_s = _timed(idf_metric.compute)
+    peak_idf = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(idf_values["f1"]).all()) or idf_values["f1"].shape != (n,):
+        raise AssertionError("text_summarization_path: BERTScore with IDF is not finite")
+    del idf_metric, idf_values
+    torch.cuda.empty_cache()
+
+    # the first pairs against BERT-base on the CPU, with the same seeded weights
+    first = slice(0, BERT_CPU_PAIRS)
+    t0 = time.perf_counter()
+    cpu_encoder = _quiet(lambda: BertEncoder(tokenizer, cfg=BertConfigLite(), layer=BERT_LAYER, max_length=BERT_MAX_LENGTH, device="cpu"))
+    card_first = bert_score(cands[first], refs[first], encoder=encoder, device=dev)
+    cpu_first = bert_score(cands[first], refs[first], encoder=cpu_encoder, device="cpu")
+    cpu_err = max(float((card_first[k].cpu() - cpu_first[k]).abs().max()) for k in card_first)
+    bert_cpu_s = time.perf_counter() - t0
+    del cpu_encoder
+    if cpu_err > BERT_CPU_ATOL:
+        raise AssertionError(f"text_summarization_path: BERTScore on the card is {cpu_err} off the CPU run")
+    # candidates equal to their references score 1; the own reference beats a shuffled one
+    head = slice(0, SUMM_BATCH)
+    self_f1 = bert_score(refs[head], refs[head], encoder=encoder, device=dev)["f1"]
+    self_err = float((self_f1 - 1.0).abs().max())
+    own = float(bert_score(cands[head], refs[head], encoder=encoder, device=dev)["f1"].mean())
+    shuffled = float(bert_score(cands[head], refs[head][1:] + refs[head][:1], encoder=encoder, device=dev)["f1"].mean())
+    if self_err > BERT_SELF_ATOL or not own > shuffled:
+        raise AssertionError(f"text_summarization_path: self F1 off 1 by {self_err}; own-reference F1 {own}, shuffled {shuffled}")
+    emb = metric.pred_embeddings[0][metric.pred_masks[0].bool()]
+    unit = torch.nn.functional.normalize(emb.double(), dim=-1)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a, b = (torch.randint(0, unit.shape[0], (4096,), generator=g, device=dev) for _ in range(2))
+    token_cos = float((unit[a] * unit[b]).sum(-1)[a != b].mean())
+    tokens_per_s = real_tokens / sum(update_s)
+    emit({
+        "phase": "text_summarization_path",
+        "nvidia_smi": nvidia_smi_line(),
+        "corpus": corpus,
+        "rouge": {"keys": list(keys), "values": rouge_values, "host_s": rouge_s, "batches": len(recorded),
+                  "float64_mean_rel_err": mean_err, "rtol": ROUGE_MEAN_RTOL,
+                  "against_cpu": {"pairs": ROUGE_CPU_PAIRS, "states": "equal", "seconds": rouge_cpu_s}},
+        "bert_score": {
+            "encoder": {"config": "bert-base (12 layers, 768 wide, 12 heads, 30,522 ids), seeded random weights (uncalibrated)",
+                        "layer": BERT_LAYER, "layers_run": BERT_LAYER, "max_length": BERT_MAX_LENGTH, "tokenizer": "hash WordPiece stand-in (no vocab.txt)",
+                        "init_s": encoder_init_s, "float32": "full (matmul precision 'highest', TF32 off)"},
+            "batch_pairs": SUMM_BATCH, "batches": len(update_s),
+            "pairs_per_s": n / sum(update_s), "real_tokens_per_s": tokens_per_s,
+            "update_p50_ms": _p(update_s, 50), "update_p99_ms": _p(update_s, 99),
+            "tokens": {"real": real_tokens, "padded": padded_tokens},
+            "compute_s": compute_s, "compute_idf_s": compute_idf_s,
+            "state_bytes": state_bytes, "held_before_bytes": held_before,
+            "peak_bytes": peak, "peak_idf_bytes": peak_idf,
+            "mean": {"precision": float(p.mean()), "recall": float(r.mean()), "f1": float(f1.mean())},
+            "float64_max_abs_err": f64_err, "float64_atol": BERT_F64_ATOL,
+            "against_cpu": {"pairs": BERT_CPU_PAIRS, "max_abs_err": cpu_err, "atol": BERT_CPU_ATOL, "seconds": bert_cpu_s},
+            "self_f1_max_abs_err": self_err, "own_reference_f1": own, "shuffled_reference_f1": shuffled,
+            "token_cosine_mean": token_cos,
+        },
+        "kernel_launches": _check_no_kernel_launched("text_summarization_path"),
+        "seconds": time.perf_counter() - t_phase,
+    })
+    del metric, encoder, values
+    torch.cuda.empty_cache()
+
+
+def _levenshtein(a, b):
+    """Levenshtein distance of two token sequences on the host, in plain
+    Python: the bit-parallel form of the DP (Myers 1999, Hyyro 2001), one
+    column of the table per token of ``b`` as Python integers. The CPU tests
+    check it against the cell-by-cell DP."""
+    if not a:
+        return len(b)
+    m = len(a)
+    peq = {}
+    for i, c in enumerate(a):
+        peq[c] = peq.get(c, 0) | (1 << i)
+    mask, high = (1 << m) - 1, 1 << (m - 1)
+    pv, mv, score = mask, 0, m
+    for c in b:
+        eq = peq.get(c, 0)
+        xv = eq | mv
+        xh = (((eq & pv) + pv) ^ pv) | eq
+        ph = (mv | ~(xh | pv)) & mask
+        mh = pv & xh
+        if ph & high:
+            score += 1
+        elif mh & high:
+            score -= 1
+        ph = ((ph << 1) | 1) & mask
+        mh = (mh << 1) & mask
+        pv = (mh | ~(xv | ph)) & mask
+        mv = ph & xv
+    return score
+
+
+def _run_batches(metrics, batches, update_s=None):
+    """Every batch through every metric, each update timed when
+    ``update_s`` is given."""
+    for args in batches:
+        for name, m in metrics.items():
+            if update_s is None:
+                m.update(*args)
+            else:
+                _, s = _timed(lambda: m.update(*args))
+                update_s.setdefault(name, []).append(s)
+
+
+def phase_text_metrics(dev):
+    """Every other text class on the card against the port's CPU run:
+    LibriSpeech-test-clean-sized ASR (WER, CER, MER, WIL, WIP), WMT14
+    newstest2014-sized MT (BLEU, SacreBLEU 13a, chrF++, TER, EED) and SQuAD
+    v1.1-dev-sized QA."""
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.functional.text.eed import _preprocess_en
+    from metrics_tpu_torch.functional.text.helper import _bucket
+
+    t_phase = time.perf_counter()
+    _reset_kernel_counts()
+    update_s = {}
+
+    # ASR: the counts bit-equal to the CPU run and to a plain Levenshtein
+    t0 = time.perf_counter()
+    hyps, refs = make_asr(SEED)
+    asr_corpus_s = time.perf_counter() - t0
+    asr_classes = {"wer": mtt.WordErrorRate, "cer": mtt.CharErrorRate, "mer": mtt.MatchErrorRate, "wil": mtt.WordInfoLost, "wip": mtt.WordInfoPreserved}
+    asr_batches = [(hyps[lo:lo + TEXT_BATCH], refs[lo:lo + TEXT_BATCH]) for lo in range(0, len(hyps), TEXT_BATCH)]
+    card = {k: c(device=dev) for k, c in asr_classes.items()}
+    _run_batches(card, asr_batches[:TEXT_CPU_BATCHES], update_s)
+    t0 = time.perf_counter()
+    cpu = {k: c(device="cpu") for k, c in asr_classes.items()}
+    _run_batches(cpu, asr_batches[:TEXT_CPU_BATCHES])
+    asr_cpu_s = time.perf_counter() - t0
+    for k in card:
+        _states_equal(card[k], cpu[k], f"text_metrics_path {k}")
+    _run_batches(card, asr_batches[TEXT_CPU_BATCHES:], update_s)
+    t0 = time.perf_counter()
+    word_d = sum(_levenshtein(h.split(), r.split()) for h, r in zip(hyps, refs))
+    char_d = sum(_levenshtein(h, r) for h, r in zip(hyps, refs))
+    hyp_words, ref_words = sum(len(h.split()) for h in hyps), sum(len(r.split()) for r in refs)
+    max_words = sum(max(len(h.split()), len(r.split())) for h, r in zip(hyps, refs))
+    plain_s = time.perf_counter() - t0
+    want = {"wer": (word_d, ref_words), "cer": (char_d, sum(len(r) for r in refs)), "mer": (word_d, max_words),
+            "wil": (word_d - max_words, ref_words, hyp_words), "wip": (word_d - max_words, ref_words, hyp_words)}
+    for k, m in card.items():
+        got = tuple(float(v) for v in m.metric_state.values())
+        if got != tuple(float(v) for v in want[k]):
+            raise AssertionError(f"text_metrics_path: {k} counts {got} against the plain Levenshtein's {want[k]}")
+    asr_values = {k: float(m.compute()) for k, m in card.items()}
+    # the wavefront's launches on one batch, beside its anti-diagonals
+    h0, r0 = asr_batches[0]
+    wavefront = {}
+    for k, split in (("wer", str.split), ("cer", list)):
+        m = asr_classes[k](device=dev)
+        diagonals = _bucket(max(len(split(h)) for h in h0)) + _bucket(max(len(split(r)) for r in r0)) - 1
+        launches = _host_launches(lambda: m.update(h0, r0))
+        wavefront[k] = {"launches_per_batch": launches, "anti_diagonals": diagonals, "launches_per_diagonal": launches / diagonals}
+
+    # MT
+    t0 = time.perf_counter()
+    mt_hyps, mt_refs = make_mt(SEED)
+    mt_corpus_s = time.perf_counter() - t0
+    mt_targets = [[r] for r in mt_refs]
+    mt_classes = {"bleu": lambda d: mtt.BLEUScore(device=d), "sacrebleu": lambda d: mtt.SacreBLEUScore(tokenize="13a", device=d),
+                  "chrf": lambda d: mtt.CHRFScore(device=d), "eed": lambda d: mtt.ExtendedEditDistance(device=d)}
+    mt_batches = [(mt_hyps[lo:lo + TEXT_BATCH], mt_targets[lo:lo + TEXT_BATCH]) for lo in range(0, len(mt_hyps), TEXT_BATCH)]
+    card_mt = {k: c(dev) for k, c in mt_classes.items()}
+    _run_batches(card_mt, mt_batches[:TEXT_CPU_BATCHES], update_s)
+    t0 = time.perf_counter()
+    cpu_mt = {k: c("cpu") for k, c in mt_classes.items()}
+    _run_batches(cpu_mt, mt_batches[:TEXT_CPU_BATCHES])
+    mt_cpu_s = time.perf_counter() - t0
+    mt_cpu_err = {}
+    for k in card_mt:
+        _states_equal(card_mt[k], cpu_mt[k], f"text_metrics_path {k}", rtol=1e-6 if k == "eed" else 0.0)
+        a, b = float(card_mt[k].compute()), float(cpu_mt[k].compute())
+        mt_cpu_err[k] = abs(a - b) / max(abs(b), 1e-30)
+        if not math.isfinite(a) or mt_cpu_err[k] > 1e-6:
+            raise AssertionError(f"text_metrics_path: {k} {a} on the card, {b} on the CPU")
+    _run_batches(card_mt, mt_batches[TEXT_CPU_BATCHES:], update_s)
+    mt_values = {k: float(m.compute()) for k, m in card_mt.items()}
+    # TER's host shift search: the first TER_CARD_SEGMENTS segments, the CPU
+    # run the first TER_CPU_SEGMENTS of them
+    ter_batch = TER_CPU_SEGMENTS // 2
+    ter_batches = [(mt_hyps[lo:lo + ter_batch], mt_targets[lo:lo + ter_batch]) for lo in range(0, TER_CARD_SEGMENTS, ter_batch)]
+    card_ter, cpu_ter = {"ter": mtt.TranslationEditRate(device=dev)}, {"ter": mtt.TranslationEditRate(device="cpu")}
+    _run_batches(card_ter, ter_batches[:2], update_s)
+    t0 = time.perf_counter()
+    _run_batches(cpu_ter, ter_batches[:2])
+    ter_cpu_s = time.perf_counter() - t0
+    _states_equal(card_ter["ter"], cpu_ter["ter"], "text_metrics_path ter")
+    _run_batches(card_ter, ter_batches[2:], update_s)
+    mt_values["ter"] = float(card_ter["ter"].compute())
+    eed_m = mtt.ExtendedEditDistance(device=dev)
+    mt_h0, mt_t0 = mt_batches[0]
+    eed_steps = _bucket(max(len(_preprocess_en(r[0])) for r in mt_t0))
+    eed_launches = _host_launches(lambda: eed_m.update(mt_h0, mt_t0))
+
+    # QA
+    t0 = time.perf_counter()
+    qa_preds, qa_target = make_squad(SEED)
+    qa_corpus_s = time.perf_counter() - t0
+    qa_batches = [(qa_preds[lo:lo + TEXT_BATCH], qa_target[lo:lo + TEXT_BATCH]) for lo in range(0, len(qa_preds), TEXT_BATCH)]
+    card_qa, cpu_qa = {"squad": mtt.SQuAD(device=dev)}, {"squad": mtt.SQuAD(device="cpu")}
+    _run_batches(card_qa, qa_batches, update_s)
+    t0 = time.perf_counter()
+    _run_batches(cpu_qa, qa_batches)
+    qa_cpu_s = time.perf_counter() - t0
+    _states_equal(card_qa["squad"], cpu_qa["squad"], "text_metrics_path squad")
+    qa_values = {k: float(v) for k, v in card_qa["squad"].compute().items()}
+    if int(card_qa["squad"].total) != SQUAD_QUESTIONS or not 0 < qa_values["f1"] <= 100:
+        raise AssertionError(f"text_metrics_path: SQuAD {qa_values} over {int(card_qa['squad'].total)} questions")
+
+    emit({
+        "phase": "text_metrics_path",
+        "nvidia_smi": nvidia_smi_line(),
+        "asr": {"utterances": len(hyps), "words_mean": ref_words / len(refs), "values": asr_values,
+                "counts": {k: [float(v) for v in m.metric_state.values()] for k, m in card.items()},
+                "against_cpu": f"states equal over the first {TEXT_CPU_BATCHES * TEXT_BATCH}", "against_plain_levenshtein": "counts equal",
+                "plain_levenshtein_s": plain_s,
+                "cpu_s": asr_cpu_s, "corpus_s": asr_corpus_s, "wavefront": wavefront},
+        "mt": {"segments": len(mt_hyps), "values": mt_values, "cpu_segments": TEXT_CPU_BATCHES * TEXT_BATCH, "against_cpu_rel_err": mt_cpu_err,
+               "ter_segments": {"card": TER_CARD_SEGMENTS, "cpu": TER_CPU_SEGMENTS}, "cpu_s": mt_cpu_s, "ter_cpu_s": ter_cpu_s,
+               "corpus_s": mt_corpus_s, "eed_loop": {"launches_per_batch": eed_launches, "reference_steps": eed_steps,
+                                                     "launches_per_step": eed_launches / eed_steps}},
+        "qa": {"questions": len(qa_preds), "values": qa_values, "against_cpu": "states equal", "cpu_s": qa_cpu_s, "corpus_s": qa_corpus_s},
+        "batch": TEXT_BATCH,
+        "update_p50_ms": {k: _p(v, 50) for k, v in update_s.items()},
+        "update_p99_ms": {k: _p(v, 99) for k, v in update_s.items()},
+        "update_s_total": {k: sum(v) for k, v in update_s.items()},
+        "kernel_launches": _check_no_kernel_launched("text_metrics_path"),
+        "seconds": time.perf_counter() - t_phase,
+    })
+
+
 def main():
     try:
         import torch
@@ -5829,6 +6489,10 @@ def main():
     phase_image_functional(device)
     phase_fid50k(device)
     phase_lpips_ssim(device)
+    # the text slice: no kernel of K1-K3 on its path either
+    torch.cuda.empty_cache()
+    phase_text_summarization(device)
+    phase_text_metrics(device)
     # each kernel's launches on every path that runs it, each path counted
     # from zero just before it
     kernels[0]["launches_by_path"] = {

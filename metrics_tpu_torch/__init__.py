@@ -96,6 +96,21 @@ from metrics_tpu_torch.streaming import (
 )
 from metrics_tpu_torch.resilience.health import health_report
 from metrics_tpu_torch.serving import ServeLoop, Warmup
+from metrics_tpu_torch.text import (
+    BERTScore,
+    BLEUScore,
+    CharErrorRate,
+    CHRFScore,
+    ExtendedEditDistance,
+    MatchErrorRate,
+    ROUGEScore,
+    SacreBLEUScore,
+    SQuAD,
+    TranslationEditRate,
+    WordErrorRate,
+    WordInfoLost,
+    WordInfoPreserved,
+)
 from metrics_tpu_torch.wrappers import (
     BootStrapper,
     ClasswiseWrapper,
@@ -202,4 +217,17 @@ __all__ = [
     "overlapped_functionalize",
     "sliced_functionalize",
     "slices_max_labels",
+    "BERTScore",
+    "BLEUScore",
+    "CharErrorRate",
+    "CHRFScore",
+    "ExtendedEditDistance",
+    "MatchErrorRate",
+    "ROUGEScore",
+    "SacreBLEUScore",
+    "SQuAD",
+    "TranslationEditRate",
+    "WordErrorRate",
+    "WordInfoLost",
+    "WordInfoPreserved",
 ]

@@ -50,6 +50,17 @@ count and target extremes; LPIPS's two sums. A JAX ``capacity=`` FID state
 loads into the port and computes the same value. The nets' weights are not
 states: they carry over through ``nets/*.py::load_jax_variables``.
 
+The text metrics carry the same way: their float32 ``sum`` states (the
+edit rates' errors and lengths, EED's score sum and sentence count, TER's
+edits and reference length, BLEU's and SacreBLEU's numerator,
+denominator and lengths, chrF's six per-order counts, ROUGE's per-key
+sums and sentence count, SQuAD's sums and int32 total), their sentence
+lists (``sentence_eed``, ``sentence_ter``, ``sentence_chrf_score``: lists
+of ``(1,)`` arrays), and BERTScore's six list states (per-batch float32
+embeddings and int32 masks and ids, each batch at its own token length).
+A JAX text metric's state loads into the port and computes the same
+value from it (BERTScore's within 1e-6, ROADMAP D51).
+
 A pure state (``pure.py``) carries both ways, in every layout: a
 ``MetricDef`` state dict, a wrapper's list of per-node dicts, a
 collection's dict of those, the overlapped ``{live, reduced, steps,

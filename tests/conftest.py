@@ -40,6 +40,12 @@ def pytest_configure(config):
     assert jax.device_count() >= NUM_DEVICES, f"expected {NUM_DEVICES} devices, got {jax.device_count()}"
     config.addinivalue_line(
         "markers",
+        "reference_fault: documents a fault of the JAX package that the "
+        "PyTorch port repairs (ROADMAP Queue 3); it runs in tier-1 and "
+        "passes while the JAX package shows the fault",
+    )
+    config.addinivalue_line(
+        "markers",
         "slow: heavyweight tests (real pretrained-weight loads, subprocess example "
         "runs, multi-seed fuzz repeats) excluded from the tier-1 fast lane "
         "(ROADMAP.md runs pytest -m 'not slow' under a hard timeout)",

@@ -27,30 +27,24 @@ PACKAGES = [
     "", ".classification", ".functional", ".utilities", ".parallel", ".streaming", ".regression",
     ".retrieval", ".wrappers", ".sliced", ".serving", ".resilience",
     ".functional.classification", ".functional.regression", ".functional.retrieval", ".functional.pairwise",
-    ".image", ".functional.image", ".nets",
+    ".image", ".functional.image", ".nets", ".text", ".functional.text",
 ]
 
 # names the JAX package exports from modules the port has not reached yet
-# (ROADMAP Queue 1): the text family and the BERT encoder (item 13), audio
-# (item 17), snapshots and the backend probe (item 14), observability
-# (item 15)
+# (ROADMAP Queue 1): audio (item 17), snapshots and the backend probe
+# (item 14), observability (item 15)
 NOT_YET_PORTED = {
     "": {
-        "BERTScore", "BLEUScore", "CHRFScore", "CharErrorRate", "DriftMonitor", "ExtendedEditDistance", "MatchErrorRate",
-        "PerceptualEvaluationSpeechQuality", "PermutationInvariantTraining", "ROUGEScore", "ReferenceWindow", "SQuAD",
-        "SacreBLEUScore", "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio",
-        "ShortTimeObjectiveIntelligibility", "SignalDistortionRatio", "SignalNoiseRatio", "SnapshotManager",
-        "TranslationEditRate", "WordErrorRate", "WordInfoLost", "WordInfoPreserved", "ensure_backend", "obs",
+        "DriftMonitor", "PerceptualEvaluationSpeechQuality", "PermutationInvariantTraining", "ReferenceWindow",
+        "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio", "ShortTimeObjectiveIntelligibility",
+        "SignalDistortionRatio", "SignalNoiseRatio", "SnapshotManager", "ensure_backend", "obs",
     },
     ".functional": {
-        "bert_score", "bleu_score", "char_error_rate", "chrf_score", "extended_edit_distance", "match_error_rate",
-        "perceptual_evaluation_speech_quality", "permutation_invariant_training", "pit_permutate", "rouge_score",
-        "sacre_bleu_score", "scale_invariant_signal_distortion_ratio", "scale_invariant_signal_noise_ratio",
-        "short_time_objective_intelligibility", "signal_distortion_ratio", "signal_noise_ratio", "squad",
-        "stoi_on_device", "translation_edit_rate", "word_error_rate", "word_information_lost", "word_information_preserved",
+        "perceptual_evaluation_speech_quality", "permutation_invariant_training", "pit_permutate",
+        "scale_invariant_signal_distortion_ratio", "scale_invariant_signal_noise_ratio",
+        "short_time_objective_intelligibility", "signal_distortion_ratio", "signal_noise_ratio", "stoi_on_device",
     },
     ".resilience": {"SnapshotCorruptionError", "SnapshotError", "SnapshotManager", "SnapshotSchemaError"},
-    ".nets": {"BertConfigLite", "BertEncoder", "FlaxBertModel", "load_bert_torch_state_dict"},
 }
 
 

@@ -51,6 +51,68 @@ def test_package_imports_no_torchvision_or_scipy(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def _top_level_imports(path):
+    """The modules a file imports when it is imported (not inside a
+    function or a class)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PACKAGE_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_package_imports_no_transformers_and_no_optional_text_package_eagerly(path):
+    """The port never imports ``transformers``; ``nltk``, ``regex`` and
+    ``MeCab`` (the text metrics' optional packages, which the card's machine
+    lacks) only inside the functions that need them."""
+    anywhere = [m for m in _imported_modules(path) if m.split(".")[0] == "transformers"]
+    eager = [m for m in _top_level_imports(path) if m.split(".")[0] in ("nltk", "regex", "MeCab", "ipadic")]
+    assert not anywhere and not eager, f"{path.relative_to(ROOT)} imports {anywhere + eager}"
+
+
+def test_text_imports_load_no_jax_no_optional_package_and_construct_no_net():
+    """The text metrics, their functions and the nets package import no JAX,
+    nothing of ``metrics_tpu``, no ``transformers``, ``nltk``, ``regex`` or
+    ``MeCab``, build no kernel, and load no BERT until it is asked for."""
+    code = (
+        "import sys\n"
+        "import metrics_tpu_torch, metrics_tpu_torch.text, metrics_tpu_torch.functional.text, metrics_tpu_torch.nets\n"
+        "from metrics_tpu_torch.ops import _build\n"
+        "assert _build._loaded == {} and _build.build_info == {}\n"
+        "assert 'metrics_tpu_torch.nets.bert_encoder' not in sys.modules\n"
+        "bad = ('jax', 'metrics_tpu', 'transformers', 'nltk', 'regex', 'MeCab', 'triton')\n"
+        "assert not any(m.split('.')[0] in bad for m in sys.modules), sorted(m for m in sys.modules if m.split('.')[0] in bad)\n"
+        "metrics_tpu_torch.nets.BertEncoder\n"
+        "assert 'metrics_tpu_torch.nets.bert_encoder' in sys.modules\n"
+        "print('ok')\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_bert_encoder_without_device_asks_for_cuda(monkeypatch):
+    """The BERT trunk's parameters and outputs live on the encoder's device:
+    CUDA unless the caller asks for the CPU."""
+    from metrics_tpu_torch.nets import BertConfigLite, BertEncoder
+
+    def tokenizer(texts, max_length):
+        ids = torch.tensor([[101, 7, 8, 102]] * len(texts))
+        return ids, torch.ones_like(ids)
+
+    cfg = BertConfigLite(vocab_size=128, hidden_size=16, num_hidden_layers=1, num_attention_heads=2, intermediate_size=32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
+        BertEncoder(tokenizer, cfg=cfg)
+    with pytest.warns(UserWarning, match="without pretrained weights"):
+        enc = BertEncoder(tokenizer, cfg=cfg, device="cpu")
+    assert all(p.device.type == "cpu" for p in enc.module.parameters())
+    assert all(t.device.type == "cpu" for t in enc(["a b"]))
+
+
 def test_scan_sees_forbidden_imports():
     assert _is_forbidden("metrics_tpu.ops") and _is_forbidden("jax.numpy") and _is_forbidden("metrics_tpu")
     assert not _is_forbidden("metrics_tpu_torch.ops") and not _is_forbidden("torch")
@@ -186,7 +248,7 @@ def test_nets_without_device_ask_for_cuda(name, monkeypatch):
     "name",
     [
         "torch_thread_world.py", "torch_twin_world.py", "torch_pure_ranks.py", "torch_twins.py",
-        "torch_retrieval_ranks.py", "torch_sliced_ranks.py",
+        "torch_retrieval_ranks.py", "torch_sliced_ranks.py", "torch_text_ranks.py",
     ],
 )
 def test_rank_helpers_import_no_jax(name):
@@ -340,6 +402,9 @@ _NEEDS = {
         "UniversalImageQualityIndex", "ErrorRelativeGlobalDimensionlessSynthesis", "SpectralAngleMapper",
         "SpectralDistortionIndex", "FrechetInceptionDistance", "KernelInceptionDistance", "InceptionScore",
         "LearnedPerceptualImagePatchSimilarity",
+        "WordErrorRate", "CharErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved",
+        "ExtendedEditDistance", "TranslationEditRate", "BLEUScore", "SacreBLEUScore", "CHRFScore", "SQuAD",
+        "ROUGEScore", "BERTScore",
     ],
 )
 def test_metric_without_device_asks_for_cuda(name, monkeypatch):
