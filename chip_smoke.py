@@ -18,7 +18,8 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    scalar heads and tails, and grids on both sides of each shared-memory
    limit; K3's single fold ``compactor_fold`` and its cascade
    ``fold_cascade`` / ``merge_cascade`` in insert and merge mode, including
-   values of k whose buffers run out of device memory);
+   values of k whose buffers run out of device memory, and at the sketch
+   shapes of the drift monitors and the telemetry histograms (33, 34));
 4. main path: an ImageNet-1k validation epoch (50,000 rows, 1000 classes,
    1024-row batches) through ``MetricCollection({acc1, acc5, bap})`` on the
    card, checked against the same run of the port on the CPU;
@@ -134,8 +135,9 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    a batch through ten retrieval metrics (MRR, MAP, nDCG@10, P@10, R@100,
    HitRate@10, FallOut@10, R-precision, the precision/recall curve to 100
    and the recall at precision 0.1), in the list mode and with
-   ``capacity=2**23``: each mode against the port's CPU run (exact
-   per-query values bit-equal), the modes against each other, MRR, MAP and
+   ``capacity=2**23``: each mode against the port's CPU run in the list
+   mode (exact per-query values bit-equal; the CPU's capacity-mode run is
+   cut for the script's time), the modes against each other, MRR, MAP and
    nDCG@10 against float64 numpy, no read back in a capacity update;
 21. sliced path: the fused evaluation epoch split into 256 cohorts,
    ``{acc, prec, rec, f1}`` each a ``SlicedMetric(..., pad_batches=True)``
@@ -207,7 +209,7 @@ Phases, each printing one JSON line, and any failure exits non-zero:
 28. LPIPS and SSIM path: 50,000 pairs made the same way through
    ``LearnedPerceptualImagePatchSimilarity(net_type="alex")``, streaming
    SSIM and MS-SSIM and PSNR (each update captured but LPIPS's), each held
-   against the port's CPU run on the first 128 pairs and the streamed SSIM
+   against the port's CPU run on the first 64 pairs and the streamed SSIM
    against the accumulate mode over the first 1024; pairs/s and update
    p50 of each. The image phases launch none of K1-K3 (their counts read 0);
 29. text summarization path: a CNN/DailyMail-test-sized evaluation (11,490
@@ -232,7 +234,48 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    segments; 200 of them on the CPU), SQuAD-v1.1-dev-sized
    QA (10,570 questions); update p50 of each class and the launches a
    batch of the edit-distance wavefront and of EED's loop. Neither text
-   phase launches K1-K3.
+   phase launches K1-K3;
+31. backend probe: ``ensure_backend()``, started on a thread before this
+   process initialises CUDA (so its probe, a fresh interpreter that
+   initialises CUDA, runs while the kernels build and the parity phases
+   run), returns ``"cuda"``; its seconds and ``health_report()["backend"]``;
+32. snapshot path, in three parts: each rank of the fused evaluation (8)
+   saves its local state as rank r of 4 before its ``compute()``, and the
+   parent restores the group at world 1 on the card, whose values equal the
+   synced ones (counts and fault counts exactly, BAP within ``AP_ATOL``);
+   a corrupt newest file of that collection falls back to the previous
+   step (one ``snapshot_fallback`` event, a stale ``.tmp`` ignored); each
+   rank of the fused sketch path (11) saves too, and the world-1 restore
+   merges the four sketches with K3 (three launches), bit-equal to the
+   in-process fold; after the MS MARCO capacity-mode run (20) its MRR, MAP
+   and nDCG@10 save (the rings of 6,668,967 rows), restore into fresh
+   metrics, and compute per-query values bit-equal; bytes and seconds,
+   split into read-back, digest, pickle and write;
+33. drift path (on the stream of phase 5): ``DriftMonitor("score",
+   window=2**22, eps=0.01)`` with its reference frozen after batches 0-3,
+   batches 32-63 the rollout (rows times ``exp(0.5)``), and
+   ``DriftMonitor("item_id", window=2**22)`` over Zipf(1.1) item ids of
+   10^6, 2^20 a batch, whose hot set is permuted at batch 32; a check after
+   every batch: no breach before batch 32, each monitor's first breach by
+   batch 36, one ``drift_detected`` event and one flight record per
+   monitor, the dropped rows equal to the stream's non-finite rows, KS
+   within ``score_floor()["ks"]`` of a float64 KS over the same window's
+   finite rows before and after the shift, no blocking read in
+   ``observe``, K3's launches equal to the fold chunks; ``observe`` p50,
+   ``check`` p50 and rows/s;
+34. serving observability path: the served epoch of phase 24 again, with
+   ``snapshot_every_s=0.5``, a ``DriftMonitor`` over the top-1 confidence,
+   tracing forced on and a flight recorder installed: ``scrape()`` counts
+   the requests served, the ``serve_update_ms`` quantiles lie within the
+   histogram's eps rank of the spans' own durations, a fresh loop restored
+   from ``save_snapshot()`` reports values bit-equal to the served loop's,
+   no capture on the request path, one ``serve.update`` span per request
+   in the exported Chrome trace, K1 once per BAP update and K3 once per
+   fold; the request p50/p99 beside phase 24's.
+
+The ``budget`` line sums the seconds that phases 31-34 add (a rank's save:
+the slowest of the four), against their 30 s; every phase line carries
+``t_s``, its seconds since the script started.
 
 Every CUDA metric of the earlier phases captures its update as well (the
 port's default on the card); their checks against the CPU runs hold the
@@ -249,16 +292,21 @@ import ctypes
 import hashlib
 import json
 import math
+import os
 import pathlib
 import queue
+import shutil
 import socket
 import statistics
 import subprocess
+import tempfile
 import sys
 import time
 import traceback
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+
+_T0 = time.perf_counter()
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -407,6 +455,25 @@ SERVE_SPANS = {64: (1, 64), 256: (65, 256), 1024: (257, 1024)}
 SERVE_WORKERS = 4
 W5_BATCHES = 4  # updates after each event that changes the states' identity
 CAPTURE_UPDATES = 10  # updates of each kernel's capture check: eager, capture, then replays
+SNAPSHOT_DIR_ENV = "CHIP_SMOKE_SNAPSHOT_DIR"  # where the fused paths' ranks save their local states
+DRIFT_WINDOW = 1 << 22
+DRIFT_EPS = 0.01
+DRIFT_REFERENCE_BATCHES = 4  # batches 0-3 bless the reference
+DRIFT_SHIFT_AT = 32  # batches 32-63: the rollout, the same rows times exp(DRIFT_SHIFT)
+DRIFT_SHIFT = 0.5  # lognormal mu + 0.5: the exact KS is 2 * Phi(0.25) - 1 = 0.197
+DRIFT_DETECT_BY = 36  # one window rotation after the shift
+ITEM_IDS = 1_000_000
+ITEM_ZIPF = 1.1
+ITEM_HOT = 64  # the hot ranks whose ids the rollout moves
+SERVE_SNAPSHOT_EVERY_S = 0.5
+SERVE_DRIFT_WINDOW = 1 << 16
+NEW_PHASES_LIMIT_S = 30  # what backend_probe, snapshot_path, drift_path and serving_obs_path may add together
+NEW_PHASE_S = {}  # their seconds of command (a rank's save: the slowest of the four, which run at once)
+# (levels, k) of the quantile sketches the new paths fold with K3, each held
+# against its plain version at its own shapes by phase_k3_cascade_parity
+DRIFT_SKETCH_SHAPE = (15, 5600)  # drift_path's score monitor: eps 0.01, window 2^22
+ITEM_SKETCH_SHAPE = (17, 1120)  # drift_path's item-id monitor: eps 0.05, window 2^22
+TELEMETRY_SKETCH_SHAPE = (10, 4600)  # the LatencyHistograms, and serving_obs_path's monitor (eps 0.01, window 2^16)
 COLDSTART_LOOPS = 5  # fresh serving loops timed with and without warmup
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -427,7 +494,7 @@ KID_SUBSETS = 100  # KernelInceptionDistance's defaults
 KID_SUBSET_SIZE = 1000
 FID_CPU_IMAGES = 32  # images of each set held against the port's CPU run (cut from 128 for the phase's time)
 TF32_BATCHES = 8  # batches timed through the extractor in TF32 beside float32
-PAIR_CPU = 128  # pairs held against the port's CPU run
+PAIR_CPU = 64  # pairs held against the port's CPU run (cut from 128 for the script's time)
 PAIR_STREAM_CHECK = 1024  # pairs of the streamed-against-accumulated SSIM check
 IMG_FUNCTIONAL_RGB = (16, 3, 256, 256)
 IMG_FUNCTIONAL_MS = (16, 8, 128, 128)  # multispectral bands for ERGAS, SAM and D-lambda
@@ -480,7 +547,20 @@ TER_CPU_SEGMENTS = 200  # and the first 200 of them in the CPU run
 
 
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}  # seconds since the script started
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def new_phase_time(name):
+    """Adds the block's seconds to ``NEW_PHASE_S[name]``: the resilience and
+    observability phases' cost, which the ``budget`` line sums."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        NEW_PHASE_S[name] = NEW_PHASE_S.get(name, 0.0) + time.perf_counter() - t0
 
 
 def fail(msg):
@@ -1049,6 +1129,7 @@ def phase_k3_cascade_parity(dev):
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     L, k, m = 20, K3_K, K3_M
     start = 8  # the level of a 2^20-row batch's 4096 items at k = 6600
+    (DL, DK), (IL, IK), (SL, SK) = DRIFT_SKETCH_SHAPE, ITEM_SKETCH_SHAPE, TELEMETRY_SKETCH_SHAPE
 
     def rand_fill(levels, kk):
         return torch.randint(0, kk + 1, (levels,), generator=g, device=dev).tolist()
@@ -1080,6 +1161,30 @@ def phase_k3_cascade_parity(dev):
         merge("merge_ties_and_infinities", L, k, [k] * 10 + rand_fill(L - 10, k), rand_fill(L, k), ties=True, extremes=True),
         merge("merge_k10000_device_memory", 8, 10000, rand_fill(8, 10000), [10000] * 8),
         merge("merge_k66000_device_memory", 4, 66000, [66000, 30000, 66000, 5], [65999, 66000, 1, 0]),
+        # drift_path's live sketch (eps 0.01, max_items 2^25): 4096-row chunks
+        # and a padded rest tier, all at level 0
+        insert("drift_insert_chunk", DL, DK, rand_fill(DL, DK), 4096, 4093, 0),
+        insert("drift_insert_chunk_promotes", DL, DK, [DK - 100] * 6 + rand_fill(DL - 6, DK), 4096, 4096, 0),
+        insert("drift_insert_empty_state", DL, DK, [0] * DL, 4096, 4096, 0),
+        insert("drift_insert_padded_rest_tier", DL, DK, [DK - 1] * 3 + rand_fill(DL - 3, DK), 1024, 700, 0),
+        insert("drift_insert_ties_and_infinities", DL, DK, [DK - 20] * 8 + rand_fill(DL - 8, DK), 4096, 4096, 0, ties=True, extremes=True),
+        merge("drift_merge", DL, DK, rand_fill(DL, DK), rand_fill(DL, DK)),
+        merge("drift_merge_saturated", DL, DK, [DK] * DL, [DK] * DL),
+        # the item-id monitor: a 4096-row chunk halves twice, to 1024 items at level 2
+        insert("item_insert_chunk", IL, IK, rand_fill(IL, IK), 1024, 1024, 2),
+        insert("item_insert_chunk_promotes", IL, IK, [IK] * 9 + rand_fill(IL - 9, IK), 1024, 1023, 2),
+        insert("item_insert_padded_rest_tier", IL, IK, rand_fill(IL, IK), 1024, 517, 1),
+        merge("item_merge", IL, IK, rand_fill(IL, IK), rand_fill(IL, IK)),
+        # serving_obs_path's drift monitor (window 2^16) and the telemetry
+        # histograms: a full 8192-sample fold lands 4096 items at level 1, a
+        # scrape folds what is pending at level 0
+        insert("serve_drift_insert_chunk", SL, SK, rand_fill(SL, SK), 4096, 4096, 0),
+        insert("serve_drift_insert_padded_rest_tier", SL, SK, rand_fill(SL, SK), 64, 1, 0),
+        insert("telemetry_fold_8192", SL, SK, [SK - 10] * 4 + rand_fill(SL - 4, SK), 4096, 4096, 1),
+        insert("telemetry_fold_first", SL, SK, [0] * SL, 4096, 4096, 1),
+        insert("telemetry_fold_at_scrape", SL, SK, rand_fill(SL, SK), 3000, 3000, 0),
+        merge("telemetry_merge", SL, SK, rand_fill(SL, SK), rand_fill(SL, SK)),
+        merge("telemetry_merge_saturated", SL, SK, [SK] * SL, [SK - 1] * SL),
     ]
     rows, max_err = [], 0.0
     for name, mode, args in cases:
@@ -1999,6 +2104,8 @@ def fused_eval_rank(rank, world, port, results, device):
         with CollectiveRecorder() as during_updates:
             update_s = run_fused_eval(coll, p, y, sync)
         launches = {"binned_counters": k1.launch_count, "histogram": k2.launch_count, "compactor_fold": k3.launch_count}
+        # snapshot_path: the rank's local state, as a preempted evaluation writes it
+        out["snapshot"] = save_rank_snapshot(mtt, coll, "fused_eval", rank, world)
         dist.barrier()
         t0 = time.perf_counter()
         with CollectiveRecorder() as rec:
@@ -2047,6 +2154,20 @@ def fused_eval_rank(rank, world, port, results, device):
 
 
 def phase_fused_eval(dev, pure_values, ml_values):
+    import torch
+
+    import metrics_tpu_torch as mtt
+
+    snapshot_dir = tempfile.mkdtemp(prefix="chip_smoke_fused_eval_")
+    os.environ[SNAPSHOT_DIR_ENV] = snapshot_dir
+    try:
+        return _phase_fused_eval(dev, pure_values, ml_values, snapshot_dir)
+    finally:
+        os.environ.pop(SNAPSHOT_DIR_ENV, None)
+        shutil.rmtree(snapshot_dir, ignore_errors=True)
+
+
+def _phase_fused_eval(dev, pure_values, ml_values, snapshot_dir):
     import torch
 
     import metrics_tpu_torch as mtt
@@ -2123,6 +2244,8 @@ def phase_fused_eval(dev, pure_values, ml_values):
     })
     check_pure_world(ranks, card, pure_values, ml_values)
     check_retrieval_sliced_world(ranks, dev)
+    with new_phase_time("snapshot_path"):
+        check_elastic_restore(dev, snapshot_dir, ranks, card, ranks[0]["synced_faults"])
     return sum(r["launches"]["binned_counters"] for r in ranks), card
 
 
@@ -2259,6 +2382,7 @@ def fused_sketch_rank(rank, world, port, results, device):
         local = {k: _host_state(m.metric_state) for k, m in members.items()}
         insert_launches = k3.launch_count
         predicted = predicted_k3_launches(members["q"].metric_state["sketch"], STREAM_BATCH, FUSED_SKETCH_BATCHES - 1, 1)
+        snapshot = save_rank_snapshot(mtt, coll, "fused_sketch", rank, world)
         dist.barrier()
         t0 = time.perf_counter()
         with CollectiveRecorder() as rec:
@@ -2273,6 +2397,7 @@ def fused_sketch_rank(rank, world, port, results, device):
         sync_s = time.perf_counter() - t1
         out = {
             "rank": rank,
+            "snapshot": snapshot,
             "update_p50_ms": statistics.median(update_s) * 1e3,
             "compute_s": compute_s,
             "sync_s": sync_s,
@@ -2319,9 +2444,25 @@ def phase_fused_sketch(dev):
     from metrics_tpu_torch.ops import compactor as k3
     from metrics_tpu_torch.utilities.guard import FaultCounters
 
-    t0 = time.perf_counter()
-    ranks = run_world(fused_sketch_rank, "fused sketch path")
-    world_s = time.perf_counter() - t0
+    snapshot_dir = tempfile.mkdtemp(prefix="chip_smoke_fused_sketch_")
+    os.environ[SNAPSHOT_DIR_ENV] = snapshot_dir
+    try:
+        t0 = time.perf_counter()
+        ranks = run_world(fused_sketch_rank, "fused sketch path")
+        world_s = time.perf_counter() - t0
+        return _phase_fused_sketch(dev, ranks, world_s, snapshot_dir)
+    finally:
+        os.environ.pop(SNAPSHOT_DIR_ENV, None)
+        shutil.rmtree(snapshot_dir, ignore_errors=True)
+
+
+def _phase_fused_sketch(dev, ranks, world_s, snapshot_dir):
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import compactor as k3
+    from metrics_tpu_torch.utilities.guard import FaultCounters
+
     for r in ranks:
         if r["jax_loaded"]:
             raise AssertionError(f"rank {r['rank']} loaded {r['jax_loaded']}")
@@ -2414,7 +2555,9 @@ def phase_fused_sketch(dev):
         "nan_rows_mean": nan_rows_mean,
         "nan_rows_mean_rel_err": finite_err,
     })
-    return sum(r["k3_insert_launches"] + r["k3_sync_launches"] for r in ranks)
+    with new_phase_time("snapshot_path"):
+        restore_launches = check_sketch_restore(dev, snapshot_dir, ranks, folded)
+    return sum(r["k3_insert_launches"] + r["k3_sync_launches"] for r in ranks), restore_launches
 
 
 # --------------------------------------------------------------------------
@@ -4343,6 +4486,11 @@ def phase_retrieval(dev):
         peak = torch.cuda.max_memory_allocated(dev) - base
         card[mode] = _retrieval_values(values)
         perq[mode] = retrieval_per_query(metrics, idx, preds, target)
+        if cap is not None:
+            # snapshot_path (b): the rings of the whole split saved and restored
+            with new_phase_time("snapshot_path"):
+                check_large_state(dev, metrics, {name: metrics[name]._row_metric(*metrics[name]._grouped_capacity_matrices())
+                                                 for name in MSMARCO_WORLD_METRICS})
         report[mode] = {
             "update_p50_ms": statistics.median(update_s) * 1e3,
             "rows_per_s": MSMARCO_ROWS / sum(update_s),
@@ -4390,27 +4538,23 @@ def phase_retrieval(dev):
         raise AssertionError(f"retrieval_path: {len(reads)} blocking reads in {GUARDED_UPDATES} capacity updates: {reads[:3]}")
     del m
 
-    # the same draw through the port on the CPU: the metrics in one
-    # collection, whose single compute group updates once a batch; in the
-    # list mode an exact metric's value is the mean of its per-query values
-    # (what its compute() takes)
+    # the same draw through the port on the CPU, in the list mode only (the
+    # CPU's capacity-mode run is cut for the script's time: the card's
+    # capacity mode is held against this run, the card's list mode and
+    # float64): the metrics in one collection, whose single compute group
+    # updates once a batch; an exact metric's value is the mean of its
+    # per-query values (what its compute() takes)
     t_cpu = time.perf_counter()
-    cpu = {}
     ci, cp, ct = (torch.from_numpy(x) for x in (idx_np, p_np, t_np))
-    for mode, cap in modes:
-        metrics = build_retrieval(mtt, "cpu", cap)
-        coll = mtt.MetricCollection(metrics)
-        for a, z in zip(bounds[:-1], bounds[1:]):
-            coll.update(cp[a:z], ct[a:z], indexes=ci[a:z])
-        if len(coll.compute_groups) != 1:
-            raise AssertionError(f"retrieval_path: the CPU collection formed groups {coll.compute_groups}")
-        if mode == "list":
-            cpu_perq = retrieval_per_query(metrics, ci, cp, ct)
-            values = {name: cpu_perq[name].mean() if name in RETRIEVAL_EXACT else m.compute() for name, m in metrics.items()}
-        else:
-            values = {name: m.compute() for name, m in metrics.items()}
-        cpu[mode] = _retrieval_values(values)
-        del metrics, coll
+    metrics = build_retrieval(mtt, "cpu", None)
+    coll = mtt.MetricCollection(metrics)
+    for a, z in zip(bounds[:-1], bounds[1:]):
+        coll.update(cp[a:z], ct[a:z], indexes=ci[a:z])
+    if len(coll.compute_groups) != 1:
+        raise AssertionError(f"retrieval_path: the CPU collection formed groups {coll.compute_groups}")
+    cpu_perq = retrieval_per_query(metrics, ci, cp, ct)
+    cpu = _retrieval_values({name: cpu_perq[name].mean() if name in RETRIEVAL_EXACT else m.compute() for name, m in metrics.items()})
+    del metrics, coll
     cpu_s = time.perf_counter() - t_cpu
 
     # exact values per query: bit-equal on the card and the CPU, and in both modes
@@ -4419,11 +4563,11 @@ def phase_retrieval(dev):
             if not _tree_bit_equal({name: perq[mode][name].cpu()}, {name: cpu_perq[name]}):
                 raise AssertionError(f"retrieval_path: {mode} per-query {name} on the card differs from the CPU run")
     for mode, _ in modes:
-        _values_close(card[mode], cpu[mode], FLOAT_SUM_RTOL, 1e-6, f"retrieval_path: {mode} mode on the card against the CPU")
+        _values_close(card[mode], cpu, FLOAT_SUM_RTOL, 1e-6, f"retrieval_path: {mode} mode on the card against the CPU's list mode")
     _values_close(card["capacity"], card["list"], FLOAT_SUM_RTOL, 1e-6, "retrieval_path: the capacity mode against the list mode")
     # the k values (the curve's last 100, the best k) are integers: exact
     for name, ks in (("pr_curve@100", slice(200, None)), ("r@p0.1", slice(1, None))):
-        runs = [card["list"][name][ks], card["capacity"][name][ks], cpu["list"][name][ks], cpu["capacity"][name][ks]]
+        runs = [card["list"][name][ks], card["capacity"][name][ks], cpu[name][ks]]
         if any(r != runs[0] for r in runs):
             raise AssertionError(f"retrieval_path: {name}'s k values differ between the runs: {runs}")
     exact64 = msmarco_float64(idx_np, p_np, t_np, counts)
@@ -5151,6 +5295,10 @@ def phase_with_ladder(ladder, fn, *args):
         padding.reset_padding_state()
 
 
+# serving_path's request p50/p99 (ms), printed beside serving_obs_path's
+_SERVING_LATENCY = {}
+
+
 def phase_serving(preds, target):
     """The served ImageNet evaluation: the epoch's rows as ragged requests
     into ``ServeLoop(workers=4, warmup=...)``."""
@@ -5217,6 +5365,7 @@ def phase_serving(preds, target):
     by_tier = {}
     for n, dt in latencies:
         by_tier.setdefault(padding.tier_for(n), []).append(dt)
+    _SERVING_LATENCY.update(p50=_p([dt for _, dt in latencies], 50), p99=_p([dt for _, dt in latencies], 99))
     emit({
         "phase": "serving_path",
         "config": {"rows": ROWS, "classes": CLASSES, "workers": SERVE_WORKERS, "ladder": list(SERVE_LADDER),
@@ -5720,7 +5869,7 @@ def phase_fid50k(dev):
 def phase_lpips_ssim(dev):
     """The 50,000 real/generated pairs through LPIPS (AlexNet), streaming
     SSIM, streaming MS-SSIM and PSNR; each held against the port's CPU run
-    on the first 128 pairs, the streamed SSIM against the accumulate mode
+    on the first 64 pairs, the streamed SSIM against the accumulate mode
     over the first 1024 pairs."""
     import torch
 
@@ -5742,7 +5891,7 @@ def phase_lpips_ssim(dev):
             return real.float() / 127.5 - 1.0, fake.float() / 127.5 - 1.0
         return real.float() / 255.0, fake.float() / 255.0
 
-    # the first 128 pairs, on the card and on the CPU
+    # the first PAIR_CPU pairs, on the card and on the CPU
     real0, fake0 = image_pair_batch(0, PAIR_CPU, dev)
     card_m, cpu_m = build(dev), build("cpu")
     against_cpu = {}
@@ -6416,6 +6565,521 @@ def phase_text_metrics(dev):
     })
 
 
+# ----------------------------------------------------------------------
+# resilience and observability: the bootstrap probe, snapshots, drift, and
+# the served evaluation with tracing, drift and snapshots on
+# ----------------------------------------------------------------------
+
+
+def start_backend_probe():
+    """``ensure_backend()`` on a thread, started before this process
+    initialises CUDA, so that its probe (a fresh interpreter that
+    initialises CUDA, about 10 s) runs while the kernels build and the
+    parity phases run. Returns once the thread is past ``ensure_backend``'s
+    is-CUDA-initialised check (it has entered ``probe_backend``, or ended):
+    only then may this process initialise CUDA."""
+    import threading
+
+    from metrics_tpu_torch.utilities import backend
+
+    out, started = {}, threading.Event()
+    probe_backend = backend.probe_backend
+
+    def probe_started(*args, **kwargs):
+        started.set()
+        return probe_backend(*args, **kwargs)
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            out["platform"] = backend.ensure_backend()
+        except BaseException as err:  # noqa: BLE001 - reported by phase_backend_probe
+            out["error"] = f"{type(err).__name__}: {err}"
+        finally:
+            started.set()
+        out["wall_s"] = time.perf_counter() - t0
+
+    backend.probe_backend = probe_started
+    with new_phase_time("backend_probe"):
+        thread = threading.Thread(target=run, daemon=True, name="backend-probe")
+        thread.start()
+        if not started.wait(timeout=120):
+            fail("backend_probe: ensure_backend() did not reach its probe within 120 s")
+    backend.probe_backend = probe_backend
+    return thread, out
+
+
+def phase_backend_probe(probe):
+    import metrics_tpu_torch as mtt
+
+    thread, out = probe
+    thread.join(timeout=300)
+    if thread.is_alive() or "error" in out:
+        raise AssertionError(f"backend_probe: ensure_backend() {out.get('error', 'did not return within 300 s')}")
+    backend = mtt.health_report()["backend"]
+    probe = backend["probe"]
+    if out["platform"] != "cuda" or probe is None or not probe["ok"] or probe["platform"] != "cuda":
+        raise AssertionError(f"backend_probe: ensure_backend() gave {out['platform']!r}, probe {probe}")
+    if backend["forced_cpu"] or backend["force_cpu_env"]:
+        raise AssertionError(f"backend_probe: health_report()['backend'] {backend}")
+    emit({"phase": "backend_probe", "platform": out["platform"], "device": probe["device"], "elapsed_s": probe["elapsed_s"],
+          "ensure_backend_wall_s": out["wall_s"], "health_backend": backend})
+
+
+def save_rank_snapshot(mtt, coll, tag, rank, world):
+    """A rank's local state saved as rank ``rank`` of ``world`` under
+    ``SNAPSHOT_DIR_ENV``: its bytes and seconds."""
+    mgr = mtt.SnapshotManager(os.environ[SNAPSHOT_DIR_ENV], tag=tag)
+    t0 = time.perf_counter()
+    path = mgr.save(coll, step=1, rank=rank, world_size=world)
+    return {"bytes": os.path.getsize(path), "save_s": time.perf_counter() - t0, "timings": mgr.last_save_timings}
+
+
+def check_elastic_restore(dev, directory, ranks, card, synced_faults):
+    """snapshot_path (a) and (c): the four ranks' files of the fused
+    evaluation restored at world 1 on the card equal the synced values; a
+    corrupt newest file falls back to the previous step."""
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.resilience.health import registry
+
+    NEW_PHASE_S["snapshot_path"] = NEW_PHASE_S.get("snapshot_path", 0.0) + max(r["snapshot"]["save_s"] for r in ranks)
+    mgr = mtt.SnapshotManager(directory, tag="fused_eval")
+    coll = build_fused_eval(mtt, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = mgr.restore(coll, rank=0, world_size=1)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    values = _values(coll.compute())
+    members = dict(coll.items(keep_base=True, copy_state=False))
+    if info["merged_ranks"] != list(range(DIST_WORLD)) or info["fallbacks"]:
+        raise AssertionError(f"snapshot_path: restore info {info}")
+    for k, v in card.items():
+        if k == "bap":
+            err = max(abs(a - b) for a, b in zip(values[k], v))
+            if err > AP_ATOL:
+                raise AssertionError(f"snapshot_path: restored BAP off the synced one by {err} (atol {AP_ATOL})")
+        elif values[k] != v:
+            raise AssertionError(f"snapshot_path: restored {k} {values[k]}, synced {v}")
+    for name, m in members.items():
+        if m.fault_counts != synced_faults[name]:
+            raise AssertionError(f"snapshot_path: restored fault counts of {name} {m.fault_counts}, synced {synced_faults[name]}")
+    if members["bap"].update_count != sum(r["bap_updates"] for r in ranks):
+        raise AssertionError("snapshot_path: the restored update count is not the ranks' sum")
+    emit({
+        "phase": "snapshot_path", "part": "elastic_restore",
+        "config": {"old_world": DIST_WORLD, "world": 1, "collection": "fused_dist_path's", "saved": "before compute()"},
+        "bytes_per_rank": [r["snapshot"]["bytes"] for r in ranks],
+        "save_s_per_rank": [r["snapshot"]["save_s"] for r in ranks],
+        "save_split_rank0": ranks[0]["snapshot"]["timings"],
+        "restore_s": restore_s,
+        "values_equal_synced": True, "bap_max_abs_err": max(abs(a - b) for a, b in zip(values["bap"], card["bap"])),
+    })
+    # (c) the newest file corrupt: the restore falls back, a stale tmp is ignored
+    bad = mtt.SnapshotManager(directory, tag="corrupt")
+    bad.save(coll, step=2)
+    newest = bad.save(coll, step=3)
+    with open(newest, "r+b") as f:
+        f.seek(os.path.getsize(newest) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    stale = f"{newest}.tmp.{os.getpid() + 1}"
+    with open(stale, "wb") as f:
+        f.write(b"a torn write")
+    before = registry.counts().get("snapshot_fallback", 0)
+    again = build_fused_eval(mtt, dev)
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        info = bad.restore(again)
+    events = registry.counts().get("snapshot_fallback", 0) - before
+    if info["step"] != 2 or info["fallbacks"] != 1 or events != 1:
+        raise AssertionError(f"snapshot_path: corrupt newest file: restore {info}, {events} fallback events")
+    if _values(again.compute()) != values:
+        raise AssertionError("snapshot_path: the fallback step's values differ")
+    emit({"phase": "snapshot_path", "part": "corruption", "restored_step": info["step"], "fallbacks": info["fallbacks"],
+          "fallback_events": events, "stale_tmp_ignored": os.path.exists(stale)})
+
+
+def check_sketch_restore(dev, directory, ranks, folded):
+    """snapshot_path: the fused sketch path's four rank files restored at
+    world 1 merge their quantile sketches with K3 (three launches), bit-equal
+    to the in-process fold in rank order."""
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import compactor as k3
+
+    NEW_PHASE_S["snapshot_path"] = NEW_PHASE_S.get("snapshot_path", 0.0) + max(r["snapshot"]["save_s"] for r in ranks)
+    mgr = mtt.SnapshotManager(directory, tag="fused_sketch")
+    coll = build_fused_monitor(mtt, dev)
+    k3.reset_launch_count()
+    t0 = time.perf_counter()
+    mgr.restore(coll, rank=0, world_size=1)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    launches = k3.launch_count
+    q = dict(coll.items(keep_base=True, copy_state=False))["q"].metric_state["sketch"]
+    if not (torch.equal(q.items.cpu(), folded.items) and torch.equal(q.counts.cpu(), folded.counts) and int(q.n_seen) == int(folded.n_seen)):
+        raise AssertionError("snapshot_path: the restored quantile sketch differs from the in-process fold")
+    if launches != DIST_WORLD - 1:
+        raise AssertionError(f"snapshot_path: the restore's merge launched K3 {launches} times for {DIST_WORLD - 1} merges")
+    emit({"phase": "snapshot_path", "part": "elastic_sketch_restore", "bytes_per_rank": [r["snapshot"]["bytes"] for r in ranks],
+          "restore_s": restore_s, "k3_launches": launches, "sketch_bit_equal_fold": True})
+    return launches
+
+
+def check_large_state(dev, metrics, per_query):
+    """snapshot_path (b): MRR, MAP and nDCG@10 of the capacity-mode MS MARCO
+    run (rings holding 6,668,967 rows) saved, restored into fresh metrics,
+    their per-query values bit-equal."""
+    import torch
+
+    import metrics_tpu_torch as mtt
+
+    coll = mtt.MetricCollection({name: metrics[name] for name in MSMARCO_WORLD_METRICS})
+    fresh = mtt.MetricCollection(build_retrieval(mtt, dev, MSMARCO_CAPACITY, names=MSMARCO_WORLD_METRICS))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_msmarco_") as tmp:
+        mgr = mtt.SnapshotManager(tmp, tag="msmarco")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(coll, step=1)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t1 = time.perf_counter()
+        mgr.restore(fresh)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+    members = dict(fresh.items(keep_base=True, copy_state=False))
+    for name in MSMARCO_WORLD_METRICS:
+        m = members[name]
+        got = m._row_metric(*m._grouped_capacity_matrices())
+        if not torch.equal(got, per_query[name]):
+            raise AssertionError(f"snapshot_path: restored per-query {name} differs from the evaluated one")
+        if not torch.equal(m.compute(), metrics[name].compute()):
+            raise AssertionError(f"snapshot_path: restored {name} differs")
+    emit({"phase": "snapshot_path", "part": "large_state", "metrics": list(MSMARCO_WORLD_METRICS), "rows": MSMARCO_ROWS,
+          "capacity": MSMARCO_CAPACITY, "file_bytes": size, "save_s": save_s, "save_split": mgr.last_save_timings,
+          "restore_s": restore_s, "per_query_bit_equal": True})
+
+
+def make_item_ids(dev, batch_index, g, cdf, perm, moved):
+    """2^20 item ids: Zipf(1.1) ranks over ``ITEM_IDS`` by the inverse CDF,
+    mapped through ``perm`` (``moved`` from the rollout on)."""
+    import torch
+
+    u = torch.rand(STREAM_BATCH, generator=g, device=dev, dtype=torch.float64)
+    ranks = torch.searchsorted(cdf, u).clamp_(max=ITEM_IDS - 1)
+    return (moved if batch_index >= DRIFT_SHIFT_AT else perm)[ranks]
+
+
+def _live_sketch_shape(monitor):
+    """(levels, k) of a drift monitor's live quantile sketch (an empty one
+    is made after a rotation: no kernel runs)."""
+    monitor._ensure_live_locked()
+    return tuple(monitor._q.items.shape)
+
+
+def _ks64(a, b):
+    """The two-sample KS distance of two float arrays, in float64 numpy."""
+    import numpy as np
+
+    a, b = np.sort(a.astype(np.float64)), np.sort(b.astype(np.float64))
+    grid = np.concatenate([a, b])
+    return float(np.max(np.abs(np.searchsorted(a, grid, side="right") / a.size - np.searchsorted(b, grid, side="right") / b.size)))
+
+
+def phase_drift(x):
+    """drift_path: a score monitor on the stream of phase 5, its rollout
+    from batch 32, and an item-id monitor whose hot set moves there."""
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.obs import flightrec
+    from metrics_tpu_torch.ops import compactor as k3
+    from metrics_tpu_torch.resilience.health import registry
+
+    dev = x.device
+    batches = x.reshape(STREAM_BATCHES, STREAM_BATCH)
+    finite = torch.isfinite(batches).sum(dim=1).tolist()
+    nonfinite = STREAM_BATCHES * STREAM_BATCH - sum(finite)
+    scale = torch.tensor(math.exp(DRIFT_SHIFT), dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 90)
+    weights = torch.arange(1, ITEM_IDS + 1, dtype=torch.float64, device=dev).pow_(-ITEM_ZIPF)
+    cdf = torch.cumsum(weights, 0)
+    cdf /= cdf[-1].clone()
+    perm = torch.randperm(ITEM_IDS, generator=g, device=dev)
+    moved = perm.clone()
+    moved[:ITEM_HOT] = perm[ITEM_HOT:2 * ITEM_HOT]  # the hot ranks take other ids
+    moved[ITEM_HOT:2 * ITEM_HOT] = perm[:ITEM_HOT]
+    score = mtt.DriftMonitor("score", window=DRIFT_WINDOW, eps=DRIFT_EPS, device=dev)
+    # scored on full windows only: the cardinality ratio's uniform key
+    # universe (fitted on the reference) over-expects the distinct ids of a
+    # shorter Zipf window, about 0.5x at a quarter of the rows
+    item = mtt.DriftMonitor("item_id", window=DRIFT_WINDOW, min_rows=DRIFT_WINDOW, device=dev)
+    monitors = (score, item)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_flightrec_")
+    rec = flightrec.FlightRecorder(tmp, min_interval_s=0.0)
+    flightrec.install_flight_recorder(rec)
+    events_before = len([e for e in registry.events() if e["kind"] == "drift_detected"])
+    try:
+        k3.reset_launch_count()
+        observe_s, check_s, reads = [], [], 0
+        statuses = {m.name: [] for m in monitors}
+        bucket, reference_rows, ks_checks = [], None, []
+        t_phase = time.perf_counter()
+        for b in range(STREAM_BATCHES):
+            batch = batches[b] * scale if b >= DRIFT_SHIFT_AT else batches[b]
+            ids = make_item_ids(dev, b, g, cdf, perm, moved)
+            torch.cuda.synchronize()
+            for mon, values in ((score, batch), (item, ids)):
+                def timed_observe(_i, mon=mon, values=values):
+                    t0 = time.perf_counter()
+                    mon.observe(values)
+                    observe_s.append(time.perf_counter() - t0)
+
+                reads += len(blocking_reads(timed_observe, 1))
+            bucket.append(batch)
+            if b == DRIFT_REFERENCE_BATCHES - 1:
+                for mon in monitors:
+                    mon.set_reference(mon.freeze_reference())
+                    mon.rotate()
+                reference_rows = torch.cat(bucket)
+                reference_rows = reference_rows[torch.isfinite(reference_rows)].cpu().numpy()
+                bucket = []
+                continue
+            for mon in monitors:
+                before = mon.status()
+                t0 = time.perf_counter()
+                st = mon.check()
+                check_s.append(time.perf_counter() - t0)
+                scored = st["checks"] > before["checks"]  # a thin bucket keeps the last scores
+                statuses[mon.name].append((b, st["breaching"] if scored else [], st["scores"]))
+                if mon is score and scored:
+                    pre = b < DRIFT_SHIFT_AT
+                    post = all(i >= DRIFT_SHIFT_AT for i in range(b - len(bucket) + 1, b + 1))
+                    if (pre and not any(k["pre_shift"] for k in ks_checks)) or (post and not any(not k["pre_shift"] for k in ks_checks)):
+                        live = torch.cat(bucket)
+                        live = live[torch.isfinite(live)].cpu().numpy()
+                        exact = _ks64(live, reference_rows)
+                        ks_checks.append({"batch": b, "pre_shift": pre, "ks": st["scores"]["ks"], "ks_float64": exact,
+                                          "floor": score.score_floor()["ks"], "rows": int(live.size)})
+                if mon is score and st["windows"] != before["windows"]:
+                    bucket = []
+        phase_s = time.perf_counter() - t_phase
+        rec.flush()
+        launches = k3.launch_count
+        dumps = [r for r in flightrec.load_flight_records(tmp) if r["trigger"]["kind"] == "drift_detected"]
+    finally:
+        flightrec.install_flight_recorder(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    first_breach = {}
+    for name, rows in statuses.items():
+        early = [b for b, breaching, _ in rows if breaching and b < DRIFT_SHIFT_AT]
+        if early:
+            raise AssertionError(f"drift_path: {name} breached before the rollout at batches {early}: {[(b, br, sc) for b, br, sc in rows if br][:3]}")
+        late = [b for b, breaching, _ in rows if breaching]
+        if not late or late[0] > DRIFT_DETECT_BY:
+            raise AssertionError(f"drift_path: {name} first breached at {late[:1]}, not by batch {DRIFT_DETECT_BY}")
+        first_breach[name] = late[0]
+    item_breaches = sorted({s for _, breaching, _ in statuses["item_id"] for s in breaching})
+    if "hh_churn" not in item_breaches or "cardinality_ratio" in item_breaches:
+        raise AssertionError(f"drift_path: item_id breached {item_breaches}; hh_churn must trip and cardinality_ratio not")
+    detected = [e for e in registry.events() if e["kind"] == "drift_detected"][events_before:]
+    per_monitor = {m.name: sum(1 for e in detected if e["details"]["monitor"] == m.name) for m in monitors}
+    dumped = {m.name: sum(1 for d in dumps if repr(m.name) in d["trigger"]["message"]) for m in monitors}
+    if per_monitor != {"score": 1, "item_id": 1} or dumped != {"score": 1, "item_id": 1}:
+        raise AssertionError(f"drift_path: drift_detected events {per_monitor}, flight records {dumped}")
+    shapes = {m.name: _live_sketch_shape(m) for m in monitors}
+    if shapes != {"score": DRIFT_SKETCH_SHAPE, "item_id": ITEM_SKETCH_SHAPE}:
+        raise AssertionError(f"drift_path: sketch shapes {shapes}, not the ones phase_k3_cascade_parity holds")
+    if score.dropped_rows != nonfinite or item.dropped_rows:
+        raise AssertionError(f"drift_path: dropped rows {score.dropped_rows}/{item.dropped_rows}, the stream has {nonfinite} non-finite")
+    if len(ks_checks) != 2 or any(abs(k["ks"] - k["ks_float64"]) > k["floor"] for k in ks_checks):
+        raise AssertionError(f"drift_path: KS against float64 {ks_checks}")
+    if reads:
+        raise AssertionError(f"drift_path: observe made {reads} blocking reads")
+    predicted = sum(math.ceil(n / 4096) for n in finite) + STREAM_BATCHES * math.ceil(STREAM_BATCH / 4096)
+    if not (launches == predicted == score.fold_chunks + item.fold_chunks):
+        raise AssertionError(f"drift_path: K3 launched {launches} times, predicted {predicted} (fold chunks {score.fold_chunks}+{item.fold_chunks})")
+    observe_us = sorted(observe_s)[len(observe_s) // 2] * 1e6
+    emit({
+        "phase": "drift_path",
+        "config": {"batches": STREAM_BATCHES, "batch": STREAM_BATCH, "window": DRIFT_WINDOW, "score_eps": DRIFT_EPS,
+                   "item_eps": item.eps, "reference_batches": DRIFT_REFERENCE_BATCHES, "shift_at": DRIFT_SHIFT_AT,
+                   "shift": f"rows times exp({DRIFT_SHIFT})", "items": ITEM_IDS, "zipf": ITEM_ZIPF, "hot_moved": ITEM_HOT},
+        "first_breach_batch": first_breach,
+        "breaching_at_first_breach": {n: next(br for b, br, _ in rows if br) for n, rows in statuses.items()},
+        "item_breaches": item_breaches,
+        "scores_at_first_breach": {n: next(sc for b, br, sc in rows if br) for n, rows in statuses.items()},
+        "drift_detected_events": per_monitor,
+        "flight_records": dumped,
+        "dropped_rows": score.dropped_rows,
+        "ks_vs_float64": ks_checks,
+        "observe_blocking_reads": reads,
+        "observe_p50_us": observe_us,
+        "check_p50_ms": sorted(check_s)[len(check_s) // 2] * 1e3,
+        "rows_per_s_per_monitor": STREAM_BATCHES * STREAM_BATCH / (sum(observe_s) / 2 + sum(check_s) / 2),
+        "k3_launches": launches,
+        "k3_launches_predicted": predicted,
+        "phase_s": phase_s,
+    })
+    return launches
+
+
+def _top1_confidence(args, kwargs):
+    return args[0].max(dim=1).values
+
+
+def _scrape_values(text):
+    """``{name{labels}: value}`` of a Prometheus text scrape."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+def phase_serving_obs(preds, target, serving_latency):
+    """serving_obs_path: the served epoch of serving_path again, with
+    periodic snapshots, a drift monitor over the top-1 confidence, tracing
+    forced on and a flight recorder installed."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.obs import flightrec
+    from metrics_tpu_torch.obs import runtime_metrics as rm
+    from metrics_tpu_torch.obs import trace as tr
+    from metrics_tpu_torch.ops import binned_counters as k1
+    from metrics_tpu_torch.ops import compactor as k3
+
+    dev = preds.device
+    plan = serve_plan(ROWS, SEED + 11)
+    example = (preds[:BATCH].cpu().numpy(), target[:BATCH].cpu().numpy())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_obs_")
+    rm.registry.reset()
+    rm.registry.fold_device = dev
+    tr.reset_trace_state()
+    rec = flightrec.FlightRecorder(os.path.join(tmp, "flightrec"), min_interval_s=0.0)
+    flightrec.install_flight_recorder(rec)
+    try:
+        mgr = mtt.SnapshotManager(os.path.join(tmp, "snapshots"), tag="served")
+        monitor = mtt.DriftMonitor("top1_confidence", window=SERVE_DRIFT_WINDOW, eps=DRIFT_EPS, device=dev, extract=_top1_confidence)
+        k1.reset_launch_count()
+        k3.reset_launch_count()
+        with tr.force_tracing(True):
+            loop = mtt.ServeLoop(_serving_proto(mtt, dev), workers=SERVE_WORKERS, queue_size=len(plan) + 1, warmup=mtt.Warmup(example),
+                                 snapshot_manager=mgr, snapshot_every_s=SERVE_SNAPSHOT_EVERY_S, drift_monitors=[monitor])
+            latencies = []
+            timed_updates(loop, latencies, threading.Lock())
+            if not loop.wait_warmup(300):
+                raise AssertionError("serving_obs_path: the warmup did not end")
+            captured_at_warmup = _replica_captures(loop)
+            accepted = []
+            t1 = time.perf_counter()
+            for off, n in plan:
+                if loop.offer(preds[off:off + n], target[off:off + n]):
+                    accepted.append((off, n))
+            if not loop.drain(300):
+                raise AssertionError("serving_obs_path: the loop did not drain")
+            serve_s = time.perf_counter() - t1
+            view = loop.report(fresh=True, deadline_s=120)
+            text = loop.scrape()
+            step = loop.save_snapshot()
+            periodic = [s for s in mgr.steps() if s != step]
+            loop.stop()
+            monitor.check()  # what the last tick left pending
+            request_captures = _replica_captures(loop) - captured_at_warmup
+            bap_updates = sum(_coll_members(r)["bap"].update_count for r in loop._replicas)
+            trace_path = os.path.join(tmp, "trace.json")
+            doc = json.loads(tr.export_chrome_trace(trace_path))
+        k1_launches = k1.launch_count
+        # the telemetry folded as an exporter merging workers folds it
+        merged = rm.merged(rm.registry)
+        hist = merged.histograms()["serve_update_ms"]
+        hist_folds = sum(h.folds for h in rm.registry.histograms().values())
+        shapes = {tuple(h._sketch.items.shape) for h in rm.registry.histograms().values() if h._sketch is not None}
+        shapes.add(_live_sketch_shape(monitor))
+        if shapes != {TELEMETRY_SKETCH_SHAPE}:
+            raise AssertionError(f"serving_obs_path: sketch shapes {shapes}, not the one phase_k3_cascade_parity holds")
+        k3_launches = k3.launch_count
+        # a fresh loop restored from the served loop's snapshot
+        fresh = mtt.ServeLoop(_serving_proto(mtt, dev), workers=SERVE_WORKERS, snapshot_manager=mgr)
+        info = fresh.restore_snapshot()
+        restored = fresh.report(fresh=True, deadline_s=120)
+        fresh.stop()
+        rec.flush()
+        dumps = flightrec.load_flight_records(os.path.join(tmp, "flightrec"))
+    finally:
+        flightrec.install_flight_recorder(None)
+        rm.registry.fold_device = None
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats = view["stats"]
+    served_rows = sum(n for _, n in accepted)
+    scraped = _scrape_values(text)
+    want = {"metrics_tpu_serve_offered_total": len(plan), "metrics_tpu_serve_accepted_total": len(accepted),
+            "metrics_tpu_serve_processed_total": len(accepted), "metrics_tpu_serve_update_ms_count": len(accepted),
+            "metrics_tpu_serve_offer_total": len(plan)}
+    got = {k: scraped.get(k) for k in want}
+    if got != want or not view["fresh"] or stats["failed"]:
+        raise AssertionError(f"serving_obs_path: scrape counts {got}, served {want}; report {view['fresh']} {stats}")
+    if monitor.folded_rows != served_rows or monitor.dropped_rows:
+        raise AssertionError(f"serving_obs_path: the drift monitor folded {monitor.folded_rows} rows of {served_rows} served")
+    durs = np.sort(np.array([r.dur_ns / 1e6 for r in tr.trace_records("serve.update")], np.float32))
+    quantiles = hist.quantiles((0.5, 0.99))
+    rank_err = {f"{q:g}": abs(int(np.searchsorted(durs, quantiles[q], side="right")) - q * durs.size) / durs.size for q in (0.5, 0.99)}
+    if durs.size != len(accepted) or max(rank_err.values()) > hist.eps:
+        raise AssertionError(f"serving_obs_path: serve_update_ms quantiles off by {rank_err} rank (eps {hist.eps}) over {durs.size} spans")
+    spans = sum(1 for e in doc["traceEvents"] if e.get("ph") == "X" and e.get("name") == "serve.update")
+    if spans != len(accepted):
+        raise AssertionError(f"serving_obs_path: the Chrome trace holds {spans} serve.update spans for {len(accepted)} requests")
+    if request_captures:
+        raise AssertionError(f"serving_obs_path: {request_captures} captures on the request path after wait_warmup()")
+    if not (k1_launches == bap_updates == len(accepted)):
+        raise AssertionError(f"serving_obs_path: K1 {k1_launches} launches, {bap_updates} BAP updates, {len(accepted)} requests")
+    if k3_launches != monitor.fold_chunks + hist_folds:
+        raise AssertionError(f"serving_obs_path: K3 {k3_launches} launches; the drift folds {monitor.fold_chunks} and telemetry folds {hist_folds}")
+    if info["old_world"] != SERVE_WORKERS or info["step"] < step or restored["updates"] != view["updates"]:
+        raise AssertionError(f"serving_obs_path: restore {info}, updates {restored['updates']} of {view['updates']}")
+    for k, v in view["value"].items():
+        x, z = (torch.stack(v), torch.stack(restored["value"][k])) if isinstance(v, list) else (v, restored["value"][k])
+        if not torch.equal(x, z):
+            raise AssertionError(f"serving_obs_path: the restored loop's {k} differs from the served loop's")
+    if restored["faults"] != view["faults"]:
+        raise AssertionError("serving_obs_path: the restored fault counts differ")
+    lat = [dt for _, dt in latencies]
+    emit({
+        "phase": "serving_obs_path",
+        "config": {"requests": len(plan), "workers": SERVE_WORKERS, "snapshot_every_s": SERVE_SNAPSHOT_EVERY_S,
+                   "drift_monitor": {"name": monitor.name, "window": SERVE_DRIFT_WINDOW, "eps": DRIFT_EPS},
+                   "tracing": "forced on", "flight_recorder": "installed"},
+        "request_update_ms": {"p50": _p(lat, 50), "p99": _p(lat, 99)},
+        "serving_path_request_update_ms": serving_latency,
+        "rows_per_s": served_rows / serve_s,
+        "scrape": got,
+        "serve_update_ms_quantiles": {f"{q:g}": quantiles[q] for q in (0.5, 0.99)},
+        "serve_update_ms_rank_err": rank_err,
+        "periodic_snapshot_steps_kept": len(periodic),
+        "restored_bit_equal": True,
+        "captures_on_request_path": request_captures,
+        "chrome_serve_update_spans": spans,
+        "drift_folded_rows": monitor.folded_rows,
+        "k1_launches": k1_launches,
+        "k3_launches": k3_launches,
+        "k3_predicted": {"drift_fold_chunks": monitor.fold_chunks, "telemetry_folds": hist_folds},
+        "flight_records": len(dumps),
+    })
+    return k1_launches, k3_launches
+
+
+
 def main():
     try:
         import torch
@@ -6426,6 +7090,8 @@ def main():
     if not (ROOT / "metrics_tpu_torch" / "__init__.py").is_file() or not (ROOT / "metrics_tpu_torch" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository (metrics_tpu_torch/ is missing)")
     sys.path.insert(0, str(ROOT))
+    import metrics_tpu_torch.utilities.backend  # noqa: F401 - imported here, so the probe's thread starts at once
+    probe = start_backend_probe()  # before anything here initialises CUDA
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -6449,6 +7115,8 @@ def main():
     k2_err = phase_k2_parity(device)
     k3_fold_err = phase_k3_parity(device)
     k3_err = phase_k3_cascade_parity(device)
+    with new_phase_time("backend_probe"):
+        phase_backend_probe(probe)  # its probe ran beside the build and the parity phases
     k1_launches, cpu_bap = phase_main_path(preds, target)
     phase_windowed(preds, target)
     full_launches, full_cpu_values = phase_full_classification(preds, target, cpu_bap)
@@ -6457,6 +7125,8 @@ def main():
     k3_launches, q_state = phase_stream(stream)
     phase_profile(preds, target)
     phase_stream_profile(stream)
+    with new_phase_time("drift_path"):
+        k3_drift_launches = phase_drift(stream)
     first_batch = stream[:STREAM_BATCH].clone()
     del stream
     k1_pure_launches, pure_values = phase_pure(device)
@@ -6474,6 +7144,9 @@ def main():
     k1_compiled_launches, capture_checks = phase_compiled(preds, target)
     k1_serving_launches = phase_with_ladder(SERVE_LADDER, phase_serving, preds, target)
     phase_with_ladder(SERVE_LADDER, phase_coldstart, preds, target)
+    with new_phase_time("serving_obs_path"):
+        k1_serving_obs_launches, k3_serving_obs_launches = phase_with_ladder(
+            SERVE_LADDER, phase_serving_obs, preds, target, dict(_SERVING_LATENCY))
     del preds, target, q_state, first_batch
     torch.cuda.empty_cache()
     phase_retrieval(device)
@@ -6481,7 +7154,7 @@ def main():
     k2_launches = phase_dist(device)
     k2_path_launches(kernels[1], k2_launches)
     k1_fused_launches, fused_values = phase_fused_eval(device, pure_values, ml_world_values)
-    k3_fused_launches = phase_fused_sketch(device)
+    k3_fused_launches, k3_restore_launches = phase_fused_sketch(device)
     k1_overlapped_launches, k3_quantized_launches = phase_sync_layer(device, fused_values)
     k1_full_dist_launches, k2_full_dist_launches = phase_full_classification_dist(full_cpu_values)
     # the image slice: no kernel of K1-K3 on its path
@@ -6500,6 +7173,7 @@ def main():
         "full_classification_path": full_launches["binned_counters"], "full_classification_dist": k1_full_dist_launches,
         "pure_path": k1_pure_launches, "sliced_path": k1_sliced_launches,
         "compiled_path": k1_compiled_launches, "serving_path": k1_serving_launches,
+        "serving_obs_path": k1_serving_obs_launches,
     }
     kernels[1]["launches_by_path"] = {
         "dist_path": k2_launches, "full_classification_path": full_launches["histogram"],
@@ -6507,7 +7181,11 @@ def main():
         "compiled_path_capture_check": capture_checks["histogram"]["launches"]["captured"],
     }
     kernels[2]["launches_by_path"] = {"stream_path": k3_launches, "fused_sketch_path": k3_fused_launches, "quantized_sketch_path": k3_quantized_launches,
-                                      "compiled_path_capture_check": capture_checks["compactor_fold"]["launches"]["captured"]}
+                                      "compiled_path_capture_check": capture_checks["compactor_fold"]["launches"]["captured"],
+                                      "drift_path": k3_drift_launches, "serving_obs_path": k3_serving_obs_launches,
+                                      "snapshot_path_sketch_restore": k3_restore_launches}
+    emit({"phase": "budget", "new_phases_s": NEW_PHASE_S, "new_phases_total_s": sum(NEW_PHASE_S.values()),
+          "new_phases_limit_s": NEW_PHASES_LIMIT_S, "script_s": time.perf_counter() - _T0})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -5,35 +5,50 @@ and state layouts, on PyTorch tensors. Metrics run on CUDA unless the caller
 passes ``device="cpu"``; the kernels that the JAX package wrote in Pallas for
 the TPU are CUDA kernels for Hopper here (``csrc/``), built on first use.
 This package imports neither JAX nor ``metrics_tpu``.
+
+Importing it never initialises CUDA, and the ``METRICS_TPU_FORCE_CPU``
+escape hatch is honoured first, before anything else is imported
+(``utilities/backend.py``).
 """
-from metrics_tpu_torch.aggregation import BaseAggregator, CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
-from metrics_tpu_torch.classification.accuracy import Accuracy
-from metrics_tpu_torch.classification.auc import AUC
-from metrics_tpu_torch.classification.auroc import AUROC
-from metrics_tpu_torch.classification.avg_precision import AveragePrecision
-from metrics_tpu_torch.classification.binned_precision_recall import (
+__version__ = "0.1.0"
+
+# the escape hatch first: it records `forced_cpu` and touches no device
+from metrics_tpu_torch.utilities.backend import apply_force_cpu_escape_hatch as _apply_force_cpu  # noqa: E402
+
+_apply_force_cpu()
+
+from metrics_tpu_torch import obs  # noqa: E402  (the tracer, self-telemetry, exporters, drift)
+from metrics_tpu_torch.obs.drift import DriftMonitor, ReferenceWindow  # noqa: E402
+from metrics_tpu_torch.resilience import SnapshotManager  # noqa: E402
+from metrics_tpu_torch.utilities.backend import ensure_backend  # noqa: E402
+from metrics_tpu_torch.aggregation import BaseAggregator, CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric  # noqa: E402
+from metrics_tpu_torch.classification.accuracy import Accuracy  # noqa: E402
+from metrics_tpu_torch.classification.auc import AUC  # noqa: E402
+from metrics_tpu_torch.classification.auroc import AUROC  # noqa: E402
+from metrics_tpu_torch.classification.avg_precision import AveragePrecision  # noqa: E402
+from metrics_tpu_torch.classification.binned_precision_recall import (  # noqa: E402
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
     BinnedRecallAtFixedPrecision,
 )
-from metrics_tpu_torch.classification.calibration_error import CalibrationError
-from metrics_tpu_torch.classification.cohen_kappa import CohenKappa
-from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix
-from metrics_tpu_torch.classification.dice import Dice
-from metrics_tpu_torch.classification.f_beta import F1Score, FBetaScore
-from metrics_tpu_torch.classification.hamming import HammingDistance
-from metrics_tpu_torch.classification.hinge import HingeLoss
-from metrics_tpu_torch.classification.jaccard import JaccardIndex
-from metrics_tpu_torch.classification.kl_divergence import KLDivergence
-from metrics_tpu_torch.classification.matthews_corrcoef import MatthewsCorrCoef
-from metrics_tpu_torch.classification.precision_recall import Precision, Recall
-from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve
-from metrics_tpu_torch.classification.ranking import CoverageError, LabelRankingAveragePrecision, LabelRankingLoss
-from metrics_tpu_torch.classification.roc import ROC
-from metrics_tpu_torch.classification.specificity import Specificity
-from metrics_tpu_torch.classification.stat_scores import StatScores
-from metrics_tpu_torch.collections import MetricCollection
-from metrics_tpu_torch.image import (
+from metrics_tpu_torch.classification.calibration_error import CalibrationError  # noqa: E402
+from metrics_tpu_torch.classification.cohen_kappa import CohenKappa  # noqa: E402
+from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix  # noqa: E402
+from metrics_tpu_torch.classification.dice import Dice  # noqa: E402
+from metrics_tpu_torch.classification.f_beta import F1Score, FBetaScore  # noqa: E402
+from metrics_tpu_torch.classification.hamming import HammingDistance  # noqa: E402
+from metrics_tpu_torch.classification.hinge import HingeLoss  # noqa: E402
+from metrics_tpu_torch.classification.jaccard import JaccardIndex  # noqa: E402
+from metrics_tpu_torch.classification.kl_divergence import KLDivergence  # noqa: E402
+from metrics_tpu_torch.classification.matthews_corrcoef import MatthewsCorrCoef  # noqa: E402
+from metrics_tpu_torch.classification.precision_recall import Precision, Recall  # noqa: E402
+from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve  # noqa: E402
+from metrics_tpu_torch.classification.ranking import CoverageError, LabelRankingAveragePrecision, LabelRankingLoss  # noqa: E402
+from metrics_tpu_torch.classification.roc import ROC  # noqa: E402
+from metrics_tpu_torch.classification.specificity import Specificity  # noqa: E402
+from metrics_tpu_torch.classification.stat_scores import StatScores  # noqa: E402
+from metrics_tpu_torch.collections import MetricCollection  # noqa: E402
+from metrics_tpu_torch.image import (  # noqa: E402
     ErrorRelativeGlobalDimensionlessSynthesis,
     FrechetInceptionDistance,
     InceptionScore,
@@ -46,9 +61,9 @@ from metrics_tpu_torch.image import (
     StructuralSimilarityIndexMeasure,
     UniversalImageQualityIndex,
 )
-from metrics_tpu_torch.metric import CompositionalMetric, Metric
-from metrics_tpu_torch.parallel.async_sync import AsyncSyncScheduler
-from metrics_tpu_torch.pure import (
+from metrics_tpu_torch.metric import CompositionalMetric, Metric  # noqa: E402
+from metrics_tpu_torch.parallel.async_sync import AsyncSyncScheduler  # noqa: E402
+from metrics_tpu_torch.pure import (  # noqa: E402
     MetricDef,
     OverlappedDef,
     bootstrap_functionalize,
@@ -56,7 +71,7 @@ from metrics_tpu_torch.pure import (
     overlapped_functionalize,
     sliced_functionalize,
 )
-from metrics_tpu_torch.regression import (
+from metrics_tpu_torch.regression import (  # noqa: E402
     CosineSimilarity,
     ExplainedVariance,
     MeanAbsoluteError,
@@ -70,7 +85,7 @@ from metrics_tpu_torch.regression import (
     TweedieDevianceScore,
     WeightedMeanAbsolutePercentageError,
 )
-from metrics_tpu_torch.retrieval import (
+from metrics_tpu_torch.retrieval import (  # noqa: E402
     RetrievalFallOut,
     RetrievalHitRate,
     RetrievalMAP,
@@ -82,9 +97,9 @@ from metrics_tpu_torch.retrieval import (
     RetrievalRecallAtFixedPrecision,
     RetrievalRPrecision,
 )
-from metrics_tpu_torch.sliced import SlicedMetric, SlicedValue, slices_max_labels
-from metrics_tpu_torch.utilities.guard import FAULT_CLASSES, FaultCounters
-from metrics_tpu_torch.streaming import (
+from metrics_tpu_torch.sliced import SlicedMetric, SlicedValue, slices_max_labels  # noqa: E402
+from metrics_tpu_torch.utilities.guard import FAULT_CLASSES, FaultCounters  # noqa: E402
+from metrics_tpu_torch.streaming import (  # noqa: E402
     CountMinSketch,
     CountMinState,
     DecayedMetric,
@@ -94,9 +109,9 @@ from metrics_tpu_torch.streaming import (
     QuantileSketchState,
     WindowedMetric,
 )
-from metrics_tpu_torch.resilience.health import health_report
-from metrics_tpu_torch.serving import ServeLoop, Warmup
-from metrics_tpu_torch.text import (
+from metrics_tpu_torch.resilience.health import health_report  # noqa: E402
+from metrics_tpu_torch.serving import ServeLoop, Warmup  # noqa: E402
+from metrics_tpu_torch.text import (  # noqa: E402
     BERTScore,
     BLEUScore,
     CharErrorRate,
@@ -111,7 +126,7 @@ from metrics_tpu_torch.text import (
     WordInfoLost,
     WordInfoPreserved,
 )
-from metrics_tpu_torch.wrappers import (
+from metrics_tpu_torch.wrappers import (  # noqa: E402
     BootStrapper,
     ClasswiseWrapper,
     MetricTracker,
@@ -143,6 +158,7 @@ __all__ = [
     "CountMinState",
     "CoverageError",
     "DecayedMetric",
+    "DriftMonitor",
     "Dice",
     "ExplainedVariance",
     "F1Score",
@@ -183,6 +199,7 @@ __all__ = [
     "QuantileSketch",
     "QuantileSketchState",
     "R2Score",
+    "ReferenceWindow",
     "ROC",
     "Recall",
     "RetrievalFallOut",
@@ -197,6 +214,7 @@ __all__ = [
     "RetrievalRecallAtFixedPrecision",
     "ServeLoop",
     "SlicedMetric",
+    "SnapshotManager",
     "SlicedValue",
     "SpearmanCorrCoef",
     "Specificity",
@@ -212,8 +230,10 @@ __all__ = [
     "Warmup",
     "WindowedMetric",
     "bootstrap_functionalize",
+    "ensure_backend",
     "functionalize",
     "health_report",
+    "obs",
     "overlapped_functionalize",
     "sliced_functionalize",
     "slices_max_labels",

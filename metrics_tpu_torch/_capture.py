@@ -322,4 +322,9 @@ class UpdateGraphs:
             return False
         self.entries[key] = _Entry(replay, inputs, dict(rec.launches))
         self.captures += 1
+        # a new compiled update: counted where the JAX package counts a jit
+        # (re)trace, in `metric_jit_retrace_total`
+        from metrics_tpu_torch.obs.runtime_metrics import note_jit_retrace
+
+        note_jit_retrace(metric=type(metric).__name__, fn="update")
         return True

@@ -97,6 +97,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch._capture import UpdateGraphs, capturing
+from metrics_tpu_torch.obs import trace as _obs_trace
 from metrics_tpu_torch.ops.padding import pad_update_args
 from metrics_tpu_torch.ops.quantize import resolve_codec, validate_transport
 from metrics_tpu_torch.parallel.sync import distributed_available, fused_sync
@@ -134,7 +135,16 @@ def jit_distributed_available() -> bool:
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """``None`` means CUDA; asking for CUDA where there is none raises."""
+    """``None`` means CUDA; asking for CUDA where there is none raises, and
+    so does ``None`` under ``METRICS_TPU_FORCE_CPU`` or after a failed
+    bootstrap probe (``utilities/backend.py``): nothing moves to the CPU
+    unless asked to."""
+    if device is None:
+        from metrics_tpu_torch.utilities.backend import device_refusal
+
+        refusal = device_refusal()
+        if refusal is not None:
+            raise MetricsTPUUserError(f"This metric runs on CUDA by default, and {refusal}.")
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise MetricsTPUUserError(
@@ -457,8 +467,9 @@ class Metric:
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
-            with self._state_swap_guard():
-                self._run_update(update, args, kwargs)
+            with _obs_trace.span("metric.update", metric=type(self).__name__):
+                with self._state_swap_guard():
+                    self._run_update(update, args, kwargs)
             if self.sync_mode == "overlapped" and not self._in_forward:
                 self._notify_scheduler()
 
@@ -500,10 +511,21 @@ class Metric:
         if self.pad_batches:
             args, kwargs, n_padded = pad_update_args(self, args, kwargs)
         table = self._update_graph_table()
+        # the wall tap: the host's time to launch the update (a replay, or
+        # the eager update), only while tracing is on
+        tap_t0 = time.perf_counter() if _obs_trace.tracing_enabled() and not capturing() else None
         if table is not None:
             table.run(self, update, args, kwargs)
         else:
             update(*args, **kwargs)
+        if tap_t0 is not None:
+            from metrics_tpu_torch.obs.runtime_metrics import observe_jit_wall
+            from metrics_tpu_torch.ops.padding import leading_rows
+
+            # per-tier histograms only for ladder tiers (pad_batches): raw
+            # ragged sizes would mint one histogram per size
+            rows = leading_rows(args) if self.pad_batches else None
+            observe_jit_wall("metric_update_jit", rows, (time.perf_counter() - tap_t0) * 1e3)
         if self.debug_checks:
             self._check_finite_states()
         if n_padded:
@@ -543,6 +565,12 @@ class Metric:
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
+        def traced_compute(*args: Any, **kwargs: Any) -> Any:
+            # one span over the whole read path: cache hit, overlapped view
+            # or blocking sync and compute (the sync also has its own span)
+            with _obs_trace.span("metric.compute", metric=type(self).__name__):
+                return wrapped_func(*args, **kwargs)
+
         def wrapped_func(*args: Any, **kwargs: Any) -> Any:
             # ``fresh=True``: the overlapped mode's way back to the blocking
             # sync (a no-op for a blocking metric)
@@ -579,7 +607,7 @@ class Metric:
                 self._computed = _squeeze_if_scalar(value)
             return self._computed
 
-        return wrapped_func
+        return traced_compute
 
     def _compute_unsynced(self, compute: Callable, *args: Any, **kwargs: Any) -> Any:
         """``compute`` over the current state; with ``compute_on_cpu`` over
@@ -964,7 +992,8 @@ class Metric:
     def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
         """Sync every state across processes with one exact
         :func:`~metrics_tpu_torch.parallel.sync.fused_sync`."""
-        object.__setattr__(self, "_state", self._synced_state(self._state, dist_sync_fn, process_group))
+        with _obs_trace.span("metric.sync_dist", metric=type(self).__name__):
+            object.__setattr__(self, "_state", self._synced_state(self._state, dist_sync_fn, process_group))
 
     def _synced_state(
         self,

@@ -75,19 +75,21 @@ def _halving_index(n: int, k: int, device: torch.device) -> Tuple[Tensor, int]:
 
 
 def precompact_binned(x: Tensor, valid: Tensor, k: int) -> Tuple[Tensor, Tensor, int]:
-    """Reduce a batch to at most ``k`` items of weight ``2**level``.
+    """Reduce a batch to at most ``k`` items of weight ``2**level``, along
+    its last dimension (a ``(C, n)`` input is ``C`` batches of ``n`` rows).
 
-    Returns ``(items (min(n', k),), count, level)``: the kept items ascending
-    with ``+inf`` past ``count`` (a 0-d int32 tensor), and ``level``, a
-    Python int that depends on the batch size only. Non-finite and masked
-    rows are dropped; an odd count drops its largest item at each round."""
-    x = x.to(torch.float32).reshape(-1)
-    valid = torch.broadcast_to(valid.to(torch.bool).reshape(-1), x.shape) & torch.isfinite(x)
+    Returns ``(items (..., min(n', k)), count (...), level)``: the kept items
+    ascending with ``+inf`` past ``count`` (int32; 0-d for a 1-D batch), and
+    ``level``, a Python int that depends on the batch size only. Non-finite
+    and masked rows are dropped; an odd count drops its largest item at each
+    round."""
+    x = x.to(torch.float32)
+    valid = torch.broadcast_to(valid.to(torch.bool), x.shape) & torch.isfinite(x)
     keys = torch.where(valid, _float32_ascending_key(x), _INVALID_KEY)
-    m = torch.sum(valid, dtype=torch.int32)
-    binned = torch.sort(keys).values  # value-only sort of the keys
-    idx, level = _halving_index(x.shape[0], k, x.device)
-    kept = key_to_float32(binned[idx].to(torch.int64) + _SIGN32)
+    m = torch.sum(valid, dim=-1, dtype=torch.int32)
+    binned = torch.sort(keys, dim=-1).values  # value-only sort of the keys
+    idx, level = _halving_index(x.shape[-1], k, x.device)
+    kept = key_to_float32(binned[..., idx].to(torch.int64) + _SIGN32)
     count = m >> level
-    cur = torch.where(torch.arange(idx.shape[0], device=x.device) < count, kept, _INF)
+    cur = torch.where(torch.arange(idx.shape[0], device=x.device) < count[..., None], kept, _INF)
     return cur, count, level

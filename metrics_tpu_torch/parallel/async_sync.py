@@ -33,7 +33,14 @@ another thread while cycles run is on the caller, as in the JAX package.
 
 Cadence from the environment (malformed values warn once and keep the
 default): ``METRICS_TPU_SYNC_EVERY_N`` (default 1: a cycle after every
-update) and ``METRICS_TPU_SYNC_EVERY_S`` (default unset).
+update) and ``METRICS_TPU_SYNC_EVERY_S`` (default unset). ``tick_fn`` is
+side work on every wake of the worker (a serving loop's periodic snapshots
+and drift checks), returning the seconds until it is next due.
+
+Traced seams (``obs/trace.py``): ``async_sync.snapshot`` around each
+snapshot (on the producer's thread for an update-cadence trigger),
+``async_sync.cycle`` around each reduce and publish on the worker, with
+``async_sync.reduce`` and ``async_sync.publish`` inside it.
 """
 import atexit
 import threading
@@ -42,6 +49,7 @@ import weakref
 from collections import deque
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+from metrics_tpu_torch.obs import trace as _obs_trace
 from metrics_tpu_torch.ops._envtools import EnvParse, WarnOnce
 
 __all__ = ["AsyncSyncScheduler", "SyncView", "resolve_sync_cadence", "reset_async_sync_state"]
@@ -167,6 +175,7 @@ class AsyncSyncScheduler:
         sync_every_n: Optional[int] = 1,
         sync_every_s: Optional[float] = None,
         deadline_s: float = 120.0,
+        tick_fn: Optional[Callable[[], Optional[float]]] = None,
         on_error: Optional[Callable[[BaseException], None]] = None,
         name: str = "metric",
     ) -> None:
@@ -175,6 +184,12 @@ class AsyncSyncScheduler:
         self.sync_every_n = sync_every_n
         self.sync_every_s = sync_every_s
         self.deadline_s = float(deadline_s)
+        # side work on the worker's every wake (a serving loop's snapshots
+        # and drift checks): returns the seconds until it is next due, or
+        # None, and the worker's wait wakes for it
+        self.tick_fn = tick_fn
+        self._tick_due: Optional[float] = None
+        self._last_cycle_seq = 0
         self.on_error = on_error
         self.name = name
 
@@ -236,7 +251,8 @@ class AsyncSyncScheduler:
             return
         snapshot_unix = time.time()
         try:
-            payload, steps = self.snapshot_fn()
+            with _obs_trace.span("async_sync.snapshot", name=self.name):
+                payload, steps = self.snapshot_fn()
         except Exception as err:  # noqa: BLE001 — a failed snapshot keeps the stale view
             if self.on_error is not None:
                 self.on_error(err)
@@ -325,9 +341,24 @@ class AsyncSyncScheduler:
     # -- worker ---------------------------------------------------------
 
     def _wait_timeout(self) -> Optional[float]:
-        if self.sync_every_s is None:
-            return None
-        return max(0.0, self._last_attempt_mono + self.sync_every_s - time.monotonic())
+        waits = []
+        if self.sync_every_s is not None:
+            waits.append(max(0.0, self._last_attempt_mono + self.sync_every_s - time.monotonic()))
+        if self.tick_fn is not None and self._tick_due is not None:
+            waits.append(max(0.0, self._tick_due))
+        return min(waits) if waits else None
+
+    def _tick(self) -> None:
+        """The side work of one wake; a failure degrades, never stops the
+        worker."""
+        if self.tick_fn is None:
+            return
+        try:
+            self._tick_due = self.tick_fn()
+        except Exception as err:  # noqa: BLE001 — side work degrades, never kills the loop
+            self._tick_due = None
+            if self.on_error is not None:
+                self.on_error(err)
 
     def _queued_covers(self, seq: int) -> bool:
         """A queued or running cycle covers ``seq`` (the caller holds
@@ -356,7 +387,8 @@ class AsyncSyncScheduler:
             self._inflight_seq = seq
         snapshot_unix = time.time()
         try:
-            payload, steps = self.snapshot_fn()
+            with _obs_trace.span("async_sync.snapshot", name=self.name):
+                payload, steps = self.snapshot_fn()
         except Exception as err:  # noqa: BLE001 — a failed snapshot keeps the stale view
             if self.on_error is not None:
                 self.on_error(err)
@@ -364,6 +396,9 @@ class AsyncSyncScheduler:
         self._cycle(seq, payload, seq if steps is None else steps, snapshot_unix)
 
     def _loop(self) -> None:
+        # learn the side work's cadence first (a tick with nothing due
+        # returns its due-in), so the first wait is not a spurious wake
+        self._tick()
         while True:
             if self._wake.wait(timeout=self._wait_timeout()):
                 self._wake.clear()
@@ -373,6 +408,7 @@ class AsyncSyncScheduler:
                 # of a quiet scheduler would fall to 0 and spin
                 self._last_attempt_mono = time.monotonic()
                 self._worker_cycle()
+            self._tick()
             if self._stop_evt.is_set():
                 # a last cycle so the view covers everything, unless
                 # stop(final=False) waived it
@@ -391,16 +427,24 @@ class AsyncSyncScheduler:
             self._stall_reported = False
         self._last_attempt_mono = time.monotonic()
         t0 = time.perf_counter()
-        try:
-            reduced = self.reduce_fn(payload)
-        except Exception as err:  # noqa: BLE001 — a failed cycle keeps the stale view
-            self._end_cycle(None)
-            if self.on_error is not None:
-                self.on_error(err)
-            return  # coverage not advanced: a later trigger retries
-        self.cycles += 1
-        self.cycle_s += time.perf_counter() - t0
-        self._end_cycle(SyncView(payload=reduced, covered_seq=seq, covered_steps=steps, snapshot_unix=snapshot_unix, completed_unix=time.time()))
+        # notifies covered by this cycle beyond the previous one's
+        coalesced = seq - self._last_cycle_seq
+        self._last_cycle_seq = seq
+        with _obs_trace.span("async_sync.cycle", name=self.name, coalesced=coalesced, seq=seq):
+            try:
+                with _obs_trace.span("async_sync.reduce", name=self.name):
+                    reduced = self.reduce_fn(payload)
+            except Exception as err:  # noqa: BLE001 — a failed cycle keeps the stale view
+                self._end_cycle(None)
+                if self.on_error is not None:
+                    self.on_error(err)
+                return  # coverage not advanced: a later trigger retries
+            self.cycles += 1
+            self.cycle_s += time.perf_counter() - t0
+            with _obs_trace.span("async_sync.publish", name=self.name):
+                self._end_cycle(
+                    SyncView(payload=reduced, covered_seq=seq, covered_steps=steps, snapshot_unix=snapshot_unix, completed_unix=time.time())
+                )
 
     def _end_cycle(self, view: Optional[SyncView]) -> None:
         """Publish ``view`` (None: the cycle failed), in one step with the

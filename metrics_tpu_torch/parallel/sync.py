@@ -124,14 +124,26 @@ class _WorldOfOne:
 _WORLD_OF_ONE = _WorldOfOne()
 
 
+def _count_payload(tensor: Tensor) -> None:
+    """The bytes this process ships into one collective's payload, in the
+    ``sync_payload_bytes`` self-telemetry counter (a quantized wire counts
+    its encoded bytes; the small shape headers are not counted)."""
+    from metrics_tpu_torch.obs.runtime_metrics import registry as _obs_registry
+
+    _obs_registry.counter("sync_payload_bytes").inc(int(tensor.numel()) * tensor.element_size())
+
+
 def _all_reduce(comm: Any, tensor: Tensor, op: str, group: Any) -> None:
+    _count_payload(tensor)
     if comm.all_reduce(tensor, op=getattr(dist.ReduceOp, op), group=group) is DEGRADED:
         raise _LocalOnly
 
 
-def _all_gather(tensor: Tensor, group: Optional[Any], comm: Any) -> List[Tensor]:
+def _all_gather(tensor: Tensor, group: Optional[Any], comm: Any, payload: bool = True) -> List[Tensor]:
     tensor = tensor.contiguous()
     wire = as_bytes(tensor) if tensor.dtype in _AS_BYTES else tensor
+    if payload:
+        _count_payload(wire)
     parts = [torch.empty_like(wire) for _ in range(comm.get_world_size(group))]
     if comm.all_gather(parts, wire, group=group) is DEGRADED:
         raise _LocalOnly
@@ -158,7 +170,7 @@ def _pad_gather_trim(tensor: Tensor, group: Optional[Any] = None, comm: Any = di
     header = torch.full((2 + _MAX_DIMS,), -1, dtype=torch.int64)
     header[0], header[1] = tensor.ndim, _DTYPES.index(tensor.dtype)
     header[2:2 + tensor.ndim] = torch.tensor(tensor.shape, dtype=torch.int64)
-    headers = torch.stack(_all_gather(header.to(tensor.device), group, comm)).tolist()
+    headers = torch.stack(_all_gather(header.to(tensor.device), group, comm, payload=False)).tolist()
     shapes = [h[2:2 + h[0]] for h in headers]
     full = [h for h, s in zip(headers, shapes) if all(d > 0 for d in s)]
     ref = full[0] if full else headers[0]
@@ -874,7 +886,17 @@ def _quantized_wire_sync(
         segments.append(("sketch", i, name, v.pack(), v.counts.shape[0] + 2, v))
     wires = [codec.encode(vec, tail) for (_, _, _, vec, tail, _) in segments]
     sizes = [w.shape[0] for w in wires]
-    per_rank = [row.view(codec.wire_dtype) for row in _all_gather(as_bytes(torch.cat(wires)), group, comm)]
+    wire = torch.cat(wires)
+    # the wire's bytes beside the float32 lanes it replaces (a host instant)
+    from metrics_tpu_torch.obs import trace as _obs_trace
+
+    _obs_trace.instant(
+        "sync.quantized_wire",
+        transport=codec.name,
+        wire_bytes=int(wire.numel()) * wire.element_size(),
+        exact_bytes=int(sum(vec.shape[0] for (_, _, _, vec, _, _) in segments) * 4),
+    )
+    per_rank = [row.view(codec.wire_dtype) for row in _all_gather(as_bytes(wire), group, comm)]
     offset = 0
     for (kind, i, name, vec, tail, orig), size in zip(segments, sizes):
         rows = [codec.decode(w[offset:offset + size], vec.shape[0], tail) for w in per_rank]

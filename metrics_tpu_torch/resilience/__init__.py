@@ -1,4 +1,20 @@
-"""Degradation records (counterpart of ``metrics_tpu/resilience/``)."""
+"""Crash-safe elastic snapshots and degradation records (counterpart of
+``metrics_tpu/resilience/``)."""
 from metrics_tpu_torch.resilience.health import HealthRegistry, health_report, record_degradation, registry
+from metrics_tpu_torch.resilience.snapshot import (
+    SnapshotCorruptionError,
+    SnapshotError,
+    SnapshotManager,
+    SnapshotSchemaError,
+)
 
-__all__ = ["HealthRegistry", "health_report", "record_degradation", "registry"]
+__all__ = [
+    "HealthRegistry",
+    "SnapshotCorruptionError",
+    "SnapshotError",
+    "SnapshotManager",
+    "SnapshotSchemaError",
+    "health_report",
+    "record_degradation",
+    "registry",
+]

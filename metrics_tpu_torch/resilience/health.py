@@ -9,18 +9,21 @@ sync cycle that raised (``async_sync_error``) or overran its deadline
 for the metrics and collections passed in, their fault counters, ring
 overflow, staleness and overlapped-sync lag, as one plain dict.
 
-The registry imports the standard library only, so it stays usable when
-the device is wedged; the per-metric entries read counts back from the
-metrics passed in.
+The report's ``backend`` key is the CUDA bootstrap state
+(``utilities/backend.py``), its ``runtime`` key the light self-telemetry
+summary (``obs/runtime_metrics.py``: counters, histogram counts and sums),
+as in the JAX package. Listeners (the flight recorder's degraded-edge
+trigger) are called per recorded event, outside the lock.
 
-Stated difference from the JAX package: the report has no ``backend`` key
-(the JAX bootstrap probe, not ported yet) and no ``runtime`` key (the
-self-telemetry counters of ``obs/runtime_metrics.py``, not ported yet).
+The registry imports the standard library only, so it stays usable when
+the device is wedged; the ``backend`` and ``runtime`` keys read nothing from
+the device either. The per-metric entries read counts back from the
+metrics passed in.
 """
 import threading
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 # Known kinds (informative; a subsystem may record a new kind):
 #   gather_degraded      a collective fell back to this rank's own state
@@ -28,6 +31,18 @@ from typing import Any, Dict, List, Optional
 #                        previous view and the cadence retries
 #   async_sync_stalled   an overlapped sync cycle is in flight past its
 #                        deadline; readers keep the previous view
+#   forced_cpu           METRICS_TPU_FORCE_CPU is set: CUDA is never touched
+#   backend_probe_timeout, backend_probe_failed
+#                        the CUDA bootstrap probe (utilities/backend.py) hung
+#                        past its deadline or failed
+#   snapshot_fallback    a snapshot group failed verification; the restore
+#                        fell back to an older one (resilience/snapshot.py)
+#   snapshot_mean_approx an elastic restore merged 'mean' states approximately
+#   serve_snapshot_error a ServeLoop's periodic snapshot raised
+#   drift_detected, drift_recovered, drift_check_error
+#                        a DriftMonitor's episode edges and failures (obs/drift.py)
+#   drift_baseline_loaded
+#                        a DriftMonitor attached a reference (informational)
 _MAX_EVENTS = 256
 
 # operational milestones, not degradations: reported and counted, but they
@@ -47,6 +62,18 @@ class HealthRegistry:
         self._lock = threading.Lock()
         self._events: "deque[Dict[str, Any]]" = deque(maxlen=max_events)
         self._kinds: Dict[str, Dict[str, Any]] = {}
+        self._listeners: List[Callable[[Dict[str, Any]], None]] = []
+
+    def add_listener(self, fn: Callable[[Dict[str, Any]], None]) -> None:
+        """Register ``fn(event)``, called per recorded event on the
+        recording thread, after the ring and table update and outside the
+        lock; a raising listener is ignored, never the caller's seam."""
+        if fn not in self._listeners:
+            self._listeners.append(fn)
+
+    def remove_listener(self, fn: Callable[[Dict[str, Any]], None]) -> None:
+        if fn in self._listeners:
+            self._listeners.remove(fn)
 
     def record(self, kind: str, message: str, **details: Any) -> Dict[str, Any]:
         now_unix, now_mono = time.time(), time.monotonic()
@@ -62,6 +89,11 @@ class HealthRegistry:
                 entry["count"] += 1
                 entry["last_unix"] = now_unix
                 entry["last_mono"] = now_mono
+        for fn in list(self._listeners):
+            try:
+                fn(event)
+            except Exception:  # noqa: BLE001 - telemetry degrades, never the caller's seam
+                pass
         return event
 
     def events(self, kind: Optional[str] = None) -> List[Dict[str, Any]]:
@@ -141,10 +173,12 @@ def _metric_health(metric: Any) -> Dict[str, Any]:
 def health_report(*metrics: Any) -> Dict[str, Any]:
     """Every known degradation of this process, as plain data::
 
-        {"events": [...oldest first...],
+        {"backend": {...the CUDA bootstrap state...},
+         "events": [...oldest first...],
          "event_counts": {kind: n},
          "event_kinds": {kind: {"count", "first_unix", "last_unix", "last_mono"}},
          "informational_event_kinds": [...],
+         "runtime": {"counters": {...}, "histograms": {...}},  # when any
          "metrics": {name: {"faults": {...}, "overflow_dropped": n,
                             "sync_lag_steps": s, "staleness_s": age, ...}},
          "degraded": bool}
@@ -155,13 +189,21 @@ def health_report(*metrics: Any) -> Dict[str, Any]:
     registry holds an event of a kind that is not informational, or a
     metric reports faults or overflow.
     """
+    from metrics_tpu_torch.obs.runtime_metrics import registry as _runtime_registry
+    from metrics_tpu_torch.utilities.backend import backend_status
+
     report: Dict[str, Any] = {
+        "backend": backend_status(),
         "events": registry.events(),
         "event_counts": registry.counts(),
         "event_kinds": registry.kinds(),
         "informational_event_kinds": sorted(INFORMATIONAL_EVENT_KINDS),
         "metrics": {},
     }
+    # the light self-telemetry summary: counters, histogram counts and sums
+    runtime = _runtime_registry.snapshot(quantiles=False)
+    if runtime["counters"] or runtime["histograms"]:
+        report["runtime"] = runtime
     seen: Dict[str, int] = {}
     for obj in metrics:
         # copy_state=False: a read-only sweep must not copy the groups'

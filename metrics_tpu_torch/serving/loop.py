@@ -41,19 +41,38 @@ are put back. The port's updates check their arguments before they write
 their states in place (D8); a state written before the failure is not
 undone.
 
-Left out until their items land, and refused with an error that names
-them: ``snapshot_manager=``, ``snapshot_every_s=``, ``save_snapshot`` and
-``restore_snapshot`` (item 14), ``drift_monitors=`` and ``scrape`` (item
-15), the ``fleet_*`` methods (item 16), and the trace, flight-recorder and
-``obs`` seams (item 15). ``threading.Lock`` stands where the JAX package
-uses ``named_lock`` (item 18).
+Snapshots, drift and telemetry, as in the JAX package:
+
+- ``snapshot_manager=`` (a :class:`~metrics_tpu_torch.resilience.SnapshotManager`)
+  and ``snapshot_every_s=`` ride the reducer's tick: each replica saves as
+  one rank of a ``world_size=workers`` group (:meth:`ServeLoop.save_snapshot`),
+  so a restore works at any worker count through the elastic merge.
+  :meth:`ServeLoop.restore_snapshot` loads the newest intact group into a
+  base state that joins every later reduce; its tensors are new, so a
+  replica's captured graphs are never bound to them.
+- ``drift_monitors=`` (:class:`~metrics_tpu_torch.obs.DriftMonitor`): each
+  monitor watches the accepted traffic (``offer`` calls its
+  ``extract_from`` and ``observe``, which read nothing back) and is checked
+  on the reducer's tick.
+- The ``serve.offer``, ``serve.update``, ``serve.reduce``,
+  ``serve.forced_reduce`` and ``serve.drift_check`` spans, with the offer's
+  context handed to the worker's update; :meth:`ServeLoop.scrape` renders
+  :meth:`ServeLoop.health` with the self-telemetry. The loop's host view
+  of its health (no device read: the fault counts are the ones the last
+  reduce read back) is a flight-recorder source.
+
+Left out until item 16 lands, and refused with an error that names it: the
+``fleet_*`` methods. ``threading.Lock`` stands where the JAX package uses
+``named_lock`` (item 18).
 """
 import copy
+import itertools
 import queue
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from metrics_tpu_torch.obs import trace as _obs_trace
 from metrics_tpu_torch.parallel.async_sync import AsyncSyncScheduler
 from metrics_tpu_torch.resilience.health import health_report, record_degradation
 from metrics_tpu_torch.utilities.exceptions import MetricsTPUUserError
@@ -181,6 +200,12 @@ class ServeLoop:
     ``METRICS_TPU_SYNC_TRANSPORT``, else ``exact``) is the wire of the
     reducer's sync in a multi-process world; the in-process fold moves no
     bytes.
+
+    ``snapshot_manager=`` with ``snapshot_every_s=`` saves the served
+    state periodically, each replica as one rank; ``drift_monitors=`` (one
+    :class:`~metrics_tpu_torch.obs.DriftMonitor`, a list, or a ``{name:
+    monitor}`` dict) watch the accepted traffic and are checked on the
+    reducer's cadence.
     """
 
     def __init__(
@@ -195,14 +220,12 @@ class ServeLoop:
         warmup: Optional[Any] = None,
         drift_monitors: Optional[Any] = None,
     ) -> None:
-        if snapshot_manager is not None or snapshot_every_s is not None:
-            raise _left_out("`snapshot_manager=`/`snapshot_every_s=`", "item 14")
-        if drift_monitors is not None:
-            raise _left_out("`drift_monitors=`", "item 15")
         if workers < 1:
             raise ValueError(f"`workers` must be >= 1, got {workers}")
         if queue_size < 1:
             raise ValueError(f"`queue_size` must be >= 1, got {queue_size}")
+        if snapshot_every_s is not None and snapshot_manager is None:
+            raise ValueError("`snapshot_every_s` needs a `snapshot_manager`")
         from metrics_tpu_torch.ops.quantize import validate_transport
 
         self.sync_transport = validate_transport(sync_transport)
@@ -214,6 +237,7 @@ class ServeLoop:
         # and by the warmup around each capture
         self._replica_locks = [threading.Lock() for _ in range(workers)]
         self._published = [False] * workers
+        self._base_snap: Optional[_Snapshot] = None  # a restored state
 
         self._queue: "queue.Queue[Tuple[tuple, dict]]" = queue.Queue(maxsize=queue_size)
         self._stats_lock = threading.Lock()
@@ -229,14 +253,69 @@ class ServeLoop:
         # final pass, so the final view covers every processed request
         self._stop_workers = threading.Event()
 
+        self._snapshot_mgr = snapshot_manager
+        self._snapshot_every_s = snapshot_every_s
+        self._snapshot_step = itertools.count(1)
+        self._snapshot_step_lock = threading.Lock()
+        self._last_snapshot_unix = time.time()
+
+        # drift monitors: observed on the offer path (no read back), checked
+        # on the scheduler's tick
+        self._drift: Dict[str, Any] = {}
+        self._drift_error_reported: Dict[str, bool] = {}  # episode-gated
+        # any failing observe/check since the last tick: the episode re-arms
+        # only after a clean interval
+        self._drift_error_recent: Dict[str, bool] = {}
+        if drift_monitors is not None:
+            if isinstance(drift_monitors, dict):
+                for key, monitor in drift_monitors.items():
+                    if key != getattr(monitor, "name", None):
+                        raise MetricsTPUUserError(
+                            f"drift_monitors key {key!r} != monitor.name "
+                            f"{getattr(monitor, 'name', None)!r}; gauges and events are "
+                            "labeled by the monitor's own name — use matching keys "
+                            "(or pass a list)"
+                        )
+                monitors = list(drift_monitors.values())
+            elif isinstance(drift_monitors, (list, tuple)):
+                monitors = list(drift_monitors)
+            else:
+                monitors = [drift_monitors]
+            for monitor in monitors:
+                name = getattr(monitor, "name", None)
+                if not name or not callable(getattr(monitor, "check", None)):
+                    raise MetricsTPUUserError(
+                        "`drift_monitors` must be DriftMonitor instances (or a "
+                        f"list/dict of them), got {type(monitor).__name__}"
+                    )
+                if name in self._drift:
+                    raise MetricsTPUUserError(
+                        f"duplicate drift monitor name {name!r}: each monitor needs a "
+                        "distinct name (it labels the exported gauges)"
+                    )
+                self._drift[name] = monitor
+                self._drift_error_reported[name] = False
+                self._drift_error_recent[name] = False
+
         self._scheduler = AsyncSyncScheduler(
             snapshot_fn=self._sweep_published,
             reduce_fn=self._reduce_view,
             sync_every_n=None,
             sync_every_s=self.reduce_every_s,
+            tick_fn=self._snapshot_tick,
             on_error=self._on_reduce_error,
             name=f"serve-{type(metric).__name__}",
         )
+
+        # causal tracing: the context of the newest update span and of the
+        # reduce that built the last reporter
+        self._publish_ctx = None
+        self._last_reporter_ctx = None
+
+        # the flight recorder reads this loop's host view; detached at stop
+        from metrics_tpu_torch.obs import flightrec as _flightrec
+
+        self._flightrec_token = _flightrec.attach_source(f"serve:{type(metric).__name__}", self._host_health)
 
         self._warmup = None
         if warmup is not None:
@@ -260,18 +339,22 @@ class ServeLoop:
         """Queue one update batch; False when it was shed (queue full:
         counted and recorded, never silent)."""
         shed = None
-        # counted and queued under one lock: a request counted accepted is
-        # queued, so accepted + shed == offered at every instant
-        with self._stats_lock:
-            if self._stopping:
-                raise MetricsTPUUserError("ServeLoop.offer called after stop()")
-            self._offered += 1
-            try:
-                self._queue.put_nowait((args, kwargs))
-                self._accepted += 1
-            except queue.Full:
-                self._shed += 1
-                shed = self._shed
+        with _obs_trace.span("serve.offer"):
+            # the offer's context rides the queue item: the worker's update
+            # span becomes its child (None while tracing is off)
+            ctx = _obs_trace.current_context()
+            # counted and queued under one lock: a request counted accepted
+            # is queued, so accepted + shed == offered at every instant
+            with self._stats_lock:
+                if self._stopping:
+                    raise MetricsTPUUserError("ServeLoop.offer called after stop()")
+                self._offered += 1
+                try:
+                    self._queue.put_nowait((args, kwargs, ctx))
+                    self._accepted += 1
+                except queue.Full:
+                    self._shed += 1
+                    shed = self._shed
         if shed is not None:
             record_degradation(
                 "overload_shed",
@@ -280,6 +363,15 @@ class ServeLoop:
                 metric=type(self._proto).__name__,
             )
             return False
+        # drift monitors watch the accepted traffic; a monitor's failure
+        # degrades loudly and never takes the request with it
+        for name, monitor in self._drift.items():
+            try:
+                values = monitor.extract_from(args, kwargs)
+                if values is not None:
+                    monitor.observe(values)
+            except Exception as err:  # noqa: BLE001 - drift degrades, never sheds
+                self._record_drift_error(name, err, during="observe")
         return True
 
     def _worker(self, i: int) -> None:
@@ -303,7 +395,7 @@ class ServeLoop:
         replica, lock = self._replicas[i], self._replica_locks[i]
         while True:
             try:
-                args, kwargs = self._queue.get(timeout=0.05)
+                args, kwargs, offer_ctx = self._queue.get(timeout=0.05)
             except queue.Empty:
                 if self._stop_workers.is_set():
                     return
@@ -315,7 +407,12 @@ class ServeLoop:
                         for _, m in _members(replica)
                     ]
                     try:
-                        replica.update(*args, **kwargs)
+                        # the request-latency seam (serve_update_ms), the
+                        # offer's span its parent across the threads
+                        with _obs_trace.trace_context(offer_ctx):
+                            with _obs_trace.span("serve.update", worker=i):
+                                self._publish_ctx = _obs_trace.current_context()
+                                replica.update(*args, **kwargs)
                     except Exception:
                         for m, state, count, jittable, cells in bookkeeping:
                             object.__setattr__(m, "_state", state)
@@ -347,7 +444,7 @@ class ServeLoop:
         """The scheduler's snapshot: a copy of every replica that has
         served, each under its lock. Steps None: the scheduler counts
         publishes."""
-        snaps = []
+        snaps = [self._base_snap] if self._base_snap is not None else []
         for i, replica in enumerate(self._replicas):
             with self._replica_locks[i]:
                 if self._published[i]:
@@ -356,7 +453,14 @@ class ServeLoop:
 
     def _reduce_view(self, snaps: List[_Snapshot]) -> Dict[str, Any]:
         """The scheduler's reduce: a fresh reporter clone, every snapshot
-        folded in, then computed. A failure keeps the previous view."""
+        folded in, then computed. A failure keeps the previous view. The
+        span links to the newest update span (a reduce fans in many)."""
+        with _obs_trace.span("serve.reduce", link_to=self._publish_ctx, snapshots=len(snaps)):
+            out = self._reduce_view_inner(snaps)
+            self._last_reporter_ctx = _obs_trace.current_context()
+            return out
+
+    def _reduce_view_inner(self, snaps: List[_Snapshot]) -> Dict[str, Any]:
         reporter = _clone(self._proto)
         for snap in snaps:
             _fold_snapshot(reporter, snap)
@@ -407,6 +511,53 @@ class ServeLoop:
             metric=type(self._proto).__name__,
         )
 
+    def _record_drift_error(self, name: str, err: BaseException, during: str) -> None:
+        """Once per episode and monitor: the next clean interval re-arms."""
+        with self._stats_lock:
+            due = not self._drift_error_reported.get(name)
+            self._drift_error_reported[name] = True
+            self._drift_error_recent[name] = True
+        if due:
+            record_degradation(
+                "drift_check_error",
+                f"drift monitor {name!r} {during} raised {type(err).__name__}: {err} "
+                "(reported once per episode; the cadence keeps retrying)",
+                monitor=name,
+            )
+
+    def _drift_tick(self) -> None:
+        """Every monitor's check, on the scheduler's wake: fold, score,
+        fire or clear episodes, off the request path."""
+        for name, monitor in self._drift.items():
+            try:
+                with _obs_trace.span("serve.drift_check", monitor=name):
+                    monitor.check()
+                with self._stats_lock:
+                    if self._drift_error_recent[name]:
+                        self._drift_error_recent[name] = False
+                    else:
+                        self._drift_error_reported[name] = False
+            except Exception as err:  # noqa: BLE001 - drift degrades, never kills the reducer
+                self._record_drift_error(name, err, during="check")
+
+    def _snapshot_tick(self) -> Optional[float]:
+        """The scheduler's tick: the drift checks, then the periodic
+        snapshot when due. Returns the seconds until the next snapshot."""
+        if self._drift:
+            self._drift_tick()
+        if self._snapshot_every_s is None:
+            return None
+        due_in = self._last_snapshot_unix + self._snapshot_every_s - time.time()
+        if due_in > 0:
+            return due_in
+        try:
+            self.save_snapshot()
+        except Exception as err:  # noqa: BLE001 - snapshots degrade, never kill serving
+            # stamp the attempt: a failing writer retries on the cadence
+            self._last_snapshot_unix = time.time()
+            record_degradation("serve_snapshot_error", f"periodic snapshot raised {type(err).__name__}: {err}")
+        return self._snapshot_every_s
+
     def report(self, fresh: bool = False, deadline_s: float = 0.5) -> Dict[str, Any]:
         """The merged value as last reduced, never blocking ingestion.
 
@@ -415,7 +566,8 @@ class ServeLoop:
         view comes back with ``fresh`` False."""
         got_fresh = False
         if fresh:
-            got_fresh = self._scheduler.wait_covered(self._scheduler.seq(), deadline_s=max(0.0, deadline_s))
+            with _obs_trace.span("serve.forced_reduce"):
+                got_fresh = self._scheduler.wait_covered(self._scheduler.seq(), deadline_s=max(0.0, deadline_s))
         sync_view = self._scheduler.view()
         view = sync_view.payload if sync_view is not None else None
         value = view["value"] if view else None
@@ -464,6 +616,8 @@ class ServeLoop:
             "sync": self._scheduler.lag(),
             "warmup": self._warmup.state() if self._warmup is not None else None,
         }
+        if self._drift:
+            rep["drift"] = {name: m.status() for name, m in self._drift.items()}
         if self._last_reporter is not None:
             from metrics_tpu_torch.sliced import SlicedMetric
 
@@ -478,16 +632,88 @@ class ServeLoop:
                 rep["slices"] = slices
         return rep
 
-    # -- left out until their items land ----------------------------------
-
-    def save_snapshot(self, step: Optional[int] = None) -> int:
-        raise _left_out("save_snapshot", "item 14")
-
-    def restore_snapshot(self) -> Dict[str, Any]:
-        raise _left_out("restore_snapshot", "item 14")
+    def _host_health(self) -> Dict[str, Any]:
+        """The loop's health from host data only: the process registry, the
+        serving counters, the reducer's lag, the warmup, the drift monitors'
+        statuses and the fault counts the last reduce read back. The flight
+        recorder reads this (never the device, not even at exit)."""
+        rep = health_report()
+        sync_view = self._scheduler.view()
+        view = sync_view.payload if sync_view is not None else None
+        rep["serving"] = {
+            **self.stats(),
+            "workers": self.workers,
+            "queue_capacity": self._queue.maxsize,
+            "report_staleness_s": max(0.0, time.time() - view["computed_unix"]) if view else None,
+            "sync": self._scheduler.lag(),
+            "warmup": self._warmup.state() if self._warmup is not None else None,
+            "faults": {k: dict(v) for k, v in view["faults"].items()} if view else {},
+        }
+        if self._drift:
+            rep["drift"] = {name: m.status() for name, m in self._drift.items()}
+        return rep
 
     def scrape(self, fmt: str = "prometheus") -> str:
-        raise _left_out("scrape", "item 15")
+        """One exporter scrape over this loop: :meth:`health` with the
+        process self-telemetry. ``fmt``: ``"prometheus"`` or ``"json"``;
+        serve it over HTTP with ``obs.TelemetryExporter(health_fn=loop.health)``."""
+        from metrics_tpu_torch.obs.export import json_text, prometheus_text
+
+        if fmt == "prometheus":
+            return prometheus_text(health=self.health())
+        if fmt == "json":
+            return json_text(health=self.health())
+        raise MetricsTPUUserError(f"`fmt` must be 'prometheus' or 'json', got {fmt!r}")
+
+    # -- snapshots --------------------------------------------------------
+
+    def save_snapshot(self, step: Optional[int] = None) -> int:
+        """One crash-safe snapshot group: worker ``i``'s state (copied under
+        its lock) is rank ``i`` of a ``world_size=workers`` group, the
+        restored base folded into rank 0, each written by the manager's
+        atomic, checksummed writer. Returns the step."""
+        if self._snapshot_mgr is None:
+            raise MetricsTPUUserError("ServeLoop has no snapshot_manager configured")
+        if step is None:
+            # never at or below a step already on disk (a restored group's, or
+            # an earlier run's): the manager keeps the newest `keep` steps, so
+            # a lower step would be pruned as soon as it is written (F11)
+            with self._snapshot_step_lock:  # the reducer's periodic saves race explicit ones
+                step = max(next(self._snapshot_step), max(self._snapshot_mgr.steps(), default=0) + 1)
+                self._snapshot_step = itertools.count(step + 1)
+        for i, replica in enumerate(self._replicas):
+            scratch = _clone(self._proto)
+            if i == 0 and self._base_snap is not None:
+                _fold_snapshot(scratch, self._base_snap)
+            with self._replica_locks[i]:
+                snap = _snapshot_of(replica) if self._published[i] else None
+            if snap is not None:
+                _fold_snapshot(scratch, snap)
+            self._snapshot_mgr.save(scratch, step=step, rank=i, world_size=self.workers)
+        self._last_snapshot_unix = time.time()
+        return step
+
+    def restore_snapshot(self) -> Dict[str, Any]:
+        """Load the newest intact snapshot group (any saved world size) as
+        the loop's base state: it joins every later reduce and rank 0 of
+        every later snapshot. Only before the loop has served: a restore
+        into a loop whose replicas hold updates would count them twice."""
+        if self._snapshot_mgr is None:
+            raise MetricsTPUUserError("ServeLoop has no snapshot_manager configured")
+        if any(self._published):
+            raise MetricsTPUUserError(
+                "ServeLoop.restore_snapshot on a loop that has already served traffic: "
+                "the restored base would double-count the replicas' published updates. "
+                "Restore into a fresh ServeLoop before offering requests."
+            )
+        base = _clone(self._proto)
+        info = self._snapshot_mgr.restore(base, rank=0, world_size=1)
+        self._base_snap = _snapshot_of(base)
+        # the base joins the coverage: report(fresh=True) waits for it
+        self._scheduler.notify()
+        return info
+
+    # -- left out until item 16 lands ---------------------------------------
 
     def fleet_view(self) -> Optional[Dict[str, Any]]:
         raise _left_out("fleet_view", "item 16")
@@ -518,6 +744,10 @@ class ServeLoop:
         reducer's final pass."""
         with self._stats_lock:
             self._stopping = True
+        # a flight-recorder dump after the stop must not read a dead loop
+        from metrics_tpu_torch.obs import flightrec as _flightrec
+
+        _flightrec.detach_source(self._flightrec_token)
         if self._warmup is not None:
             self._warmup.stop(timeout_s=timeout_s)
         if drain:

@@ -40,6 +40,12 @@ thread, so the workers' allocations and synchronizations meanwhile do not
 invalidate it. Status walks ``pending -> running -> done | failed |
 stopped``; a failure records ``serve_warmup_error`` and serving goes on
 with eager first updates. ``METRICS_TPU_WARMUP=0`` skips the engine.
+
+Telemetry, as in the JAX package: a ``serve.warmup`` span, the
+``serve_warmup_seconds`` and ``serve_warmup_graphs`` gauges, and, while
+tracing is on, each capture's wall time per tier in the
+``serve_warmup_capture_ms`` histograms (``observe_jit_wall``). Each capture
+also counts in ``metric_jit_retrace_total`` (``_capture.py``).
 """
 import threading
 import time
@@ -238,14 +244,19 @@ class WarmupEngine:
         return out
 
     def _run(self, replicas: List[Any], locks: List[Any]) -> None:
+        from metrics_tpu_torch.obs import trace as _obs_trace
+        from metrics_tpu_torch.obs.runtime_metrics import registry as _runtime
         from metrics_tpu_torch.resilience.health import record_degradation
 
         self.status = "running"
         self.started_unix = time.time()
         t0 = time.monotonic()
         try:
-            self._capture_all(replicas, locks)
+            with _obs_trace.span("serve.warmup", metric=self.name):
+                self._capture_all(replicas, locks)
             self.wall_s = time.monotonic() - t0
+            _runtime.gauge("serve_warmup_seconds").set(self.wall_s)
+            _runtime.gauge("serve_warmup_graphs").set(self.graphs_captured)
             if self._stop.is_set():
                 self.status = "stopped"
                 return
@@ -262,6 +273,8 @@ class WarmupEngine:
             self.wall_s = time.monotonic() - t0
             self.status = "failed"
             self.error = f"{type(err).__name__}: {err}"
+            _runtime.gauge("serve_warmup_seconds").set(self.wall_s)
+            _runtime.gauge("serve_warmup_graphs").set(self.graphs_captured)
             record_degradation(
                 "serve_warmup_error",
                 f"warmup for {self.name} failed after {self.graphs_captured} graphs: {self.error}; "
@@ -275,6 +288,8 @@ class WarmupEngine:
         return sorted(self.spec.tiers(), reverse=True) if m.pad_batches else [None]
 
     def _capture_all(self, replicas: List[Any], locks: List[Any]) -> None:
+        from metrics_tpu_torch.obs.runtime_metrics import observe_jit_wall
+        from metrics_tpu_torch.obs.trace import tracing_enabled
         from metrics_tpu_torch.ops.padding import pad_update_args
         from metrics_tpu_torch.serving.loop import _apply_inferred_attrs, _clone, _inferred_attrs, _members
 
@@ -313,7 +328,11 @@ class WarmupEngine:
                         if m.pad_batches:
                             args, kwargs, _ = pad_update_args(m, args, kwargs)
                         table = m._update_graph_table()
+                        t0 = time.perf_counter() if tracing_enabled() else None
                         if table is not None and table.prepare(m, m._original_update, args, kwargs):
                             self.graphs_captured += 1
+                            if t0 is not None:
+                                # the capture's wall time per ladder tier
+                                observe_jit_wall("serve_warmup_capture", tier, (time.perf_counter() - t0) * 1e3)
                         else:
                             self.graphs_skipped += 1

@@ -14,6 +14,11 @@ log = logging.getLogger("metrics_tpu_torch")
 
 
 def _get_rank() -> int:
+    """The process group's rank, else 0. The JAX package asks
+    ``backend_is_initialized()`` first, because its rank query starts
+    device discovery; ``torch.distributed`` never initialises CUDA, so this
+    path starts nothing under ``METRICS_TPU_FORCE_CPU`` or before the card
+    is up (``utilities/backend.py``)."""
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()

@@ -149,6 +149,22 @@ def test_precompaction_matches_jax(n):
     assert ours[2] == ref[2]
 
 
+@pytest.mark.parametrize("rows,n", [(1, 64), (3, 65), (4, 5000)])
+def test_batched_precompaction_matches_jax_row_by_row(rows, n):
+    """A ``(C, n)`` input precompacts each row as its own batch (the drift
+    monitor's fold chunks)."""
+    k = 64
+    batch = [_batch(n, 10 * n + r) for r in range(rows)]
+    x, valid = np.stack([b[0] for b in batch]), np.stack([b[1] for b in batch])
+    items, counts, level = binning.precompact_binned(_t(x), _t(valid), k)
+    assert items.shape[0] == counts.shape[0] == rows
+    for r in range(rows):
+        ref = jax_binning._precompact_binned(jnp.asarray(x[r]), jnp.asarray(valid[r]), k)
+        _assert_bit_equal(items[r], ref[0])
+        _assert_bit_equal(counts[r], ref[1])
+        assert level == ref[2]
+
+
 @pytest.mark.parametrize("n,k", [(0, 8), (5, 8), (9, 8), (1000, 64), (50000, 256)])
 def test_halving_map_and_key_inverse(n, k):
     ours, level = binning.halving_map(n, k)

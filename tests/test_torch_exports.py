@@ -27,24 +27,22 @@ PACKAGES = [
     "", ".classification", ".functional", ".utilities", ".parallel", ".streaming", ".regression",
     ".retrieval", ".wrappers", ".sliced", ".serving", ".resilience",
     ".functional.classification", ".functional.regression", ".functional.retrieval", ".functional.pairwise",
-    ".image", ".functional.image", ".nets", ".text", ".functional.text",
+    ".image", ".functional.image", ".nets", ".text", ".functional.text", ".obs",
 ]
 
 # names the JAX package exports from modules the port has not reached yet
-# (ROADMAP Queue 1): audio (item 17), snapshots and the backend probe
-# (item 14), observability (item 15)
+# (ROADMAP Queue 1): audio (item 17)
 NOT_YET_PORTED = {
     "": {
-        "DriftMonitor", "PerceptualEvaluationSpeechQuality", "PermutationInvariantTraining", "ReferenceWindow",
+        "PerceptualEvaluationSpeechQuality", "PermutationInvariantTraining",
         "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio", "ShortTimeObjectiveIntelligibility",
-        "SignalDistortionRatio", "SignalNoiseRatio", "SnapshotManager", "ensure_backend", "obs",
+        "SignalDistortionRatio", "SignalNoiseRatio",
     },
     ".functional": {
         "perceptual_evaluation_speech_quality", "permutation_invariant_training", "pit_permutate",
         "scale_invariant_signal_distortion_ratio", "scale_invariant_signal_noise_ratio",
         "short_time_objective_intelligibility", "signal_distortion_ratio", "signal_noise_ratio", "stoi_on_device",
     },
-    ".resilience": {"SnapshotCorruptionError", "SnapshotError", "SnapshotManager", "SnapshotSchemaError"},
 }
 
 
@@ -92,7 +90,8 @@ def test_allow_list_names_only_unported_modules(pkg):
 
 
 def test_top_level_names_named_by_f7():
-    for name in ("BaseAggregator", "FAULT_CLASSES", "AsyncSyncScheduler", "slices_max_labels", "ServeLoop", "Warmup"):
+    for name in ("BaseAggregator", "FAULT_CLASSES", "AsyncSyncScheduler", "slices_max_labels", "ServeLoop", "Warmup",
+                 "SnapshotManager", "DriftMonitor", "ReferenceWindow", "ensure_backend", "obs"):
         assert name in mtt.__all__ and hasattr(mtt, name)
     assert tuple(mtt.FAULT_CLASSES) == tuple(importlib.import_module("metrics_tpu").FAULT_CLASSES)
 

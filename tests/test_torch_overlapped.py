@@ -435,7 +435,10 @@ def test_health_report_sync_lag_fields(two_ranks):
     assert tm.request_sync(wait=True, deadline_s=30.0)
     rep = health_report(tm)
     assert rep["metrics"]["Accuracy"]["sync_lag_steps"] == 0 and rep["metrics"]["Accuracy"]["sync_lag_s"] is not None
-    assert rep["degraded"] is False and "backend" not in rep and "runtime" not in rep
+    # the backend and runtime keys are JAX's since D16 closed (`runtime`
+    # appears once a telemetry counter exists in either package)
+    assert rep["degraded"] is False and "backend" in rep
+    assert set(rep) - {"runtime"} == set(mt.health_report(jm)) - {"runtime"}
     blocking = mtt.Accuracy(num_classes=4, device="cpu")
     blocking.update(*_t(b))
     assert "sync_lag_steps" not in health_report(blocking)["metrics"]["Accuracy"]

@@ -451,3 +451,24 @@ def test_a_composition_takes_its_operands_device(monkeypatch):
     p = metrics_tpu_torch.Precision(num_classes=3, average="macro", device="cpu")
     r = metrics_tpu_torch.Recall(num_classes=3, average="macro", device="cpu")
     assert (2 * p * r / (p + r)).device == torch.device("cpu")
+
+
+def test_obs_resilience_and_backend_import_no_jax_and_touch_no_cuda():
+    """The observability, snapshot and bootstrap modules import no JAX and
+    nothing of ``metrics_tpu``, and importing them (and the package) starts
+    no CUDA initialisation."""
+    code = (
+        "import sys, torch\n"
+        "import metrics_tpu_torch.obs, metrics_tpu_torch.obs.drift, metrics_tpu_torch.obs.flightrec\n"
+        "import metrics_tpu_torch.resilience.snapshot, metrics_tpu_torch.utilities.backend\n"
+        "import metrics_tpu_torch as mtt\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'metrics_tpu')]\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert mtt.health_report()['backend']['initialized'] is False\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("METRICS_TPU_FORCE_CPU", None)
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-2000:]

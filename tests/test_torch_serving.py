@@ -1,9 +1,9 @@
 """``ServeLoop`` and the warmup of the port (``metrics_tpu_torch/serving/``)
-on the CPU: the JAX package's serving cases that need none of the parts
-left out (snapshots, drift, scrape, fleet), the same seeded requests through
-both packages' loops, shedding on a full queue, the refusals of what is
-left out, and the warmup's captures with a stand-in capture step (nothing is
-captured on the CPU)."""
+on the CPU: the JAX package's serving cases, the same seeded requests through
+both packages' loops, shedding on a full queue, the refusals of misuse and
+of what is left out (the fleet methods), and the warmup's captures with a
+stand-in capture step (nothing is captured on the CPU). Snapshots, drift
+and scrape are in ``tests/test_torch_serving_obs.py``."""
 import threading
 import time
 import warnings
@@ -282,28 +282,42 @@ def test_same_requests_through_both_packages():
     assert tv["faults"] == {k: dict(v) for k, v in jv["faults"].items()}
 
 
+class _Named:
+    def __init__(self, name):
+        self.name = name
+
+    def check(self):
+        return {}
+
+
 @pytest.mark.parametrize(
-    "kwargs, item",
+    "kwargs, error, match",
     [
-        ({"snapshot_manager": object()}, "item 14"),
-        ({"snapshot_every_s": 1.0}, "item 14"),
-        ({"drift_monitors": [object()]}, "item 15"),
+        ({"snapshot_every_s": 1.0}, ValueError, "needs a `snapshot_manager`"),
+        ({"drift_monitors": [object()]}, MetricsTPUUserError, "must be DriftMonitor"),
+        ({"drift_monitors": {"a": _Named("b")}}, MetricsTPUUserError, "!= monitor.name"),
     ],
 )
-def test_left_out_arguments_are_refused(kwargs, item):
-    with pytest.raises(MetricsTPUUserError, match=item):
+def test_left_out_arguments_are_refused(kwargs, error, match):
+    """Misused snapshot and drift arguments are refused (the arguments
+    themselves are served since the resilience and observability slice)."""
+    with pytest.raises(error, match=match):
         mtt.ServeLoop(_acc(), workers=1, **kwargs)
 
 
 @pytest.mark.parametrize(
-    "method, item",
-    [("save_snapshot", "item 14"), ("restore_snapshot", "item 14"), ("scrape", "item 15"),
-     ("fleet_view", "item 16"), ("fleet_trace_context", "item 16"), ("fleet_extra", "item 16")],
+    "method, args, match",
+    [("save_snapshot", (), "no snapshot_manager"), ("restore_snapshot", (), "no snapshot_manager"),
+     ("scrape", ("xml",), "`fmt` must be"),
+     ("fleet_view", (), "item 16"), ("fleet_trace_context", (), "item 16"), ("fleet_extra", (), "item 16")],
 )
-def test_left_out_methods_are_refused(method, item):
+def test_left_out_methods_are_refused(method, args, match):
+    """The fleet methods are left out until item 16; a loop without a
+    snapshot manager refuses to snapshot, and ``scrape`` an unknown
+    format."""
     with mtt.ServeLoop(_acc(), workers=1) as loop:
-        with pytest.raises(MetricsTPUUserError, match=item):
-            getattr(loop, method)()
+        with pytest.raises(MetricsTPUUserError, match=match):
+            getattr(loop, method)(*args)
 
 
 def test_warmup_spec_tiers_and_args():
