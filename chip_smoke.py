@@ -26,7 +26,8 @@ Phases, each printing one JSON line, and any failure exits non-zero:
 5. stream path: an online score monitor, 64 batches of 2^20 lognormal rows
    (0.1 % NaN/±inf) through ``MetricCollection({q: QuantileSketch, distinct:
    HyperLogLog, freq: CountMinSketch})`` at their default sizes, checked
-   against the same run on the CPU and against exact answers on the card;
+   against exact answers on the card, and its first 17 batches (two
+   forwards among them) against the same run on the CPU;
 6. profile: where one batch update's time goes on each path (each member
    alone, and a ``torch.profiler`` window: device busy time and idle share,
    operations on the card per update, top kernels and host calls), and the
@@ -39,8 +40,9 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    and rings once) and sorts all 2^26 rows on every rank; then
    ``sharded_descending_ranks`` (K2 on every rank) on quantized, continuous
    and all-equal scores, held against the gathered sort. Checked against
-   the port in one process on the CPU and against an exact float64
-   Mann-Whitney AUROC;
+   the port in one process on the CPU (``{auroc, ap}``, the list mode: the
+   card's rings are held against the same values) and against an exact
+   float64 Mann-Whitney AUROC computed on the card;
 8. fused dist path: the ImageNet epoch over the same four-rank world, with
    0.5 % of the rows given a NaN score and 0.5 % the label 1000, through
    ``{acc, prec, rec, f1, bap}`` with ``on_invalid="drop"``; ``compute()``
@@ -273,9 +275,42 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    in the exported Chrome trace, K1 once per BAP update and K3 once per
    fold; the request p50/p99 beside phase 24's.
 
+35. fleet path (after 34): the served epoch of phase 24 dealt round-robin to
+   four hosts, each a ``ServeLoop`` (one worker) over ``{acc1, acc5, bap, q:
+   QuantileSketch}`` (``q`` of each request's top-1 confidence) publishing
+   delta views through a ``FleetPublisher`` over HTTP on 127.0.0.1 to one of
+   two pod ``Aggregator``s, each publishing to one global aggregator, every
+   aggregator behind its own ``FleetServer``: the global view bit-equal to
+   one eager collection over the epoch (counts and BAP's counters), its
+   sketch bit-equal to an in-process ``sketch_merge`` fold of the hosts'
+   sketches in the aggregators' order and within eps of the exact
+   quantiles, a re-delivered blob answered ``duplicate``, a flipped byte
+   refused (HTTP 400) naming the host and the leaf, a stopped host named
+   stale in the global scrape within ``stale_after_s`` plus one cadence with
+   one ``fleet_host_stale`` event, an int8 pass (counts exact, BAP's
+   counters within the codec's bound), K1 once per BAP update and K3 once
+   per sketch insert and merge (the hosts' updates and reduces, the
+   aggregators' folds, the telemetry folds); bytes a view, publish p50, the
+   global fold, the last request to the global report, blocking reads a
+   publish;
+36. detection path (last): a COCO val2017-shaped bbox evaluation (5,000
+   seeded images of 640x480 and 480x640, 36,781 ground truths over 80
+   classes with COCO's small/medium/large shares, 100 detections an image)
+   through ``MeanAveragePrecision(class_metrics=True)`` 16 images an
+   update, and a segm run on 128 of the images (masks made on the card):
+   every output equal to the port on the CPU over the first 500 (bbox) and
+   16 (segm) images, the matches of the first 32 images' cells equal to a
+   per-cell greedy loop in pycocotools' order, and F12 on the card: the
+   fused evaluation world's four ranks, each over a quarter of the first
+   500 images, compute the one-process values with twelve gathers; K1-K3
+   launch 0 times; update p50, images/s, ``compute()`` split into cells,
+   matching and accumulation, the matcher's launches, peak memory.
+
 The ``budget`` line sums the seconds that phases 31-34 add (a rank's save:
-the slowest of the four), against their 30 s; every phase line carries
-``t_s``, its seconds since the script started.
+the slowest of the four), against their 30 s, and those of phases 35-36
+(the detection ranks' share of the fused world: the slowest of the four)
+against theirs; every phase line carries ``t_s``, its seconds since the
+script started.
 
 Every CUDA metric of the earlier phases captures its update as well (the
 port's default on the card); their checks against the CPU runs hold the
@@ -321,6 +356,7 @@ AP_ATOL = 1e-6  # float32 sums over thresholds, added in another order on the ca
 
 # the stream path: an online monitor of a model's scores
 STREAM_BATCHES = 64
+STREAM_CPU_BATCHES = 17  # the stream's batches held against the CPU run: 0-16, forwards at 0 and 16 (cut from 64)
 STREAM_BATCH = 1 << 20
 STREAM_FORWARD_EVERY = 16  # batches 0, 16, 32 and 48 go through forward(), which merges sketches
 NONFINITE_SHARE = 0.001  # rows set to NaN, +inf or -inf; the sketches leave them out
@@ -469,6 +505,8 @@ SERVE_SNAPSHOT_EVERY_S = 0.5
 SERVE_DRIFT_WINDOW = 1 << 16
 NEW_PHASES_LIMIT_S = 30  # what backend_probe, snapshot_path, drift_path and serving_obs_path may add together
 NEW_PHASE_S = {}  # their seconds of command (a rank's save: the slowest of the four, which run at once)
+SLICE_PHASES_LIMIT_S = 30  # what fleet_path and detection_path may add together
+SLICE_PHASE_S = {}  # their seconds of command (the detection ranks' share: the slowest of the four)
 # (levels, k) of the quantile sketches the new paths fold with K3, each held
 # against its plain version at its own shapes by phase_k3_cascade_parity
 DRIFT_SKETCH_SHAPE = (15, 5600)  # drift_path's score monitor: eps 0.01, window 2^22
@@ -541,6 +579,24 @@ WMT14_WORDS = (10, 40)
 MT_ERRORS = (0.15, 0.07, 0.07, 0.05)  # substitutions, deletions, insertions, adjacent swaps
 SQUAD_QUESTIONS = 10_570  # SQuAD v1.1 dev
 TEXT_BATCH = 256
+FLEET_HOSTS = 4
+FLEET_PODS = 2
+FLEET_PUBLISH_EVERY_S = 0.5  # the hosts' and pods' publish cadence
+FLEET_REDUCE_EVERY_S = 1.0  # the hosts' reduce cadence: a publish between two reduces reuses the view (D62)
+FLEET_STALE_AFTER_S = 1.5  # three cadences: a busy pod's views never age past it
+FLEET_STALE_SLACK_S = 1.0  # after stale_after_s, the pod's next publish must carry the verdict
+FLEET_EPS = 0.01  # the served QuantileSketch's eps
+COCO_SEED = 17
+COCO_IMAGES = 5000  # COCO val2017
+COCO_GT_BOXES = 36_781  # its annotated instances
+COCO_CLASSES = 80
+COCO_DETS = 100  # a detector's top 100 an image
+COCO_AREA_SHARES = (0.41, 0.34, 0.25)  # small, medium and large objects
+COCO_UPDATE_IMAGES = 16  # a detector's evaluation batch
+COCO_CPU_IMAGES = 500  # images of the bbox run held against the CPU run, and F12's world
+COCO_SEGM_IMAGES = 128  # the segm run: 100 masks of 307,200 pixels are 31 MB an image
+COCO_SEGM_CPU_IMAGES = 16
+COCO_GREEDY_IMAGES = 32  # images whose cells are held against the per-cell greedy loop
 TEXT_CPU_BATCHES = 4  # the CPU runs of the ASR and MT classes: their first 4 batches (1,024 rows), cut for the phase's time
 TER_CARD_SEGMENTS = 1000  # TER's host shift search: the first 1,000 segments on the card
 TER_CPU_SEGMENTS = 200  # and the first 200 of them in the CPU run
@@ -550,6 +606,17 @@ def emit(obj):
     if "phase" in obj:
         obj = {**obj, "t_s": time.perf_counter() - _T0}  # seconds since the script started
     print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def slice_phase_time(name):
+    """Adds the block's seconds to ``SLICE_PHASE_S[name]``: the fleet and
+    detection phases' cost, which the ``budget`` line sums."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SLICE_PHASE_S[name] = SLICE_PHASE_S.get(name, 0.0) + time.perf_counter() - t0
 
 
 @contextlib.contextmanager
@@ -1240,10 +1307,10 @@ def build_monitor(pkg, device):
     })
 
 
-def run_stream(coll, x, sync):
+def run_stream(coll, x, sync, batches=STREAM_BATCHES):
     """Every 16th batch through forward, the rest through update."""
     update_s, forward_s = [], []
-    for i in range(STREAM_BATCHES):
+    for i in range(batches):
         batch = x[i * STREAM_BATCH:(i + 1) * STREAM_BATCH]
         t0 = time.perf_counter()
         if i % STREAM_FORWARD_EVERY == 0:
@@ -1304,21 +1371,28 @@ def phase_stream(x):
             f"K3's cascade launched {launches} times on the stream path (single folds: {fold_launches}); the code predicts {want}"
         )
 
-    # the same stream through the port on the CPU
+    # the stream's first STREAM_CPU_BATCHES batches (two forwards among
+    # them) on the card again and through the port on the CPU (cut from the
+    # whole stream for the script's time; the whole stream is held against
+    # exact answers below)
+    head = build_monitor(mtt, dev)
+    run_stream(head, x, torch.cuda.synchronize, batches=STREAM_CPU_BATCHES)
+    head_result = head.compute()
     t2 = time.perf_counter()
     cpu = build_monitor(mtt, "cpu")
-    run_stream(cpu, x.cpu(), lambda: None)
+    run_stream(cpu, x[:STREAM_CPU_BATCHES * STREAM_BATCH].cpu(), lambda: None, batches=STREAM_CPU_BATCHES)
     cpu_result = cpu.compute()
     cpu_s = time.perf_counter() - t2
     cpu_members = dict(cpu.items(keep_base=True, copy_state=False))
-    for name, m in members.items():
+    for name, m in dict(head.items(keep_base=True, copy_state=False)).items():
         for field, a, b in zip(m.metric_state["sketch"]._fields, m.metric_state["sketch"], cpu_members[name].metric_state["sketch"]):
             if a.dtype != b.dtype or not torch.equal(a.cpu().reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)):
                 raise AssertionError(f"state {name}.sketch.{field} differs between the card and the CPU")
-    if not torch.equal(result["q"].cpu(), cpu_result["q"]) or not torch.equal(result["freq"].cpu(), cpu_result["freq"]):
+    if not torch.equal(head_result["q"].cpu(), cpu_result["q"]) or not torch.equal(head_result["freq"].cpu(), cpu_result["freq"]):
         raise AssertionError("compute() of q or freq differs between the card and the CPU")
-    if not torch.allclose(result["distinct"].cpu(), cpu_result["distinct"], rtol=HLL_RTOL, atol=0.0):
-        raise AssertionError(f"distinct {float(result['distinct'])} on the card, {float(cpu_result['distinct'])} on the CPU")
+    if not torch.allclose(head_result["distinct"].cpu(), cpu_result["distinct"], rtol=HLL_RTOL, atol=0.0):
+        raise AssertionError(f"distinct {float(head_result['distinct'])} on the card, {float(cpu_result['distinct'])} on the CPU")
+    del head
 
     # exact answers, on the card
     finite = x[torch.isfinite(x)]
@@ -1382,6 +1456,7 @@ def phase_stream(x):
         "count_min_max_overcount": int((est - exact).max()),
         "finite_rows": n,
         "cpu_reference_s": cpu_s,
+        "cpu_reference_batches": STREAM_CPU_BATCHES,
         "matches_cpu_run": True,
     })
     return launches, q_state
@@ -1824,16 +1899,19 @@ def run_world(target, label):
 
 
 def mann_whitney_auroc(scores, labels):
-    """The exact AUROC in float64 with numpy: the positives' tie-averaged
-    rank sum (every rank a multiple of 0.5, every sum exact)."""
-    import numpy as np
+    """The exact AUROC in float64, on the tensors' device: the positives'
+    tie-averaged rank sum (every rank a multiple of 0.5 below 2^27, every
+    partial sum below 2^52, so every sum is exact in any order)."""
+    import torch
 
-    _, inverse, counts = np.unique(scores, return_inverse=True, return_counts=True)
-    avg_rank = np.cumsum(counts) - (counts - 1) / 2.0
-    pos = labels == 1
+    ordered, order = torch.sort(scores.to(torch.float64))
+    _, inverse, counts = torch.unique_consecutive(ordered, return_inverse=True, return_counts=True)
+    counts = counts.to(torch.float64)
+    avg_rank = torch.cumsum(counts, 0) - (counts - 1) / 2.0
+    pos = labels[order] == 1
     n_pos = int(pos.sum())
     n_neg = labels.shape[0] - n_pos
-    u = float(avg_rank[inverse[pos]].sum()) - n_pos * (n_pos + 1) / 2.0
+    u = float(avg_rank[inverse][pos].sum()) - n_pos * (n_pos + 1) / 2.0
     return u / (float(n_pos) * float(n_neg))
 
 
@@ -1869,24 +1947,25 @@ def phase_dist(dev):
             raise AssertionError(f"rank {r['rank']}: resolved continuous ranks differ from the gathered sort")
 
     # the same rows through the port in one process on the CPU, all through
-    # update: a ring's forward computes its batch value over the whole ring,
-    # and the CPU's ring holds all 2^26 rows
+    # update, in the list mode (cut from both modes for the script's time:
+    # the card's rings are held against the CPU's lists, which give the
+    # same values); the exact float64 AUROC on the card
     scores, labels = make_dist_data(dev)
+    t2 = time.perf_counter()
+    exact = mann_whitney_auroc(scores, labels)
+    exact_s = time.perf_counter() - t2
     cs, cl = scores.cpu(), labels.cpu()
     del scores, labels
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    ref = build_dist_collection(mtt, "cpu", ring=n)
+    ref = mtt.MetricCollection({"auroc": mtt.AUROC(device="cpu"), "ap": mtt.AveragePrecision(device="cpu")})
     run_dist_batches(ref, cs, cl, lambda: None, forward_every=None)
     ref_values = ref.compute()
     cpu_s = time.perf_counter() - t1
     ref_curve = curve_digest(cs, cl)
-    t2 = time.perf_counter()
-    exact = mann_whitney_auroc(cs.numpy(), cl.numpy())
-    exact_s = time.perf_counter() - t2
 
     card = ranks[0]["values"]
-    rel = {k: abs(card[k] - float(v)) / abs(float(v)) for k, v in ref_values.items()}
+    rel = {k: abs(card[k] - float(ref_values[k.replace("_ring", "")])) / abs(float(ref_values[k.replace("_ring", "")])) for k in card}
     if ranks[0]["curve"] != ref_curve:
         raise AssertionError(f"the exact curve's parts differ: card {ranks[0]['curve']}, CPU {ref_curve}")
     if max(rel.values()) > DIST_RTOL:
@@ -1917,6 +1996,7 @@ def phase_dist(dev):
         "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
         "values": card,
         "cpu_values": {k: float(v) for k, v in ref_values.items()},
+        "cpu_reference_members": "auroc and ap (the list mode); the card's rings are held against them",
         "rel_diff_vs_cpu": rel,
         "exact_mann_whitney": exact,
         "abs_err_vs_exact": exact_err,
@@ -2144,6 +2224,8 @@ def fused_eval_rank(rank, world, port, results, device):
         out.update(retrieval_world(mtt, dist, dev, rank, world, sync))
         ids = torch.from_numpy(make_slice_ids(ROWS, BATCH, SLICES)[rank * shard:(rank + 1) * shard]).to(dev)
         out.update(sliced_world(mtt, dist, dev, p, y, ids, sync))
+        # detection_path's F12 check: MeanAveragePrecision synced over the world
+        out.update(detection_world(mtt, dist, dev, rank, world, sync))
         out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "metrics_tpu"))
         dist.barrier()
         dist.destroy_process_group()
@@ -2244,6 +2326,7 @@ def _phase_fused_eval(dev, pure_values, ml_values, snapshot_dir):
     })
     check_pure_world(ranks, card, pure_values, ml_values)
     check_retrieval_sliced_world(ranks, dev)
+    _DETECTION_WORLD[:] = [r["detection"] for r in ranks]  # checked in phase_detection
     with new_phase_time("snapshot_path"):
         check_elastic_restore(dev, snapshot_dir, ranks, card, ranks[0]["synced_faults"])
     return sum(r["launches"]["binned_counters"] for r in ranks), card
@@ -7080,6 +7163,645 @@ def phase_serving_obs(preds, target, serving_latency):
 
 
 
+
+# -- the fleet slice (phase 35) -----------------------------------------------
+
+
+def _fleet_proto(mtt, dev):
+    """The served collection of serving_path with ``q``, a QuantileSketch of
+    each request's top-1 confidence (kept eager, as BAP)."""
+
+    class Top1Sketch(mtt.QuantileSketch):
+        jittable_update = False
+
+        def update(self, preds, target):
+            super().update(preds.max(dim=1).values)
+
+    members = _coll_members(_serving_proto(mtt, dev))
+    members["q"] = Top1Sketch(eps=FLEET_EPS, device=dev)
+    return mtt.MetricCollection(members)
+
+
+class _CountedSketch:
+    """Counts ``QuantileSketchState`` inserts and merges (each one launch of
+    K3 here), merges split by the thread that made them."""
+
+    def __init__(self):
+        import threading
+
+        from metrics_tpu_torch.streaming.sketches import QuantileSketchState
+
+        self.cls = QuantileSketchState
+        self.inserts = 0
+        self.merges = {}
+        self._saved = (QuantileSketchState.insert, QuantileSketchState.sketch_merge)
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        insert, merge = self._saved
+        counter = self
+
+        def counted_insert(state, values, valid=None):
+            with counter._lock:
+                counter.inserts += 1
+            return insert(state, values, valid)
+
+        def counted_merge(state, other):
+            import threading
+
+            who = "host_reduce" if threading.current_thread().name.startswith("metrics-tpu-async-sync") else "aggregator_fold"
+            with counter._lock:
+                counter.merges[who] = counter.merges.get(who, 0) + 1
+            return merge(state, other)
+
+        self.cls.insert, self.cls.sketch_merge = counted_insert, counted_merge
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.insert, self.cls.sketch_merge = self._saved
+
+
+def _recording_channel(channel, log):
+    """``channel`` that appends ``(kind, bytes, seconds, answer)`` of each push
+    to ``log``; the kind read from the header near the blob's start."""
+
+    def push(blob):
+        t0 = time.perf_counter()
+        answer = channel(blob)
+        kind = "delta" if blob.find(b"delta-v1", 0, 2048) >= 0 else ("int8" if blob.find(b"int8-zlib-v1", 0, 2048) >= 0 else "full")
+        log.append((kind, len(blob), time.perf_counter() - t0, answer, blob))
+        return answer
+
+    return push
+
+
+def phase_fleet(preds, target):
+    """fleet_path: the served ImageNet epoch over four hosts, two pods and a
+    global aggregator, each behind its own FleetServer on 127.0.0.1."""
+    import urllib.error
+
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch import fleet
+    from metrics_tpu_torch.fleet import wire
+    from metrics_tpu_torch.obs import runtime_metrics as rm
+    from metrics_tpu_torch.ops import binned_counters as k1
+    from metrics_tpu_torch.ops import compactor as k3
+    from metrics_tpu_torch.resilience.health import registry as health
+
+    dev = preds.device
+    plan = serve_plan(ROWS, SEED + 11)
+    rm.registry.reset()
+    health.clear()
+    proto = _fleet_proto(mtt, dev)
+    knobs = {"publish_every_s": FLEET_PUBLISH_EVERY_S, "stale_after_s": FLEET_STALE_AFTER_S, "deadline_s": 30.0}
+    glob = fleet.Aggregator(proto, node_id="global", stale_after_s=FLEET_STALE_AFTER_S)
+    pods = [fleet.Aggregator(proto, node_id=f"pod-{p}", stale_after_s=FLEET_STALE_AFTER_S) for p in range(FLEET_PODS)]
+    servers = [fleet.FleetServer(a) for a in [glob] + pods]
+    host_log, pod_log = [], []
+    loops, host_pubs, pod_pubs = [], [], []
+    _reset_kernel_counts()
+    try:
+        with _CountedSketch() as counted:
+            for p, pod in enumerate(pods):
+                pod_pubs.append(fleet.FleetPublisher(pod, _recording_channel(servers[0].channel(), pod_log), host_id=pod.node_id, delta=True, **knobs))
+            for h in range(FLEET_HOSTS):
+                loop = mtt.ServeLoop(proto, workers=1, queue_size=len(plan) + 1, reduce_every_s=FLEET_REDUCE_EVERY_S)
+                loops.append(loop)
+                host_pubs.append(fleet.FleetPublisher(loop, _recording_channel(servers[1 + h % FLEET_PODS].channel(), host_log),
+                                                      host_id=f"host-{h}", delta=True, **knobs))
+            accepted = [[] for _ in loops]
+            t_serve = time.perf_counter()
+            for i, (off, n) in enumerate(plan):
+                h = i % FLEET_HOSTS
+                if loops[h].offer(preds[off:off + n], target[off:off + n]):
+                    accepted[h].append((off, n))
+            for loop in loops:
+                if not loop.drain(300):
+                    raise AssertionError("fleet_path: a host did not drain")
+            t_drained = time.perf_counter()
+            served_rows = sum(n for a in accepted for _, n in a)
+            bap_updates = sum(_coll_members(r)["bap"].update_count for loop in loops for r in loop._replicas)
+            q_updates = sum(_coll_members(r)["q"].update_count for loop in loops for r in loop._replicas)
+            want_updates = sum(len(a) for a in accepted) * len(_coll_members(proto))
+            # the time from the last request to a global report that holds it
+            while True:
+                rep = glob.report()
+                if rep["updates"] == want_updates:
+                    break
+                if time.perf_counter() - t_drained > 60:
+                    raise AssertionError(f"fleet_path: the global report holds {rep['updates']} of {want_updates} updates after 60 s")
+                time.sleep(0.005)
+            freshness_s = time.perf_counter() - t_drained
+            serve_s = t_drained - t_serve
+            # a publish after a reduce reads the reporter back; one between
+            # two reduces reuses that read
+            fresh_reads = blocking_reads(lambda i: loops[0]._last_reporter.snapshot_state(), 1)
+            loops[0].fleet_view()
+            cached_reads = blocking_reads(lambda i: loops[0].fleet_view(), 3)
+            glob._fold_cache = None
+            _, fold_s = _timed(glob._fold)
+            reporter = glob._fold()
+            # a host whose publisher stops is named stale in the global scrape
+            stopped = FLEET_HOSTS - 1
+            host_pubs[stopped].stop(flush=True)
+            t_stop, t_stop_mono = time.perf_counter(), time.monotonic()
+            key = f'metrics_tpu_fleet_host_stale{{host="host-{stopped}",node="global",via="pod-{stopped % FLEET_PODS}"}}'
+            while _scrape_values(glob.scrape()).get(key) != 1.0:
+                if time.perf_counter() - t_stop > FLEET_STALE_AFTER_S + FLEET_STALE_SLACK_S:
+                    raise AssertionError(f"fleet_path: the global scrape does not name host-{stopped} stale {FLEET_STALE_AFTER_S + FLEET_STALE_SLACK_S} s after its publisher stopped")
+                time.sleep(0.02)
+            stale_s = time.perf_counter() - t_stop
+            at_global = [e for e in health.events("fleet_host_stale")
+                         if e["details"].get("host") == f"host-{stopped}" and e["details"].get("node_id") == "global"]
+            stale_events = [e for e in at_global if e["time_mono"] >= t_stop_mono]
+            for pub in host_pubs + pod_pubs:
+                pub.stop(flush=False)
+            for loop in loops:
+                loop.stop()
+            text = glob.scrape()
+            hist_folds = sum(h.folds for h in rm.registry.histograms().values())
+        k1_launches, k3_launches = k1.launch_count, k3.launch_count
+
+        # a re-delivered blob answers duplicate; a flipped byte is refused naming host and leaf
+        kind, _, _, _, last = next(x for x in reversed(host_log) if x[0] == "full")
+        again = servers[1].channel()(last) if wire.decode_view(last)[0]["host_id"] in ("host-0", "host-2") else servers[2].channel()(last)
+        if not again.startswith(b"duplicate:"):
+            raise AssertionError(f"fleet_path: a re-delivered view answered {again!r}")
+        host0 = next(x[4] for x in reversed(host_log) if wire.decode_view(x[4])[0]["host_id"] == "host-0" and x[0] == "full")
+        try:
+            servers[1].channel()(host0[:-64] + bytes([host0[-64] ^ 1]) + host0[-63:])
+            raise AssertionError("fleet_path: a bit-flipped view was accepted")
+        except urllib.error.HTTPError as err:
+            body = err.read().decode()
+            if err.code != 400 or "host-0" not in body or "leaf" not in body:
+                raise AssertionError(f"fleet_path: a bit-flipped view answered {err.code} {body!r}")
+
+        # the global view against one process over the whole epoch
+        ref = eager_twin(build_compiled(mtt, dev))
+        for a in accepted:
+            for off, n in a:
+                ref.update(preds[off:off + n], target[off:off + n])
+        fold_members = _coll_members(reporter)
+        states_bit_equal(mtt.MetricCollection({k: fold_members[k] for k in ("acc1", "acc5", "bap")}), ref,
+                         "fleet_path: the global view against one process over the epoch")
+        # the sketch: an in-process sketch_merge fold of the hosts' views in the aggregators' order
+        host_q = [_coll_members(loop._last_reporter)["q"].sketch for loop in loops]
+        empty = _coll_members(proto)["q"].sketch
+        pod_q = []
+        for p in range(FLEET_PODS):
+            s = empty
+            for h in sorted(range(FLEET_HOSTS), key=lambda h: f"host-{h}"):
+                if h % FLEET_PODS == p:
+                    s = s.sketch_merge(host_q[h])
+            pod_q.append(s)
+        want_q = empty
+        for s in pod_q:
+            want_q = want_q.sketch_merge(s)
+        got_q = fold_members["q"].sketch
+        for field in ("items", "counts", "n_seen"):
+            if not torch.equal(getattr(got_q, field), getattr(want_q, field)):
+                raise AssertionError(f"fleet_path: the global sketch's {field} differs from the in-process fold")
+        conf = torch.cat([preds[off:off + n].max(dim=1).values for a in accepted for off, n in a]).sort().values.cpu().numpy()
+        qv = fold_members["q"].compute().cpu().numpy()
+        rank_err = {f"{q:g}": abs(int(np.searchsorted(conf, v, side="right")) - q * conf.size) / conf.size
+                    for q, v in zip(fold_members["q"].quantiles, qv)}
+        if max(rank_err.values()) > FLEET_EPS:
+            raise AssertionError(f"fleet_path: quantile rank errors {rank_err} above eps {FLEET_EPS}")
+
+        # one pass with int8 views: counts exact, the sketch within the codec
+        int8_log = []
+        g8 = fleet.Aggregator(proto, node_id="global")
+        p8 = [fleet.Aggregator(proto, node_id=f"pod-{p}") for p in range(FLEET_PODS)]
+        for h, loop in enumerate(loops):
+            fleet.FleetPublisher(loop, _recording_channel(p8[h % FLEET_PODS].ingest, int8_log), host_id=f"host-{h}",
+                                 encoding="int8", start=False).publish_now()
+        for pod in p8:
+            g8.ingest(pod.view_blob())
+        f8 = _coll_members(g8._fold())
+        ref_members = _coll_members(ref)
+        states_bit_equal(mtt.MetricCollection({k: f8[k] for k in ("acc1", "acc5")}), mtt.MetricCollection({k: ref_members[k] for k in ("acc1", "acc5")}),
+                         "fleet_path: the int8 global view's counts")
+        # BAP's float32 counters ride the codec: each host's lane within its block's absmax / 252
+        int8_err = {k: float((getattr(f8["bap"], k) - getattr(ref_members["bap"], k)).abs().max()) for k in ("TPs", "FPs", "FNs")}
+        int8_bound = {k: FLEET_HOSTS * float(getattr(ref_members["bap"], k).abs().max()) / 252 for k in int8_err}
+        if any(int8_err[k] > int8_bound[k] for k in int8_err):
+            raise AssertionError(f"fleet_path: int8 BAP counters off by {int8_err}, bound {int8_bound}")
+        qv8 = f8["q"].compute().cpu().numpy()
+        rank_err8 = {f"{q:g}": abs(int(np.searchsorted(conf, v, side="right")) - q * conf.size) / conf.size
+                     for q, v in zip(f8["q"].quantiles, qv8)}
+        if max(rank_err8.values()) > 2 * FLEET_EPS:
+            raise AssertionError(f"fleet_path: int8 quantile rank errors {rank_err8}")
+    finally:
+        for pub in host_pubs + pod_pubs:
+            pub.stop(flush=False)
+        for loop in loops:
+            loop.stop()
+        for s in servers:
+            s.close()
+    merges = counted.merges
+    if k1_launches != bap_updates or bap_updates != sum(len(a) for a in accepted):
+        raise AssertionError(f"fleet_path: K1 {k1_launches} launches, {bap_updates} BAP updates, {sum(len(a) for a in accepted)} requests")
+    # K3: one launch per insert (the hosts' sketch updates and the telemetry
+    # histograms' folds) and per merge (the hosts' reduces, the aggregators' folds)
+    if k3_launches != counted.inserts + sum(merges.values()) or counted.inserts != q_updates + hist_folds:
+        raise AssertionError(f"fleet_path: K3 {k3_launches} launches; {counted.inserts} inserts ({q_updates} sketch updates, "
+                             f"{hist_folds} telemetry folds), merges {merges}")
+    if len(stale_events) != 1:
+        raise AssertionError(f"fleet_path: {len(stale_events)} fleet_host_stale events at the global for host-{stopped}: "
+                             f"{[e['message'] for e in stale_events]}")
+    by_kind = {}
+    for kind, size, dt, _, _ in host_log:
+        by_kind.setdefault(kind, []).append((size, dt))
+    if "delta" not in by_kind or "full" not in by_kind:
+        raise AssertionError(f"fleet_path: hosts shipped {sorted(by_kind)} views, expected full and delta")
+    emit({
+        "phase": "fleet_path",
+        "config": {"rows": ROWS, "classes": CLASSES, "hosts": FLEET_HOSTS, "pods": FLEET_PODS, "workers_per_host": 1,
+                   "requests": len(plan), "collection": "{acc1, acc5, bap, q: QuantileSketch(top-1 confidence)}",
+                   "transport": "HTTP on 127.0.0.1, one FleetServer per aggregator", "delta": True,
+                   "publish_every_s": FLEET_PUBLISH_EVERY_S, "reduce_every_s": FLEET_REDUCE_EVERY_S,
+                   "stale_after_s": FLEET_STALE_AFTER_S, "sketch_eps": FLEET_EPS},
+        "served_rows": served_rows,
+        "serve_s": serve_s,
+        "rows_per_s": served_rows / serve_s,
+        "view_bytes": {k: {"p50": float(np.median([s for s, _ in v])), "publishes": len(v)} for k, v in by_kind.items()},
+        "int8_view_bytes_p50": float(np.median([s for _, s, _, _, _ in int8_log])),
+        "publish_ms": {"p50": _p([dt for _, _, dt, _, _ in host_log], 50), "p99": _p([dt for _, _, dt, _, _ in host_log], 99)},
+        "pod_publish_ms_p50": _p([dt for _, _, dt, _, _ in pod_log], 50),
+        "global_fold_ms": fold_s * 1e3,
+        "last_request_to_global_report_s": freshness_s,
+        "blocking_reads_per_publish": {"after_a_reduce": len(fresh_reads), "between_reduces": len(cached_reads) / 3},
+        "stale_named_after_s": stale_s,
+        "stale_events_at_global_before_stop": len(at_global) - len(stale_events),
+        "quantile_rank_err": rank_err,
+        "int8_quantile_rank_err": rank_err8,
+        "int8_bap_max_abs_err": int8_err, "int8_bap_bound": int8_bound,
+        "duplicate_answer": again.decode(),
+        "k1_launches": k1_launches, "bap_updates": bap_updates,
+        "k3_launches": k3_launches,
+        "k3_predicted": {"sketch_updates": q_updates, "telemetry_folds": hist_folds, "merges": merges},
+        "global_bit_equal_one_process": True,
+        "scrape_lines": len(text.splitlines()),
+    })
+    return k1_launches, k3_launches
+
+
+# -- the detection slice (phase 36) -------------------------------------------
+
+
+def coco_val(n_images, seed=COCO_SEED):
+    """A COCO val2017-shaped detection set on the host: the first
+    ``n_images`` of 5,000 images (640x480 and 480x640 alternately), with
+    the 36,781 ground-truth boxes over 80 classes (class frequencies
+    Zipf-like, as COCO's) drawn among all 5,000, COCO's shares of small,
+    medium and large objects (about 41/34/24 %), and 100 detections an
+    image: two jittered copies of each ground truth (5 % with another label)
+    and false positives, half of them labelled with a class of the image,
+    with seeded scores. All 5,000 images are drawn at once, so the first
+    ``n`` are the same whatever ``n``. Returns ``(preds, targets, shapes)``:
+    per-image dicts of numpy arrays (boxes in xyxy) and each image's
+    ``(h, w)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = COCO_IMAGES
+    counts = rng.multinomial(COCO_GT_BOXES, np.full(n, 1.0 / n))
+    class_p = 1.0 / np.arange(1, COCO_CLASSES + 1)
+    class_p /= class_p.sum()
+    bounds = np.array([16.0, 32.0 ** 2, 96.0 ** 2, 640.0 * 480.0 * 0.6])
+    heights, widths = np.where(np.arange(n) % 2 == 0, 480, 640), np.where(np.arange(n) % 2 == 0, 640, 480)
+
+    def boxes(img):
+        """Boxes of the images ``img`` (one a row), sized by COCO's shares."""
+        h, w = heights[img].astype(np.float64), widths[img].astype(np.float64)
+        sizes = rng.choice(3, img.size, p=COCO_AREA_SHARES)
+        area = np.exp(rng.uniform(np.log(bounds[sizes]), np.log(bounds[sizes + 1])))
+        ratio = np.exp(rng.uniform(np.log(0.5), np.log(2.0), img.size))
+        bw, bh = np.minimum(np.sqrt(area * ratio), w - 1.0), np.minimum(np.sqrt(area / ratio), h - 1.0)
+        x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+        return np.stack([x1, y1, x1 + bw, y1 + bh], axis=1).astype(np.float32)
+
+    def ranks(c):
+        return np.arange(int(c.sum())) - np.repeat(np.cumsum(c) - c, c)
+
+    gt_img = np.repeat(np.arange(n), counts)
+    gt = boxes(gt_img)
+    gt_labels = rng.choice(COCO_CLASSES, gt_img.size, p=class_p)
+    gt_start = np.cumsum(counts) - counts
+    # two jittered copies of each ground truth, at most COCO_DETS an image
+    copies = np.minimum(2 * counts, COCO_DETS)
+    cp_img = np.repeat(np.arange(n), copies)
+    src = gt_start[cp_img] + ranks(copies) // 2
+    side = np.repeat(gt[src, 2:] - gt[src, :2], 2, axis=1)
+    limit = np.stack([widths[cp_img], heights[cp_img], widths[cp_img], heights[cp_img]], axis=1)
+    det = np.clip(gt[src] + (rng.normal(0.0, 0.06, (src.size, 4)) * side).astype(np.float32), 0, limit).astype(np.float32)
+    det_labels = gt_labels[src].copy()
+    swap = rng.random(src.size) < 0.05
+    det_labels[swap] = rng.choice(COCO_CLASSES, int(swap.sum()), p=class_p)
+    det_scores = rng.beta(5.0, 2.0, src.size)
+    # false positives to COCO_DETS an image, half with a class of the image
+    fps = COCO_DETS - copies
+    fp_img = np.repeat(np.arange(n), fps)
+    fp = boxes(fp_img)
+    fp_labels = rng.choice(COCO_CLASSES, fp_img.size, p=class_p)
+    own = (rng.random(fp_img.size) < 0.5) & (counts[fp_img] > 0)
+    pick = np.floor(rng.random(int(own.sum())) * counts[fp_img[own]]).astype(np.int64)
+    fp_labels[own] = gt_labels[gt_start[fp_img[own]] + pick]
+    fp_scores = rng.beta(1.5, 5.0, fp_img.size)
+
+    split = lambda a, c: np.split(a, np.cumsum(c)[:-1])  # noqa: E731
+    parts = zip(split(det, copies), split(det_labels, copies), split(det_scores, copies), split(fp, fps), split(fp_labels, fps),
+                split(fp_scores, fps), split(gt, counts), split(gt_labels, counts))
+    preds, targets, shapes = [], [], []
+    for i, (d, dl, ds, f, fl, fs, g, gl) in zip(range(n_images), parts):
+        preds.append({"boxes": np.concatenate([d, f]), "scores": np.concatenate([ds, fs]).astype(np.float32),
+                      "labels": np.concatenate([dl, fl])})
+        targets.append({"boxes": g, "labels": gl})
+        shapes.append((int(heights[i]), int(widths[i])))
+    return preds, targets, shapes
+
+
+def _box_masks(boxes, h, w, dev):
+    """``(n, h, w)`` bool masks filled inside each box (at least one pixel),
+    made on ``dev`` as a segmentation head's output lies there."""
+    import torch
+
+    b = torch.as_tensor(boxes, device=dev)
+    x1, y1 = b[:, 0].floor().clamp(max=w - 1), b[:, 1].floor().clamp(max=h - 1)
+    x2, y2 = torch.maximum(b[:, 2].ceil(), x1 + 1), torch.maximum(b[:, 3].ceil(), y1 + 1)
+    xs = torch.arange(w, device=dev, dtype=torch.float32)
+    ys = torch.arange(h, device=dev, dtype=torch.float32)
+    cols = (xs[None, :] >= x1[:, None]) & (xs[None, :] < x2[:, None])
+    rows = (ys[None, :] >= y1[:, None]) & (ys[None, :] < y2[:, None])
+    return rows[:, :, None] & cols[:, None, :]
+
+
+def _segm_items(preds, targets, shapes, dev):
+    out_p, out_t = [], []
+    for p, t, (h, w) in zip(preds, targets, shapes):
+        out_p.append({"masks": _box_masks(p["boxes"], h, w, dev), "scores": p["scores"], "labels": p["labels"]})
+        out_t.append({"masks": _box_masks(t["boxes"], h, w, dev), "labels": t["labels"]})
+    return out_p, out_t
+
+
+def _map_values(values):
+    """A ``MeanAveragePrecision`` output as lists of floats (exact)."""
+    return {k: v.detach().cpu().reshape(-1).tolist() for k, v in values.items()}
+
+
+def _map_run(mtt, dev, preds, targets, iou_type="bbox", timings=None):
+    """``MeanAveragePrecision(class_metrics=True)`` fed ``COCO_UPDATE_IMAGES``
+    images an update; its values, and the update seconds in ``timings``."""
+    import torch
+
+    m = mtt.detection.MeanAveragePrecision(iou_type=iou_type, class_metrics=True, device=dev)
+    for s in range(0, len(preds), COCO_UPDATE_IMAGES):
+        t0 = time.perf_counter()
+        m.update(preds[s:s + COCO_UPDATE_IMAGES], targets[s:s + COCO_UPDATE_IMAGES])
+        if timings is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            timings.append(time.perf_counter() - t0)
+    return m
+
+
+def _greedy_cell(ious, gt_ig, thrs):
+    """pycocotools' ``evaluateImg`` for one cell and area range, every
+    threshold at once: ground truths ordered non-ignored first, each
+    detection (score order) walks them, skipping a taken gt, stopping at the
+    ignored gts once it holds a non-ignored one, and taking a gt at or above
+    the best IoU so far (from ``min(t, 1 - 1e-10)``), so a later gt wins a
+    tie."""
+    import numpy as np
+
+    nd, ng = ious.shape
+    nt = len(thrs)
+    order = np.argsort(gt_ig, kind="mergesort")
+    dtm = np.zeros((nt, nd), bool)
+    dtig = np.zeros((nt, nd), bool)
+    gtm = np.zeros((nt, ng), bool)
+    for d in range(nd):
+        best = np.minimum(thrs.astype(np.float64), 1 - 1e-10)
+        m = np.full(nt, -1)
+        stopped = np.zeros(nt, bool)
+        for g in order:
+            free = ~gtm[:, g]
+            stopped |= free & (m > -1) & ~gt_ig[np.maximum(m, 0)] & gt_ig[g]
+            take = free & ~stopped & ~(ious[d, g] < best)
+            best = np.where(take, ious[d, g], best)
+            m = np.where(take, g, m)
+        hit = np.flatnonzero(m > -1)
+        dtm[hit, d], dtig[hit, d], gtm[hit, m[hit]] = True, gt_ig[m[hit]], True
+    return dtm, dtig
+
+
+def _host_box_iou(det, gt):
+    """float32 IoUs on the host in the port's order of operations."""
+    import numpy as np
+
+    a1 = (det[:, 2] - det[:, 0]) * (det[:, 3] - det[:, 1])
+    a2 = (gt[:, 2] - gt[:, 0]) * (gt[:, 3] - gt[:, 1])
+    lt = np.maximum(det[:, None, :2], gt[None, :, :2])
+    rb = np.minimum(det[:, None, 2:], gt[None, :, 2:])
+    wh = np.maximum(rb - lt, np.float32(0))
+    inter = wh[..., 0] * wh[..., 1]
+    union = a1[:, None] + a2[None, :] - inter
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(union > 0, inter / union, np.float32(0)).astype(np.float32)
+
+
+def _matcher_steps(m):
+    """The matcher's steps (detection-axis iterations, summed over its
+    batches) in one ``compute()`` of ``m``: each bucket of cells (a
+    power-of-two detection cap, at least 8) in batches of up to
+    ``_MATCH_CHUNK`` cells, each batch a step per detection slot."""
+    from metrics_tpu_torch.detection.matcher import next_pow2
+
+    images = m._host_images()
+    cells = m._build_cells(m._get_classes(images), m.max_detection_thresholds[-1], images)
+    buckets = {}
+    for nd in cells["nd"].tolist():
+        cap = max(next_pow2(nd), 8)
+        buckets[cap] = buckets.get(cap, 0) + 1
+    return sum(-(-n // min(m._MATCH_CHUNK, next_pow2(n))) * cap for cap, n in buckets.items())
+
+
+def check_greedy_cells(mtt, dev, preds, targets):
+    """The card matcher's matches on every cell of the images against the
+    plain per-cell loop in pycocotools' order; returns the cells checked,
+    the matching's kernel launches (a profiler window) and its steps."""
+    import numpy as np
+
+    m = _map_run(mtt, dev, preds, targets)
+    images = m._host_images()
+    area_ranges = np.asarray(list(m.bbox_area_ranges.values()), np.float64)
+    cells = m._build_cells(m._get_classes(images), m.max_detection_thresholds[-1], images)
+    out = {}
+    launches = _host_launches(lambda: out.update(r=m._match_all_cells(cells, area_ranges, images)))
+    matches, ignored, gt_ig = out["r"]
+    thrs = np.asarray(m.iou_thresholds, np.float32)
+    det, gt = images["det"][cells["det_idx"]], images["gt"][cells["gt_idx"]]
+    for j, (nd, ng, ds, gs) in enumerate(zip(cells["nd"], cells["ng"], cells["det_start"], cells["gt_start"])):
+        if not nd:
+            continue
+        ious = _host_box_iou(det[ds:ds + nd], gt[gs:gs + ng]) if ng else np.zeros((nd, 0), np.float32)
+        for a in range(area_ranges.shape[0]):
+            dtm, dtig = _greedy_cell(ious, gt_ig[a, gs:gs + ng], thrs)
+            if not (np.array_equal(matches[a, :, ds:ds + nd], dtm) and np.array_equal(ignored[a, :, ds:ds + nd], dtig)):
+                raise AssertionError(f"detection_path: cell {j} area {a}: the card's matches differ from the per-cell greedy loop")
+    return int(cells["nd"].size), launches, _matcher_steps(m)
+
+
+def detection_world(mtt, dist, dev, rank, world, sync):
+    """F12 on the card, in the fused evaluation's world: each rank updates
+    its contiguous share of the first ``COCO_CPU_IMAGES`` images and
+    ``compute()`` syncs them; the parent holds the values against one
+    process over the same images (``phase_detection``)."""
+    t0 = time.perf_counter()
+    preds, targets, _ = coco_val(COCO_CPU_IMAGES)
+    share = -(-COCO_CPU_IMAGES // world)
+    lo, hi = rank * share, min((rank + 1) * share, COCO_CPU_IMAGES)
+    m = _map_run(mtt, dev, preds[lo:hi], targets[lo:hi])
+    sync()
+    dist.barrier()
+    with CollectiveRecorder() as rec:
+        values = m.compute()
+        sync()
+    return {"detection": {"values": _map_values(values), "images": hi - lo, "all_reduce": rec.all_reduce, "other": rec.other,
+                          "local_images": len(m.image_sizes), "s": time.perf_counter() - t0}}
+
+
+# the fused evaluation world's MeanAveragePrecision results, held against
+# the one-process values in phase_detection
+_DETECTION_WORLD = []
+
+
+def phase_detection(dev):
+    """detection_path: a COCO val2017-shaped bbox evaluation on the card, a
+    segm run on 128 of its images, their CPU runs, the per-cell greedy
+    check and F12 in the four-rank world."""
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.obs import trace as tr
+
+    _reset_kernel_counts()
+    cpu = torch.device("cpu")
+    t_data = time.perf_counter()
+    preds, targets, shapes = coco_val(COCO_IMAGES)
+    data_s = time.perf_counter() - t_data
+    n_gt = sum(int(t["labels"].size) for t in targets)
+    gt_areas = np.concatenate([(t["boxes"][:, 2] - t["boxes"][:, 0]) * (t["boxes"][:, 3] - t["boxes"][:, 1]) for t in targets])
+    area_shares = [float(np.mean(gt_areas < 32 ** 2)), float(np.mean((gt_areas >= 32 ** 2) & (gt_areas < 96 ** 2))), float(np.mean(gt_areas >= 96 ** 2))]
+    if n_gt != COCO_GT_BOXES or any(len(p["labels"]) != COCO_DETS for p in preds):
+        raise AssertionError(f"detection_path: {n_gt} ground truths, detections per image {set(len(p['labels']) for p in preds)}")
+
+    # the bbox evaluation of all 5,000 images on the card
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    update_s = []
+    t0 = time.perf_counter()
+    card = _map_run(mtt, dev, preds, targets, timings=update_s)
+    feed_s = time.perf_counter() - t0
+    tr.clear_trace()
+    with tr.force_tracing(True):
+        (values, compute_s) = _timed(card.compute)
+        spans = {name: sum(r.dur_ns for r in tr.trace_records(name)) / 1e9
+                 for name in ("detection.build_cells", "detection.match", "detection.accumulate")}
+    peak_mem = torch.cuda.max_memory_allocated() - base_mem
+    full = _map_values(values)
+    for k, v in full.items():
+        if not all(math.isfinite(x) for x in v):
+            raise AssertionError(f"detection_path: {k} is not finite: {v[:4]}")
+    if not 0.0 < full["map"][0] < 1.0 or len(full["map_per_class"]) != COCO_CLASSES:
+        raise AssertionError(f"detection_path: map {full['map']}, {len(full['map_per_class'])} classes")
+    full_steps = _matcher_steps(card)
+    split = {"data": data_s, "feed": feed_s, "compute": compute_s}
+
+    # the first COCO_CPU_IMAGES images: the card against the port on the CPU,
+    # and the matcher's launches in a profiler window over the card's matching
+    t1 = time.perf_counter()
+    sub_card = _map_values(_map_run(mtt, dev, preds[:COCO_CPU_IMAGES], targets[:COCO_CPU_IMAGES]).compute())
+    split["card_500"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    sub_cpu = _map_values(_map_run(mtt, cpu, preds[:COCO_CPU_IMAGES], targets[:COCO_CPU_IMAGES]).compute())
+    cpu_s = split["cpu_500"] = time.perf_counter() - t1
+    if sub_card != sub_cpu:
+        bad = [k for k in sub_card if sub_card[k] != sub_cpu[k]]
+        raise AssertionError(f"detection_path: the card's bbox outputs {bad} differ from the CPU run over {COCO_CPU_IMAGES} images")
+    t1 = time.perf_counter()
+    cells_checked, match_launches, sub_steps = check_greedy_cells(mtt, dev, preds[:COCO_GREEDY_IMAGES], targets[:COCO_GREEDY_IMAGES])
+    split["greedy_check"] = time.perf_counter() - t1
+
+    # F12 in the four-rank world of the fused evaluation path
+    if len(_DETECTION_WORLD) != DIST_WORLD:
+        raise AssertionError(f"detection_path: {len(_DETECTION_WORLD)} ranks reported the synced MeanAveragePrecision")
+    for rank, r in enumerate(_DETECTION_WORLD):
+        if r["values"] != sub_card or r["other"] != ["all_gather"] * 12 or r["all_reduce"]:
+            raise AssertionError(f"detection_path: rank {rank}'s synced values {'differ' if r['values'] != sub_card else 'agree'}, "
+                                 f"collectives {r['all_reduce']} {r['other']}")
+    world_s = max(r["s"] for r in _DETECTION_WORLD)
+
+    # segm on COCO_SEGM_IMAGES images, masks on the card
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    sp, st = _segm_items(preds[:COCO_SEGM_IMAGES], targets[:COCO_SEGM_IMAGES], shapes[:COCO_SEGM_IMAGES], dev)
+    segm_update_s = []
+    segm = _map_run(mtt, dev, sp, st, iou_type="segm", timings=segm_update_s)
+    segm_values, segm_compute_s = _timed(lambda: _map_values(segm.compute()))
+    segm_peak = torch.cuda.max_memory_allocated() - base_mem
+    if not 0.0 < segm_values["map"][0] < 1.0:
+        raise AssertionError(f"detection_path: segm map {segm_values['map']}")
+    del segm
+    split["segm"] = time.perf_counter() - t1
+    n = COCO_SEGM_CPU_IMAGES
+    t1 = time.perf_counter()
+    segm_card = _map_values(_map_run(mtt, dev, sp[:n], st[:n], iou_type="segm").compute())
+    to_cpu = lambda items: [{k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in d.items()} for d in items]  # noqa: E731
+    segm_cpu = _map_values(_map_run(mtt, cpu, to_cpu(sp[:n]), to_cpu(st[:n]), iou_type="segm").compute())
+    split["segm_card_and_cpu_16"] = time.perf_counter() - t1
+    if segm_card != segm_cpu:
+        bad = [k for k in segm_card if segm_card[k] != segm_cpu[k]]
+        raise AssertionError(f"detection_path: the card's segm outputs {bad} differ from the CPU run over {n} images")
+    del sp, st
+    torch.cuda.empty_cache()
+    counts = _check_no_kernel_launched("detection_path")
+    SLICE_PHASE_S["detection_path_world_ranks"] = world_s
+    emit({
+        "phase": "detection_path",
+        "config": {"images": COCO_IMAGES, "gt_boxes": n_gt, "classes": COCO_CLASSES, "detections_per_image": COCO_DETS,
+                   "sizes": "640x480 and 480x640 alternately", "gt_area_shares_small_medium_large": area_shares,
+                   "images_per_update": COCO_UPDATE_IMAGES, "class_metrics": True, "seed": COCO_SEED,
+                   "segm_images": COCO_SEGM_IMAGES, "segm_cut": "from 5,000 images: 100 masks of 307,200 pixels are 31 MB an image",
+                   "cpu_check_images": {"bbox": COCO_CPU_IMAGES, "segm": n}, "greedy_check_images": COCO_GREEDY_IMAGES},
+        "data_s": data_s,
+        "update_ms": {"p50": _p(update_s, 50), "p99": _p(update_s, 99)},
+        "images_per_s": COCO_IMAGES / feed_s,
+        "compute_s": compute_s,
+        "compute_split_s": {"build_cells": spans["detection.build_cells"], "match_on_card": spans["detection.match"],
+                            "accumulate": spans["detection.accumulate"]},
+        "matcher_launches": {"images": COCO_GREEDY_IMAGES, "launches": match_launches, "steps": sub_steps,
+                             "launches_per_step": match_launches / sub_steps, "steps_of_the_5000_image_compute": full_steps},
+        "phase_split_s": split,
+        "peak_device_bytes": peak_mem,
+        "map": full["map"][0], "map_50": full["map_50"][0], "map_75": full["map_75"][0], "map_small": full["map_small"][0],
+        "map_medium": full["map_medium"][0], "map_large": full["map_large"][0], "mar_100": full["mar_100"][0],
+        "cpu_check": {"images": COCO_CPU_IMAGES, "equal": True, "cpu_s": cpu_s},
+        "greedy_cells_checked": cells_checked,
+        "f12_world": {"ranks": DIST_WORLD, "images": [r["images"] for r in _DETECTION_WORLD], "equal_one_process": True,
+                      "collectives_per_rank": len(_DETECTION_WORLD[0]["other"]), "slowest_rank_s": world_s},
+        "segm": {"update_ms_p50": _p(segm_update_s, 50), "compute_s": segm_compute_s, "peak_device_bytes": segm_peak,
+                 "map": segm_values["map"][0], "cpu_check_images": n, "equal": True},
+        "kernel_launches": counts,
+    })
+    return counts
+
+
 def main():
     try:
         import torch
@@ -7147,6 +7869,8 @@ def main():
     with new_phase_time("serving_obs_path"):
         k1_serving_obs_launches, k3_serving_obs_launches = phase_with_ladder(
             SERVE_LADDER, phase_serving_obs, preds, target, dict(_SERVING_LATENCY))
+    with slice_phase_time("fleet_path"):
+        k1_fleet_launches, k3_fleet_launches = phase_with_ladder(SERVE_LADDER, phase_fleet, preds, target)
     del preds, target, q_state, first_batch
     torch.cuda.empty_cache()
     phase_retrieval(device)
@@ -7166,6 +7890,10 @@ def main():
     torch.cuda.empty_cache()
     phase_text_summarization(device)
     phase_text_metrics(device)
+    # the detection slice: no kernel of K1-K3 on its path either
+    torch.cuda.empty_cache()
+    with slice_phase_time("detection_path"):
+        phase_detection(device)
     # each kernel's launches on every path that runs it, each path counted
     # from zero just before it
     kernels[0]["launches_by_path"] = {
@@ -7173,7 +7901,7 @@ def main():
         "full_classification_path": full_launches["binned_counters"], "full_classification_dist": k1_full_dist_launches,
         "pure_path": k1_pure_launches, "sliced_path": k1_sliced_launches,
         "compiled_path": k1_compiled_launches, "serving_path": k1_serving_launches,
-        "serving_obs_path": k1_serving_obs_launches,
+        "serving_obs_path": k1_serving_obs_launches, "fleet_path": k1_fleet_launches,
     }
     kernels[1]["launches_by_path"] = {
         "dist_path": k2_launches, "full_classification_path": full_launches["histogram"],
@@ -7183,9 +7911,12 @@ def main():
     kernels[2]["launches_by_path"] = {"stream_path": k3_launches, "fused_sketch_path": k3_fused_launches, "quantized_sketch_path": k3_quantized_launches,
                                       "compiled_path_capture_check": capture_checks["compactor_fold"]["launches"]["captured"],
                                       "drift_path": k3_drift_launches, "serving_obs_path": k3_serving_obs_launches,
+                                      "fleet_path": k3_fleet_launches,
                                       "snapshot_path_sketch_restore": k3_restore_launches}
     emit({"phase": "budget", "new_phases_s": NEW_PHASE_S, "new_phases_total_s": sum(NEW_PHASE_S.values()),
-          "new_phases_limit_s": NEW_PHASES_LIMIT_S, "script_s": time.perf_counter() - _T0})
+          "new_phases_limit_s": NEW_PHASES_LIMIT_S, "slice_phases_s": SLICE_PHASE_S,
+          "slice_phases_total_s": sum(SLICE_PHASE_S.values()), "slice_phases_limit_s": SLICE_PHASES_LIMIT_S,
+          "script_s": time.perf_counter() - _T0})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -18,6 +18,7 @@ from metrics_tpu_torch.utilities.backend import apply_force_cpu_escape_hatch as 
 _apply_force_cpu()
 
 from metrics_tpu_torch import obs  # noqa: E402  (the tracer, self-telemetry, exporters, drift)
+from metrics_tpu_torch import detection  # noqa: E402,F401  (subpackage namespace, as in the JAX package)
 from metrics_tpu_torch.obs.drift import DriftMonitor, ReferenceWindow  # noqa: E402
 from metrics_tpu_torch.resilience import SnapshotManager  # noqa: E402
 from metrics_tpu_torch.utilities.backend import ensure_backend  # noqa: E402

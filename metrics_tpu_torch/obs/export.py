@@ -13,9 +13,9 @@ package's metric names and labels, so one dashboard reads both packages:
 - :class:`TelemetryExporter`: a standard-library HTTP endpoint
   (``/metrics``, ``/metrics.json``) on a daemon thread.
 
-The fleet lines render whatever a health dict holds under ``fleet``; the
-port has no fleet tier yet (ROADMAP Queue 1, item 16), so they print
-nothing until it lands. A histogram's quantiles read its sketch back once
+The fleet lines render whatever a health dict holds under ``fleet``, which
+an :class:`~metrics_tpu_torch.fleet.Aggregator`'s ``health()`` fills: the
+per-host staleness and drift gauges of the whole subtree under the node. A histogram's quantiles read its sketch back once
 per scrape; the light counts need no device.
 """
 import http.server

@@ -61,9 +61,15 @@ Snapshots, drift and telemetry, as in the JAX package:
   of its health (no device read: the fault counts are the ones the last
   reduce read back) is a flight-recorder source.
 
-Left out until item 16 lands, and refused with an error that names it: the
-``fleet_*`` methods. ``threading.Lock`` stands where the JAX package uses
-``named_lock`` (item 18).
+The fleet seams (``fleet/``): :meth:`ServeLoop.fleet_view`,
+:meth:`ServeLoop.fleet_trace_context` and :meth:`ServeLoop.fleet_extra` are
+a :class:`~metrics_tpu_torch.fleet.FleetPublisher`'s source hooks, as in the
+JAX package. ``fleet_view()`` is the last reporter's ``snapshot_state()``,
+which reads the card's states back on the publisher's thread, never on the
+request path, and once per reduce: publishes between two reduces reuse it
+(the JAX package snapshots the reporter at every publish).
+
+``threading.Lock`` stands where the JAX package uses ``named_lock`` (item 18).
 """
 import copy
 import itertools
@@ -82,10 +88,6 @@ __all__ = ["ServeLoop"]
 # one replica's published form: {member name: (state copy, update count,
 # data-inferred attributes by child path)}
 _Snapshot = Dict[str, Tuple[Dict[str, Any], int, Dict[str, Dict[str, Any]]]]
-
-
-def _left_out(what: str, item: str) -> MetricsTPUUserError:
-    return MetricsTPUUserError(f"ServeLoop: {what} is not ported yet (ROADMAP.md, Queue 1, {item})")
 
 
 def _attr_slots(m: Any, prefix: str = "") -> List[Tuple[Tuple[str, str], Any]]:
@@ -311,6 +313,7 @@ class ServeLoop:
         # reduce that built the last reporter
         self._publish_ctx = None
         self._last_reporter_ctx = None
+        self._fleet_view_cache: Optional[Tuple[Any, Dict[str, Any]]] = None  # (reporter, payload)
 
         # the flight recorder reads this loop's host view; detached at stop
         from metrics_tpu_torch.obs import flightrec as _flightrec
@@ -713,16 +716,39 @@ class ServeLoop:
         self._scheduler.notify()
         return info
 
-    # -- left out until item 16 lands ---------------------------------------
+    # -- fleet source hooks -------------------------------------------------
 
     def fleet_view(self) -> Optional[Dict[str, Any]]:
-        raise _left_out("fleet_view", "item 16")
+        """This loop's merged view as a ``snapshot_state`` payload, the
+        :class:`~metrics_tpu_torch.fleet.FleetPublisher` source hook (None
+        until the first reduce completes). Each reduce builds a fresh
+        reporter and never touches it again, so reading it here never races
+        the reducer; the read copies its states to the host once per
+        reporter (the JAX package snapshots it at every call), and the
+        payload is shared until the next reduce: its readers never write it."""
+        reporter = self._last_reporter
+        if reporter is None:
+            return None
+        cached = self._fleet_view_cache
+        if cached is not None and cached[0] is reporter:
+            return cached[1]
+        payload = reporter.snapshot_state()
+        self._fleet_view_cache = (reporter, payload)
+        return payload
 
     def fleet_trace_context(self) -> Any:
-        raise _left_out("fleet_trace_context", "item 16")
+        """The trace context of the reduce that built the current
+        ``fleet_view()`` reporter, so a publish span links back to it; None
+        while tracing is off or before the first reduce."""
+        return self._last_reporter_ctx
 
     def fleet_extra(self) -> Optional[Dict[str, Any]]:
-        raise _left_out("fleet_extra", "item 16")
+        """Header extra for this host's fleet publishes: each drift
+        monitor's scores and episode flag (``DriftMonitor.fleet_scores``),
+        so the global aggregator's scrape names the drifting host."""
+        if not self._drift:
+            return None
+        return {"drift": {name: m.fleet_scores() for name, m in self._drift.items()}}
 
     # -- lifecycle --------------------------------------------------------
 

@@ -27,7 +27,7 @@ PACKAGES = [
     "", ".classification", ".functional", ".utilities", ".parallel", ".streaming", ".regression",
     ".retrieval", ".wrappers", ".sliced", ".serving", ".resilience",
     ".functional.classification", ".functional.regression", ".functional.retrieval", ".functional.pairwise",
-    ".image", ".functional.image", ".nets", ".text", ".functional.text", ".obs",
+    ".image", ".functional.image", ".nets", ".text", ".functional.text", ".obs", ".fleet", ".detection",
 ]
 
 # names the JAX package exports from modules the port has not reached yet
