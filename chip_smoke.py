@@ -293,7 +293,7 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    aggregators' folds, the telemetry folds); bytes a view, publish p50, the
    global fold, the last request to the global report, blocking reads a
    publish;
-36. detection path (last): a COCO val2017-shaped bbox evaluation (5,000
+36. detection path: a COCO val2017-shaped bbox evaluation (5,000
    seeded images of 640x480 and 480x640, 36,781 ground truths over 80
    classes with COCO's small/medium/large shares, 100 detections an image)
    through ``MeanAveragePrecision(class_metrics=True)`` 16 images an
@@ -306,11 +306,37 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    launch 0 times; update p50, images/s, ``compute()`` split into cells,
    matching and accumulation, the matcher's launches, peak memory.
 
+37. audio path (after 36): a WSJ0-2mix test-split-shaped separation
+   evaluation, 3,000 seeded two-speaker mixtures at 8 kHz (1.5-10 s, 5 h,
+   rounded to 0.5 s so a batch holds one length and no clip is padded;
+   speech-shaped voices with pauses mixed at -2.5 to 2.5 dB; estimates at
+   planted SI-SDRs of 5-20 dB in a seeded speaker order), made on the card,
+   16 mixtures an update through ``PermutationInvariantTraining(SI-SDR)``,
+   then ``pit_permutate`` and ``ScaleInvariantSignalDistortionRatio``,
+   ``SignalDistortionRatio`` (dense, and 10 CG steps), ``SignalNoiseRatio``,
+   ``ScaleInvariantSignalNoiseRatio`` and native
+   ``ShortTimeObjectiveIntelligibility`` (plain and extended): PIT's
+   permutations equal the planted ones bit for bit, every value of the first
+   8 mixtures equals the port's CPU run within ``AUDIO_CPU_ATOL``, SDR and
+   SI-SDR within ``AUDIO_F64_ATOL`` of the same formulas in float64 on the
+   card, CG within ``AUDIO_CG_DB`` of the dense solve, each ``compute()``
+   the float64 mean of the clips' values, the device-only updates captured
+   with no blocking read in SI-SDR, SNR and PIT, STOI's capture refused (it
+   reads back by design), K1-K3 0 launches; clips/s and update p50 by the
+   card's events, kernels a clip, peak memory, STOI's host seconds;
+38. lock witness path (last): ``ServeLoop`` of two workers with tracing, a
+   drift monitor, snapshots, a flight recorder and a ``FleetPublisher`` to
+   an ``Aggregator`` over HTTP on 127.0.0.1, then an overlapped-sync
+   collection read across two ranks, in two processes started with
+   ``METRICS_TPU_LOCKCHECK=1``: no finding, every observed order edge
+   rising in the lock hierarchy (``WITNESS_RANKS``); its order edges and the
+   served update p50 armed against the same stream unarmed in this process.
+
 The ``budget`` line sums the seconds that phases 31-34 add (a rank's save:
-the slowest of the four), against their 30 s, and those of phases 35-36
+the slowest of the four), against their 30 s, those of phases 35-36
 (the detection ranks' share of the fused world: the slowest of the four)
-against theirs; every phase line carries ``t_s``, its seconds since the
-script started.
+against theirs, and those of phases 37-38 against their 45 s; every phase
+line carries ``t_s``, its seconds since the script started.
 
 Every CUDA metric of the earlier phases captures its update as well (the
 port's default on the card); their checks against the CPU runs hold the
@@ -600,6 +626,30 @@ COCO_GREEDY_IMAGES = 32  # images whose cells are held against the per-cell gree
 TEXT_CPU_BATCHES = 4  # the CPU runs of the ASR and MT classes: their first 4 batches (1,024 rows), cut for the phase's time
 TER_CARD_SEGMENTS = 1000  # TER's host shift search: the first 1,000 segments on the card
 TER_CPU_SEGMENTS = 200  # and the first 200 of them in the CPU run
+WSJ_SEED = 23
+WSJ_MIXTURES = 3000  # WSJ0-2mix's test split (tt): 3,000 two-speaker mixtures
+WSJ_FS = 8000  # the "8k min" version
+WSJ_SECONDS = (1.5, 10.0, 6.0, 1.9)  # least, most, mean and spread of a mixture's length (5 h in all)
+WSJ_ROUND_S = 0.5  # lengths rounded to 0.5 s, so each batch holds one length and no clip is padded
+WSJ_LEVELS_DB = 2.5  # the speakers mixed at relative levels drawn from -2.5 to 2.5 dB
+WSJ_SI_SDR_DB = (5.0, 20.0)  # each estimate's planted SI-SDR: its source plus a leak of the other speaker and noise
+WSJ_BATCH = 16  # mixtures an update, all of one length
+WSJ_CPU_MIXTURES = 8  # the first mixtures, held against the port's CPU run
+WSJ_STOI_EVERY = 40  # every 40th batch goes through STOI and ESTOI (cut: host-bound at 12-18 ms a clip and variant, 140-210 s for all)
+WSJ_DENSE_EVERY = 4  # every 4th batch goes through the dense SDR (cut: 32 ms an update through cuSOLVER's LU), CG through all
+WSJ_F64_SDR_EVERY = 8  # every 8th batch's dense SDR is held against float64 (a float64 LU of 512 x 512 per clip); SI-SDR's every batch
+WSJ_CG_ITER = 10
+# card against CPU, dB (STOI: its unit): 3.8e-6 read for the SNR family, PIT and the dense SDR, 1.8e-7 for STOI; CG's
+# ten unconverged steps carry cuFFT's rounding against the CPU's into the SDR (0.13 dB read)
+AUDIO_CPU_ATOL = {"si_sdr": 1e-4, "snr": 1e-4, "si_snr": 1e-4, "sdr": 1e-4, "sdr_cg": 0.5, "pit": 1e-4, "stoi": 1e-5, "estoi": 1e-5}
+AUDIO_F64_ATOL = {"si_sdr": 1e-4, "sdr": 1e-4}  # dB, float32 on the card against the same formulas in float64 there (3.0e-6 read)
+AUDIO_CG_DB = 8.0  # |SDR by 10 CG steps - SDR by the dense solve| of any clip, dB: unpreconditioned CG on voiced speech's ill-conditioned autocorrelation (2.7 dB mean, 5.9 max read on the CPU at 3 s)
+AUDIO_MEAN_RTOL = 1e-5  # a module's compute() against the float64 mean of the per-clip values
+AUDIO_PHASES_LIMIT_S = 45  # what audio_path and lockwitness_path may add together
+AUDIO_PHASE_S = {}  # their seconds of command
+WITNESS_WORLD = 2  # lockwitness_path's ranks: rank 0 serves, both read an overlapped sync
+WITNESS_REQUESTS = 24
+WITNESS_CLASSES = 1000
 
 
 def emit(obj):
@@ -609,25 +659,16 @@ def emit(obj):
 
 
 @contextlib.contextmanager
-def slice_phase_time(name):
-    """Adds the block's seconds to ``SLICE_PHASE_S[name]``: the fleet and
-    detection phases' cost, which the ``budget`` line sums."""
+def budget_time(bucket, name):
+    """Adds the block's seconds to ``bucket[name]``: ``NEW_PHASE_S`` (the
+    resilience and observability phases), ``SLICE_PHASE_S`` (the fleet and
+    detection phases) or ``AUDIO_PHASE_S`` (the audio and lock-witness
+    phases), which the ``budget`` line sums."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        SLICE_PHASE_S[name] = SLICE_PHASE_S.get(name, 0.0) + time.perf_counter() - t0
-
-
-@contextlib.contextmanager
-def new_phase_time(name):
-    """Adds the block's seconds to ``NEW_PHASE_S[name]``: the resilience and
-    observability phases' cost, which the ``budget`` line sums."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        NEW_PHASE_S[name] = NEW_PHASE_S.get(name, 0.0) + time.perf_counter() - t0
+        bucket[name] = bucket.get(name, 0.0) + time.perf_counter() - t0
 
 
 def fail(msg):
@@ -1858,7 +1899,7 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def run_world(target, label):
+def run_world(target, label, world=DIST_WORLD):
     """Spawn the ranks of a path (``target(rank, world, port, results,
     device)``), collect what each reports, and stop every process."""
     import torch.multiprocessing as mp
@@ -1866,13 +1907,21 @@ def run_world(target, label):
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=target, args=(r, DIST_WORLD, port, results, DIST_DEVICE)) for r in range(DIST_WORLD)]
+    procs = [ctx.Process(target=target, args=(r, world, port, results, DIST_DEVICE)) for r in range(world)]
+    return collect_processes(procs, results, label)
+
+
+def collect_processes(procs, results, label):
+    """Start ``procs`` (those not started yet), collect the ``(key, out)``
+    each puts on ``results``, and stop every process; the outputs in the
+    order of the keys."""
     got = {}
     try:
         for proc in procs:
-            proc.start()
+            if proc.pid is None:
+                proc.start()
         deadline = time.monotonic() + DIST_TIMEOUT_S
-        while len(got) < DIST_WORLD:
+        while len(got) < len(procs):
             try:
                 rank, out = results.get(timeout=5)
             except queue.Empty:
@@ -1888,14 +1937,14 @@ def run_world(target, label):
         for proc in procs:
             proc.join(timeout=60)
         codes = [proc.exitcode for proc in procs]
-        if codes != [0] * DIST_WORLD:
+        if codes != [0] * len(procs):
             raise AssertionError(f"{label}: rank exit codes {codes}")
     finally:
         for proc in procs:
             if proc.is_alive():
                 proc.kill()
                 proc.join()
-    return [got[r] for r in range(DIST_WORLD)]
+    return [got[k] for k in sorted(got)]
 
 
 def mann_whitney_auroc(scores, labels):
@@ -2327,7 +2376,7 @@ def _phase_fused_eval(dev, pure_values, ml_values, snapshot_dir):
     check_pure_world(ranks, card, pure_values, ml_values)
     check_retrieval_sliced_world(ranks, dev)
     _DETECTION_WORLD[:] = [r["detection"] for r in ranks]  # checked in phase_detection
-    with new_phase_time("snapshot_path"):
+    with budget_time(NEW_PHASE_S, "snapshot_path"):
         check_elastic_restore(dev, snapshot_dir, ranks, card, ranks[0]["synced_faults"])
     return sum(r["launches"]["binned_counters"] for r in ranks), card
 
@@ -2638,7 +2687,7 @@ def _phase_fused_sketch(dev, ranks, world_s, snapshot_dir):
         "nan_rows_mean": nan_rows_mean,
         "nan_rows_mean_rel_err": finite_err,
     })
-    with new_phase_time("snapshot_path"):
+    with budget_time(NEW_PHASE_S, "snapshot_path"):
         restore_launches = check_sketch_restore(dev, snapshot_dir, ranks, folded)
     return sum(r["k3_insert_launches"] + r["k3_sync_launches"] for r in ranks), restore_launches
 
@@ -4571,7 +4620,7 @@ def phase_retrieval(dev):
         perq[mode] = retrieval_per_query(metrics, idx, preds, target)
         if cap is not None:
             # snapshot_path (b): the rings of the whole split saved and restored
-            with new_phase_time("snapshot_path"):
+            with budget_time(NEW_PHASE_S, "snapshot_path"):
                 check_large_state(dev, metrics, {name: metrics[name]._row_metric(*metrics[name]._grouped_capacity_matrices())
                                                  for name in MSMARCO_WORLD_METRICS})
         report[mode] = {
@@ -6683,7 +6732,7 @@ def start_backend_probe():
         out["wall_s"] = time.perf_counter() - t0
 
     backend.probe_backend = probe_started
-    with new_phase_time("backend_probe"):
+    with budget_time(NEW_PHASE_S, "backend_probe"):
         thread = threading.Thread(target=run, daemon=True, name="backend-probe")
         thread.start()
         if not started.wait(timeout=120):
@@ -7802,6 +7851,546 @@ def phase_detection(dev):
     return counts
 
 
+# -- the audio slice (phases 37-38) --------------------------------------------
+
+
+def wsj0_2mix_plan(seed=WSJ_SEED):
+    """The seeded shape of WSJ0-2mix's test split: each mixture's length in
+    samples (rounded to WSJ_ROUND_S), the second speaker's level against the
+    first (dB), each estimate's planted SI-SDR (dB) and the order in which
+    the two estimates come out (1: swapped)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi, mean, spread = WSJ_SECONDS
+    seconds = np.clip(rng.normal(mean, spread, WSJ_MIXTURES), lo, hi)
+    seconds = np.round(seconds / WSJ_ROUND_S) * WSJ_ROUND_S
+    return {
+        "samples": (seconds * WSJ_FS).astype(np.int64),
+        "levels_db": rng.uniform(-WSJ_LEVELS_DB, WSJ_LEVELS_DB, WSJ_MIXTURES),
+        "si_sdr_db": rng.uniform(*WSJ_SI_SDR_DB, size=(WSJ_MIXTURES, 2)),
+        "swapped": rng.integers(0, 2, WSJ_MIXTURES),
+    }
+
+
+def wsj0_2mix_batch(plan, index, dev, seed=WSJ_SEED):
+    """The sources and the PIT-shuffled estimates of the mixtures ``index``
+    (one length), made on the card from a seed of their own: harmonic
+    voices (f0 90-250 Hz, ten harmonics with a slow vibrato) under a
+    syllable envelope of 2.5-5 Hz (valleys 16 dB down), with pauses (a gate
+    of 0.2-0.4 Hz, opening voiced, that puts about a quarter of a long clip
+    80 dB down, which the VAD removes) and a little breath noise; each
+    source at unit RMS times its mixing level.
+    Each estimate is its source plus the other speaker and white noise at
+    its planted SI-SDR (half the distortion energy each), and the two
+    estimates come out in the plan's order."""
+    import torch
+
+    n, length = len(index), int(plan["samples"][index[0]])
+    g = torch.Generator(device=dev).manual_seed(seed * 100_003 + int(index[0]))
+    t = torch.arange(length, device=dev, dtype=torch.float32) / WSJ_FS
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, 1, generator=g, device=dev)
+
+    f0, vib = u(90.0, 250.0, n, 2), u(0.0, 6.283, n, 2)
+    inst = 2 * math.pi * f0 * (t + 0.01 * torch.sin(2 * math.pi * 0.7 * t + vib))
+    voice = torch.zeros(n, 2, length, device=dev)
+    for k in range(1, 11):
+        voice += torch.sin(k * inst + u(0.0, 6.283, n, 2)) / k
+    syllables = 0.15 + 0.85 * torch.relu(torch.sin(2 * math.pi * u(2.5, 5.0, n, 2) * t + u(0.0, 6.283, n, 2))) ** 2
+    gate = torch.sigmoid(40.0 * (torch.sin(2 * math.pi * u(0.2, 0.4, n, 2) * t + u(0.0, 1.571, n, 2)) + 0.6))
+    src = (voice * syllables + 0.05 * syllables * torch.randn(n, 2, length, generator=g, device=dev)) * (gate + 1e-4)
+    src = src / src.pow(2).mean(-1, keepdim=True).sqrt()
+    level = torch.as_tensor(plan["levels_db"][index], device=dev, dtype=torch.float32)
+    src[:, 1] *= (10.0 ** (level / 20.0))[:, None]
+    energy = src.pow(2).sum(-1, keepdim=True)
+    distortion = energy / 10.0 ** (torch.as_tensor(plan["si_sdr_db"][index], device=dev, dtype=torch.float32)[..., None] / 10.0)
+    other = src.flip(1)
+    noise = torch.randn(n, 2, length, generator=g, device=dev)
+    est = src + other * (distortion / 2 / other.pow(2).sum(-1, keepdim=True)).sqrt() + noise * (distortion / 2 / length).sqrt()
+    swapped = torch.as_tensor(plan["swapped"][index], device=dev).bool()
+    shuffled = torch.where(swapped[:, None, None], est.flip(1), est)
+    return src, shuffled
+
+
+def wsj0_2mix_batches(plan):
+    """Each length's mixtures in batches of at most WSJ_BATCH, in the order
+    of the lengths."""
+    import numpy as np
+
+    out = []
+    for length in np.unique(plan["samples"]):
+        idx = np.flatnonzero(plan["samples"] == length)
+        out.extend(idx[i:i + WSJ_BATCH] for i in range(0, idx.size, WSJ_BATCH))
+    return out
+
+
+def _audio_metrics(mtt, dev):
+    from metrics_tpu_torch.functional.audio import scale_invariant_signal_distortion_ratio
+
+    return {
+        "si_sdr": mtt.ScaleInvariantSignalDistortionRatio(device=dev),
+        "sdr": mtt.SignalDistortionRatio(device=dev),
+        "sdr_cg": mtt.SignalDistortionRatio(use_cg_iter=WSJ_CG_ITER, device=dev),
+        "snr": mtt.SignalNoiseRatio(device=dev),
+        "si_snr": mtt.ScaleInvariantSignalNoiseRatio(device=dev),
+        "pit": mtt.PermutationInvariantTraining(scale_invariant_signal_distortion_ratio, device=dev),
+        "stoi": mtt.ShortTimeObjectiveIntelligibility(WSJ_FS, use_device_implementation=True, device=dev),
+        "estoi": mtt.ShortTimeObjectiveIntelligibility(WSJ_FS, extended=True, use_device_implementation=True, device=dev),
+    }
+
+
+def _audio_values(src, shuffled, dev):
+    """Each clip's value of every audio metric through the port's functions on
+    ``dev`` (the permutation found by PIT, then the aligned estimates)."""
+    import metrics_tpu_torch.functional.audio as F
+
+    src, shuffled = src.to(dev), shuffled.to(dev)
+    best, perm = F.permutation_invariant_training(shuffled, src, F.scale_invariant_signal_distortion_ratio)
+    aligned = F.pit_permutate(shuffled, perm)
+    return {"perm": perm, "pit": best, "si_sdr": F.scale_invariant_signal_distortion_ratio(aligned, src),
+            "sdr": F.signal_distortion_ratio(aligned, src), "sdr_cg": F.signal_distortion_ratio(aligned, src, use_cg_iter=WSJ_CG_ITER),
+            "snr": F.signal_noise_ratio(aligned, src), "si_snr": F.scale_invariant_signal_noise_ratio(aligned, src),
+            "stoi": F.stoi_on_device(aligned, src, fs=WSJ_FS, device=dev),
+            "estoi": F.stoi_on_device(aligned, src, fs=WSJ_FS, extended=True, device=dev)}
+
+
+def _card_kernels(fns):
+    """Kernels and copies the card runs in one call of each of ``fns``
+    (``{name: fn}``), in one profiler window: each call is labelled and
+    ends in a synchronize, so the card's records that start inside its
+    label are its own (a replayed graph's kernels are counted one by one)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, fn in fns.items():
+            with record_function(f"audio_call.{name}"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    spans = {e.name[len("audio_call."):]: e.time_range for e in events
+             if e.device_type != DeviceType.CUDA and e.name.startswith("audio_call.")}
+    card = [e.time_range.start for e in events if e.device_type == DeviceType.CUDA]
+    return {name: sum(1 for t in card if span.start <= t <= span.end) for name, span in spans.items()}
+
+
+def phase_audio(dev):
+    """audio_path: a WSJ0-2mix test-split-shaped separation evaluation (3,000
+    two-speaker mixtures at 8 kHz) through SI-SDR, SDR (dense and CG), SNR,
+    SI-SNR, PIT, pit_permutate and native STOI/ESTOI on the card."""
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+    import metrics_tpu_torch.functional.audio as F
+    from metrics_tpu_torch.functional.audio import stoi_native
+
+    _reset_kernel_counts()
+    plan = wsj0_2mix_plan()
+    batches = wsj0_2mix_batches(plan)
+    metrics = _audio_metrics(mtt, dev)
+    device_names = [k for k in metrics if not k.endswith("stoi")]
+    stoi_names = [k for k in metrics if k.endswith("stoi")]
+    events = {k: [] for k in list(metrics) + ["pit_fn", "permutate", "f64"]}
+    stoi_host_s = 0.0
+    perms, values = [], {k: [] for k in ("pit", "si_sdr", "sdr", "sdr_cg", "snr", "si_snr")}
+    f64_err = {k: torch.zeros((), dtype=torch.float64, device=dev) for k in ("si_sdr", "sdr")}
+    cg_at_dense = []
+    stoi_clips = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t_all = time.perf_counter()
+    data_s = 0.0
+
+    def timed(name, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        events[name].append((start, end))
+        return out
+
+    for bi, index in enumerate(batches):
+        t_data = time.perf_counter()
+        src, shuffled = wsj0_2mix_batch(plan, index, dev)
+        torch.cuda.synchronize()
+        data_s += time.perf_counter() - t_data
+        timed("pit", lambda: metrics["pit"].update(shuffled, src))
+        best, perm = timed("pit_fn", lambda: F.permutation_invariant_training(shuffled, src, F.scale_invariant_signal_distortion_ratio))
+        aligned = timed("permutate", lambda: F.pit_permutate(shuffled, perm))
+        perms.append(perm)
+        values["pit"].append(best)
+        dense = bi % WSJ_DENSE_EVERY == 0
+        for name in ("si_sdr", "sdr_cg", "snr", "si_snr") + (("sdr",) if dense else ()):
+            timed(name, lambda m=metrics[name]: m.update(aligned, src))
+        # per-clip values through the functions (the modules keep sums only)
+        values["si_sdr"].append(F.scale_invariant_signal_distortion_ratio(aligned, src))
+        values["sdr_cg"].append(F.signal_distortion_ratio(aligned, src, use_cg_iter=WSJ_CG_ITER))
+        values["snr"].append(F.signal_noise_ratio(aligned, src))
+        values["si_snr"].append(F.scale_invariant_signal_noise_ratio(aligned, src))
+        # the same formulas in float64 on the card (the largest difference
+        # kept on the card: nothing is read back in the loop)
+        if dense:
+            values["sdr"].append(F.signal_distortion_ratio(aligned, src))
+            cg_at_dense.append(values["sdr_cg"][-1])
+
+        def f64_check():
+            a64, s64 = aligned.double(), src.double()
+            f64_err["si_sdr"] = torch.maximum(f64_err["si_sdr"], (values["si_sdr"][-1].double() - F.scale_invariant_signal_distortion_ratio(a64, s64)).abs().max())
+            if bi % WSJ_F64_SDR_EVERY == 0:
+                f64_err["sdr"] = torch.maximum(f64_err["sdr"], (values["sdr"][-1].double() - F.signal_distortion_ratio(a64, s64)).abs().max())
+
+        timed("f64", f64_check)
+        if bi % WSJ_STOI_EVERY == 0:
+            t_stoi = time.perf_counter()
+            for name in stoi_names:
+                timed(name, lambda m=metrics[name]: m.update(aligned, src))
+            torch.cuda.synchronize()
+            stoi_host_s += time.perf_counter() - t_stoi
+            stoi_clips += aligned.shape[0] * aligned.shape[1]
+        del src, shuffled, aligned
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_all
+    peak_mem = torch.cuda.max_memory_allocated() - base_mem
+    launches = _check_no_kernel_launched("audio_path")
+
+    # PIT's permutations against the planted ones, bit for bit
+    order = np.concatenate(batches)
+    got_perm = torch.cat(perms).cpu().numpy()
+    want_perm = np.where(plan["swapped"][order][:, None] == 1, [[1, 0]], [[0, 1]])
+    if not np.array_equal(got_perm, want_perm):
+        bad = int((got_perm != want_perm).any(1).sum())
+        raise AssertionError(f"audio_path: PIT recovered {WSJ_MIXTURES - bad} of {WSJ_MIXTURES} planted permutations")
+    per_clip = {k: torch.cat([v.reshape(-1) for v in vs]).double() for k, vs in values.items()}
+    cg_at_dense = torch.cat([v.reshape(-1) for v in cg_at_dense]).double()
+    f64_err = {k: float(v) for k, v in f64_err.items()}
+    dense_mixtures = sum(len(index) for bi, index in enumerate(batches) if bi % WSJ_DENSE_EVERY == 0)
+    for k, v in per_clip.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"audio_path: {k} has non-finite values")
+    planted = float(np.mean(plan["si_sdr_db"]))
+
+    split = {"data": data_s, "loop": loop_s, "stoi_host": stoi_host_s}
+    t_checks = time.perf_counter()
+    # every module's compute() against the float64 mean of the per-clip values
+    computed = {k: float(m.compute()) for k, m in metrics.items()}
+    mean_err = {}
+    for k in ("pit", "si_sdr", "sdr", "sdr_cg", "snr", "si_snr"):
+        want = float(per_clip[k].mean())
+        mean_err[k] = abs(computed[k] - want) / abs(want)
+        if mean_err[k] > AUDIO_MEAN_RTOL:
+            raise AssertionError(f"audio_path: {k}'s compute() {computed[k]} against the clips' mean {want}")
+    totals = {k: int(m.total) for k, m in metrics.items()}
+    want_totals = {k: (2 * WSJ_MIXTURES if k != "pit" else WSJ_MIXTURES) for k in device_names}
+    want_totals["sdr"] = 2 * dense_mixtures
+    want_totals.update({k: stoi_clips for k in stoi_names})
+    if totals != want_totals:
+        raise AssertionError(f"audio_path: totals {totals}, not {want_totals}")
+    for k in stoi_names:
+        if not 0.0 < computed[k] < 1.0:
+            raise AssertionError(f"audio_path: {k} {computed[k]}")
+
+    # float64 on the card, CG against the dense solve
+    for k, err in f64_err.items():
+        if err > AUDIO_F64_ATOL[k]:
+            raise AssertionError(f"audio_path: {k} in float32 is {err} dB from float64 (bound {AUDIO_F64_ATOL[k]})")
+    cg_db = float((cg_at_dense - per_clip["sdr"]).abs().max())
+    if cg_db > AUDIO_CG_DB:
+        raise AssertionError(f"audio_path: CG's SDR is up to {cg_db} dB from the dense solve's (bound {AUDIO_CG_DB})")
+
+    split["checks"] = time.perf_counter() - t_checks
+    t_cpu = time.perf_counter()
+    # the first WSJ_CPU_MIXTURES mixtures of the first batch (the shortest
+    # clips): the card against the port on the CPU
+    src, shuffled = wsj0_2mix_batch(plan, batches[0][:WSJ_CPU_MIXTURES], dev)
+    card = _audio_values(src, shuffled, dev)
+    t_cpu = time.perf_counter()
+    cpu = _audio_values(src.cpu(), shuffled.cpu(), torch.device("cpu"))
+    cpu_s = time.perf_counter() - t_cpu
+    if not torch.equal(card["perm"].cpu(), cpu["perm"]):
+        raise AssertionError("audio_path: PIT's permutations differ between the card and the CPU")
+    cpu_err = {k: float((card[k].double().cpu() - cpu[k].double()).abs().max()) for k in AUDIO_CPU_ATOL}
+    over = {k: e for k, e in cpu_err.items() if not e <= AUDIO_CPU_ATOL[k]}
+    if over:
+        raise AssertionError(f"audio_path: the card against the CPU {cpu_err}, over {AUDIO_CPU_ATOL}")
+    vad_kept = []
+    longest, _ = wsj0_2mix_batch(plan, batches[-1][:2], dev)
+    for x in longest.reshape(-1, longest.shape[-1]).cpu().numpy():
+        from scipy.signal import resample_poly
+
+        x10 = resample_poly(x, 5, 4)
+        kept, _ = stoi_native.remove_silent_frames(x10, x10)
+        vad_kept.append(kept.size / x10.size)
+
+    split["cpu_check"] = time.perf_counter() - t_cpu
+    # blocking reads of the updates (captured: each metric replays its graph),
+    # STOI's reads, and the launches a clip in a profiler window
+    t_reads = time.perf_counter()
+    src, shuffled = wsj0_2mix_batch(plan, batches[0], dev)
+    aligned = F.pit_permutate(shuffled, F.permutation_invariant_training(shuffled, src, F.scale_invariant_signal_distortion_ratio)[1])
+    reads = {k: len(blocking_reads(lambda i, m=metrics[k], a=(shuffled if k == "pit" else aligned): m.update(a, src), 3))
+             for k in ("si_sdr", "snr", "si_snr", "pit", "sdr", "sdr_cg")}
+    reads.update({k: len(blocking_reads(lambda i, m=metrics[k]: m.update(aligned, src), 1)) for k in stoi_names})
+    if any(reads[k] for k in ("si_sdr", "snr", "pit")):
+        raise AssertionError(f"audio_path: blocking reads in the SI-SDR, SNR and PIT updates: {reads}")
+    clips = aligned.shape[0] * aligned.shape[1]
+    split["reads"] = time.perf_counter() - t_reads
+    t_profile = time.perf_counter()
+    # STOI's calls (host-bound, a few hundred records a clip) on one mixture
+    calls = {k: (lambda m=metrics[k], a=(shuffled if k == "pit" else aligned): m.update(a, src)) for k in device_names}
+    calls.update({k: (lambda m=metrics[k]: m.update(aligned[:1], src[:1])) for k in stoi_names})
+    kernels = _card_kernels(calls)
+    per_clip_launches = {k: n / (2 if k in stoi_names else clips) for k, n in kernels.items()}
+    split["profile"] = time.perf_counter() - t_profile
+    graphs = {k: {f: getattr(m.__dict__.get("_update_graphs"), f, None) for f in ("captures", "replays", "eager_updates", "error")}
+              for k, m in metrics.items()}
+    for k in ("si_sdr", "snr", "si_snr", "pit", "sdr", "sdr_cg"):
+        if not graphs[k]["captures"] or not graphs[k]["replays"]:
+            raise AssertionError(f"audio_path: {k} did not capture its update: {graphs[k]}")
+    for k in stoi_names:
+        if graphs[k]["captures"] or metrics[k].jittable_update:
+            raise AssertionError(f"audio_path: {k} captured its update, which reads back by design: {graphs[k]}")
+
+    def ms(name):
+        return [s.elapsed_time(e) for s, e in events[name]]
+
+    update_ms = {k: {"p50": float(np.percentile(ms(k), 50)), "total_s": sum(ms(k)) / 1e3} for k in events}
+    audio_s = float(plan["samples"].sum()) / WSJ_FS
+    emit({
+        "phase": "audio_path",
+        "config": {"mixtures": WSJ_MIXTURES, "fs": WSJ_FS, "audio_hours": audio_s / 3600, "lengths_s": sorted(set((plan["samples"] / WSJ_FS).tolist())),
+                   "mean_length_s": audio_s / WSJ_MIXTURES, "batch": WSJ_BATCH, "batches": len(batches), "cg_iter": WSJ_CG_ITER,
+                   "stoi_every_batch": WSJ_STOI_EVERY, "dense_sdr_every_batch": WSJ_DENSE_EVERY, "f64_sdr_every_batch": WSJ_F64_SDR_EVERY, "dense_sdr_mixtures": dense_mixtures,
+                   "cpu_mixtures": WSJ_CPU_MIXTURES, "planted_si_sdr_db_mean": planted},
+        "values": computed,
+        "pit_permutations_recovered": WSJ_MIXTURES,
+        "clips_per_s": {k: want_totals[k] / update_ms[k]["total_s"] for k in device_names},
+        "stoi_clips_per_s": {k: stoi_clips / update_ms[k]["total_s"] for k in stoi_names},
+        "update_ms": update_ms,
+        "cg_against_dense": {"max_abs_db": cg_db, "mean_abs_db": float((cg_at_dense - per_clip["sdr"]).abs().mean()),
+                             "mean_db": float((cg_at_dense - per_clip["sdr"]).mean()),
+                             "update_p50_ratio": update_ms["sdr_cg"]["p50"] / update_ms["sdr"]["p50"]},
+        "against_cpu": cpu_err, "cpu_s": cpu_s,
+        "float32_against_float64_db": f64_err,
+        "compute_against_clip_mean_rel": mean_err,
+        "launches_per_clip": per_clip_launches,
+        "blocking_reads": reads,
+        "graphs": graphs,
+        "stoi_clips": stoi_clips, "f64_ms": sum(ms("f64")),
+        "vad_kept_share": vad_kept,
+        "peak_memory_bytes": peak_mem,
+        "split_s": split,
+        "kernel_launches": launches,
+    })
+    return launches
+
+
+def witness_requests(seed, n, dev):
+    """Ragged requests of ImageNet-sized scores (1-64 rows of 1000 classes)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        rows = int(rng.integers(1, 65))
+        p = rng.random((rows, WITNESS_CLASSES)).astype(np.float32)
+        out.append((torch.from_numpy(p / p.sum(1, keepdims=True)).to(dev), torch.from_numpy(rng.integers(0, WITNESS_CLASSES, rows)).to(dev)))
+    return out
+
+
+def _witness_confidence(args, kwargs):
+    return args[0].max(dim=-1).values
+
+
+def witness_served_stream(mtt, dev, directory):
+    """One host's served stream: a ServeLoop of two workers with tracing
+    forced on, a drift monitor, periodic snapshots, a flight recorder and a
+    FleetPublisher to an Aggregator over HTTP on 127.0.0.1. Returns the
+    counts and the served updates' p50 (the serve.update spans)."""
+    import numpy as np
+
+    from metrics_tpu_torch import fleet
+    from metrics_tpu_torch.obs import flightrec
+    from metrics_tpu_torch.obs import trace as tr
+
+    def proto():
+        return mtt.Accuracy(num_classes=WITNESS_CLASSES, on_invalid="drop", device=dev)
+
+    tr.reset_trace_state()
+    rec = flightrec.FlightRecorder(os.path.join(directory, "flightrec"), min_interval_s=0.0)
+    flightrec.install_flight_recorder(rec)
+    mgr = mtt.SnapshotManager(os.path.join(directory, "snapshots"), tag="witnessed")
+    monitor = mtt.DriftMonitor("top1_confidence", window=SERVE_DRIFT_WINDOW, eps=DRIFT_EPS, device=dev, extract=_witness_confidence)
+    agg = fleet.Aggregator(proto(), "pod")
+    server = fleet.FleetServer(agg)
+    try:
+        with tr.force_tracing(True):
+            loop = mtt.ServeLoop(proto(), workers=2, reduce_every_s=0.05, snapshot_manager=mgr, snapshot_every_s=0.2, drift_monitors=[monitor])
+            pub = fleet.FleetPublisher(loop, server.channel(), host_id="host-0", publish_every_s=0.1)
+            try:
+                for p, y in witness_requests(SEED + 31, WITNESS_REQUESTS, dev):
+                    loop.offer(p, y)
+                if not loop.drain(120):
+                    raise AssertionError("lockwitness_path: the loop did not drain")
+                view = loop.report(fresh=True, deadline_s=60)
+                # a publish of the final view (one of the cadence's may still be in flight)
+                deadline = time.monotonic() + 30
+                while pub.publish_now()["default"] != "ok" and time.monotonic() < deadline:
+                    time.sleep(0.05)
+                loop.save_snapshot()
+                rec.dump("witnessed", "the served stream's end")
+            finally:
+                pub.stop()
+                loop.stop()
+        rep = agg.report()
+        durs = [r.dur_ns / 1e6 for r in tr.trace_records("serve.update")]
+    finally:
+        server.close()
+        flightrec.install_flight_recorder(None)
+    if view["updates"] != WITNESS_REQUESTS or rep["updates"] != WITNESS_REQUESTS or len(durs) != WITNESS_REQUESTS:
+        raise AssertionError(f"lockwitness_path: served {view['updates']}, aggregated {rep['updates']}, {len(durs)} spans")
+    return {"served_p50_ms": float(np.percentile(durs, 50)), "updates": view["updates"]}
+
+
+def witness_rank(rank, world, port, results, device):
+    """A rank of lockwitness_path, started with METRICS_TPU_LOCKCHECK=1: rank
+    0 serves a stream before the world exists, then both ranks read an
+    overlapped-sync collection (a request, the read, the fresh sync)."""
+    try:
+        import torch
+        import torch.distributed as dist
+
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+            torch.zeros(1, device=dev)
+        import metrics_tpu_torch as mtt
+        from metrics_tpu_torch.analysis import lockwitness as lw
+        from metrics_tpu_torch.parallel import sync
+
+        split = {"start": time.perf_counter() - _T0}
+
+        out = {"armed": lw.lockcheck_enabled() and type(sync.gather_sequence_lock).__name__ == "_WitnessLock"}
+        if rank == 0:
+            with tempfile.TemporaryDirectory() as directory:
+                out["served"] = witness_served_stream(mtt, dev, directory)
+        split["served"] = time.perf_counter() - _T0
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+        coll = mtt.MetricCollection({
+            "acc1": mtt.Accuracy(num_classes=WITNESS_CLASSES, device=dev, sync_mode="overlapped", sync_every_n=2),
+            "acc5": mtt.Accuracy(num_classes=WITNESS_CLASSES, top_k=5, device=dev, sync_mode="overlapped", sync_every_n=2),
+        })
+        for p, y in witness_requests(SEED + 41 + rank, 8, dev):
+            coll.update(p, y)
+        dict(coll.items(keep_base=True, copy_state=False))["acc1"].request_sync(wait=True, deadline_s=120.0)
+        read = {k: float(v) for k, v in coll.compute().items()}
+        dist.barrier()
+        fresh = {k: float(v) for k, v in coll.compute(fresh=True).items()}
+        dist.barrier()
+        split["synced"] = time.perf_counter() - _T0
+        out.update(read=read, fresh=fresh, findings=lw.findings(), edges={a: sorted(b) for a, b in lw._order.items()},
+                   launches=_kernel_counts(), split_s=split)
+        dist.destroy_process_group()
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+# the JAX package's lock hierarchy (metrics_tpu/analysis/LOCK_ORDER.md, read
+# from this checkout only if it is there) by the witness's names, and the
+# port's own locks (ROADMAP D64)
+WITNESS_RANKS = {
+    "loop.ServeLoop._replica_locks": 5, "metric._overlap_lock": 10, "aggregator._publish_lock": 20,
+    "publisher._snapshot_lock": 20, "drift._check_lock": 20, "aggregator._lock": 30, "publisher._lock": 30,
+    "drift._lock": 30, "async_sync._cv": 30, "async_sync._lock": 30, "loop._stats_lock": 30,
+    "loop.ServeLoop._snapshot_step_lock": 35, "gather_sequence_lock": 40, "flightrec.FlightRecorder._lock": 50,
+    "flightrec._sources_lock": 50, "flightrec._state_lock": 50, "runtime_metrics.RuntimeMetrics._lock": 50,
+    "trace._append_lock": 50, "trace._ring_lock": 50, "health.HealthRegistry._lock": 50,
+    "runtime_metrics.Counter._lock": 60, "runtime_metrics.Gauge._lock": 60, "runtime_metrics.LatencyHistogram._lock": 60,
+    "_build._lock": 70, "_build._count_lock": 80, "compute._FLOAT32_LOCK": 80,
+}
+
+
+def witness_unarmed(rank, world, port, results, device):
+    """The served stream of lockwitness_path in a process of its own that is
+    not armed (started before METRICS_TPU_LOCKCHECK is set)."""
+    try:
+        import torch
+
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        import metrics_tpu_torch as mtt
+        from metrics_tpu_torch.analysis import lockwitness as lw
+
+        with tempfile.TemporaryDirectory() as directory:
+            out = {"armed": lw.lockcheck_enabled(), "served": witness_served_stream(mtt, dev, directory), "launches": _kernel_counts()}
+        results.put((rank, out))
+    except BaseException:
+        results.put((rank, {"error": traceback.format_exc()}))
+        raise
+
+
+def phase_lockwitness(dev):
+    """lockwitness_path: the served stream and an overlapped sync in two ranks
+    armed with METRICS_TPU_LOCKCHECK=1 (their module-level locks armed at
+    import), beside the same served stream in a third process, not armed;
+    the three run at once."""
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    unarmed = ctx.Process(target=witness_unarmed, args=(WITNESS_WORLD, WITNESS_WORLD, port, results, DIST_DEVICE))
+    unarmed.start()
+    os.environ["METRICS_TPU_LOCKCHECK"] = "1"  # inherited by the ranks, which import the port afresh
+    try:
+        procs = [ctx.Process(target=witness_rank, args=(r, WITNESS_WORLD, port, results, DIST_DEVICE)) for r in range(WITNESS_WORLD)]
+        for proc in procs:
+            proc.start()
+    finally:
+        del os.environ["METRICS_TPU_LOCKCHECK"]
+    *ranks, unarmed = collect_processes(procs + [unarmed], results, "lockwitness_path")
+    if unarmed["armed"]:
+        raise AssertionError("lockwitness_path: the unarmed process was armed")
+    launches = dict(unarmed["launches"])
+    edges = sorted({(a, b) for r in ranks for a, bs in r["edges"].items() for b in bs})
+    findings = [f for r in ranks for f in r["findings"]]
+    if not all(r["armed"] for r in ranks):
+        raise AssertionError("lockwitness_path: a rank's locks were not armed")
+    if findings:
+        raise AssertionError(f"lockwitness_path: the witness found {findings}")
+    unranked = sorted({x for e in edges for x in e} - set(WITNESS_RANKS))
+    falling = [(a, b) for a, b in edges if a in WITNESS_RANKS and b in WITNESS_RANKS and WITNESS_RANKS[a] >= WITNESS_RANKS[b]]
+    if falling or unranked:
+        raise AssertionError(f"lockwitness_path: edges against the lock order {falling}, locks without a rank {unranked}")
+    if ranks[0]["read"] != ranks[1]["read"] or ranks[0]["read"] != ranks[0]["fresh"]:
+        raise AssertionError(f"lockwitness_path: overlapped reads {[(r['read'], r['fresh']) for r in ranks]}")
+    for r in ranks:
+        launches = {k: v + r["launches"][k] for k, v in launches.items()}
+    torch.cuda.synchronize()
+    emit({
+        "phase": "lockwitness_path",
+        "config": {"world": WITNESS_WORLD, "requests": WITNESS_REQUESTS, "classes": WITNESS_CLASSES, "armed_by": "METRICS_TPU_LOCKCHECK=1"},
+        "findings": 0,
+        "order_edges": len(edges),
+        "edges": [f"{a} -> {b}" for a, b in edges],
+        "served_p50_ms": {"armed": ranks[0]["served"]["served_p50_ms"], "unarmed": unarmed["served"]["served_p50_ms"]},
+        "overlapped_read": ranks[0]["read"],
+        "kernel_launches": launches,
+        "rank_split_s": [r["split_s"] for r in ranks],
+    })
+    return launches
+
+
 def main():
     try:
         import torch
@@ -7837,7 +8426,7 @@ def main():
     k2_err = phase_k2_parity(device)
     k3_fold_err = phase_k3_parity(device)
     k3_err = phase_k3_cascade_parity(device)
-    with new_phase_time("backend_probe"):
+    with budget_time(NEW_PHASE_S, "backend_probe"):
         phase_backend_probe(probe)  # its probe ran beside the build and the parity phases
     k1_launches, cpu_bap = phase_main_path(preds, target)
     phase_windowed(preds, target)
@@ -7847,7 +8436,7 @@ def main():
     k3_launches, q_state = phase_stream(stream)
     phase_profile(preds, target)
     phase_stream_profile(stream)
-    with new_phase_time("drift_path"):
+    with budget_time(NEW_PHASE_S, "drift_path"):
         k3_drift_launches = phase_drift(stream)
     first_batch = stream[:STREAM_BATCH].clone()
     del stream
@@ -7866,10 +8455,10 @@ def main():
     k1_compiled_launches, capture_checks = phase_compiled(preds, target)
     k1_serving_launches = phase_with_ladder(SERVE_LADDER, phase_serving, preds, target)
     phase_with_ladder(SERVE_LADDER, phase_coldstart, preds, target)
-    with new_phase_time("serving_obs_path"):
+    with budget_time(NEW_PHASE_S, "serving_obs_path"):
         k1_serving_obs_launches, k3_serving_obs_launches = phase_with_ladder(
             SERVE_LADDER, phase_serving_obs, preds, target, dict(_SERVING_LATENCY))
-    with slice_phase_time("fleet_path"):
+    with budget_time(SLICE_PHASE_S, "fleet_path"):
         k1_fleet_launches, k3_fleet_launches = phase_with_ladder(SERVE_LADDER, phase_fleet, preds, target)
     del preds, target, q_state, first_batch
     torch.cuda.empty_cache()
@@ -7892,8 +8481,14 @@ def main():
     phase_text_metrics(device)
     # the detection slice: no kernel of K1-K3 on its path either
     torch.cuda.empty_cache()
-    with slice_phase_time("detection_path"):
+    with budget_time(SLICE_PHASE_S, "detection_path"):
         phase_detection(device)
+    # the audio slice: no kernel of K1-K3 on its path either
+    torch.cuda.empty_cache()
+    with budget_time(AUDIO_PHASE_S, "audio_path"):
+        audio_launches = phase_audio(device)
+    with budget_time(AUDIO_PHASE_S, "lockwitness_path"):
+        witness_launches = phase_lockwitness(device)
     # each kernel's launches on every path that runs it, each path counted
     # from zero just before it
     kernels[0]["launches_by_path"] = {
@@ -7913,9 +8508,14 @@ def main():
                                       "drift_path": k3_drift_launches, "serving_obs_path": k3_serving_obs_launches,
                                       "fleet_path": k3_fleet_launches,
                                       "snapshot_path_sketch_restore": k3_restore_launches}
+    for kernel, name in zip(kernels, ("binned_counters", "histogram", "compactor_fold")):
+        kernel["launches_by_path"]["audio_path"] = audio_launches[name]
+        kernel["launches_by_path"]["lockwitness_path"] = witness_launches[name]
     emit({"phase": "budget", "new_phases_s": NEW_PHASE_S, "new_phases_total_s": sum(NEW_PHASE_S.values()),
           "new_phases_limit_s": NEW_PHASES_LIMIT_S, "slice_phases_s": SLICE_PHASE_S,
           "slice_phases_total_s": sum(SLICE_PHASE_S.values()), "slice_phases_limit_s": SLICE_PHASES_LIMIT_S,
+          "audio_phases_s": AUDIO_PHASE_S, "audio_phases_total_s": sum(AUDIO_PHASE_S.values()),
+          "audio_phases_limit_s": AUDIO_PHASES_LIMIT_S,
           "script_s": time.perf_counter() - _T0})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -22,6 +22,15 @@ from metrics_tpu_torch import detection  # noqa: E402,F401  (subpackage namespac
 from metrics_tpu_torch.obs.drift import DriftMonitor, ReferenceWindow  # noqa: E402
 from metrics_tpu_torch.resilience import SnapshotManager  # noqa: E402
 from metrics_tpu_torch.utilities.backend import ensure_backend  # noqa: E402
+from metrics_tpu_torch.audio import (  # noqa: E402
+    PerceptualEvaluationSpeechQuality,
+    PermutationInvariantTraining,
+    ScaleInvariantSignalDistortionRatio,
+    ScaleInvariantSignalNoiseRatio,
+    ShortTimeObjectiveIntelligibility,
+    SignalDistortionRatio,
+    SignalNoiseRatio,
+)
 from metrics_tpu_torch.aggregation import BaseAggregator, CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric  # noqa: E402
 from metrics_tpu_torch.classification.accuracy import Accuracy  # noqa: E402
 from metrics_tpu_torch.classification.auc import AUC  # noqa: E402
@@ -251,4 +260,11 @@ __all__ = [
     "WordErrorRate",
     "WordInfoLost",
     "WordInfoPreserved",
+    "PerceptualEvaluationSpeechQuality",
+    "PermutationInvariantTraining",
+    "ScaleInvariantSignalDistortionRatio",
+    "ScaleInvariantSignalNoiseRatio",
+    "ShortTimeObjectiveIntelligibility",
+    "SignalDistortionRatio",
+    "SignalNoiseRatio",
 ]

@@ -37,14 +37,15 @@ and a quantile sketch's merge is one launch of kernel K3
 (``csrc/compactor_fold.cu``); with ``device="cpu"`` the plain merge runs.
 
 Everything here is host-side python over snapshot payloads: the fleet tier
-adds no collective. ``threading.Lock`` stands where the JAX package uses
-``named_lock``, the lock witness (ROADMAP Queue 1, item 18).
+adds no collective. Its locks are the JAX package's named locks
+(``analysis/lockwitness.py``).
 """
 import threading
 import time
 from collections import OrderedDict, deque
 from typing import Any, Dict, Optional
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock
 from metrics_tpu_torch.fleet.wire import (
     WireError,
     apply_delta,
@@ -116,7 +117,7 @@ class Aggregator:
         self.node_id = node_id
         self.stale_after_s = resolve_fleet_knob("stale_after_s", stale_after_s)
         self._proto = metric
-        self._lock = threading.Lock()
+        self._lock = named_lock("aggregator._lock", threading.Lock(), hot=True)
         # host_id -> {"seq", "snap", "updates", "published_unix",
         #             "received_unix", "received_mono", "stale_reported"}
         self._views: Dict[str, Dict[str, Any]] = {}
@@ -131,7 +132,7 @@ class Aggregator:
         self._view_cache: Optional[Any] = None  # (reporter, its snapshot_state payload)
         self._seq = 0  # this node's own publish sequence (multi-hop)
         # (payload, seq) pairing order
-        self._publish_lock = threading.Lock()
+        self._publish_lock = named_lock("aggregator._publish_lock", threading.Lock(), hot=True)
         # per-host timeline sections accumulated from wire header trace
         # extras: host_id -> {"clock", "events" (bounded), "offset_s"} —
         # what fleet_trace() merges into ONE Perfetto document

@@ -29,13 +29,14 @@ tests.
 
 A ``ServeLoop`` source's ``fleet_view()`` reads the reporter's states back
 from the card once per reduce, on this publisher's thread, never on the
-request path. ``threading.Lock`` stands where the JAX package uses
-``named_lock``, the lock witness (ROADMAP Queue 1, item 18).
+request path. Its locks are the JAX package's named locks
+(``analysis/lockwitness.py``).
 """
 import threading
 import time
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock
 from metrics_tpu_torch.fleet.wire import delta_changes, encode_delta_view, encode_view, next_seq
 from metrics_tpu_torch.fleet._env import resolve_fleet_delta, resolve_fleet_knob
 from metrics_tpu_torch.obs import trace as _obs_trace
@@ -206,9 +207,9 @@ class FleetPublisher:
         self._encode_error_reported = False  # snapshot/encode failure episode
         self._dup_streak: Dict[str, int] = {name: 0 for name in self._channels}
         self._seq = 0
-        self._lock = threading.Lock()
+        self._lock = named_lock("publisher._lock", threading.Lock(), hot=True)
         # (payload, seq) pairing order
-        self._snapshot_lock = threading.Lock()
+        self._snapshot_lock = named_lock("publisher._snapshot_lock", threading.Lock(), hot=True)
         self._stop_evt = threading.Event()
         self._wake = threading.Event()
         self._thread = threading.Thread(

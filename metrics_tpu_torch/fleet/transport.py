@@ -21,9 +21,8 @@ Timeout note: the channel passes its own socket timeout to ``urlopen`` as
 a second bound under the policy's deadline, so an abandoned attempt's
 daemon thread also dies promptly instead of holding a socket forever.
 
-The JAX package marks the channel's blocking call for its lock witness
-(``note_blocking``); the witness is ROADMAP Queue 1, item 18, and the port
-marks nothing yet.
+The channel's HTTP send is a blocking seam of the lock witness
+(``note_blocking``, ``analysis/lockwitness.py``), as in the JAX package.
 """
 import http.server
 import json
@@ -32,6 +31,7 @@ import urllib.error
 import urllib.request
 from typing import Any
 
+from metrics_tpu_torch.analysis.lockwitness import note_blocking
 from metrics_tpu_torch.fleet.aggregator import Aggregator
 from metrics_tpu_torch.fleet.wire import WireError
 
@@ -57,8 +57,7 @@ class HttpViewChannel:
         # urlopen raises URLError (refused/unreachable) or HTTPError (4xx/5xx,
         # e.g. a server-side wire refusal) — exactly the signals the retry
         # policy and breaker consume
-        # the JAX package's lock-witness seam (note_blocking) stands here:
-        # item 18 of ROADMAP Queue 1
+        note_blocking("http", self.url)  # witness seam: HTTP under a hot lock
         with urllib.request.urlopen(req, timeout=self.timeout_s) as resp:
             return resp.read()
 

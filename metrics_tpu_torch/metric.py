@@ -97,6 +97,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch._capture import UpdateGraphs, capturing
+from metrics_tpu_torch.analysis.lockwitness import named_lock
 from metrics_tpu_torch.obs import trace as _obs_trace
 from metrics_tpu_torch.ops.padding import pad_update_args
 from metrics_tpu_torch.ops.quantize import resolve_codec, validate_transport
@@ -350,7 +351,8 @@ class Metric:
         object.__setattr__(self, "_update_stream", None)
         object.__setattr__(self, "_side_stream", None)
         object.__setattr__(self, "_in_forward", False)
-        lock = threading.RLock() if self.__dict__.get("sync_mode") == "overlapped" else None
+        overlapped = self.__dict__.get("sync_mode") == "overlapped"
+        lock = named_lock("metric._overlap_lock", threading.RLock()) if overlapped else None
         object.__setattr__(self, "_overlap_lock", lock)
 
     def _state_swap_guard(self):

@@ -46,8 +46,7 @@ metric), and the port keeps the request path free of reads:
   monitor's device; the scores and the candidates come back in one read.
   A check reads back twice: the finite counts, then the scores.
 
-``threading.Lock`` stands where the JAX package uses ``named_lock``, the
-lock witness (ROADMAP Queue 1, item 18).
+Its locks are the JAX package's named locks (``analysis/lockwitness.py``).
 """
 import math
 import threading
@@ -57,6 +56,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock
 from metrics_tpu_torch.ops._envtools import EnvParse, WarnOnce
 from metrics_tpu_torch.utilities.exceptions import MetricsTPUUserError
 
@@ -473,9 +473,9 @@ class DriftMonitor:
         self._extract = extract
         self.slice_id = slice_id
         self._slice_ids_key = slice_ids_key
-        self._lock = threading.RLock()
+        self._lock = named_lock("drift._lock", threading.RLock(), hot=True)
         # serializes whole check() passes; observe() takes _lock only
-        self._check_lock = threading.Lock()
+        self._check_lock = named_lock("drift._check_lock", threading.Lock(), hot=True)
         self._reference: Optional[ReferenceWindow] = None
         self._qgrid: Optional[np.ndarray] = None
         self._ref_edges: Optional[np.ndarray] = None

@@ -29,9 +29,9 @@ histogram's sketch back, as a scrape does.
 ``METRICS_TPU_FLIGHTREC_DIR`` arms it (unset: disabled; unusable: warns
 once and stays disabled), ``METRICS_TPU_FLIGHTREC_KEEP`` bounds the window
 (default 8 dumps per process), :func:`install_flight_recorder` wins over
-the env. ``threading.Lock`` stands where the JAX package uses
-``named_lock``, and the JAX package's ``note_blocking`` calls (the lock
-witness) have no counterpart yet (ROADMAP Queue 1, item 18).
+the env. Its locks are the JAX package's named locks, and the JSON dump is
+a blocking seam of the lock witness (``analysis/lockwitness.py``), as in
+the JAX package.
 """
 import atexit
 import hashlib
@@ -43,6 +43,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock, note_blocking
 from metrics_tpu_torch.ops._envtools import EnvParse, WarnOnce
 from metrics_tpu_torch.resilience.health import INFORMATIONAL_EVENT_KINDS
 from metrics_tpu_torch.resilience.health import registry as _health_registry
@@ -114,7 +115,7 @@ _ENV_KEEP: "EnvParse[int]" = EnvParse(_KEEP_ENV, _parse_keep, _DEFAULT_KEEP)
 # a ServeLoop registers once and whichever recorder is active reads it)
 # --------------------------------------------------------------------------
 
-_sources_lock = threading.Lock()
+_sources_lock = named_lock("flightrec._sources_lock", threading.Lock(), hot=True)
 _SOURCES: Dict[str, Callable[[], Any]] = {}
 _source_seq = 0
 
@@ -187,7 +188,7 @@ class FlightRecorder:
         os.remove(probe)
         self._keep = keep
         self.min_interval_s = float(min_interval_s)
-        self._lock = threading.Lock()
+        self._lock = named_lock("flightrec.FlightRecorder._lock", threading.Lock(), hot=True)
         self._seq = 0
         self._last_dump_mono: Dict[str, float] = {}  # kind -> last dump time
         self._dumps = 0
@@ -277,6 +278,9 @@ class FlightRecorder:
                 self.directory,
                 f"flightrec.{int(time.time() * 1000)}.{os.getpid()}.{seq}.{safe_kind}.json",
             )
+            # serializing a whole black box is a blocking seam the witness
+            # flags under any hot lock (the dump thread must hold none)
+            note_blocking("json-serialize", path)
             atomic_write_bytes(path, json.dumps(doc, default=str).encode())
             with self._lock:
                 self._dumps += 1
@@ -355,7 +359,7 @@ class FlightRecorder:
 # arming: programmatic > env; the health listener + process-exit hooks
 # --------------------------------------------------------------------------
 
-_state_lock = threading.Lock()
+_state_lock = named_lock("flightrec._state_lock", threading.Lock(), hot=True)
 _installed: Optional[FlightRecorder] = None
 _env_recorder: Optional[Tuple[str, Optional[FlightRecorder]]] = None  # (raw dir, recorder)
 _atexit_armed = False

@@ -25,13 +25,13 @@ JAX counts a jit (re)trace of a metric's update in
 (``_capture.py``), the step that makes a new compiled update, so that one
 dashboard reads both packages.
 
-``threading.Lock`` stands where the JAX package uses ``named_lock``, the
-lock witness (ROADMAP Queue 1, item 18).
+Its locks are the JAX package's named locks (``analysis/lockwitness.py``).
 """
 import contextlib
 import threading
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock
 from metrics_tpu_torch.ops._envtools import WarnOnce
 
 _warn_once = WarnOnce()
@@ -103,7 +103,7 @@ class Counter:
 
     def __init__(self, name: str) -> None:
         self.name = name
-        self._lock = threading.Lock()
+        self._lock = named_lock("runtime_metrics.Counter._lock", threading.Lock(), hot=True)
         self._value = 0
 
     def inc(self, n: int = 1) -> None:
@@ -125,7 +125,7 @@ class Gauge:
 
     def __init__(self, name: str) -> None:
         self.name = name
-        self._lock = threading.Lock()
+        self._lock = named_lock("runtime_metrics.Gauge._lock", threading.Lock(), hot=True)
         self._value: Optional[float] = None
 
     def set(self, value: float) -> None:
@@ -184,7 +184,7 @@ class LatencyHistogram:
         self.max_items = int(max_items)
         self.device = device
         self._owner = owner
-        self._lock = threading.RLock()
+        self._lock = named_lock("runtime_metrics.LatencyHistogram._lock", threading.RLock(), hot=True)
         self._pending: List[float] = []
         self._sketch: Any = None  # QuantileSketchState, built at the first fold
         self._count = 0
@@ -312,7 +312,7 @@ class RuntimeMetrics:
 
     def __init__(self, fold_device: Any = None) -> None:
         self.fold_device = fold_device
-        self._lock = threading.Lock()
+        self._lock = named_lock("runtime_metrics.RuntimeMetrics._lock", threading.Lock(), hot=True)
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._hists: Dict[str, LatencyHistogram] = {}

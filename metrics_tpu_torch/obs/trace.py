@@ -25,9 +25,9 @@ sizes the ring (default 65536 records), and :func:`force_tracing` wins
 over the env. Disabled, :func:`span` returns one shared no-op object, with
 the enabled check inlined and the env read amortized over 256 calls.
 
-The module imports the standard library and the port's env tools only.
-``threading.Lock`` stands where the JAX package uses ``named_lock``, the
-lock witness (ROADMAP Queue 1, item 18).
+The module imports the standard library, the port's env tools and the
+lock witness only. Its locks are the JAX package's named locks
+(``analysis/lockwitness.py``).
 """
 import contextlib
 import itertools
@@ -39,6 +39,7 @@ import uuid
 from collections import deque
 from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock
 from metrics_tpu_torch.ops._envtools import EnvParse, WarnOnce, bool_token
 
 __all__ = [
@@ -237,8 +238,8 @@ def clock_sync() -> Dict[str, float]:
 # tiny critical section making seq allocation + append ONE step, so seq
 # order IS append order and an incremental-export cursor can never commit
 # past a record whose seq was allocated but not yet appended
-_ring_lock = threading.Lock()
-_append_lock = threading.Lock()
+_ring_lock = named_lock("trace._ring_lock", threading.Lock(), hot=True)
+_append_lock = named_lock("trace._append_lock", threading.Lock(), hot=True)
 _ring: "deque[TraceRecord]" = deque(maxlen=_DEFAULT_BUFFER)
 
 # populated at import: obs/__init__.py imports runtime_metrics, whose

@@ -20,6 +20,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock
+
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -29,7 +31,8 @@ NVCC_FLAGS: List[str] = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-_lock = threading.Lock()
+# held while nvcc runs: not hot, blocking under it is its job (ROADMAP D64)
+_lock = named_lock("_build._lock", threading.Lock(), hot=False)
 _loaded: Dict[str, ctypes.CDLL] = {}
 # what the last build of each source took and what ptxas said about it
 build_info: Dict[str, Dict[str, object]] = {}
@@ -38,7 +41,7 @@ build_info: Dict[str, Dict[str, object]] = {}
 # the wrappers' launch counts: one lock for every module's counter, and a
 # per-thread record of the launches that a CUDA-graph capture made (the
 # capture launches nothing; each replay of the graph launches them)
-_count_lock = threading.Lock()
+_count_lock = named_lock("_build._count_lock", threading.Lock(), hot=True)
 _recording = threading.local()
 
 

@@ -49,6 +49,7 @@ import weakref
 from collections import deque
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock
 from metrics_tpu_torch.obs import trace as _obs_trace
 from metrics_tpu_torch.ops._envtools import EnvParse, WarnOnce
 
@@ -193,7 +194,7 @@ class AsyncSyncScheduler:
         self.on_error = on_error
         self.name = name
 
-        self._lock = threading.Lock()
+        self._lock = named_lock("async_sync._lock", threading.Lock(), hot=True)
         self._seq = 0  # notifies so far: the unit of coverage
         self._steps = 0  # the producer's step count at the last notify
         self._trigger_seq = 0  # seq of the last update-cadence trigger
@@ -203,7 +204,7 @@ class AsyncSyncScheduler:
         self._in_flight_since: Optional[float] = None
         self._stall_reported = False
 
-        self._cv = threading.Condition()
+        self._cv = named_lock("async_sync._cv", threading.Condition(), hot=True)
         self._pending: "deque" = deque()  # (seq, payload, steps, snapshot_unix), in trigger order
         self._inflight_seq: Optional[int] = None  # the seq of the cycle being reduced
         self._view: Optional[SyncView] = None

@@ -46,6 +46,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock, note_blocking
 from metrics_tpu_torch.ops._envtools import EnvParse, WarnOnce
 from metrics_tpu_torch.ops.quantize import (
     WireCodec,
@@ -77,7 +78,8 @@ _BUCKETED = ("sum", "mean", "max", "min")
 
 # Serializes whole sequences of collectives within a process (re-entrant: a
 # sequence may nest helpers that take it again).
-gather_sequence_lock = threading.RLock()
+# not hot: blocking under it is its job (the JAX package's LOCK_ORDER.md)
+gather_sequence_lock = named_lock("gather_sequence_lock", threading.RLock(), hot=False)
 
 
 def distributed_available() -> bool:
@@ -484,6 +486,10 @@ def run_gather_jobs(
     ``issue`` that raises propagates to the caller; a ``fold`` that raises
     stops the issuer before its next job. Returns ``{key: fold(issue())}``,
     the same in both modes."""
+    # collective seam: the caller holds gather_sequence_lock by contract
+    # (not hot, so that hold is sanctioned); any other hot lock held here
+    # would stall its contenders for a whole wire round-trip
+    note_blocking("collective", "run_gather_jobs")
     if not pipeline or len(jobs) < 2:
         return {key: fold(issue()) for key, issue, fold in jobs}
 

@@ -25,6 +25,8 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock
+
 # Known kinds (informative; a subsystem may record a new kind):
 #   gather_degraded      a collective fell back to this rank's own state
 #   async_sync_error     an overlapped sync cycle raised; readers keep the
@@ -59,7 +61,7 @@ class HealthRegistry:
     however many events came after it."""
 
     def __init__(self, max_events: int = _MAX_EVENTS) -> None:
-        self._lock = threading.Lock()
+        self._lock = named_lock("health.HealthRegistry._lock", threading.Lock(), hot=True)
         self._events: "deque[Dict[str, Any]]" = deque(maxlen=max_events)
         self._kinds: Dict[str, Dict[str, Any]] = {}
         self._listeners: List[Callable[[Dict[str, Any]], None]] = []

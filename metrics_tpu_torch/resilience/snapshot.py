@@ -45,6 +45,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from metrics_tpu_torch.analysis.lockwitness import note_blocking
+
 MAGIC = "metrics-tpu-snapshot"
 SCHEMA_VERSION = 1
 
@@ -112,8 +114,9 @@ def atomic_write_bytes(path: str, blob: bytes) -> None:
     A crash mid-write leaves the previous file untouched and at worst a
     stale tmp. Shared by the snapshot writer, the trace export and the
     flight recorder."""
-    # the JAX package notes this blocking seam to its lock witness here
-    # (note_blocking); the port has no witness yet (ROADMAP Queue 1, item 18)
+    # fsync is a blocking seam: the lock witness flags reaching it while a
+    # hot lock is held
+    note_blocking("fsync", path)
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "wb") as f:
         f.write(blob)

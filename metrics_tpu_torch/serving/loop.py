@@ -69,7 +69,11 @@ which reads the card's states back on the publisher's thread, never on the
 request path, and once per reduce: publishes between two reduces reuse it
 (the JAX package snapshots the reporter at every publish).
 
-``threading.Lock`` stands where the JAX package uses ``named_lock`` (item 18).
+Its locks are named for the lock witness (``analysis/lockwitness.py``):
+``loop._stats_lock`` as in the JAX package, and two the JAX package lacks,
+``loop.ServeLoop._replica_locks`` (hot: a worker's update runs under it)
+and ``loop.ServeLoop._snapshot_step_lock`` (not hot: it lists the snapshot
+directory); ROADMAP D64 places them in the lock order.
 """
 import copy
 import itertools
@@ -78,6 +82,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock
 from metrics_tpu_torch.obs import trace as _obs_trace
 from metrics_tpu_torch.parallel.async_sync import AsyncSyncScheduler
 from metrics_tpu_torch.resilience.health import health_report, record_degradation
@@ -237,12 +242,14 @@ class ServeLoop:
         self._replicas = [_clone(metric) for _ in range(workers)]
         # held by a worker around each update, by the sweep around each copy
         # and by the warmup around each capture
-        self._replica_locks = [threading.Lock() for _ in range(workers)]
+        self._replica_locks = [
+            named_lock("loop.ServeLoop._replica_locks", threading.Lock(), hot=True) for _ in range(workers)
+        ]
         self._published = [False] * workers
         self._base_snap: Optional[_Snapshot] = None  # a restored state
 
         self._queue: "queue.Queue[Tuple[tuple, dict]]" = queue.Queue(maxsize=queue_size)
-        self._stats_lock = threading.Lock()
+        self._stats_lock = named_lock("loop._stats_lock", threading.Lock(), hot=True)
         self._offered = 0
         self._accepted = 0
         self._shed = 0
@@ -258,7 +265,7 @@ class ServeLoop:
         self._snapshot_mgr = snapshot_manager
         self._snapshot_every_s = snapshot_every_s
         self._snapshot_step = itertools.count(1)
-        self._snapshot_step_lock = threading.Lock()
+        self._snapshot_step_lock = named_lock("loop.ServeLoop._snapshot_step_lock", threading.Lock(), hot=False)
         self._last_snapshot_unix = time.time()
 
         # drift monitors: observed on the offer path (no read back), checked

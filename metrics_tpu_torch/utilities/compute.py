@@ -5,6 +5,7 @@ from typing import Iterator
 
 import torch
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock
 from metrics_tpu_torch.ops.bucketed_rank import ascending_order, flush_denormals
 
 Tensor = torch.Tensor
@@ -64,11 +65,13 @@ def _auc_compute(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
     return _auc_compute_without_check(x, y, 1.0) * sign
 
 
-# the blocks of full_float32 open in any thread, and the settings they
-# found when the first of them opened
-_FLOAT32_LOCK = threading.Lock()
+# the blocks of full_float32 and of cusolver_linalg open in any thread, and
+# the settings they found when the first of them opened
+_FLOAT32_LOCK = named_lock("compute._FLOAT32_LOCK", threading.Lock(), hot=True)
 _float32_depth = 0
 _float32_saved = None
+_linalg_depth = 0
+_linalg_saved = None
 
 
 @contextlib.contextmanager
@@ -102,3 +105,28 @@ def full_float32(enabled: bool = True) -> Iterator[None]:
                 cudnn_tf32, precision = _float32_saved
                 torch.set_float32_matmul_precision(precision)
                 torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+@contextlib.contextmanager
+def cusolver_linalg() -> Iterator[None]:
+    """Dense factorizations and solves through cuSOLVER inside the block.
+    PyTorch's default picks MAGMA for batched LU and Cholesky on CUDA, whose
+    batched routines allocate and synchronize, so an update that solves
+    cannot be captured into a CUDA graph (the capture fails with
+    ``cudaErrorStreamCaptureInvalidated``); cuSOLVER's can. The setting is
+    the process's, so blocks are counted across threads as in
+    :func:`full_float32`, and the caller's backend comes back when the last
+    one open ends. On the CPU it changes nothing."""
+    global _linalg_depth, _linalg_saved
+    with _FLOAT32_LOCK:
+        if _linalg_depth == 0:
+            _linalg_saved = torch.backends.cuda.preferred_linalg_library()
+            torch.backends.cuda.preferred_linalg_library("cusolver")
+        _linalg_depth += 1
+    try:
+        yield
+    finally:
+        with _FLOAT32_LOCK:
+            _linalg_depth -= 1
+            if _linalg_depth == 0:
+                torch.backends.cuda.preferred_linalg_library(_linalg_saved)

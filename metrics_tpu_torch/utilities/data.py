@@ -86,6 +86,14 @@ def _tensor_leaves(value: Any) -> Iterator[Tensor]:
             yield from _tensor_leaves(v)
 
 
+def _host_float32(x: Union[Tensor, np.ndarray]) -> np.ndarray:
+    """A tensor (read back from its device) or an array as float32 numpy:
+    the host boundary of the audio metrics that score on the host."""
+    if isinstance(x, Tensor):
+        return x.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
 def _squeeze_if_scalar(data: Any) -> Any:
     """Squeeze single-element tensors to 0-d, through lists, tuples,
     NamedTuples and dicts."""

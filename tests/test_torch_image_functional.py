@@ -4,7 +4,8 @@ against JAX's on the same seeded numpy inputs, over their keyword arguments.
 Tolerances (ROADMAP W6, as measured): SSIM, MS-SSIM and UQI ``atol=1e-5``,
 with ``rtol=1e-5`` on the unnormalised sums (the separable window's sums
 run in another order than XLA's); PSNR, ERGAS, SAM, D-lambda and the gradients
-``atol=1e-5`` plus ``rtol=1e-5``; FID ``rtol=1e-3``/``atol=1e-3`` against
+``atol=1e-5`` plus ``rtol=1e-5`` (SAM away from small angles; near an
+angle of 0 within 1e-3 rad a pixel of float64, D63); FID ``rtol=1e-3``/``atol=1e-3`` against
 scipy (``tests/image/test_image.py:229``'s bound) and ``rtol=1e-5`` against
 JAX, at the same rung of the ladder; the FID and LPIPS gradients
 ``rtol=1e-4``/``atol=1e-6`` against ``jax.grad``.
@@ -157,6 +158,43 @@ def test_ergas_against_jax(kw):
 def test_sam_against_jax(reduction):
     p, t = _pair((3, 5, 10, 11), 10)
     _close(*_both("spectral_angle_mapper", p, t, reduction=reduction), rtol=1e-5)
+
+
+SAM_SMALL_ANGLE_RAD = 1e-3  # a pixel's SAM near angle 0, against float64 and between the packages (D63)
+
+
+def _sam64(p, t):
+    p, t = p.astype(np.float64), t.astype(np.float64)
+    cos = (p * t).sum(1) / (np.linalg.norm(p, axis=1) * np.linalg.norm(t, axis=1))
+    return np.arccos(np.clip(cos, -1, 1))
+
+
+@pytest.mark.parametrize("channels", [2, 3, 8])
+@pytest.mark.parametrize("kind", ["near_equal", "identical"])
+def test_sam_at_small_angles_against_float64(channels, kind):
+    """D63: near an angle of 0, ``arccos`` turns a few float32 ulps of the
+    cosine into a few 1e-4 rad (one ulp below 1 is 3.5e-4 rad), in both
+    packages, which run the same formula. Each package's per-pixel SAM is
+    within 1e-3 rad of float64 SAM of the same float32 inputs (read on the
+    CPU: up to 4.9e-4 for the port and 8.5e-4 for JAX), the port within 1e-3
+    of JAX, and a ``sum`` within 1e-3 rad a pixel."""
+    rng = np.random.default_rng(100 + channels)
+    p = (rng.random((4, channels, 64, 64)) + 0.05).astype(np.float32)
+    d = 1e-4 * rng.standard_normal(p.shape) if kind == "near_equal" else 0.0
+    t = (p * (1 + d)).astype(np.float32)
+    exact = _sam64(p, t)
+    port = tF.spectral_angle_mapper(torch.from_numpy(p), torch.from_numpy(t), reduction="none").numpy()
+    ref = np.asarray(jF.spectral_angle_mapper(jnp.asarray(p), jnp.asarray(t), reduction="none"))
+    assert port.shape == ref.shape == exact.shape
+    np.testing.assert_allclose(port, exact, rtol=0, atol=SAM_SMALL_ANGLE_RAD)
+    np.testing.assert_allclose(ref, exact, rtol=0, atol=SAM_SMALL_ANGLE_RAD)
+    np.testing.assert_allclose(port, ref, rtol=0, atol=SAM_SMALL_ANGLE_RAD)
+    pixels = exact.size
+    port_sum = float(tF.spectral_angle_mapper(torch.from_numpy(p), torch.from_numpy(t), reduction="sum"))
+    ref_sum = float(jF.spectral_angle_mapper(jnp.asarray(p), jnp.asarray(t), reduction="sum"))
+    assert abs(port_sum - exact.sum()) <= SAM_SMALL_ANGLE_RAD * pixels
+    assert abs(ref_sum - exact.sum()) <= SAM_SMALL_ANGLE_RAD * pixels
+    assert abs(port_sum - ref_sum) <= SAM_SMALL_ANGLE_RAD * pixels
 
 
 @pytest.mark.parametrize("p_norm", [1, 2, 3])

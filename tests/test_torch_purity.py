@@ -9,6 +9,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -46,9 +47,19 @@ PACKAGE_FILES = sorted((ROOT / "metrics_tpu_torch").rglob("*.py"))
 @pytest.mark.parametrize("path", PACKAGE_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_package_imports_no_torchvision_or_scipy(path):
     """The card's machine has no torchvision, and the package needs no
-    scipy (``chip_smoke.py`` may use it for a host reference)."""
+    scipy (``chip_smoke.py`` may use it for a host reference), except
+    ``scipy.signal`` inside the function where the JAX package resamples
+    STOI's input (``stoi_native.py``'s ``resample_poly``; scipy is on both
+    machines), never at import."""
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in ("torchvision", "scipy")]
+    if path.relative_to(ROOT).as_posix() == SCIPY_RESAMPLER:
+        eager = [m for m in _top_level_imports(path) if m.split(".")[0] == "scipy"]
+        assert not eager, f"{SCIPY_RESAMPLER} imports {eager} at import"
+        bad = [m for m in bad if m != "scipy.signal"]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+SCIPY_RESAMPLER = "metrics_tpu_torch/functional/audio/stoi_native.py"
 
 
 def _top_level_imports(path):
@@ -248,7 +259,8 @@ def test_nets_without_device_ask_for_cuda(name, monkeypatch):
     "name",
     [
         "torch_thread_world.py", "torch_twin_world.py", "torch_pure_ranks.py", "torch_twins.py",
-        "torch_retrieval_ranks.py", "torch_sliced_ranks.py", "torch_text_ranks.py",
+        "torch_retrieval_ranks.py", "torch_sliced_ranks.py", "torch_text_ranks.py", "torch_audio_ranks.py",
+        "torch_lockwitness_ranks.py",
     ],
 )
 def test_rank_helpers_import_no_jax(name):
@@ -472,3 +484,62 @@ def test_obs_resilience_and_backend_import_no_jax_and_touch_no_cuda():
     env.pop("METRICS_TPU_FORCE_CPU", None)
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-2000:]
+
+
+def test_audio_and_witness_imports_load_no_jax_no_scipy_and_build_nothing():
+    """The audio metrics, their functions and the lock witness import no
+    JAX, nothing of ``metrics_tpu``, no scipy (STOI's resampler imports it
+    when it resamples), build no kernel and start no thread; unarmed, the
+    named locks are the plain locks."""
+    code = (
+        "import sys, threading\n"
+        "import metrics_tpu_torch.audio, metrics_tpu_torch.functional.audio, metrics_tpu_torch.analysis\n"
+        "from metrics_tpu_torch.analysis import lockwitness\n"
+        "from metrics_tpu_torch.ops import _build\n"
+        "from metrics_tpu_torch.parallel import sync\n"
+        "assert _build._loaded == {} and _build.build_info == {}\n"
+        "assert threading.active_count() == 1\n"
+        "assert type(sync.gather_sequence_lock) is type(threading.RLock()) and type(_build._lock) is type(threading.Lock())\n"
+        "assert not any(m.split('.')[0] in ('jax', 'metrics_tpu', 'scipy', 'triton') for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "METRICS_TPU_LOCKCHECK"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def _sdr(preds, target):
+    from metrics_tpu_torch.functional.audio import scale_invariant_signal_distortion_ratio
+
+    return scale_invariant_signal_distortion_ratio(preds, target)
+
+
+@pytest.mark.parametrize(
+    ("name", "kwargs"),
+    [
+        ("SignalDistortionRatio", {}), ("ScaleInvariantSignalDistortionRatio", {}), ("SignalNoiseRatio", {}),
+        ("ScaleInvariantSignalNoiseRatio", {}), ("PermutationInvariantTraining", {"metric_func": _sdr}),
+        ("ShortTimeObjectiveIntelligibility", {"fs": 8000, "use_device_implementation": True}),
+    ],
+)
+def test_audio_metric_without_device_asks_for_cuda(name, kwargs, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
+        getattr(metrics_tpu_torch, name)(**kwargs)
+    metric = getattr(metrics_tpu_torch, name)(device="cpu", **kwargs)
+    assert metric.device == torch.device("cpu")
+    assert all(t.device.type == "cpu" for t in metric.metric_state.values())
+
+
+def test_native_stoi_and_gated_wrappers_ask_for_cuda(monkeypatch):
+    """``stoi_on_device`` runs its core on CUDA unless the caller asks for
+    the CPU, with numpy input too."""
+    from metrics_tpu_torch.functional.audio import stoi_on_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.default_rng(0).standard_normal(4000).astype(np.float32)
+    with pytest.raises(MetricsTPUUserError, match="no CUDA device"):
+        stoi_on_device(x, x, fs=10_000)
+    assert stoi_on_device(x, x, fs=10_000, device="cpu").device.type == "cpu"
