@@ -330,13 +330,25 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    collection read across two ranks, in two processes started with
    ``METRICS_TPU_LOCKCHECK=1``: no finding, every observed order edge
    rising in the lock hierarchy (``WITNESS_RANKS``); its order edges and the
-   served update p50 armed against the same stream unarmed in this process.
+   served update p50 armed against the same stream unarmed in this process;
+39. analysis path (after 38): the lint and the static lock pass over the
+   checkout (0 new findings against ``metrics_tpu_torch/analysis/
+   lint_baseline.txt``, 0 violations of its ``LOCK_ORDER.md``); the
+   registry's 19 step budgets (``analysis/registry.py``) on the card and on
+   the CPU in a mirrored world of 4: every entry within budget on both, the
+   collective counts equal, the card's captures and keys of each
+   recompilation check equal to the CPU's stand-in captures, the warmed
+   sweeps capturing 0 new graphs, K3 launched by the sketch entries; the
+   cost profile over the registry on the card (one ``analysis_profile`` line
+   of rows: flops, bytes, collective bytes, wall p50/p99, the card's time,
+   K1-K3 a step; the document in ``chiprun_out/analysis_profile.json``).
 
 The ``budget`` line sums the seconds that phases 31-34 add (a rank's save:
 the slowest of the four), against their 30 s, those of phases 35-36
 (the detection ranks' share of the fused world: the slowest of the four)
-against theirs, and those of phases 37-38 against their 45 s; every phase
-line carries ``t_s``, its seconds since the script started.
+against theirs, those of phases 37-38 against their 45 s, and those of
+phase 39 against its 30 s; every phase line carries ``t_s``, its seconds
+since the script started.
 
 Every CUDA metric of the earlier phases captures its update as well (the
 port's default on the card); their checks against the CPU runs hold the
@@ -650,6 +662,10 @@ AUDIO_PHASE_S = {}  # their seconds of command
 WITNESS_WORLD = 2  # lockwitness_path's ranks: rank 0 serves, both read an overlapped sync
 WITNESS_REQUESTS = 24
 WITNESS_CLASSES = 1000
+ANALYSIS_PHASES_LIMIT_S = 30  # what analysis_path may add
+ANALYSIS_PHASE_S = {}  # its seconds of command
+ANALYSIS_MESH = 4  # the mirrored world the registry's syncs run in (JAX's 4-device mesh)
+ANALYSIS_PROFILE_REPS = 20  # wall samples a profiled entry (JAX's default)
 
 
 def emit(obj):
@@ -8314,7 +8330,7 @@ WITNESS_RANKS = {
     "flightrec._sources_lock": 50, "flightrec._state_lock": 50, "runtime_metrics.RuntimeMetrics._lock": 50,
     "trace._append_lock": 50, "trace._ring_lock": 50, "health.HealthRegistry._lock": 50,
     "runtime_metrics.Counter._lock": 60, "runtime_metrics.Gauge._lock": 60, "runtime_metrics.LatencyHistogram._lock": 60,
-    "_build._lock": 70, "_build._count_lock": 80, "compute._FLOAT32_LOCK": 80,
+    "_build._lock": 70, "_build._count_lock": 80, "compute._FLOAT32_LOCK": 80, "_capture._gc_lock": 80,
 }
 
 
@@ -8387,6 +8403,99 @@ def phase_lockwitness(dev):
         "overlapped_read": ranks[0]["read"],
         "kernel_launches": launches,
         "rank_split_s": [r["split_s"] for r in ranks],
+    })
+    return launches
+
+
+def _graph_counts(report):
+    """Each captured entry's keys, captures and replays of its recompilation
+    checks (``run_graph_audit``'s report)."""
+    return {name: {check: {k: v for k, v in c.items() if k in ("keys", "captures", "replays")} if isinstance(c, dict) and "keys" in c else c
+                   for check, c in row["graphs"].items()}
+            for name, row in report.items() if row.get("captured")}
+
+
+def phase_analysis(dev):
+    """analysis_path: the port's analysis tier on the card. The lint and the
+    static lock pass over the checkout (0 new findings against the port's
+    baseline, 0 violations of its LOCK_ORDER.md); the registry's 19 step
+    budgets on the card and on the CPU, every entry within budget on both,
+    the collective counts equal, the captures and keys of the card's
+    recompilation checks equal to the CPU's stand-in captures, the warmed
+    sweeps capturing 0 new graphs; the cost profile over the registry on the
+    card (one JSON line of rows; the document under chiprun_out/). K1-K3
+    counted from 0 over the card's audit and profile; K3 must launch (the
+    sketch entries fold)."""
+    import torch
+
+    from metrics_tpu_torch.analysis.baseline import apply_baseline, default_baseline_path, load_baseline
+    from metrics_tpu_torch.analysis.concurrency import analyze_package, check_manifest, default_manifest_path
+    from metrics_tpu_torch.analysis.lint import lint_package
+    from metrics_tpu_torch.analysis.registry import REGISTRY, run_graph_audit
+    from metrics_tpu_torch.obs.profile import profile_registry, write_profile
+
+    split = {}
+    t0 = time.perf_counter()
+    findings = lint_package()
+    new, stale = apply_baseline(findings, load_baseline(default_baseline_path()))
+    report = analyze_package()
+    with open(default_manifest_path(), encoding="utf-8") as fh:
+        lock_violations = check_manifest(report, fh.read())
+    if new or stale or lock_violations:
+        raise AssertionError(f"analysis_path: new findings {[f.format() for f in new]}, stale baseline {stale}, "
+                             f"lock order {[v.format() for v in lock_violations]}")
+    split["lint_locks_s"] = time.perf_counter() - t0
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    card = {}
+    card_violations = run_graph_audit(ndev=ANALYSIS_MESH, device=dev, report=card)
+    torch.cuda.synchronize()
+    split["audit_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    doc = profile_registry(ndev=ANALYSIS_MESH, reps=ANALYSIS_PROFILE_REPS, device=dev)
+    torch.cuda.synchronize()
+    split["profile_s"] = time.perf_counter() - t0
+    launches = _kernel_counts()
+    t0 = time.perf_counter()
+    cpu = {}
+    cpu_violations = run_graph_audit(ndev=ANALYSIS_MESH, device="cpu", report=cpu)
+    split["audit_cpu_s"] = time.perf_counter() - t0
+    if card_violations or cpu_violations:
+        raise AssertionError(f"analysis_path: budgets violated on the card {[v.format() for v in card_violations]}, "
+                             f"on the CPU {[v.format() for v in cpu_violations]}")
+    for key in ("collectives", "physical_collectives", "collective_bytes"):
+        differ = {n: (card[n].get(key), cpu[n].get(key)) for n in card if card[n].get(key) != cpu[n].get(key)}
+        if differ:
+            raise AssertionError(f"analysis_path: {key} on the card differ from the CPU's: {differ}")
+    card_graphs, cpu_graphs = _graph_counts(card), _graph_counts(cpu)
+    if card_graphs != cpu_graphs:
+        raise AssertionError(f"analysis_path: captures on the card {card_graphs} != the CPU's keys {cpu_graphs}")
+    warmed = {n: g["warmed"] for n, g in card_graphs.items() if "warmed" in g}
+    if len(warmed) != 2 or any(w["new_keys"] or w["after"]["captures"] != w["before"]["captures"] for w in warmed.values()):
+        raise AssertionError(f"analysis_path: warmed sweeps captured new graphs: {warmed}")
+    if launches["compactor_fold"] == 0:
+        raise AssertionError(f"analysis_path: the sketch entries launched no K3 ({launches})")
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    path = write_profile(doc, str(ROOT / "chiprun_out" / "analysis_profile.json"))
+    rows = {row["entry"]: {k: row[k] for k in ("collectives", "collective_bytes_total", "flops", "bytes_accessed", "aten_ops",
+                                                "device_ms", "kernel_launches") if k in row}
+            | {"wall_p50_ms": row["wall"]["p50_ms"], "wall_p99_ms": row["wall"]["p99_ms"],
+               "tiers_p50_ms": {t: v["p50_ms"] for t, v in row.get("tiers", {}).items()}}
+            for row in doc["entries"]}
+    emit({"phase": "analysis_profile", "device": doc["device_name"], "ndev": doc["ndev"], "reps": doc["reps"], "rows": rows})
+    emit({
+        "phase": "analysis_path",
+        "config": {"entries": len(REGISTRY), "mesh": ANALYSIS_MESH, "profile_reps": ANALYSIS_PROFILE_REPS},
+        "lint": {"findings": len(findings), "new": 0, "grandfathered": len(findings)},
+        "locks": {"locks": len(report.locks), "edges": len(report.edges), "violations": 0},
+        "audit_violations": {"card": 0, "cpu": 0},
+        "collectives": {n: r["collectives"] for n, r in card.items() if r.get("collectives")},
+        "host_reads": {"card": {n: r["host_reads"] for n, r in card.items() if r.get("host_reads")},
+                       "cpu": {n: r["host_reads"] for n, r in cpu.items() if r.get("host_reads")}},
+        "graphs": card_graphs,
+        "kernel_launches": launches,
+        "profile": str(pathlib.Path(path).relative_to(ROOT)),
+        "split_s": split,
     })
     return launches
 
@@ -8489,6 +8598,8 @@ def main():
         audio_launches = phase_audio(device)
     with budget_time(AUDIO_PHASE_S, "lockwitness_path"):
         witness_launches = phase_lockwitness(device)
+    with budget_time(ANALYSIS_PHASE_S, "analysis_path"):
+        analysis_launches = phase_analysis(device)
     # each kernel's launches on every path that runs it, each path counted
     # from zero just before it
     kernels[0]["launches_by_path"] = {
@@ -8511,11 +8622,13 @@ def main():
     for kernel, name in zip(kernels, ("binned_counters", "histogram", "compactor_fold")):
         kernel["launches_by_path"]["audio_path"] = audio_launches[name]
         kernel["launches_by_path"]["lockwitness_path"] = witness_launches[name]
+        kernel["launches_by_path"]["analysis_path"] = analysis_launches[name]
     emit({"phase": "budget", "new_phases_s": NEW_PHASE_S, "new_phases_total_s": sum(NEW_PHASE_S.values()),
           "new_phases_limit_s": NEW_PHASES_LIMIT_S, "slice_phases_s": SLICE_PHASE_S,
           "slice_phases_total_s": sum(SLICE_PHASE_S.values()), "slice_phases_limit_s": SLICE_PHASES_LIMIT_S,
           "audio_phases_s": AUDIO_PHASE_S, "audio_phases_total_s": sum(AUDIO_PHASE_S.values()),
           "audio_phases_limit_s": AUDIO_PHASES_LIMIT_S,
+          "analysis_phases_s": ANALYSIS_PHASE_S, "analysis_phases_limit_s": ANALYSIS_PHASES_LIMIT_S,
           "script_s": time.perf_counter() - _T0})
     print(smi, flush=True)
     emit({"kernels": kernels})

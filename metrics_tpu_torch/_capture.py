@@ -43,12 +43,14 @@ The capture step is a function the table is given (:func:`cuda_graph_capture`
 on the card); the CPU tests give it one that runs the body eagerly.
 """
 import contextlib
+import gc
 import threading
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from metrics_tpu_torch.analysis.lockwitness import named_lock
 from metrics_tpu_torch.ops import _build
 from metrics_tpu_torch.utilities.checks import value_checks_off
 
@@ -56,6 +58,34 @@ Tensor = torch.Tensor
 Capture = Callable[[Callable[[], None], Any], Callable[[], None]]
 
 _local = threading.local()
+
+# the captures in flight, which hold Python's cyclic collector off (hot,
+# innermost: nothing is taken under it; ROADMAP F16)
+_gc_lock = named_lock("_capture._gc_lock", threading.Lock(), hot=True)
+_gc_holds = [0, False]  # captures in flight, whether the collector was on before the first
+
+
+@contextlib.contextmanager
+def collector_held() -> Iterator[None]:
+    """Python's cyclic collector held off within the block. Metrics hold
+    reference cycles (their bound methods), so a collection can run in the
+    middle of a capture and free another metric's CUDA graphs and their
+    memory pool, which the capture refuses
+    (``cudaErrorStreamCaptureInvalidated``): the capturing metric would then
+    run eagerly for good. ``torch.cuda.graph`` collects before its capture
+    for the same reason. Nested and concurrent holds are counted."""
+    with _gc_lock:
+        if _gc_holds[0] == 0:
+            _gc_holds[1] = gc.isenabled()
+            gc.disable()
+        _gc_holds[0] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_holds[0] -= 1
+            if _gc_holds[0] == 0 and _gc_holds[1]:
+                gc.enable()
 
 
 def capturing() -> bool:
@@ -304,7 +334,7 @@ class UpdateGraphs:
         if self.pool is None and metric.device.type == "cuda":
             self.pool = torch.cuda.graph_pool_handle()
         t0 = time.perf_counter()
-        with _build.record_launches() as rec:
+        with _build.record_launches() as rec, collector_held():
             try:
                 replay = self.capture(body, self.pool)
             except Exception as err:  # noqa: BLE001 - any failure to capture means the eager update

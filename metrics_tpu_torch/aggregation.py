@@ -61,6 +61,11 @@ class BaseAggregator(Metric):
             self.jittable_update = False
 
     def _as_float(self, x: Union[float, Tensor]) -> Tensor:
+        if isinstance(x, (int, float)):
+            # a Python number is filled on the device: a copy from the host
+            # (`as_tensor`) is refused inside a CUDA-graph capture, and
+            # `MeanMetric.update`'s default weight would make every update eager
+            return torch.full((), float(x), dtype=torch.float32, device=self.device)
         return torch.as_tensor(x, device=self.device).to(torch.float32)
 
     def _cast_and_nan_check_input(self, x: Union[float, Tensor], weight: Union[float, Tensor, None] = None):

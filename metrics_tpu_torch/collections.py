@@ -165,6 +165,8 @@ class MetricCollection:
             head = self._modules[cg[0]]
             for name in cg[1:]:
                 for k in head._defaults:
+                    # graft-lint: disable=GL301 — compute-group aliasing of
+                    # ALREADY-declared states (collection infra, not a new leaf)
                     self._modules[name]._state[k] = head._state[k]
 
     def _sync_members(self, group: Optional[Any], names: Optional[List[str]] = None) -> Tuple[List[Metric], List[Dict[str, Any]]]:
@@ -434,6 +436,8 @@ class MetricCollection:
                         m0_state = m0._state[state]
                         if copy:
                             m0_state = _clone(m0_state)
+                        # graft-lint: disable=GL301 — compute-group aliasing of
+                        # ALREADY-declared states (collection infra, not a new leaf)
                         mi._state[state] = m0_state
                     mi._computed = None
         self._state_is_copy = copy

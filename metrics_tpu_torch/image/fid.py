@@ -54,8 +54,8 @@ def _init_feature_states(metric: Metric, feature: Union[int, Callable], capacity
         object.__setattr__(metric, "jittable_update", True)
         object.__setattr__(metric, "jittable_compute", True)
     else:
-        metric.add_state("real_features", default=[], dist_reduce_fx=None)
-        metric.add_state("fake_features", default=[], dist_reduce_fx=None)
+        metric.add_state("real_features", default=[], dist_reduce_fx=None, template=None)
+        metric.add_state("fake_features", default=[], dist_reduce_fx=None, template=None)
 
 
 def _extractor_of(feature: Union[int, Callable]) -> Optional[Callable]:
@@ -80,6 +80,8 @@ def _reset_keeping_real(metric: Metric, reset: Callable[[], None]) -> None:
         return
     real_features = metric._state["real_features"]
     reset()
+    # graft-lint: disable=GL301 — restoring a leaf add_state already
+    # declared (the reference's reset_real_features=False contract)
     metric._state["real_features"] = real_features
 
 

@@ -48,8 +48,8 @@ class PeakSignalNoiseRatio(Metric):
         else:
             # each row keeps the dimensions `dim` does not reduce: no fixed
             # row shape, so no template
-            self.add_state("sum_squared_error", default=[], dist_reduce_fx="cat")
-            self.add_state("total", default=[], dist_reduce_fx="cat")
+            self.add_state("sum_squared_error", default=[], dist_reduce_fx="cat", template=None)
+            self.add_state("total", default=[], dist_reduce_fx="cat", template=None)
         if data_range is None:
             if dim is not None:
                 raise ValueError("The `data_range` must be given when `dim` is not None.")

@@ -15,8 +15,8 @@ Tensor = torch.Tensor
 def _init_image_lists(metric: Metric) -> None:
     """The accumulate mode's states: every batch of images, in ``cat``
     lists (no fixed row shape, so no template)."""
-    metric.add_state("preds", default=[], dist_reduce_fx="cat")
-    metric.add_state("target", default=[], dist_reduce_fx="cat")
+    metric.add_state("preds", default=[], dist_reduce_fx="cat", template=None)
+    metric.add_state("target", default=[], dist_reduce_fx="cat", template=None)
 
 
 class StructuralSimilarityIndexMeasure(Metric):

@@ -328,6 +328,9 @@ class Metric:
             raise ValueError("`sync_transport` needs sync_mode='overlapped' (the blocking sync path is always exact)")
         self.sync_transport = sync_transport
         self._init_overlap()
+        object.__setattr__(
+            self, "_overlap_lock", named_lock("metric._overlap_lock", threading.RLock()) if self.__dict__.get("sync_mode") == "overlapped" else None
+        )
 
         self._update_count = 0
         self._update_called = False
@@ -343,17 +346,16 @@ class Metric:
             self.add_state("_faults", default=FaultCounters.zeros(), dist_reduce_fx="sum")
 
     def _init_overlap(self) -> None:
-        """The per-instance parts of the overlapped mode: no scheduler yet,
-        and one lock around every window in which ``_state`` changes or is
-        swapped, so a cycle never clones a half-made state."""
+        """The per-instance parts of the overlapped mode: no scheduler yet.
+        Its lock (``_overlap_lock``, around every window in which ``_state``
+        changes or is swapped, so a cycle never clones a half-made state) is
+        minted by each construction method itself, where the static lock
+        pass and GL403 see it."""
         object.__setattr__(self, "_sync_scheduler", None)
         object.__setattr__(self, "_sync_view_key", None)
         object.__setattr__(self, "_update_stream", None)
         object.__setattr__(self, "_side_stream", None)
         object.__setattr__(self, "_in_forward", False)
-        overlapped = self.__dict__.get("sync_mode") == "overlapped"
-        lock = named_lock("metric._overlap_lock", threading.RLock()) if overlapped else None
-        object.__setattr__(self, "_overlap_lock", lock)
 
     def _state_swap_guard(self):
         lock = self.__dict__.get("_overlap_lock")
@@ -1385,6 +1387,8 @@ class Metric:
         self.__dict__.setdefault("sync_on_compute", True)
         self.__dict__.setdefault("debug_checks", False)
         self._init_overlap()
+        overlapped = self.__dict__.get("sync_mode") == "overlapped"
+        object.__setattr__(self, "_overlap_lock", named_lock("metric._overlap_lock", threading.RLock()) if overlapped else None)
         self._wrap_methods()
 
     def __deepcopy__(self, memo: dict) -> "Metric":
@@ -1395,6 +1399,8 @@ class Metric:
             if k not in _PER_INSTANCE:
                 object.__setattr__(new, k, deepcopy(v, memo))
         new._init_overlap()
+        overlapped = new.__dict__.get("sync_mode") == "overlapped"
+        object.__setattr__(new, "_overlap_lock", named_lock("metric._overlap_lock", threading.RLock()) if overlapped else None)
         new._wrap_methods()
         return new
 

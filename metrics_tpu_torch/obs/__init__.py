@@ -14,10 +14,13 @@ drift detection.
 - ``obs/flightrec.py``: the degradation flight recorder.
 - ``obs/drift.py``: online drift detection against a frozen reference.
 
-The JAX package's ``obs/profile.py`` (compiled-graph cost rows per
-analysis-registry entry) is not ported yet: its entries come from the
-analysis registry (ROADMAP Queue 1, item 18), and no name of it is
-exported here.
+- ``obs/profile.py``: the step cost profiler — per analysis-registry entry,
+  flops (``FlopCounterMode``), bytes accessed and collective payload bytes
+  of one recorded step, joined with wall p50/p99 through a
+  ``LatencyHistogram`` per entry and per padding-ladder tier, and on CUDA
+  the card's time and K1-K3's launches (``python -m
+  metrics_tpu_torch.analysis profile`` writes
+  ``metrics_tpu_torch/analysis/COST_PROFILE.json``).
 """
 from metrics_tpu_torch.obs.trace import (
     TraceContext,
@@ -62,6 +65,14 @@ from metrics_tpu_torch.obs.flightrec import (
     load_flight_record,
     load_flight_records,
     reset_flightrec_state,
+)
+from metrics_tpu_torch.obs.profile import (
+    COST_PROFILE_FILENAME,
+    default_profile_path,
+    profile_entry,
+    profile_registry,
+    render_table,
+    write_profile,
 )
 from metrics_tpu_torch.obs.drift import (
     DRIFT_SCORES,
@@ -117,4 +128,10 @@ __all__ = [
     "TelemetryExporter",
     "prometheus_text",
     "json_text",
+    "COST_PROFILE_FILENAME",
+    "default_profile_path",
+    "profile_entry",
+    "profile_registry",
+    "render_table",
+    "write_profile",
 ]

@@ -54,8 +54,8 @@ class CosineSimilarity(Metric):
                 self.add_state("sims", default=CatBuffer.zeros(capacity, (), torch.float32), dist_reduce_fx="cat")
         else:
             # rows of a data-dependent width: no template
-            self.add_state("preds", default=[], dist_reduce_fx="cat")
-            self.add_state("target", default=[], dist_reduce_fx="cat")
+            self.add_state("preds", default=[], dist_reduce_fx="cat", template=None)
+            self.add_state("target", default=[], dist_reduce_fx="cat", template=None)
 
     def update(self, preds: Tensor, target: Tensor, valid: Optional[Tensor] = None) -> None:
         preds, target = _cosine_similarity_update(preds, target)

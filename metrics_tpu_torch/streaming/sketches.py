@@ -381,9 +381,13 @@ class CountMinState(NamedTuple):
 
 def _clz32(w: Tensor) -> Tensor:
     """Leading zeros of 32-bit values ``w >= 1`` (int64), exactly, from the
-    float64 exponent: ``w = m * 2**e`` with ``m`` in ``[0.5, 1)``."""
-    _, e = torch.frexp(w.to(torch.float64))
-    return 32 - e.to(torch.int64)
+    float32 exponent (``w = m * 2**e`` with ``m`` in ``[0.5, 1)``), less one
+    where the rounding to float32 carried ``w`` up to the next power of two;
+    no float64 op."""
+    _, e = torch.frexp(w.to(torch.float32))
+    e = e.to(torch.int64)
+    e = e - ((torch.ones_like(w) << (e - 1)) > w).to(torch.int64)
+    return 32 - e
 
 
 class HllState(NamedTuple):

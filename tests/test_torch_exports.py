@@ -32,13 +32,8 @@ PACKAGES = [
 ]
 
 # names the JAX package exports from modules the port has not reached yet
-# (ROADMAP Queue 1): the lint pass, its baseline and rules (item 18)
-NOT_YET_PORTED = {
-    ".analysis": {
-        "ALL_RULES", "Finding", "apply_baseline", "default_baseline_path", "lint_package", "lint_paths",
-        "lint_source", "load_baseline", "rule_catalog", "save_baseline",
-    },
-}
+# (ROADMAP Queue 1): none since the analysis tier (item 18)
+NOT_YET_PORTED = {}
 
 
 def _exports(module: types.ModuleType) -> set:
@@ -73,15 +68,17 @@ def test_package_exports_mirror_jax(pkg):
     assert missing == allowed, f"metrics_tpu_torch{pkg} lacks {sorted(missing - allowed)}; stale allow-list: {sorted(allowed - missing)}"
 
 
-@pytest.mark.parametrize("pkg", sorted(NOT_YET_PORTED))
-def test_allow_list_names_only_unported_modules(pkg):
-    """Every allowed gap comes from a JAX module with no counterpart in the
-    port."""
-    jmod = importlib.import_module("metrics_tpu" + pkg)
-    for name in NOT_YET_PORTED[pkg]:
-        obj = getattr(jmod, name)
-        origin = obj.__name__ if isinstance(obj, types.ModuleType) else _defining_module(jmod, name, obj)
-        assert not _ported(origin), f"{name} comes from {origin}, which is ported"
+def test_allow_list_names_only_unported_modules():
+    """Every module of the JAX package is ported (or unported by design),
+    so the allow-list is empty; should a gap return, each allowed name must
+    come from a JAX module with no counterpart in the port."""
+    assert NOT_YET_PORTED == {}
+    for pkg, names in NOT_YET_PORTED.items():
+        jmod = importlib.import_module("metrics_tpu" + pkg)
+        for name in names:
+            obj = getattr(jmod, name)
+            origin = obj.__name__ if isinstance(obj, types.ModuleType) else _defining_module(jmod, name, obj)
+            assert not _ported(origin), f"{name} comes from {origin}, which is ported"
 
 
 def _defining_module(jmod: types.ModuleType, name: str, obj: object) -> str:

@@ -12,10 +12,11 @@ The witnessed run: two Gloo processes started with
 ``METRICS_TPU_LOCKCHECK=1`` (``tests/helpers/torch_lockwitness_ranks.py``)
 serve a stream with tracing, drift, snapshots, a flight recorder and a
 fleet publish, then read an overlapped-sync collection. It ends with no
-finding, and every order edge it observes between two locks that the JAX
-package's ``metrics_tpu/analysis/LOCK_ORDER.md`` names rises in rank (and
-between the port's own locks, in the ranks ROADMAP D64 gives them). Threads
-and processes are joined with timeouts.
+finding, and every order edge it observes rises in the ranks of the port's
+``metrics_tpu_torch/analysis/LOCK_ORDER.md``, which keeps the JAX
+package's ranks (``metrics_tpu/analysis/LOCK_ORDER.md``) for every shared
+lock and gives the port's own the ranks of ROADMAP D64. Threads and
+processes are joined with timeouts.
 """
 import json
 import multiprocessing as mp
@@ -246,55 +247,78 @@ class TestFindingsLifecycle:
 
 # -- the witnessed run ---------------------------------------------------------
 
-# the witness's names of the locks that the JAX package's LOCK_ORDER.md ranks
-LOCK_ORDER_IDS = {
-    "metric._overlap_lock": "metrics_tpu/metric.py:Metric._overlap_lock",
-    "aggregator._publish_lock": "metrics_tpu/fleet/aggregator.py:Aggregator._publish_lock",
-    "publisher._snapshot_lock": "metrics_tpu/fleet/publisher.py:FleetPublisher._snapshot_lock",
-    "drift._check_lock": "metrics_tpu/obs/drift.py:DriftMonitor._check_lock",
-    "aggregator._lock": "metrics_tpu/fleet/aggregator.py:Aggregator._lock",
-    "publisher._lock": "metrics_tpu/fleet/publisher.py:FleetPublisher._lock",
-    "drift._lock": "metrics_tpu/obs/drift.py:DriftMonitor._lock",
-    "async_sync._cv": "metrics_tpu/parallel/async_sync.py:AsyncSyncScheduler._cv",
-    "async_sync._lock": "metrics_tpu/parallel/async_sync.py:AsyncSyncScheduler._lock",
-    "loop._stats_lock": "metrics_tpu/serving/loop.py:ServeLoop._stats_lock",
-    "gather_sequence_lock": "metrics_tpu/parallel/sync.py:gather_sequence_lock",
-    "flightrec.FlightRecorder._lock": "metrics_tpu/obs/flightrec.py:FlightRecorder._lock",
-    "flightrec._sources_lock": "metrics_tpu/obs/flightrec.py:_sources_lock",
-    "flightrec._state_lock": "metrics_tpu/obs/flightrec.py:_state_lock",
-    "runtime_metrics.RuntimeMetrics._lock": "metrics_tpu/obs/runtime_metrics.py:RuntimeMetrics._lock",
-    "trace._append_lock": "metrics_tpu/obs/trace.py:_append_lock",
-    "trace._ring_lock": "metrics_tpu/obs/trace.py:_ring_lock",
-    "health.HealthRegistry._lock": "metrics_tpu/resilience/health.py:HealthRegistry._lock",
-    "runtime_metrics.Counter._lock": "metrics_tpu/obs/runtime_metrics.py:Counter._lock",
-    "runtime_metrics.Gauge._lock": "metrics_tpu/obs/runtime_metrics.py:Gauge._lock",
-    "runtime_metrics.LatencyHistogram._lock": "metrics_tpu/obs/runtime_metrics.py:LatencyHistogram._lock",
+# the witness's names of the port's locks, by their ids in the port's
+# manifest (metrics_tpu_torch/analysis/LOCK_ORDER.md), which ranks them
+WITNESS_IDS = {
+    "loop.ServeLoop._replica_locks": "metrics_tpu_torch/serving/loop.py:ServeLoop._replica_locks",
+    "metric._overlap_lock": "metrics_tpu_torch/metric.py:Metric._overlap_lock",
+    "aggregator._publish_lock": "metrics_tpu_torch/fleet/aggregator.py:Aggregator._publish_lock",
+    "publisher._snapshot_lock": "metrics_tpu_torch/fleet/publisher.py:FleetPublisher._snapshot_lock",
+    "drift._check_lock": "metrics_tpu_torch/obs/drift.py:DriftMonitor._check_lock",
+    "aggregator._lock": "metrics_tpu_torch/fleet/aggregator.py:Aggregator._lock",
+    "publisher._lock": "metrics_tpu_torch/fleet/publisher.py:FleetPublisher._lock",
+    "drift._lock": "metrics_tpu_torch/obs/drift.py:DriftMonitor._lock",
+    "async_sync._cv": "metrics_tpu_torch/parallel/async_sync.py:AsyncSyncScheduler._cv",
+    "async_sync._lock": "metrics_tpu_torch/parallel/async_sync.py:AsyncSyncScheduler._lock",
+    "loop._stats_lock": "metrics_tpu_torch/serving/loop.py:ServeLoop._stats_lock",
+    "loop.ServeLoop._snapshot_step_lock": "metrics_tpu_torch/serving/loop.py:ServeLoop._snapshot_step_lock",
+    "gather_sequence_lock": "metrics_tpu_torch/parallel/sync.py:gather_sequence_lock",
+    "flightrec.FlightRecorder._lock": "metrics_tpu_torch/obs/flightrec.py:FlightRecorder._lock",
+    "flightrec._sources_lock": "metrics_tpu_torch/obs/flightrec.py:_sources_lock",
+    "flightrec._state_lock": "metrics_tpu_torch/obs/flightrec.py:_state_lock",
+    "runtime_metrics.RuntimeMetrics._lock": "metrics_tpu_torch/obs/runtime_metrics.py:RuntimeMetrics._lock",
+    "trace._append_lock": "metrics_tpu_torch/obs/trace.py:_append_lock",
+    "trace._ring_lock": "metrics_tpu_torch/obs/trace.py:_ring_lock",
+    "health.HealthRegistry._lock": "metrics_tpu_torch/resilience/health.py:HealthRegistry._lock",
+    "runtime_metrics.Counter._lock": "metrics_tpu_torch/obs/runtime_metrics.py:Counter._lock",
+    "runtime_metrics.Gauge._lock": "metrics_tpu_torch/obs/runtime_metrics.py:Gauge._lock",
+    "runtime_metrics.LatencyHistogram._lock": "metrics_tpu_torch/obs/runtime_metrics.py:LatencyHistogram._lock",
+    "_build._lock": "metrics_tpu_torch/ops/_build.py:_lock",
+    "_build._count_lock": "metrics_tpu_torch/ops/_build.py:_count_lock",
+    "compute._FLOAT32_LOCK": "metrics_tpu_torch/utilities/compute.py:_FLOAT32_LOCK",
+    "_capture._gc_lock": "metrics_tpu_torch/_capture.py:_gc_lock",
 }
 
-# the ranks of the port's own locks in that hierarchy (ROADMAP D64)
+# the port's own locks and their ranks (ROADMAP D64, F16): every other lock
+# keeps the JAX package's rank
 PORT_RANKS = {
     "loop.ServeLoop._replica_locks": 5,
     "loop.ServeLoop._snapshot_step_lock": 35,
     "_build._lock": 70,
     "_build._count_lock": 80,
     "compute._FLOAT32_LOCK": 80,
+    "_capture._gc_lock": 80,
 }
 
 
+def _manifest_ranks(path):
+    from metrics_tpu_torch.analysis.concurrency import parse_manifest
+
+    return parse_manifest(path.read_text())[0]
+
+
 def lock_order_ranks():
-    """``{witness name: rank}`` from LOCK_ORDER.md, plus the port's own."""
-    text = (ROOT / "metrics_tpu" / "analysis" / "LOCK_ORDER.md").read_text()
-    by_id = {m.group(2): int(m.group(1)) for m in re.finditer(r"^- rank (\d+): (\S+)$", text, re.M)}
-    ranks = {name: by_id[lock_id] for name, lock_id in LOCK_ORDER_IDS.items()}
-    return {**ranks, **PORT_RANKS}
+    """``{witness name: rank}`` from the port's LOCK_ORDER.md."""
+    by_id = _manifest_ranks(ROOT / "metrics_tpu_torch" / "analysis" / "LOCK_ORDER.md")
+    return {name: by_id[lock_id] for name, lock_id in WITNESS_IDS.items()}
 
 
 def test_every_named_lock_of_lock_order_has_a_name_here():
-    """The map above covers every lock the manifest ranks but the witness's
-    own table lock, which is never witnessed."""
-    text = (ROOT / "metrics_tpu" / "analysis" / "LOCK_ORDER.md").read_text()
-    ids = set(re.findall(r"^- rank \d+: (\S+)$", text, re.M))
-    assert ids - set(LOCK_ORDER_IDS.values()) == {"metrics_tpu/analysis/lockwitness.py:_meta_lock"}
+    """The map above covers every lock the port's manifest ranks but the
+    witness's own table lock, which is never witnessed."""
+    ids = set(_manifest_ranks(ROOT / "metrics_tpu_torch" / "analysis" / "LOCK_ORDER.md"))
+    assert ids - set(WITNESS_IDS.values()) == {"metrics_tpu_torch/analysis/lockwitness.py:_meta_lock"}
+
+
+def test_port_ranks_keep_jax_ranks_and_d64():
+    """Every lock the JAX package's manifest ranks keeps its rank in the
+    port's; the port's own locks take D64's ranks."""
+    port = _manifest_ranks(ROOT / "metrics_tpu_torch" / "analysis" / "LOCK_ORDER.md")
+    jax_ranks = _manifest_ranks(ROOT / "metrics_tpu" / "analysis" / "LOCK_ORDER.md")
+    shared = {lock_id: rank for lock_id, rank in port.items() if lock_id.replace("metrics_tpu_torch/", "metrics_tpu/", 1) in jax_ranks}
+    assert {k.replace("metrics_tpu_torch/", "metrics_tpu/", 1): v for k, v in shared.items()} == jax_ranks
+    own = {name: port[lock_id] for name, lock_id in WITNESS_IDS.items() if lock_id not in shared}
+    assert own == PORT_RANKS
 
 
 @pytest.fixture(scope="module")
