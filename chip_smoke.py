@@ -148,9 +148,8 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    equal to the unsliced metrics on the in-range rows, the quarantined,
    discarded and padded rows and the faults as injected, K1 once per
    batch, the BAP against the fused evaluation's CPU run of the same epoch
-   (within ``AP_ATOL``), a sliced Binned metric and a sliced confusion
-   matrix refused on the card where K1 and K2 would launch, and the update
-   at K = 256 beside K = 1;
+   (within ``AP_ATOL``), and the update at K = 256 beside K = 1 (the
+   kernel-backed members sliced on the card: phase 40);
 22. in the world of phase 8: the MS MARCO rows in 4096-row chunks dealt
    round-robin through MRR, MAP and nDCG@10 in both modes (the gathers
    counted, equal to one process over the union), the sliced collection's
@@ -342,13 +341,38 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    cost profile over the registry on the card (one ``analysis_profile`` line
    of rows: flops, bytes, collective bytes, wall p50/p99, the card's time,
    K1-K3 a step; the document in ``chiprun_out/analysis_profile.json``).
+40. batched kernels path (after 21): the kernels' lane-batched forms, which
+   a ``torch.func.vmap``-batched call reaches through each kernel's lane
+   route. The sliced path's epoch (clean scores, 256 cohorts, two
+   out-of-range ids a batch, padded) through
+   ``SlicedMetric(BinnedAveragePrecision(num_classes=1000, thresholds=100))``
+   (K1's one-row form, a lane per row) and ``SlicedMetric(ConfusionMatrix(
+   num_classes=1000))`` (K2 over 1024 lanes of 10^6 bins): one lane-batched
+   launch and no unbatched one per update, eight slices equal to demuxed
+   instances, the rollup equal to the unsliced metric on the in-range rows
+   (bit for bit), the quarantined and discarded rows as injected, the rings
+   equal to the port's CPU run on a cut (BAP after its first 2 batches, the
+   confusion matrix over the first 64 rows); ``CohenKappa``,
+   ``MatthewsCorrCoef`` and ``JaccardIndex`` sliced at 10 classes over 4
+   batches, captured, equal to an eager twin after every update and to the
+   CPU run; ``bootstrap_functionalize(BinnedAveragePrecision(1000, 100),
+   20)`` over the first 8 batches (K1's histogram form, 20 lanes of 1024
+   rows) and ``bootstrap_functionalize(QuantileSketch(eps=0.01), 8)`` over
+   4 lognormal batches of 2^20 rows (K3's lane-batched cascade at the stream
+   path's (20, 6600)), every replica bit-equal to its own unbatched updates
+   on the same indices; each lane-batched kernel bit-equal to its plain
+   version on the card; their times (CUDA events and the profiler's device
+   time) beside their bounds, the plain versions' and, for K2,
+   ``torch.bincount`` over the lane-offset ids; the sliced update p50 beside
+   the unsliced metric's, peak memory and the phase's seconds.
 
 The ``budget`` line sums the seconds that phases 31-34 add (a rank's save:
 the slowest of the four), against their 30 s, those of phases 35-36
 (the detection ranks' share of the fused world: the slowest of the four)
 against theirs, those of phases 37-38 against their 45 s, and those of
-phase 39 against its 30 s; every phase line carries ``t_s``, its seconds
-since the script started.
+phase 39 against its 30 s, and those of phase 40 against its 60 s; every
+phase line carries ``t_s``, its seconds since the script started. The
+kernels line lists K1-K3 and then their lane-batched forms.
 
 Every CUDA metric of the earlier phases captures its update as well (the
 port's default on the card); their checks against the CPU runs hold the
@@ -362,6 +386,7 @@ outside a checkout of the repository, the script prints no result and exits 1.
 """
 import contextlib
 import ctypes
+import gc
 import hashlib
 import json
 import math
@@ -524,6 +549,16 @@ SLICES = 256
 SLICE_SAMPLES = 8  # slices held against demuxed instances
 # the compiled update and serving: the JAX bench's serving ladder and its
 # ragged request sizes (a tier drawn uniformly, then a size within it)
+BATCHED_BAP_CPU_BATCHES = 2  # the sliced BAP's rings held against the CPU run after its first 2 batches (cut from 49)
+BATCHED_CM_CPU_ROWS = 64  # the sliced confusion matrix held against the CPU run over the first 64 rows (cut from 50,000)
+BATCHED_SMALL_CLASSES = 10  # the confusion family sliced at 10 classes, captured, against its eager twin and the CPU run
+BATCHED_SMALL_BATCHES = 4  # eager, captured, then two replays
+BATCHED_BAP_BOOTSTRAPS = 20
+BATCHED_BAP_BOOT_BATCHES = 8  # the first 8 batches of the epoch
+BATCHED_SKETCH_BOOTSTRAPS = 8
+BATCHED_SKETCH_BATCHES = 4  # 2^20-row lognormal batches
+BATCHED_SKETCH_SHAPE = (20, 6600)  # QuantileSketch(eps=0.01): the stream path's sketch
+K2_SPLIT_CASE = (1025, 2, 1 << 21)  # lanes, ids a lane, bins: 2^31 + 2^21 bins, two launches (8.6 GB of counts)
 SERVE_LADDER = (64, 256, 1024)
 SERVE_SPANS = {64: (1, 64), 256: (65, 256), 1024: (257, 1024)}
 SERVE_WORKERS = 4
@@ -664,6 +699,8 @@ WITNESS_REQUESTS = 24
 WITNESS_CLASSES = 1000
 ANALYSIS_PHASES_LIMIT_S = 30  # what analysis_path may add
 ANALYSIS_PHASE_S = {}  # its seconds of command
+BATCHED_PHASES_LIMIT_S = 60  # what batched_kernels_path may add
+BATCHED_PHASE_S = {}  # its seconds of command
 ANALYSIS_MESH = 4  # the mirrored world the registry's syncs run in (JAX's 4-device mesh)
 ANALYSIS_PROFILE_REPS = 20  # wall samples a profiled entry (JAX's default)
 
@@ -4869,20 +4906,6 @@ def phase_sliced(dev):
     bap_err = max(abs(a - b) for a, b in zip(got_bap, want_bap))
     if bap_err > AP_ATOL:
         raise AssertionError(f"sliced_path: bap differs from the CPU run by {bap_err} (atol {AP_ATOL})")
-    # a kernel-backed member cannot be sliced on the card (ROADMAP D32): the
-    # kernel's wrapper refuses the per-row deltas where it would launch
-    for kernel, child in (("K1", mtt.BinnedAveragePrecision(thresholds=THRESHOLDS, num_classes=CLASSES, device=dev)),
-                          ("K2", mtt.ConfusionMatrix(num_classes=CLASSES, device=dev))):
-        try:
-            mtt.SlicedMetric(child, num_slices=SLICES).update(preds[:8], target[:8], slice_ids=ids[:8])
-        except ValueError as err:
-            if "sliced K1/K2" not in str(err) or not str(err).startswith(kernel):
-                raise
-        else:
-            raise AssertionError(f"sliced_path: a sliced {type(child).__name__} updated on the card")
-    if (k1.launch_count, k2.launch_count) != (batches, 0):
-        raise AssertionError(f"sliced_path: the refused updates launched ({k1.launch_count}, {k2.launch_count})")
-
     # the rings against the port's CPU run (integer rings: bit-equal)
     t_cpu = time.perf_counter()
     cpu = build_sliced_eval(mtt, "cpu", SLICES, bap=False)
@@ -4945,7 +4968,6 @@ def phase_sliced(dev):
         "rollup": rollup,
         "bap_mean": sum(got_bap) / len(got_bap),
         "bap_max_abs_err_vs_cpu": bap_err,
-        "kernel_backed_members_refused": ["K1", "K2"],
         "sampled_slices": sampled,
         "scrape_slices": scrape,
         "cpu_reference_s": cpu_s,
@@ -4953,6 +4975,553 @@ def phase_sliced(dev):
         "rings_equal_cpu_run": True,
     })
     return launches["binned_counters"]
+
+
+def _value_tensors(value, prefix="v"):
+    """A computed value (tensors in NamedTuples, lists, tuples and dicts) as
+    ``{path: tensor}``."""
+    import torch
+
+    if isinstance(value, torch.Tensor):
+        return {prefix: value}
+    if hasattr(value, "_fields"):
+        items = zip(value._fields, value)
+    elif isinstance(value, dict):
+        items = sorted(value.items())
+    elif isinstance(value, (list, tuple)):
+        items = enumerate(value)
+    else:
+        return {prefix: torch.as_tensor(value)}
+    out = {}
+    for k, v in items:
+        out.update(_value_tensors(v, f"{prefix}.{k}"))
+    return out
+
+
+def _values_bit_equal(a, b):
+    import torch
+
+    ta, tb = _value_tensors(a), _value_tensors(b)
+    return ta.keys() == tb.keys() and all(
+        x.dtype == tb[k].dtype and x.shape == tb[k].shape and torch.equal(x.cpu(), tb[k].cpu()) for k, x in ta.items())
+
+
+def _rings(m):
+    """A sliced metric's rings (``sl__*``), as tensors on the card."""
+    return {k: v for k, v in m.metric_state.items() if k.startswith("sl__")}
+
+
+def _lanes_entry(name, source, replaces, shape, fns, kernel_name, nbytes, ops, launches, max_abs_err, library=None):
+    """A lane-batched kernel's entry of the kernels line: the wrapper, the
+    kernel alone and the plain version timed with CUDA events in turns, the
+    kernel's own time from the profiler, and the bound of the same work."""
+    order = ["plain", "wrapper", "kernel"] + (["library"] if library else [])
+    order = order + order[::-1]
+    fns = dict(fns, **({"library": library} if library else {}))
+    times = {}
+    for key in order:
+        times.setdefault(key, []).append(cuda_time_ms(fns[key], iters=20, warmup=3))
+    ms = {key: statistics.mean(v) for key, v in times.items()}
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "replaces_fn": f"{replaces} under pallas_call's batching rule (jax.vmap)",
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max_abs_err,
+        "ms": ms["wrapper"],
+        "kernel_ms": ms["kernel"],
+        "kernel_device_ms": device_ms_per_launch(fns["kernel"], kernel_name, iters=20),
+        "plain_ms": ms["plain"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": ms.get("library"),
+        "shape": shape,
+        "bytes": nbytes,
+    }
+
+
+def batched_parity(dev):
+    """Each lane-batched form against its plain version on the card, bit for
+    bit, at its edges: K1's one-row kernel with NaN, infinite and denormal
+    scores and repeated, NaN and denormal thresholds, and with thresholds
+    too many for shared memory; its histogram form over lanes of many rows;
+    K2 with its bins in shared memory and in device memory, a misaligned
+    data pointer, and a call of more than 2^31 bins, split into two
+    launches; K3's cascade in insert and merge mode at the stream's shape,
+    with an unbatched sketch expanded over the lanes, and at a k whose
+    buffers run out of device memory. Returns the largest difference."""
+    import torch
+
+    from metrics_tpu_torch.ops import binned_counters as k1
+    from metrics_tpu_torch.ops import compactor as k3
+    from metrics_tpu_torch.ops import histogram as k2
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 92)
+    rows, max_err = [], 0.0
+
+    def check(kernel, case, got, want, **info):
+        nonlocal max_err
+        torch.cuda.synchronize()
+        equal = all(x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(got, want))
+        # the difference only where they differ: a float64 copy of 8.6 GB of counts would not fit beside them
+        err = 0.0 if equal else max(float(torch.nan_to_num((x.double() - y.double()).abs(), nan=0.0).max())
+                                    if x.numel() and x.shape == y.shape else float("inf") for x, y in zip(got, want))
+        max_err = max(max_err, err)
+        rows.append({"kernel": kernel, "case": case, "bit_equal": equal, **info})
+        if not equal:
+            emit({"phase": "parity", "kernel": "lane_batched", "cases": rows})
+            raise AssertionError(f"the lane-batched {kernel} differs from its plain version in case {case!r}")
+
+    def k1_case(case, lanes, n, c, t, special=False):
+        p = torch.rand((lanes, n, c), generator=g, device=dev)
+        y = torch.rand((lanes, n, c), generator=g, device=dev) < 0.4
+        thr = torch.rand((t,), generator=g, device=dev)
+        thr[1] = thr[0]
+        if special:
+            p[..., 0], p[..., 1], p[..., 2] = float("nan"), 1e-40, -1e-40
+            p[..., 3], p[..., 4] = float("inf"), float("-inf")
+            thr[2], thr[3], thr[4] = float("nan"), 1e-40, 0.0
+        check("binned_counters", case, k1.binned_counter_update_lanes(p, y, thr), k1.binned_counter_update_lanes_plain(p, y, thr),
+              lanes=lanes, rows=n, classes=c, thresholds=t)
+
+    k1_case("one_row_special", 33, 1, 7, 9, special=True)
+    k1_case("one_row_main_shape_cut", 64, 1, CLASSES, THRESHOLDS)
+    k1_case("one_row_thresholds_in_device_memory", 8, 1, 5, 7000)
+    k1_case("histogram_lanes_special", 5, 77, 6, 9, special=True)
+    k1_case("histogram_lanes", 20, 300, 37, THRESHOLDS)
+
+    def k2_case(case, lanes, n, nb, offset=0):
+        base = torch.randint(-3, nb + 3, (lanes * n + offset,), generator=g, device=dev, dtype=torch.int32)
+        ids = base[offset:].view(lanes, n)
+        before = k2.lanes_launch_count
+        got = k2.histogram_lanes(ids, nb)
+        launches = k2.lanes_launch_count - before
+        want = k2.histogram_lanes_plain(ids, nb)
+        check("histogram", case, (got,), (want,), lanes=lanes, ids_per_lane=n, num_buckets=nb,
+              offset_bytes=4 * offset, launches=launches)
+        return launches
+
+    k2_case("shared_bins", 16, 100, 1000)
+    k2_case("shared_bins_misaligned", 7, 33, 50, offset=1)
+    k2_case("device_bins", 4, 5000, 100_000)
+    if k2_case("split_above_2^31_bins", *K2_SPLIT_CASE) != 2:
+        raise AssertionError("a lane-batched K2 call of more than 2^31 bins did not take two launches")
+    torch.cuda.empty_cache()
+
+    def sketches(lanes, levels, k, start):
+        fill = lambda: torch.randint(0, k + 1, (levels,), generator=g, device=dev).tolist()  # noqa: E731
+        items, counts = zip(*(_levels(levels, k, fill(), g, dev) for _ in range(lanes)))
+        return torch.stack(items), torch.stack(counts)
+
+    for case, lanes, (L, k), m, start in (("stream_shape", 4, BATCHED_SKETCH_SHAPE, 4096, 8), ("small", 3, (6, 64), 64, 0),
+                                          ("device_memory_buffers", 2, (4, 66_000), 66_000, 1)):
+        items, counts = sketches(lanes, L, k, start)
+        inc = torch.stack([_level_run(m, int(torch.randint(0, m + 1, (1,), generator=g, device=dev)), g, dev) for _ in range(lanes)])
+        inc_count = (inc < float("inf")).sum(dim=1).to(torch.int32)
+        check("compactor_cascade", f"insert_{case}", k3.fold_cascade_lanes(items, counts, inc, inc_count, start),
+              k3.fold_cascade_lanes_plain(items, counts, inc, inc_count, start), lanes=lanes, levels=L, k=k, m=m)
+        other, other_counts = sketches(lanes, L, k, 0)
+        check("compactor_cascade", f"merge_{case}", k3.merge_cascade_lanes(items, counts, other, other_counts),
+              k3.merge_cascade_lanes_plain(items, counts, other, other_counts), lanes=lanes, levels=L, k=k)
+    # an unbatched sketch under a vmap over the runs: expanded over the lanes
+    got = torch.func.vmap(lambda x, c: k3.fold_cascade(items[0], counts[0], x, c, 1))(inc, inc_count)
+    want = [k3.fold_cascade_plain(items[0], counts[0], inc[i], inc_count[i], 1) for i in range(inc.shape[0])]
+    check("compactor_cascade", "shared_sketch_under_vmap", got, tuple(torch.stack(w) for w in zip(*want)), lanes=inc.shape[0])
+    emit({"phase": "parity", "kernel": "lane_batched", "cases": rows, "max_abs_err": max_err})
+    return max_err
+
+def phase_batched_kernels(dev):
+    """The kernels' lane-batched forms on their paths (``batched_kernels_path``):
+    a sliced ``BinnedAveragePrecision`` (K1) and ``ConfusionMatrix`` (K2) at
+    the sliced path's shape, the confusion family sliced at 10 classes, and
+    bootstraps of ``BinnedAveragePrecision`` (K1) and ``QuantileSketch``
+    (K3). Returns the three entries of the kernels line."""
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import binned_counters as k1
+    from metrics_tpu_torch.ops import compactor as k3
+    from metrics_tpu_torch.ops import histogram as k2
+    from metrics_tpu_torch.pure import _replica
+    from metrics_tpu_torch.utilities.data import jax_linspace, to_onehot
+
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    preds, target = make_data(dev)
+    ids_np = make_slice_ids(ROWS, BATCH, SLICES)
+    ids = torch.from_numpy(ids_np).to(dev)
+    batches = -(-ROWS // BATCH)
+    pad_rows = batches * BATCH - ROWS
+    quarantined = 2 * batches
+    nb = CLASSES * CLASSES
+    thr = jax_linspace(0, 1.0, THRESHOLDS, device=dev)
+    order = k1.threshold_order(thr)
+    bap_kw = dict(num_classes=CLASSES, thresholds=THRESHOLDS, device=dev)
+    edge_err = batched_parity(dev)
+    peak_parity = torch.cuda.max_memory_allocated()  # the 2^31-bin case: its counts and its plain version's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def sliced(metric, k=SLICES):
+        return mtt.SlicedMetric(metric, num_slices=k, pad_batches=True)
+
+    # each lane-batched kernel against its plain version on the card, on the
+    # first batch as the sliced updates give it to them (a lane per row)
+    p0, y0 = preds[:BATCH], target[:BATCH]
+    rows_p, rows_t = p0[:, None, :].contiguous(), (to_onehot(y0, CLASSES) == 1)[:, None, :].contiguous()
+    got = k1.binned_counter_update_lanes(rows_p, rows_t, thr, order)
+    want = k1.binned_counter_update_lanes_plain(rows_p, rows_t, thr)
+    k1_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"batched_kernels_path: K1's one-row form differs from its plain version ({k1_err})")
+    cm_ids = (y0 * CLASSES + p0.argmax(dim=1)).to(torch.int32)[:, None].contiguous()
+    got = k2.histogram_lanes(cm_ids, nb)
+    want = k2.histogram_lanes_plain(cm_ids, nb)
+    k2_err = 0.0 if torch.equal(got, want) else float((got - want).abs().max())
+    if k2_err:
+        raise AssertionError(f"batched_kernels_path: K2's lane-batched form differs from its plain version ({k2_err})")
+    del got, want
+
+    # ---- sliced, at the sliced path's shape --------------------------------
+    def run_sliced_member(m, module, cpu_cut=None):
+        module.reset_launch_count()
+        update_s, snap = [], None
+        for b, start in enumerate(range(0, ROWS, BATCH)):
+            sl = slice(start, start + BATCH)
+            t0 = time.perf_counter()
+            m.update(preds[sl], target[sl], slice_ids=ids[sl])
+            torch.cuda.synchronize()
+            update_s.append(time.perf_counter() - t0)
+            if cpu_cut is not None and b + 1 == cpu_cut:
+                snap = {k: v.cpu() for k, v in _rings(m).items()}
+        launches = {"unbatched": module.launch_count, "lanes": module.lanes_launch_count}
+        if launches != {"unbatched": 0, "lanes": batches}:
+            raise AssertionError(f"batched_kernels_path: sliced {type(m.wrapped).__name__} launched {launches} over {batches} updates")
+        return update_s, launches, snap
+
+    members = {
+        "bap": (sliced(mtt.BinnedAveragePrecision(**bap_kw)), k1, lambda d: mtt.BinnedAveragePrecision(**bap_kw)),
+        "cm": (sliced(mtt.ConfusionMatrix(num_classes=CLASSES, device=dev)), k2,
+               lambda d: mtt.ConfusionMatrix(num_classes=CLASSES, device=d)),
+    }
+    sampled = [int(k) for k in np.random.default_rng(SEED + 81).choice(SLICES, SLICE_SAMPLES, replace=False)]
+    in_range = torch.from_numpy(np.nonzero((ids_np >= 0) & (ids_np < SLICES))[0]).to(dev)
+    report, cpu_cuts = {}, {}
+    for name, (m, module, make) in members.items():
+        update_s, launches, snap = run_sliced_member(m, module, cpu_cut=BATCHED_BAP_CPU_BATCHES if name == "bap" else None)
+        if m.quarantined_rows != quarantined or m.discarded_rows != pad_rows:
+            raise AssertionError(f"batched_kernels_path: sliced {name} quarantined {m.quarantined_rows} (injected "
+                                 f"{quarantined}), discarded {m.discarded_rows} (pad rows {pad_rows})")
+        rings = _rings(m)
+        # eight sampled slices against demuxed unsliced instances on their own rows, exactly
+        for k in sampled:
+            rows = torch.from_numpy(np.nonzero(ids_np == k)[0]).to(dev)
+            demux = make(dev)
+            demux.update(preds[rows], target[rows])
+            for state, v in demux.metric_state.items():
+                if not torch.equal(rings[f"sl__{state}"][k], getattr(v, "counts", v)):
+                    raise AssertionError(f"batched_kernels_path: slice {k} of sliced {name}.{state} differs from a demuxed instance's")
+        # the rollup against the unsliced metric on the in-range rows
+        whole = make(dev)
+        for start in range(0, in_range.shape[0], BATCH):
+            rows = in_range[start:start + BATCH]
+            whole.update(preds[rows], target[rows])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            value = m.compute()
+            want_rollup = whole.compute()
+        if not _values_bit_equal(value.global_value, want_rollup):
+            raise AssertionError(f"batched_kernels_path: the rollup of sliced {name} differs from the unsliced metric on the in-range rows")
+        # the unsliced metric's update over the same batches, for the update's cost of slicing
+        plain = make(dev)
+        unsliced_s = []
+        for start in range(0, ROWS, BATCH):
+            t0 = time.perf_counter()
+            plain.update(preds[start:start + BATCH], target[start:start + BATCH])
+            torch.cuda.synchronize()
+            unsliced_s.append(time.perf_counter() - t0)
+        report[name] = {
+            "launches": launches,
+            "update_p50_ms_k256": statistics.median(update_s) * 1e3,
+            "update_p50_ms_unsliced": statistics.median(unsliced_s) * 1e3,
+            "ring_bytes": sum(t.numel() * t.element_size() for t in rings.values()),
+            "graphs": graph_stats({name: m})[name],
+            "quarantined_rows": m.quarantined_rows, "discarded_rows": m.discarded_rows,
+        }
+        if name == "bap":
+            cpu_cuts[name] = snap
+        del whole, plain, value, want_rollup, rings
+        members[name] = (None, module, make)
+        del m
+        gc.collect()  # the metric's cycles hold its graph's pool
+        torch.cuda.empty_cache()
+    report["peak_mem_bytes_sliced"] = torch.cuda.max_memory_allocated()
+
+    # the CPU run on a cut: BAP over the first batches, the confusion matrix over the first rows
+    t_cpu = time.perf_counter()
+    cpu_bap = sliced(mtt.BinnedAveragePrecision(num_classes=CLASSES, thresholds=THRESHOLDS, device="cpu"))
+    for start in range(0, BATCHED_BAP_CPU_BATCHES * BATCH, BATCH):
+        sl = slice(start, start + BATCH)
+        cpu_bap.update(preds[sl].cpu(), target[sl].cpu(), slice_ids=ids[sl].cpu())
+    if not all(torch.equal(cpu_cuts["bap"][k], v) for k, v in _rings(cpu_bap).items()):
+        raise AssertionError(f"batched_kernels_path: the sliced BAP's rings after {BATCHED_BAP_CPU_BATCHES} batches differ from the CPU run")
+    del cpu_bap, cpu_cuts
+    n_cm = BATCHED_CM_CPU_ROWS
+    card_cm = sliced(mtt.ConfusionMatrix(num_classes=CLASSES, device=dev))
+    card_cm.update(preds[:n_cm], target[:n_cm], slice_ids=ids[:n_cm])
+    cpu_cm = sliced(mtt.ConfusionMatrix(num_classes=CLASSES, device="cpu"))
+    cpu_cm.update(preds[:n_cm].cpu(), target[:n_cm].cpu(), slice_ids=ids[:n_cm].cpu())
+    if not all(torch.equal(v.cpu(), _rings(cpu_cm)[k]) for k, v in _rings(card_cm).items()):
+        raise AssertionError(f"batched_kernels_path: the sliced confusion matrix over {n_cm} rows differs from the CPU run")
+    del card_cm, cpu_cm
+    cpu_s = time.perf_counter() - t_cpu
+
+    # the confusion family at 10 classes: captured, against an eager twin and the CPU run
+    small = {}
+    p10, y10 = preds[:, :BATCHED_SMALL_CLASSES].contiguous(), target % BATCHED_SMALL_CLASSES
+    family = {"kappa": mtt.CohenKappa, "mcc": mtt.MatthewsCorrCoef, "jaccard": mtt.JaccardIndex}
+    for name, cls in family.items():
+        card, twin, cpu = (sliced(cls(num_classes=BATCHED_SMALL_CLASSES, device=d)) for d in (dev, dev, "cpu"))
+        object.__setattr__(twin, "jittable_update", False)
+        k2.reset_launch_count()
+        card_launches = 0
+        for start in range(0, BATCHED_SMALL_BATCHES * BATCH, BATCH):
+            sl = slice(start, start + BATCH)
+            before = k2.lanes_launch_count
+            card.update(p10[sl], y10[sl], slice_ids=ids[sl])
+            card_launches += k2.lanes_launch_count - before
+            twin.update(p10[sl], y10[sl], slice_ids=ids[sl])
+            cpu.update(p10[sl].cpu(), y10[sl].cpu(), slice_ids=ids[sl].cpu())
+            if not all(torch.equal(v, _rings(twin)[k]) for k, v in _rings(card).items()):
+                raise AssertionError(f"batched_kernels_path: sliced {name} differs from its eager twin at update {start // BATCH}")
+        if not all(torch.equal(v.cpu(), _rings(cpu)[k]) for k, v in _rings(card).items()):
+            raise AssertionError(f"batched_kernels_path: sliced {name}'s rings differ from the CPU run")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            got_v, want_v = card.compute().per_slice.cpu(), cpu.compute().per_slice
+        err = float(torch.nan_to_num((got_v - want_v).abs(), nan=0.0).max())
+        if err > 1e-6 or not torch.equal(torch.isnan(got_v), torch.isnan(want_v)):
+            raise AssertionError(f"batched_kernels_path: sliced {name}'s per-slice values differ from the CPU run by {err}")
+        if k2.launch_count or card_launches != BATCHED_SMALL_BATCHES:
+            raise AssertionError(f"batched_kernels_path: sliced {name} launched K2 {card_launches} times lane-batched "
+                                 f"and {k2.launch_count} unbatched over {BATCHED_SMALL_BATCHES} updates")
+        small[name] = {"graphs": graph_stats({name: card})[name], "k2_lanes_launches": card_launches,
+                       "per_slice_max_abs_err_vs_cpu": err}
+
+    # ---- bootstraps --------------------------------------------------------
+    bdef = mtt.bootstrap_functionalize(mtt.BinnedAveragePrecision(**bap_kw), BATCHED_BAP_BOOTSTRAPS)
+    mdef = mtt.functionalize(mtt.BinnedAveragePrecision(**bap_kw))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    state, reps, boot_idx = bdef.init(), [mdef.init() for _ in range(BATCHED_BAP_BOOTSTRAPS)], []
+    k1.reset_launch_count()
+    boot_s = []
+    for b in range(BATCHED_BAP_BOOT_BATCHES):
+        sl = slice(b * BATCH, (b + 1) * BATCH)
+        idx = torch.randint(0, BATCH, (BATCHED_BAP_BOOTSTRAPS, BATCH), generator=gen, device=dev)
+        boot_idx.append(idx)
+        t0 = time.perf_counter()
+        state = bdef.update.with_indices(state, idx, preds[sl], target[sl])
+        torch.cuda.synchronize()
+        boot_s.append(time.perf_counter() - t0)
+    bap_boot = {"unbatched": k1.launch_count, "lanes": k1.lanes_launch_count}
+    if bap_boot != {"unbatched": 0, "lanes": BATCHED_BAP_BOOT_BATCHES}:
+        raise AssertionError(f"batched_kernels_path: the BAP bootstrap launched K1 {bap_boot}")
+    for b, idx in enumerate(boot_idx):
+        sl = slice(b * BATCH, (b + 1) * BATCH)
+        for r in range(BATCHED_BAP_BOOTSTRAPS):
+            reps[r] = mdef.update(reps[r], preds[sl][idx[r]], target[sl][idx[r]])
+    for r in range(BATCHED_BAP_BOOTSTRAPS):
+        if not _tree_bit_equal(_replica(state, r), reps[r]):
+            raise AssertionError(f"batched_kernels_path: BAP bootstrap replica {r} differs from its own updates")
+    bap_boot_lanes = (preds[:BATCH][boot_idx[0]].contiguous(), (to_onehot(target[:BATCH], CLASSES) == 1)[boot_idx[0]].contiguous())
+    del state, reps, bdef, mdef
+
+    sketch = mtt.QuantileSketch(eps=0.01, quantiles=QUANTILES, device=dev)
+    if tuple(sketch.metric_state["sketch"].items.shape) != BATCHED_SKETCH_SHAPE:
+        raise AssertionError(f"batched_kernels_path: the sketch is {tuple(sketch.metric_state['sketch'].items.shape)}, not {BATCHED_SKETCH_SHAPE}")
+    qdef, qone = mtt.bootstrap_functionalize(sketch, BATCHED_SKETCH_BOOTSTRAPS), mtt.functionalize(sketch)
+    g = torch.Generator(device=dev).manual_seed(SEED + 91)
+    x = torch.empty(BATCHED_SKETCH_BATCHES * STREAM_BATCH, device=dev).log_normal_(0.0, 1.0, generator=g)
+    qstate, qreps = qdef.init(), [qone.init() for _ in range(BATCHED_SKETCH_BOOTSTRAPS)]
+    k3.reset_launch_count()
+    sketch_s, sketch_idx = [], []
+    for b in range(BATCHED_SKETCH_BATCHES):
+        xb = x[b * STREAM_BATCH:(b + 1) * STREAM_BATCH]
+        idx = torch.randint(0, STREAM_BATCH, (BATCHED_SKETCH_BOOTSTRAPS, STREAM_BATCH), generator=g, device=dev)
+        sketch_idx.append(idx)
+        t0 = time.perf_counter()
+        qstate = qdef.update.with_indices(qstate, idx, xb)
+        torch.cuda.synchronize()
+        sketch_s.append(time.perf_counter() - t0)
+    q_boot = {"unbatched": k3.launch_count, "lanes": k3.lanes_launch_count, "single_fold": k3.fold_launch_count}
+    want_q = predicted_k3_launches(sketch.metric_state["sketch"], STREAM_BATCH, BATCHED_SKETCH_BATCHES, 0)
+    if q_boot != {"unbatched": 0, "lanes": want_q, "single_fold": 0}:
+        raise AssertionError(f"batched_kernels_path: the sketch bootstrap launched K3 {q_boot}, predicted {want_q} lane-batched")
+    for b, idx in enumerate(sketch_idx):
+        xb = x[b * STREAM_BATCH:(b + 1) * STREAM_BATCH]
+        for r in range(BATCHED_SKETCH_BOOTSTRAPS):
+            qreps[r] = qone.update(qreps[r], xb[idx[r]])
+    for r in range(BATCHED_SKETCH_BOOTSTRAPS):
+        if not _tree_bit_equal(_replica(qstate, r), qreps[r]):
+            raise AssertionError(f"batched_kernels_path: sketch bootstrap replica {r} differs from its own updates")
+    # the cascade's lanes as the last bootstrap update gave them, for the timing below
+    from metrics_tpu_torch.ops.binning import precompact_binned
+
+    L, k = BATCHED_SKETCH_SHAPE
+    resampled = x[:STREAM_BATCH][sketch_idx[0]]  # (lanes, rows): precompacted lane by lane
+    inc, inc_count, level = precompact_binned(resampled, torch.ones_like(resampled, dtype=torch.bool), k)
+    q_items, q_counts = qstate["sketch"].items.contiguous(), qstate["sketch"].counts.contiguous()
+    got = k3.fold_cascade_lanes(q_items, q_counts, inc, inc_count, level)
+    want = k3.fold_cascade_lanes_plain(q_items, q_counts, inc, inc_count, level)
+    k3_err = float(torch.nan_to_num((got[0] - want[0]).abs(), nan=0.0).max())
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("batched_kernels_path: K3's lane-batched cascade differs from its plain version")
+    del qstate, qreps, qdef, qone
+    k1_boot_got = k1.binned_counter_update_lanes(*bap_boot_lanes, thr, order)
+    k1_boot_err = max(float((a - b).abs().max()) for a, b in zip(k1_boot_got, k1.binned_counter_update_lanes_plain(*bap_boot_lanes, thr)))
+    if k1_boot_err != 0.0:
+        raise AssertionError(f"batched_kernels_path: K1's histogram form differs from its plain version ({k1_boot_err})")
+    peak = torch.cuda.max_memory_allocated()
+
+    # ---- each lane-batched kernel's times, at its path's shape ------------
+    lib1, lib2, lib3 = k1._library(), k2._library(), k3._library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    s_thr, perm = order
+    u8 = rows_t.view(torch.uint8)
+    out1 = torch.empty((BATCH, 3, CLASSES, THRESHOLDS), dtype=torch.float32, device=dev)
+
+    def k1_rows_raw():
+        err = lib1.binned_counters_lanes_launch(rows_p.data_ptr(), u8.data_ptr(), s_thr.data_ptr(), perm.data_ptr(), None,
+                                                out1.data_ptr(), BATCH, 1, CLASSES, THRESHOLDS, stream)
+        if err:
+            raise RuntimeError(f"binned_counters lanes launch failed with cudaError {err}")
+
+    bp, bt = bap_boot_lanes[0], bap_boot_lanes[1].view(torch.uint8)
+    nboot = BATCHED_BAP_BOOTSTRAPS
+    scratch1 = torch.zeros(lib1.binned_counters_lanes_scratch(nboot, BATCH, CLASSES, THRESHOLDS), dtype=torch.int32, device=dev)
+    out1b = torch.empty((nboot, 3, CLASSES, THRESHOLDS), dtype=torch.float32, device=dev)
+
+    def k1_hist_raw():
+        scratch1.zero_()
+        err = lib1.binned_counters_lanes_launch(bp.data_ptr(), bt.data_ptr(), s_thr.data_ptr(), perm.data_ptr(),
+                                                scratch1.data_ptr(), out1b.data_ptr(), nboot, BATCH, CLASSES, THRESHOLDS, stream)
+        if err:
+            raise RuntimeError(f"binned_counters lanes launch failed with cudaError {err}")
+
+    out2 = torch.zeros((BATCH, nb), dtype=torch.int32, device=dev)
+
+    def k2_raw():  # adds into counts zeroed once: the kernel alone
+        err = lib2.histogram_lanes_launch(cm_ids.data_ptr(), BATCH, 1, nb, out2.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"histogram lanes launch failed with cudaError {err}")
+
+    offset_ids = (cm_ids.reshape(-1).to(torch.int64) + torch.arange(BATCH, device=dev) * nb)
+    out3_items, out3_counts = torch.empty_like(q_items), torch.empty_like(q_counts)
+    inc_c, inc_count_c = inc.contiguous(), inc_count.to(torch.int32).contiguous()
+    m3 = inc_c.shape[1]
+    n_scratch3 = k3._scratch_floats(k, m3, False) * BATCHED_SKETCH_BOOTSTRAPS
+
+    def k3_raw():
+        err = lib3.compactor_cascade_lanes_launch(
+            q_items.data_ptr(), q_counts.data_ptr(), L, k, inc_c.data_ptr(), m3, inc_count_c.data_ptr(), level, None, None,
+            out3_items.data_ptr(), out3_counts.data_ptr(), None, BATCHED_SKETCH_BOOTSTRAPS, stream)
+        if err:
+            raise RuntimeError(f"compactor_cascade lanes launch failed with cudaError {err}")
+
+    if n_scratch3:
+        raise AssertionError(f"batched_kernels_path: the sketch's cascade needs {n_scratch3} floats of scratch at {BATCHED_SKETCH_SHAPE}")
+    entries = {}
+    k1_rows = _lanes_entry(
+        "binned_counters_lanes", "metrics_tpu_torch/csrc/binned_counters.cu", "metrics_tpu/ops/binned_counters.py:32",
+        {"form": "one-row lanes (sliced)", "lanes": BATCH, "rows": 1, "classes": CLASSES, "thresholds": THRESHOLDS},
+        {"plain": lambda: k1.binned_counter_update_lanes_plain(rows_p, rows_t, thr),
+         "wrapper": lambda: k1.binned_counter_update_lanes(rows_p, rows_t, thr, order), "kernel": k1_rows_raw},
+        "binned_counters_row_tiles_kernel", BATCH * CLASSES * 5 + THRESHOLDS * 8 + 3 * BATCH * CLASSES * THRESHOLDS * 4,
+        BATCH * CLASSES * math.ceil(math.log2(THRESHOLDS + 1)),
+        {"batched_kernels_path_sliced_bap": report["bap"]["launches"]["lanes"], "batched_kernels_path_bap_bootstrap": bap_boot["lanes"]},
+        max(k1_err, k1_boot_err))
+    # the form's first design, a warp per pair (its path for long rows), against the tiled kernel in this run
+    warp = lib1.binned_counters_rows_warp_launch
+    warp.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    warp.restype = ctypes.c_int
+    out_warp = torch.empty_like(out1)
+
+    def k1_warp_raw():
+        err = warp(rows_p.data_ptr(), u8.data_ptr(), s_thr.data_ptr(), perm.data_ptr(), out_warp.data_ptr(), BATCH,
+                   CLASSES, THRESHOLDS, stream)
+        if err:
+            raise RuntimeError(f"binned_counters rows warp launch failed with cudaError {err}")
+
+    k1_rows_raw()
+    k1_warp_raw()
+    torch.cuda.synchronize()
+    if not torch.equal(out1, out_warp):
+        raise AssertionError("batched_kernels_path: K1's tiled one-row kernel and its warp-per-pair design disagree")
+    turns = {}
+    for key, fn, kname in (("warp", k1_warp_raw, "binned_counters_rows_kernel"), ("tiled", k1_rows_raw, "binned_counters_row_tiles_kernel"),
+                           ("tiled", k1_rows_raw, "binned_counters_row_tiles_kernel"), ("warp", k1_warp_raw, "binned_counters_rows_kernel")):
+        turns.setdefault(key, []).append(device_ms_per_launch(fn, kname, iters=20))
+    k1_rows["previous_design"] = {
+        "what": "a warp per (lane, class) pair writing its rows through the permutation (binned_counters_rows_kernel, "
+                "the form's path for long rows), timed in this run in turns with the tiled kernel",
+        "kernel_device_ms": statistics.mean(turns["warp"]),
+        "tiled_kernel_device_ms_same_turns": statistics.mean(turns["tiled"]),
+    }
+    k1_rows["bootstrap_form"] = _lanes_entry(
+        "binned_counters_lanes", "metrics_tpu_torch/csrc/binned_counters.cu", "metrics_tpu/ops/binned_counters.py:32",
+        {"form": "histogram lanes (bootstrap)", "lanes": nboot, "rows": BATCH, "classes": CLASSES, "thresholds": THRESHOLDS},
+        {"plain": lambda: k1.binned_counter_update_lanes_plain(*bap_boot_lanes, thr),
+         "wrapper": lambda: k1.binned_counter_update_lanes(*bap_boot_lanes, thr, order), "kernel": k1_hist_raw},
+        "binned_counters_kernel", nboot * BATCH * CLASSES * 5 + THRESHOLDS * 8 + 3 * nboot * CLASSES * THRESHOLDS * 4,
+        nboot * BATCH * CLASSES * math.ceil(math.log2(THRESHOLDS + 1)), {}, k1_boot_err)
+    entries["k1"] = k1_rows
+    entries["k2"] = _lanes_entry(
+        "histogram_lanes", "metrics_tpu_torch/csrc/histogram.cu", "metrics_tpu/ops/pallas_kernels.py:62",
+        {"lanes": BATCH, "ids_per_lane": 1, "num_buckets": nb},
+        {"plain": lambda: k2.histogram_lanes_plain(cm_ids, nb), "wrapper": lambda: k2.histogram_lanes(cm_ids, nb), "kernel": k2_raw},
+        "histogram_kernel", BATCH * 4 + BATCH * nb * 4, BATCH,
+        {"batched_kernels_path_sliced_confusion_matrix": report["cm"]["launches"]["lanes"],
+         **{f"batched_kernels_path_sliced_{n}": v["k2_lanes_launches"] for n, v in small.items()}},
+        k2_err, library=lambda: torch.bincount(offset_ids, minlength=BATCH * nb))
+    entries["k2"]["library"] = "torch.bincount over the lane-offset ids, minlength = lanes * num_buckets (int64 counts)"
+    entries["k3"] = _lanes_entry(
+        "compactor_cascade_lanes", "metrics_tpu_torch/csrc/compactor_fold.cu", "metrics_tpu/ops/pallas_kernels.py:141",
+        {"lanes": BATCHED_SKETCH_BOOTSTRAPS, "levels": L, "k": k, "M": m3, "start_level": level},
+        {"plain": lambda: k3.fold_cascade_lanes_plain(q_items, q_counts, inc_c, inc_count_c, level),
+         "wrapper": lambda: k3.fold_cascade_lanes(q_items, q_counts, inc_c, inc_count_c, level), "kernel": k3_raw},
+        "compactor_cascade_kernel", BATCHED_SKETCH_BOOTSTRAPS * (2 * (L * k * 4 + L * 4) + m3 * 4 + 4),
+        BATCHED_SKETCH_BOOTSTRAPS * (L * k + m3), {"batched_kernels_path_sketch_bootstrap": q_boot["lanes"]}, k3_err)
+    emit({
+        "phase": "batched_kernels_path",
+        "config": {"rows": ROWS, "classes": CLASSES, "thresholds": THRESHOLDS, "batch": BATCH, "slices": SLICES,
+                   "out_of_range_ids_per_batch": 2, "pad_batches": True, "seed": SEED,
+                   "bap_bootstraps": BATCHED_BAP_BOOTSTRAPS, "bap_bootstrap_batches": BATCHED_BAP_BOOT_BATCHES,
+                   "sketch_bootstraps": BATCHED_SKETCH_BOOTSTRAPS, "sketch_batches": BATCHED_SKETCH_BATCHES,
+                   "sketch_batch": STREAM_BATCH, "sketch_shape": list(BATCHED_SKETCH_SHAPE),
+                   "small_classes": BATCHED_SMALL_CLASSES, "small_batches": BATCHED_SMALL_BATCHES},
+        "cuts": {"bap_cpu_batches": BATCHED_BAP_CPU_BATCHES, "cm_cpu_rows": BATCHED_CM_CPU_ROWS},
+        "sliced": report,
+        "small_confusion_family": small,
+        "sampled_slices": sampled,
+        "bap_bootstrap": {"launches": bap_boot, "replicas_bit_equal": BATCHED_BAP_BOOTSTRAPS,
+                          "update_p50_ms": statistics.median(boot_s) * 1e3},
+        "sketch_bootstrap": {"launches": q_boot, "replicas_bit_equal": BATCHED_SKETCH_BOOTSTRAPS,
+                             "update_p50_ms": statistics.median(sketch_s) * 1e3},
+        "max_abs_err": {"k1_rows": k1_err, "k1_hist": k1_boot_err, "k2": k2_err, "k3": k3_err, "edge_cases": edge_err},
+        "peak_mem_bytes": peak,
+        "peak_mem_bytes_edge_parity": peak_parity,
+        "cpu_reference_s": cpu_s,
+        "phase_s": time.perf_counter() - t_start,
+    })
+    return [entries["k1"], entries["k2"], entries["k3"]]
 
 
 def msmarco_rank_rows(n, rank, world):
@@ -8573,6 +9142,12 @@ def main():
     torch.cuda.empty_cache()
     phase_retrieval(device)
     k1_sliced_launches = phase_sliced(device)
+    with budget_time(BATCHED_PHASE_S, "batched_kernels_path"):
+        batched_kernels = phase_batched_kernels(device)
+    # its metrics hold reference cycles (bound methods) and, through them, their
+    # graphs' pools: collected here, or the dist ranks below find the card full
+    gc.collect()
+    torch.cuda.empty_cache()
     k2_launches = phase_dist(device)
     k2_path_launches(kernels[1], k2_launches)
     k1_fused_launches, fused_values = phase_fused_eval(device, pure_values, ml_world_values)
@@ -8629,7 +9204,10 @@ def main():
           "audio_phases_s": AUDIO_PHASE_S, "audio_phases_total_s": sum(AUDIO_PHASE_S.values()),
           "audio_phases_limit_s": AUDIO_PHASES_LIMIT_S,
           "analysis_phases_s": ANALYSIS_PHASE_S, "analysis_phases_limit_s": ANALYSIS_PHASES_LIMIT_S,
+          "batched_phases_s": BATCHED_PHASE_S, "batched_phases_limit_s": BATCHED_PHASES_LIMIT_S,
           "script_s": time.perf_counter() - _T0})
+    # the lane-batched forms, each beside the kernel it batches
+    kernels.extend(batched_kernels)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -53,6 +53,38 @@
 //   shared memory (T above about 29,000), the histogram lives in the device
 //   scratch itself; where the T thresholds exceed 48 KB the search reads them
 //   from device memory. No ceiling on T.
+//
+// The lane-batched form (binned_counters_lanes_launch) is what the TPU
+// kernel becomes under pallas_call's batching rule, reached here from
+// torch.func.vmap (ops/_build.py::lane_route): preds and target (B, N, C)
+// with one shared threshold set give (B, 3, C, T), each lane counted on its
+// own. It has two kernels:
+//
+// - Lanes of one row (a SlicedMetric's per-row deltas): the histogram, its
+//   scratch, its zeroing and its suffix sums would be pure overhead, since
+//   each (lane, class) pair has a single score. Each pair's bin b comes from
+//   the binary search above, and sorted threshold i is cleared iff i < b, so
+//   the pair's three rows of 0/1 counts are written straight out. Every
+//   output float is written once and nothing else is written, so the form is
+//   bound by its output: at the sliced shape (1024 lanes, C = 1000, T = 100)
+//   1.23 GB, about 0.37 ms at 3.35 TB/s, against 5 MB of inputs. A pair's
+//   row is short (T = 100 floats, 400 B), so a first design that gave each
+//   pair a warp wrote partial, misaligned runs through the permutation and
+//   took 2.7x the bound (PERF.md). binned_counters_row_tiles_kernel instead
+//   has a block find the bins of a tile of 64 pairs, then write the tile's
+//   planes in (pair, column) order across the pairs' rows, each column
+//   cleared iff its rank among the sorted thresholds (the inverse
+//   permutation, in shared memory) is below the pair's bin: every warp's
+//   store is one coalesced 128-byte run. With more thresholds than shared
+//   memory holds (long rows) a warp per pair remains
+//   (binned_counters_rows_kernel).
+// - Lanes of many rows (a bootstrap's replicas): the histogram kernel above
+//   with the lane as the grid's third axis, each lane with its own
+//   histogram, tile counters and output, and the row chunks cut so that the
+//   grid keeps about two blocks per SM over all lanes. Bound as the
+//   unbatched kernel, times B.
+//
+// Both give the counts of the unbatched kernel, lane by lane, bit for bit.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -80,6 +112,10 @@ __device__ __forceinline__ int bin_of(const float* s, int t, int p2, float p) {
   return b;
 }
 
+// kLanes: blockIdx.z is the lane, and each lane has its own rows, output,
+// histogram and tile counters (hist and tile_done are lane 0's, and a lane's
+// histogram is followed by its counters).
+template <bool kLanes>
 __global__ void __launch_bounds__(kThreads)
 binned_counters_kernel(const float* __restrict__ preds, const uint8_t* __restrict__ target,
                        const float* __restrict__ sorted_thr, const int* __restrict__ perm,
@@ -93,6 +129,14 @@ binned_counters_kernel(const float* __restrict__ preds, const uint8_t* __restric
 
   const int bins = t + 1;
   const size_t plane = (size_t)c * bins;  // positives' plane, then negatives'
+  if (kLanes) {
+    const size_t lane = blockIdx.z;
+    preds += lane * n * c;
+    target += lane * n * c;
+    out += lane * 3 * (size_t)c * t;
+    hist += lane * (2 * plane + c);
+    tile_done = reinterpret_cast<unsigned int*>(hist + 2 * plane);
+  }
   const int c0 = blockIdx.x * ct;
   const int classes = min(ct, c - c0);
   const int r0 = blockIdx.y * rows_per_block;
@@ -212,6 +256,105 @@ binned_counters_kernel(const float* __restrict__ preds, const uint8_t* __restric
   }
 }
 
+// The one-row form: every lane holds one row, so the (lane, class) pairs are
+// rows of their own, each with one bin b, found by the same binary search;
+// sorted threshold i is cleared iff i < b. No histogram, no scratch, no
+// suffix sums: each output float is written once.
+//
+// With the thresholds staged in shared memory (8 T bytes within 48 KB), a
+// block takes a tile of kTileRows consecutive pairs: one thread per pair
+// finds its bin, then the block writes the tile's three planes in (pair,
+// column) order, so that neighbouring threads write neighbouring floats
+// across the pairs' short rows (T floats each) and every store is a full
+// coalesced run. Column j is cleared iff its rank among the sorted
+// thresholds (the inverse permutation, in shared memory) is below b.
+constexpr int kTileRows = 64;
+
+__global__ void __launch_bounds__(kThreads)
+binned_counters_row_tiles_kernel(const float* __restrict__ preds, const uint8_t* __restrict__ target,
+                                 const float* __restrict__ sorted_thr, const int* __restrict__ perm,
+                                 float* __restrict__ out, long long rows, int c, int t, int p2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* s_thr = reinterpret_cast<float*>(smem_raw);
+  int* s_rank = reinterpret_cast<int*>(smem_raw + 4 * (size_t)t);
+  __shared__ long long s_base[kTileRows];  // where the pair's row of the first plane starts
+  __shared__ int s_bin[kTileRows];
+  __shared__ int s_pos[kTileRows];
+  for (int i = threadIdx.x; i < t; i += kThreads) {
+    s_thr[i] = flush(sorted_thr[i]);
+    s_rank[perm[i]] = i;
+  }
+  __syncthreads();
+  const size_t plane = (size_t)c * t;
+  const int step_rows = kThreads / t, step_cols = kThreads % t;  // the flat stride in (pair, column)
+  const long long tiles = (rows + kTileRows - 1) / kTileRows;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long r0 = tile * kTileRows;
+    const int n_rows = (int)min((long long)kTileRows, rows - r0);
+    if (threadIdx.x < n_rows) {
+      const long long r = r0 + threadIdx.x;
+      const long long lane = r / c;
+      s_base[threadIdx.x] = lane * 3 * (long long)plane + (r - lane * c) * t;
+      s_bin[threadIdx.x] = bin_of<false>(s_thr, t, p2, flush(__ldg(preds + r)));
+      s_pos[threadIdx.x] = __ldg(target + r) != 0;
+    }
+    __syncthreads();
+    int row = threadIdx.x / t;
+    int col = threadIdx.x - row * t;
+    while (row < n_rows) {
+      float* o = out + s_base[row] + col;
+      const bool ge = s_rank[col] < s_bin[row];
+      const bool y = s_pos[row] != 0;
+      o[0] = (y && ge) ? 1.0f : 0.0f;
+      o[plane] = (!y && ge) ? 1.0f : 0.0f;
+      o[2 * plane] = (y && !ge) ? 1.0f : 0.0f;
+      row += step_rows;
+      col += step_cols;
+      if (col >= t) {
+        col -= t;
+        ++row;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The one-row form with more thresholds than shared memory holds: a warp
+// per pair, writing its (long) rows through the permutation.
+__global__ void __launch_bounds__(kThreads)
+binned_counters_rows_kernel(const float* __restrict__ preds, const uint8_t* __restrict__ target,
+                            const float* __restrict__ sorted_thr, const int* __restrict__ perm,
+                            float* __restrict__ out, long long rows, int c, int t, int p2, int staged) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* s_thr = reinterpret_cast<float*>(smem_raw);
+  int* s_perm = reinterpret_cast<int*>(smem_raw + 4 * (size_t)t);
+  if (staged) {
+    for (int i = threadIdx.x; i < t; i += kThreads) {
+      s_thr[i] = flush(sorted_thr[i]);
+      s_perm[i] = perm[i];
+    }
+    __syncthreads();
+  }
+  const size_t plane = (size_t)c * t;
+  const int warps = kThreads / 32;
+  const int lane_id = threadIdx.x & 31;
+  for (long long r = (long long)blockIdx.x * warps + (threadIdx.x >> 5); r < rows; r += (long long)gridDim.x * warps) {
+    const long long lane = r / c;
+    const int cls = (int)(r - lane * c);
+    const float p = flush(__ldg(preds + r));
+    const bool y = __ldg(target + r) != 0;
+    const int b = staged ? bin_of<false>(s_thr, t, p2, p) : bin_of<true>(sorted_thr, t, p2, p);
+    float* o = out + (size_t)lane * 3 * plane + (size_t)cls * t;
+    for (int i = lane_id; i < t; i += 32) {
+      const int col = staged ? s_perm[i] : __ldg(perm + i);
+      const bool ge = i < b;
+      o[col] = (y && ge) ? 1.0f : 0.0f;
+      o[plane + col] = (!y && ge) ? 1.0f : 0.0f;
+      o[2 * plane + col] = (y && !ge) ? 1.0f : 0.0f;
+    }
+  }
+}
+
 // The shared memory one block may opt into (227 KB on an H100), and the
 // kernel opted into it once per process.
 int max_shared_bytes() {
@@ -222,8 +365,10 @@ int max_shared_bytes() {
     cudaFuncAttributes attr;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&got, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
-        cudaFuncGetAttributes(&attr, binned_counters_kernel) != cudaSuccess ||
-        cudaFuncSetAttribute(binned_counters_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cudaFuncGetAttributes(&attr, binned_counters_kernel<false>) != cudaSuccess ||
+        cudaFuncSetAttribute(binned_counters_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             got - (int)attr.sharedSizeBytes) != cudaSuccess ||
+        cudaFuncSetAttribute(binned_counters_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              got - (int)attr.sharedSizeBytes) != cudaSuccess) {
       cudaGetLastError();  // not left behind for the launch's own check
       return 0;
@@ -233,15 +378,9 @@ int max_shared_bytes() {
   return bytes;
 }
 
-}  // namespace
-
-// Launches on `stream` and returns the launch's cudaError_t (0 on success).
-// sorted_thr (t,) are the thresholds ascending (NaN last) and perm (t,) int32
-// their original columns; scratch holds 2*c*(t+1) + c zeroed int32 values;
-// out (3, c, t) float32 is written whole.
-extern "C" int binned_counters_launch(const float* preds, const uint8_t* target, const float* sorted_thr,
-                                      const int* perm, int* scratch, float* out, int n, int c, int t, void* stream) {
-  if (c <= 0 || t <= 0) return (int)cudaSuccess;
+int launch(const float* preds, const uint8_t* target, const float* sorted_thr, const int* perm, int* scratch,
+           float* out, int lanes, int n, int c, int t, cudaStream_t stream) {
+  if (c <= 0 || t <= 0 || lanes <= 0) return (int)cudaSuccess;
   const long long bins = (long long)t + 1;
   const int thr_smem = 4LL * t <= kThresholdSmem;
   const long long thr_bytes = thr_smem ? 4LL * t : 0;
@@ -255,17 +394,87 @@ extern "C" int binned_counters_launch(const float* preds, const uint8_t* target,
   while (p2 <= t) p2 <<= 1;
   const long long tiles = (c + ct - 1) / ct;
   const long long rows_per_pass = kThreads / ct;
-  long long chunks = (kTargetBlocks + tiles - 1) / tiles;
+  long long chunks = (kTargetBlocks + tiles * lanes - 1) / (tiles * lanes);
   const long long max_chunks = (n + rows_per_pass - 1) / rows_per_pass;
   if (chunks > max_chunks) chunks = max_chunks;
   if (chunks < 1) chunks = 1;
   const long long rows_per_block = n > 0 ? (n + chunks - 1) / chunks : 0;
   if (n > 0) chunks = (n + rows_per_block - 1) / rows_per_block;
-  if (tiles > 0x7fffffffLL || chunks > 65535) return (int)cudaErrorInvalidConfiguration;
+  if (tiles > 0x7fffffffLL || chunks > 65535 || lanes > 65535) return (int)cudaErrorInvalidConfiguration;
   int* hist = scratch;
   unsigned int* tile_done = reinterpret_cast<unsigned int*>(scratch + 2 * (size_t)c * bins);
-  binned_counters_kernel<<<dim3((unsigned)tiles, (unsigned)chunks), kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      preds, target, sorted_thr, perm, hist, tile_done, out, n, c, t, p2, ct, (int)rows_per_block, thr_smem,
-      hist_smem);
+  const dim3 grid((unsigned)tiles, (unsigned)chunks, (unsigned)lanes);
+  if (lanes == 1) {
+    binned_counters_kernel<false><<<grid, kThreads, (size_t)smem, stream>>>(
+        preds, target, sorted_thr, perm, hist, tile_done, out, n, c, t, p2, ct, (int)rows_per_block, thr_smem, hist_smem);
+  } else {
+    binned_counters_kernel<true><<<grid, kThreads, (size_t)smem, stream>>>(
+        preds, target, sorted_thr, perm, hist, tile_done, out, n, c, t, p2, ct, (int)rows_per_block, thr_smem, hist_smem);
+  }
   return (int)cudaGetLastError();
+}
+
+// The one-row form: the tiled kernel where the thresholds fit in shared
+// memory (unless warp_rows), else a warp per pair.
+int rows_launch(const float* preds, const uint8_t* target, const float* sorted_thr, const int* perm, float* out,
+                int lanes, int c, int t, int warp_rows, cudaStream_t stream) {
+  if (c <= 0 || t <= 0 || lanes <= 0) return (int)cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int staged = 8LL * t <= kThresholdSmem;
+  int p2 = 1;
+  while (p2 <= t) p2 <<= 1;
+  const long long rows = (long long)lanes * c;
+  if (staged && !warp_rows) {
+    long long blocks = (rows + kTileRows - 1) / kTileRows;
+    if (blocks > 8LL * sms) blocks = 8LL * sms;  // 2048 threads per SM, each block walking many tiles
+    binned_counters_row_tiles_kernel<<<(unsigned)blocks, kThreads, 8 * (size_t)t, stream>>>(
+        preds, target, sorted_thr, perm, out, rows, c, t, p2);
+    return (int)cudaGetLastError();
+  }
+  const long long per_block = kThreads / 32;
+  long long blocks = (rows + per_block - 1) / per_block;
+  if (blocks > 8LL * sms) blocks = 8LL * sms;  // 2048 threads per SM, each warp walking many pairs
+  binned_counters_rows_kernel<<<(unsigned)blocks, kThreads, staged ? 8 * (size_t)t : 0, stream>>>(
+      preds, target, sorted_thr, perm, out, rows, c, t, p2, staged);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches on `stream` and returns the launch's cudaError_t (0 on success).
+// sorted_thr (t,) are the thresholds ascending (NaN last) and perm (t,) int32
+// their original columns; scratch holds 2*c*(t+1) + c zeroed int32 values;
+// out (3, c, t) float32 is written whole.
+extern "C" int binned_counters_launch(const float* preds, const uint8_t* target, const float* sorted_thr,
+                                      const int* perm, int* scratch, float* out, int n, int c, int t, void* stream) {
+  return launch(preds, target, sorted_thr, perm, scratch, out, 1, n, c, t, (cudaStream_t)stream);
+}
+
+// Scratch int32 values the lane-batched form needs: none for lanes of one
+// row, else 2*c*(t+1) + c per lane.
+extern "C" long long binned_counters_lanes_scratch(int lanes, int n, int c, int t) {
+  return n == 1 ? 0 : (long long)lanes * (2LL * c * (t + 1) + c);
+}
+
+// The lane-batched form: preds and target (lanes, n, c), one shared set of
+// thresholds, out (lanes, 3, c, t) float32 written whole. Lanes of one row
+// take the one-row kernel; others the histogram kernel with the lane on the
+// grid (at most 65,535 lanes a launch; the wrapper splits), over a zeroed
+// scratch of binned_counters_lanes_scratch(lanes, n, c, t) values.
+extern "C" int binned_counters_lanes_launch(const float* preds, const uint8_t* target, const float* sorted_thr,
+                                            const int* perm, int* scratch, float* out, int lanes, int n, int c, int t,
+                                            void* stream) {
+  if (n != 1) return launch(preds, target, sorted_thr, perm, scratch, out, lanes, n, c, t, (cudaStream_t)stream);
+  return rows_launch(preds, target, sorted_thr, perm, out, lanes, c, t, 0, (cudaStream_t)stream);
+}
+
+// The one-row form's warp-per-pair kernel at any T: the form's path for long
+// rows, and at short rows its first design, which chip_smoke.py times beside
+// the tiled kernel. Arguments as binned_counters_lanes_launch with n = 1.
+extern "C" int binned_counters_rows_warp_launch(const float* preds, const uint8_t* target, const float* sorted_thr,
+                                                const int* perm, float* out, int lanes, int c, int t, void* stream) {
+  return rows_launch(preds, target, sorted_thr, perm, out, lanes, c, t, 1, (cudaStream_t)stream);
 }

@@ -50,6 +50,18 @@
 //     scratch (the merged input and the carries, L2-resident at that size)
 //     and reads the levels straight from device memory. No new ceiling on k.
 //
+// The lane-batched cascade (compactor_cascade_lanes_launch) is what the TPU
+// fold becomes under pallas_call's batching rule, reached here from
+// torch.func.vmap (ops/_build.py::lane_route): a bootstrap of a
+// QuantileSketch updates or merges B sketches at once. It is the kernel
+// above with the lane as the grid's second axis: each lane gets its own
+// walking block (and copy blocks), on the same shared-memory plan, so B
+// lanes walk their levels on B SMs at once; in the device-memory mode each
+// lane has its own scratch. Bound as one cascade times B: at the online
+// monitor's shape (k = 6600, L = 20) an insert of 8 lanes reads and writes
+// about 8 MB, a few microseconds of bytes; what remains is each lane's
+// chain of dependent level steps, which the lanes run side by side.
+//
 // Bound: bytes, and in practice latency. An insert at the stream's shape
 // (L = 20, k = 6600) must read and write the (L, k) levels once: about 1 MB;
 // a merge reads two sketches and writes one, 1.6 MB. The work per byte is a
@@ -227,8 +239,23 @@ compactor_cascade_kernel(const float* __restrict__ items, const int* __restrict_
                          const float* __restrict__ inc, int m, const int* __restrict__ inc_count, int start,
                          const float* __restrict__ other, const int* __restrict__ other_counts,
                          float* __restrict__ out_items, int* __restrict__ out_counts,
-                         float* __restrict__ scratch, int staged, int kp, int cap) {
+                         float* __restrict__ scratch, long long scratch_stride, int staged, int kp, int cap) {
   const size_t row = (size_t)k;
+  // blockIdx.y is the lane: each lane is a sketch of its own
+  const size_t lane = blockIdx.y;
+  items += lane * L * row;
+  counts += lane * L;
+  out_items += lane * L * row;
+  out_counts += lane * L;
+  if (inc != nullptr) {
+    inc += lane * m;
+    inc_count += lane;
+  }
+  if (other != nullptr) {
+    other += lane * L * row;
+    other_counts += lane * L;
+  }
+  if (scratch != nullptr) scratch += lane * scratch_stride;
   if (blockIdx.x > 0) {
     // the levels below the start level pass through: a grid-stride copy
     const size_t n = (size_t)start * row;
@@ -393,16 +420,13 @@ extern "C" long long compactor_cascade_scratch_floats(int k, int m, int merge) {
   return bytes <= max_shared_bytes() ? 0 : cascade_floats(k, m, merge, 0);
 }
 
-// One cascade: an insert of inc (m floats, *inc_count valid) at level
-// `start` when other is null, else a merge with (other, other_counts) (inc
-// unused). items/out_items are (L, k), counts/out_counts (L,); the outputs
-// must not overlap the inputs. scratch holds
-// compactor_cascade_scratch_floats(k, m, merge) floats (may be null if 0).
-extern "C" int compactor_cascade_launch(const float* items, const int* counts, int L, int k,
-                                        const float* inc, int m, const int* inc_count, int start,
-                                        const float* other, const int* other_counts,
-                                        float* out_items, int* out_counts, float* scratch, void* stream) {
-  if (L <= 0 || k <= 0) return (int)cudaSuccess;
+namespace {
+
+int cascade(const float* items, const int* counts, int L, int k, const float* inc, int m, const int* inc_count,
+            int start, const float* other, const int* other_counts, float* out_items, int* out_counts,
+            float* scratch, int lanes, cudaStream_t stream) {
+  if (L <= 0 || k <= 0 || lanes <= 0) return (int)cudaSuccess;
+  if (lanes > 65535) return (int)cudaErrorInvalidConfiguration;
   const int merge = other != nullptr;
   if (merge) start = 0;
   if (start > L) start = L;
@@ -415,8 +439,38 @@ extern "C" int compactor_cascade_launch(const float* items, const int* counts, i
   if (copy_blocks > kCopyBlocks) copy_blocks = kCopyBlocks;
   const int kp = (int)round4(k);
   const int cap = (int)round4(m > k ? m : k);
-  compactor_cascade_kernel<<<1 + copy_blocks, kCascadeThreads, smem, (cudaStream_t)stream>>>(
-      items, counts, L, k, inc, m, inc_count, start, other, other_counts, out_items, out_counts, scratch, staged,
-      kp, cap);
+  compactor_cascade_kernel<<<dim3(1 + copy_blocks, lanes), kCascadeThreads, smem, stream>>>(
+      items, counts, L, k, inc, m, inc_count, start, other, other_counts, out_items, out_counts, scratch,
+      staged ? 0 : cascade_floats(k, m, merge, 0), staged, kp, cap);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// One cascade: an insert of inc (m floats, *inc_count valid) at level
+// `start` when other is null, else a merge with (other, other_counts) (inc
+// unused). items/out_items are (L, k), counts/out_counts (L,); the outputs
+// must not overlap the inputs. scratch holds
+// compactor_cascade_scratch_floats(k, m, merge) floats (may be null if 0).
+extern "C" int compactor_cascade_launch(const float* items, const int* counts, int L, int k,
+                                        const float* inc, int m, const int* inc_count, int start,
+                                        const float* other, const int* other_counts,
+                                        float* out_items, int* out_counts, float* scratch, void* stream) {
+  return cascade(items, counts, L, k, inc, m, inc_count, start, other, other_counts, out_items, out_counts, scratch,
+                 1, (cudaStream_t)stream);
+}
+
+// The lane-batched form: `lanes` sketches, one walking block each, in one
+// launch (at most 65,535 lanes; the wrapper splits). Every array gains a
+// leading lane axis: items/other/out_items (lanes, L, k), counts/
+// other_counts/out_counts (lanes, L), inc (lanes, m), inc_count (lanes,);
+// start is shared. scratch holds lanes * compactor_cascade_scratch_floats(k,
+// m, merge) floats (may be null if that is 0).
+extern "C" int compactor_cascade_lanes_launch(const float* items, const int* counts, int L, int k,
+                                              const float* inc, int m, const int* inc_count, int start,
+                                              const float* other, const int* other_counts,
+                                              float* out_items, int* out_counts, float* scratch, int lanes,
+                                              void* stream) {
+  return cascade(items, counts, L, k, inc, m, inc_count, start, other, other_counts, out_items, out_counts, scratch,
+                 lanes, (cudaStream_t)stream);
 }

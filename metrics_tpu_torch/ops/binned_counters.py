@@ -13,6 +13,15 @@ tensor to the plain version.
 
 Both compare with float32 denormals flushed to zero, score and threshold
 alike, as XLA's compares on the CPU and the TPU see them.
+
+Under ``torch.func.vmap`` (a sliced Binned metric's per-row deltas, a
+bootstrap's replicas) :func:`binned_counter_update` takes the lane route
+(``_build.lane_route``): the lanes reach :func:`binned_counter_update_lanes`,
+one launch of the kernel's lane-batched form on a CUDA tensor (counted in
+``lanes_launch_count``; lanes of one row take its one-row kernel), and the
+plain version with the lane axis written out on a CPU tensor. The
+thresholds are one set for every lane: batched thresholds raise. An
+unbatched call launches the kernel directly, as before.
 """
 import ctypes
 from typing import Optional, Tuple
@@ -30,25 +39,36 @@ SOURCE = "binned_counters.cu"
 # JAX package's float32 sums, below 2^24 rows per call
 MAX_ROWS = 1 << 24
 
-# kernel launches since the last reset_launch_count(); read by chip_smoke.py
+# the lane-batched kernel's grid takes at most this many lanes a launch
+MAX_LANES = 65535
+
+# kernel launches since the last reset_launch_count(), read by chip_smoke.py:
+# of the kernel, and of its lane-batched form
 launch_count = 0
+lanes_launch_count = 0
 
 
 def reset_launch_count() -> None:
-    global launch_count
+    global launch_count, lanes_launch_count
     launch_count = 0
+    lanes_launch_count = 0
 
 
 def binned_counter_update_plain(preds: Tensor, target: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """The plain version: materialises the ``(N, C, T)`` comparison and sums
-    it. ``target`` is 0/1 (only ``== 1`` counts as positive)."""
+    it. ``target`` is 0/1 (only ``== 1`` counts as positive). With a
+    leading lane axis (``(B, N, C)`` inputs) it is the plain version of the
+    lane-batched form: ``(B, C, T)`` counts, each lane's those of its rows."""
     tgt = (target == 1).unsqueeze(-1)
     # float32 denormals compare as zero, as XLA's compares on the CPU and the TPU see them
     ge = flush_denormals(preds.to(torch.float32)).unsqueeze(-1) >= flush_denormals(thresholds.to(torch.float32))
-    tps = torch.sum(tgt & ge, dim=0).to(torch.float32)
-    fps = torch.sum((~tgt) & ge, dim=0).to(torch.float32)
-    fns = torch.sum(tgt & (~ge), dim=0).to(torch.float32)
+    tps = torch.sum(tgt & ge, dim=-3).to(torch.float32)
+    fps = torch.sum((~tgt) & ge, dim=-3).to(torch.float32)
+    fns = torch.sum(tgt & (~ge), dim=-3).to(torch.float32)
     return tps, fps, fns
+
+
+binned_counter_update_lanes_plain = binned_counter_update_plain
 
 
 def threshold_order(thresholds: Tensor) -> Tuple[Tensor, Tensor]:
@@ -64,6 +84,11 @@ def _library() -> ctypes.CDLL:
     fn = lib.binned_counters_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.binned_counters_lanes_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.binned_counters_lanes_scratch.argtypes = [ctypes.c_int] * 4
+    lib.binned_counters_lanes_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -71,13 +96,12 @@ def _binned_counter_update_cuda(
     preds: Tensor, target: Tensor, thresholds: Tensor, order: Optional[Tuple[Tensor, Tensor]] = None
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Launch the Hopper kernel on PyTorch's current stream."""
-    _build.refuse_batched("K1 (ops/binned_counters.py)", preds, target, thresholds)
     n, c = preds.shape
     t = thresholds.shape[0]
     if n >= MAX_ROWS:
         raise ValueError(f"binned_counters takes fewer than 2^24 rows per call (exact float32 counts), got {n}")
     preds = preds.to(torch.float32).contiguous()
-    tgt = (target.view(torch.uint8) if target.dtype == torch.bool else (target == 1).to(torch.uint8)).contiguous()
+    tgt = _target_u8(target).contiguous()
     out = torch.empty((3, c, t), dtype=torch.float32, device=preds.device)
     if c and t:
         lib = _library()
@@ -97,6 +121,70 @@ def _binned_counter_update_cuda(
     return tps, fps, fns
 
 
+def _target_u8(target: Tensor) -> Tensor:
+    return target.view(torch.uint8) if target.dtype == torch.bool else (target == 1).to(torch.uint8)
+
+
+def _binned_counter_lanes_cuda(
+    preds: Tensor, target: Tensor, sorted_thr: Tensor, perm: Tensor
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The lane-batched kernel on PyTorch's current stream: one launch per
+    ``MAX_LANES`` lanes (one launch at every shape the port's paths give)."""
+    lanes, n, c = preds.shape
+    t = sorted_thr.shape[0]
+    if n >= MAX_ROWS:
+        raise ValueError(f"binned_counters takes fewer than 2^24 rows per lane (exact float32 counts), got {n}")
+    preds = preds.to(torch.float32).contiguous()
+    tgt = _target_u8(target).contiguous()
+    out = torch.empty((lanes, 3, c, t), dtype=torch.float32, device=preds.device)
+    if not (c and t and lanes):
+        out.zero_()
+    else:
+        lib = _library()
+        sorted_thr, perm = sorted_thr.to(torch.float32).contiguous(), perm.to(torch.int32).contiguous()
+        with torch.cuda.device(preds.device):
+            stream = torch.cuda.current_stream(preds.device).cuda_stream
+            for lo, hi in _build.lane_groups(lanes, 1, MAX_LANES):
+                n_scratch = lib.binned_counters_lanes_scratch(hi - lo, n, c, t)
+                scratch = torch.zeros((n_scratch,), dtype=torch.int32, device=preds.device) if n_scratch else None
+                err = lib.binned_counters_lanes_launch(
+                    preds[lo].data_ptr(), tgt[lo].data_ptr(), sorted_thr.data_ptr(), perm.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(), out[lo].data_ptr(), hi - lo, n, c, t, stream,
+                )
+                if err != 0:
+                    raise RuntimeError(f"binned_counters lanes kernel launch failed with cudaError {err}")
+                _build.count_launch(__name__, "lanes_launch_count")
+    tps, fps, fns = out.unbind(1)
+    return tps, fps, fns
+
+
+def binned_counter_update_lanes(
+    preds: Tensor, target: Tensor, thresholds: Tensor, order: Optional[Tuple[Tensor, Tensor]] = None
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The lane-batched form: ``preds`` and ``target`` ``(B, N, C)``, one
+    ``(T,)`` threshold set; ``(tps, fps, fns)`` each ``(B, C, T)`` float32,
+    lane ``b``'s equal to :func:`binned_counter_update` of its rows. On a
+    CUDA tensor the kernel's lane-batched form; on a CPU tensor
+    :func:`binned_counter_update_lanes_plain`."""
+    if preds.device.type == "cpu":
+        return binned_counter_update_lanes_plain(preds, target, thresholds)
+    if preds.device.type == "cuda":
+        sorted_thr, perm = threshold_order(thresholds) if order is None else order
+        return _binned_counter_lanes_cuda(preds, target, sorted_thr, perm)
+    raise ValueError(f"binned_counters runs on CPU or CUDA tensors, got device {preds.device}")
+
+
+def _route_lanes(preds: Tensor, target: Tensor, thresholds: Tensor, sorted_thr: Tensor, perm: Tensor):
+    return binned_counter_update_lanes(preds, target, thresholds, (sorted_thr, perm))
+
+
+_ROUTE = _build.lane_route(
+    "binned_counters",
+    "(Tensor preds, Tensor target, Tensor thresholds, Tensor sorted_thr, Tensor perm) -> (Tensor, Tensor, Tensor)",
+    lane_args=(0, 1), shared_args=(2, 3, 4), lanes_fn=_route_lanes,
+)
+
+
 def binned_counter_update(
     preds: Tensor, target: Tensor, thresholds: Tensor, order: Optional[Tuple[Tensor, Tensor]] = None
 ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -111,7 +199,10 @@ def binned_counter_update(
 
     Returns:
         ``(tps, fps, fns)``, each ``(C, T)`` float32. A NaN score clears no
-        threshold, so it counts as a false negative.
+        threshold, so it counts as a false negative. Under
+        ``torch.func.vmap`` each lane is counted on its own, by the kernel's
+        lane-batched form; the thresholds (and ``order``) must not be
+        batched.
     """
     if preds.ndim != 2 or tuple(target.shape) != tuple(preds.shape) or thresholds.ndim != 1:
         raise ValueError(
@@ -124,6 +215,10 @@ def binned_counter_update(
         raise ValueError(
             f"preds, target and thresholds must be on one device, got {preds.device}, {target.device} and {thresholds.device}"
         )
+    if _build.batched(preds, target, thresholds, *(order or ())):
+        sorted_thr, perm = threshold_order(thresholds) if order is None else order
+        # (target == 1) as uint8: a dtype view has no batching rule in every torch release
+        return _ROUTE(preds.to(torch.float32), (target == 1).to(torch.uint8), thresholds.to(torch.float32), sorted_thr, perm)
     if preds.device.type == "cpu":
         return binned_counter_update_plain(preds, target, thresholds)
     if preds.device.type == "cuda":

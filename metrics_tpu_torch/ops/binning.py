@@ -21,6 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from metrics_tpu_torch.ops._build import bit_view
 from metrics_tpu_torch.ops.bucketed_rank import _float32_ascending_key
 
 Tensor = torch.Tensor
@@ -42,7 +43,7 @@ def key_to_float32(key: Tensor) -> Tensor:
     u = torch.where(neg, ~key & 0xFFFFFFFF, key & 0x7FFFFFFF)
     # the float's bits as a signed int32 value, so the narrowing is exact
     u = torch.where(u >= _SIGN32, u - (1 << 32), u)
-    return u.to(torch.int32).view(torch.float32)
+    return bit_view(u.to(torch.int32), torch.float32)
 
 
 def halving_level(n: int, k: int) -> int:

@@ -25,6 +25,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from metrics_tpu_torch.ops._build import bit_view
 from metrics_tpu_torch.ops.histogram import histogram
 
 Tensor = torch.Tensor
@@ -39,7 +40,7 @@ def _float32_ascending_key(s: Tensor) -> Tensor:
     """The ascending key of float32 ``s`` as int32, with its sign bit flipped:
     signed int32 order is XLA's float32 sort order. ``-0.0`` and denormals
     take ``+0.0``'s key; NaNs of either sign take the largest."""
-    i = s.to(torch.float32).view(torch.int32)
+    i = bit_view(s.to(torch.float32), torch.int32)
     zero_or_denormal = (i & 0x7F800000) == 0
     # non-negative floats keep their bit order; negative floats reverse it
     key = torch.where(i >= 0, i, i ^ 0x7FFFFFFF)
@@ -88,7 +89,7 @@ def _key_words_ascending(x: Tensor) -> Tuple[List[Tensor], int]:
         if x.dtype == torch.float32:
             return [_float32_ascending_word(x)], 32
         # float64 (the JAX package reaches it only under x64)
-        i = x.view(torch.int64)
+        i = bit_view(x, torch.int64)
         exp_mask = 0x7FF0000000000000
         i = torch.where((i & exp_mask) == 0, torch.zeros_like(i), i)
         key = torch.where(i >= 0, i, i ^ (_SIGN64 - 1))

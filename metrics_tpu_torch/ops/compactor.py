@@ -29,6 +29,16 @@ Kernel K3 (``csrc/compactor_fold.cu``) has two wrappers here:
 On a CUDA tensor every wrapper launches its kernel or raises; no switch
 sends a CUDA tensor to a plain version.
 
+Under ``torch.func.vmap`` (a bootstrap of a sketch metric: one sketch per
+replica) :func:`fold_cascade` and :func:`merge_cascade` take the lane
+route (``_build.lane_route``): the lanes' sketches reach
+:func:`fold_cascade_lanes` / :func:`merge_cascade_lanes`, one launch of the
+cascade kernel's lane-batched form on CUDA tensors (one walking block per
+lane, counted in ``lanes_launch_count``), and the plain versions with the
+lane axis written out on CPU tensors. ``start_level`` is shared by the
+lanes (it depends on the batch's size only). No vmapped path of the port
+reaches the single fold: on a batched CUDA tensor it raises.
+
 The JAX package skips the levels that the promotion does not reach with a
 ``lax.cond`` on the incoming count. The cascade kernel does the same on the
 device: once the carry is empty it copies the levels above through.
@@ -54,41 +64,51 @@ _INF = float("inf")
 _INT32_MAX = (1 << 31) - 1
 
 # launches since the last reset_launch_count(), read by chip_smoke.py: of
-# the cascade kernel (the sketch paths' K3) and of the single-fold kernel
+# the cascade kernel (the sketch paths' K3), of the single-fold kernel, and
+# of the cascade's lane-batched form
 launch_count = 0
 fold_launch_count = 0
+lanes_launch_count = 0
+
+# the lane-batched cascade's grid takes at most this many lanes a launch
+MAX_LANES = 65535
 
 
 def reset_launch_count() -> None:
-    global launch_count, fold_launch_count
+    global launch_count, fold_launch_count, lanes_launch_count
     launch_count = 0
     fold_launch_count = 0
+    lanes_launch_count = 0
+
+
+# The plain versions below take any leading lane axes: counts are ``(...)``
+# beside items ``(..., n)``; each lane's result is that of its own lane.
 
 
 def masked_ascending(x: Tensor, count: Tensor) -> Tensor:
     """Positions ``>= count`` forced to ``+inf`` (the level invariant)."""
-    return torch.where(torch.arange(x.shape[0], device=x.device) < count, x, _INF)
+    return torch.where(torch.arange(x.shape[-1], device=x.device) < count[..., None], x, _INF)
 
 
 def _compactor_fold_select(combined: Tensor, c: Tensor, k: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Post-sort compact/select stage: ``combined`` is the ascending
-    ``(k + M,)`` concatenation with ``c`` valid values in its prefix."""
+    ``(..., k + M)`` concatenation with ``c`` valid values in its prefix."""
     dev = combined.device
     overflow = c > k
-    keep_items = combined[:k]
+    keep_items = combined[..., :k]
     pairs = c // 2
-    p_len = combined.shape[0] // 2
+    p_len = combined.shape[-1] // 2
     j = torch.arange(p_len, device=dev)
-    picked = combined[2 * j + (j & 1)]  # one per adjacent pair, alternating
-    promoted = torch.where(j < pairs, picked, _INF)
+    picked = combined[..., 2 * j + (j & 1)]  # one per adjacent pair, alternating
+    promoted = torch.where(j < pairs[..., None], picked, _INF)
     leftover_count = c - 2 * pairs  # 0 or 1
     # a gather, not combined[tensor]: indexing by a 0-d tensor reads it back
     # to the host. The index is clamped, as a JAX gather clamps it.
-    at = torch.clamp(2 * pairs, max=combined.shape[0] - 1).to(torch.int64).reshape(1)
-    leftover = torch.where(torch.arange(k, device=dev) < leftover_count, combined.gather(0, at), _INF)
-    new_items = torch.where(overflow, leftover, keep_items)
+    at = torch.clamp(2 * pairs, max=combined.shape[-1] - 1).to(torch.int64)[..., None]
+    leftover = torch.where(torch.arange(k, device=dev) < leftover_count[..., None], combined.gather(-1, at), _INF)
+    new_items = torch.where(overflow[..., None], leftover, keep_items)
     new_count = torch.where(overflow, leftover_count, c)
-    promoted = torch.where(overflow, promoted, _INF)
+    promoted = torch.where(overflow[..., None], promoted, _INF)
     promoted_count = torch.where(overflow, pairs, 0)
     return new_items, new_count.to(torch.int32), promoted, promoted_count.to(torch.int32)
 
@@ -97,7 +117,7 @@ def compactor_fold_plain(
     a: Tensor, a_count: Tensor, b: Tensor, b_count: Tensor, k: int
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """The plain version of K3: sort the concatenation, then select."""
-    combined = torch.sort(torch.cat([a, b])).values
+    combined = torch.sort(torch.cat([a, b], dim=-1), dim=-1).values
     return _compactor_fold_select(combined, a_count + b_count, k)
 
 
@@ -110,6 +130,8 @@ def _library() -> ctypes.CDLL:
     lib.compactor_cascade_scratch_floats.restype = ctypes.c_longlong
     lib.compactor_cascade_launch.argtypes = [p, p, i, i, p, i, p, i, p, p, p, p, p, p]
     lib.compactor_cascade_launch.restype = i
+    lib.compactor_cascade_lanes_launch.argtypes = [p, p, i, i, p, i, p, i, p, p, p, p, p, i, p]
+    lib.compactor_cascade_lanes_launch.restype = i
     return lib
 
 
@@ -117,6 +139,11 @@ def _compactor_fold_cuda(
     a: Tensor, a_count: Tensor, b: Tensor, b_count: Tensor, k: int
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Launch the single-fold kernel on PyTorch's current stream."""
+    if _build.batched(a, a_count, b, b_count):
+        raise ValueError(
+            "compactor_fold has no lane-batched form: no vmapped path of the port reaches the single fold "
+            "(a sketch update or merge under torch.func.vmap runs fold_cascade / merge_cascade)"
+        )
     na, nb = a.shape[0], b.shape[0]
     a, b = a.contiguous(), b.contiguous()
     a_count = a_count.to(torch.int32).contiguous()
@@ -188,10 +215,10 @@ def fold_level(items: Tensor, count: Tensor, inc: Tensor, inc_count: Tensor) -> 
 def _absorb_top(items: Tensor, count: Tensor, inc: Tensor, inc_count: Tensor) -> Tuple[Tensor, Tensor]:
     """The top level never promotes: it absorbs and saturates at ``k`` items,
     which ``QuantileSketchState.create`` makes unreachable by sizing ``L``."""
-    k = items.shape[0]
-    combined = torch.sort(torch.cat([items, inc])).values
+    k = items.shape[-1]
+    combined = torch.sort(torch.cat([items, inc], dim=-1), dim=-1).values
     c = torch.clamp(count + inc_count, max=k)
-    return masked_ascending(combined[:k], c), c
+    return masked_ascending(combined[..., :k], c), c
 
 
 def fold_cascade_plain(
@@ -200,18 +227,21 @@ def fold_cascade_plain(
     """The plain version of an insert cascade: ``fold`` (by default
     :func:`compactor_fold_plain`) at every level from ``start_level`` up,
     then the top level's absorb. With ``fold=compactor_fold`` on CUDA
-    tensors it is the per-level design the cascade kernel replaced."""
-    L, k = items.shape
-    rows = [items[lvl] for lvl in range(min(start_level, L))]
-    cnts = [counts[lvl] for lvl in range(min(start_level, L))]
+    tensors it is the per-level design the cascade kernel replaced. With
+    leading lane axes (``(B, L, k)`` items, ``(B, L)`` counts, ``(B, M)``
+    runs, ``(B,)`` run counts) it is the plain version of the lane-batched
+    cascade."""
+    L, k = items.shape[-2:]
+    rows = [items[..., lvl, :] for lvl in range(min(start_level, L))]
+    cnts = [counts[..., lvl] for lvl in range(min(start_level, L))]
     for lvl in range(start_level, L):
         if lvl == L - 1:
-            row, c = _absorb_top(items[lvl], counts[lvl], inc, inc_count)
+            row, c = _absorb_top(items[..., lvl, :], counts[..., lvl], inc, inc_count)
         else:
-            row, c, inc, inc_count = fold(items[lvl], counts[lvl], inc, inc_count, k)
+            row, c, inc, inc_count = fold(items[..., lvl, :], counts[..., lvl], inc, inc_count, k)
         rows.append(row)
         cnts.append(c)
-    return torch.stack(rows), torch.stack(cnts).to(torch.int32)
+    return torch.stack(rows, dim=-2), torch.stack(cnts, dim=-1).to(torch.int32)
 
 
 def merge_cascade_plain(
@@ -221,20 +251,26 @@ def merge_cascade_plain(
     sorts the level with the other sketch's level and the carry from below.
     Here the other level and the carry, two ascending runs, are merged first
     (a fold whose size is their total, so nothing compacts), and the result
-    is folded into the level. ``fold`` is as in :func:`fold_cascade_plain`."""
-    L, k = items.shape
-    carry = torch.full((2 * k,), _INF, dtype=torch.float32, device=items.device)
-    carry_count = torch.zeros((), dtype=torch.int32, device=items.device)
+    is folded into the level. ``fold`` is as in :func:`fold_cascade_plain`;
+    leading lane axes as there."""
+    L, k = items.shape[-2:]
+    lanes = tuple(items.shape[:-2])
+    carry = torch.full(lanes + (2 * k,), _INF, dtype=torch.float32, device=items.device)
+    carry_count = torch.zeros(lanes, dtype=torch.int32, device=items.device)
     rows, cnts = [], []
     for lvl in range(L):
-        inc, inc_count, _, _ = fold(other_items[lvl], other_counts[lvl], carry, carry_count, 3 * k)
+        inc, inc_count, _, _ = fold(other_items[..., lvl, :], other_counts[..., lvl], carry, carry_count, 3 * k)
         if lvl == L - 1:
-            row, c = _absorb_top(items[lvl], counts[lvl], inc, inc_count)
+            row, c = _absorb_top(items[..., lvl, :], counts[..., lvl], inc, inc_count)
         else:
-            row, c, carry, carry_count = fold(items[lvl], counts[lvl], inc, inc_count, k)
+            row, c, carry, carry_count = fold(items[..., lvl, :], counts[..., lvl], inc, inc_count, k)
         rows.append(row)
         cnts.append(c)
-    return torch.stack(rows), torch.stack(cnts).to(torch.int32)
+    return torch.stack(rows, dim=-2), torch.stack(cnts, dim=-1).to(torch.int32)
+
+
+fold_cascade_lanes_plain = fold_cascade_plain
+merge_cascade_lanes_plain = merge_cascade_plain
 
 
 def _check_levels(items: Tensor, counts: Tensor, what: str) -> None:
@@ -259,9 +295,12 @@ def _cascade_cuda(
     start_level: int,
     other_items: Optional[Tensor],
     other_counts: Optional[Tensor],
+    lanes: Optional[int] = None,
 ) -> Tuple[Tensor, Tensor]:
-    """One launch of the cascade kernel on PyTorch's current stream."""
-    L, k = items.shape
+    """One launch of the cascade kernel on PyTorch's current stream; with
+    ``lanes``, every array has a leading lane axis and the lane-batched
+    form runs (one launch per ``MAX_LANES`` lanes)."""
+    L, k = items.shape[-2:]
     merge = other_items is not None
     items = items.contiguous()
     counts = counts.to(torch.int32).contiguous()
@@ -271,24 +310,69 @@ def _cascade_cuda(
         m = 0
     else:
         inc = inc.contiguous()
-        inc_count = inc_count.to(torch.int32).reshape(1).contiguous()
-        m = inc.shape[0]
-    out_items = torch.empty((L, k), dtype=torch.float32, device=items.device)
-    out_counts = torch.empty((L,), dtype=torch.int32, device=items.device)
+        inc_count = inc_count.to(torch.int32).reshape(-1 if lanes is None else (lanes,)).contiguous()
+        m = inc.shape[-1]
+    out_items = torch.empty(items.shape, dtype=torch.float32, device=items.device)
+    out_counts = torch.empty(counts.shape, dtype=torch.int32, device=items.device)
     lib = _library()
     n_scratch = _scratch_floats(k, m, merge)
-    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=items.device) if n_scratch else None
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream(items.device).cuda_stream
+    ptr = lambda t, lo=0: None if t is None else (t if lanes is None else t[lo]).data_ptr()  # noqa: E731
+    start = min(start_level, L)
     with torch.cuda.device(items.device):
-        err = lib.compactor_cascade_launch(
-            items.data_ptr(), counts.data_ptr(), L, k, ptr(inc), m, ptr(inc_count), min(start_level, L),
-            ptr(other_items), ptr(other_counts), out_items.data_ptr(), out_counts.data_ptr(), ptr(scratch),
-            torch.cuda.current_stream(items.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"compactor_cascade kernel launch failed with cudaError {err}")
-    _build.count_launch(__name__)
+        if lanes is None:
+            scratch = torch.empty((n_scratch,), dtype=torch.float32, device=items.device) if n_scratch else None
+            err = lib.compactor_cascade_launch(
+                ptr(items), ptr(counts), L, k, ptr(inc), m, ptr(inc_count), start, ptr(other_items),
+                ptr(other_counts), ptr(out_items), ptr(out_counts), ptr(scratch), stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"compactor_cascade kernel launch failed with cudaError {err}")
+            _build.count_launch(__name__)
+            return out_items, out_counts
+        for lo, hi in _build.lane_groups(lanes, 1, MAX_LANES):
+            scratch = torch.empty(((hi - lo) * n_scratch,), dtype=torch.float32, device=items.device) if n_scratch else None
+            err = lib.compactor_cascade_lanes_launch(
+                ptr(items, lo), ptr(counts, lo), L, k, ptr(inc, lo), m, ptr(inc_count, lo), start,
+                ptr(other_items, lo), ptr(other_counts, lo), ptr(out_items, lo), ptr(out_counts, lo),
+                None if scratch is None else scratch.data_ptr(), hi - lo, stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"compactor_cascade lanes kernel launch failed with cudaError {err}")
+            _build.count_launch(__name__, "lanes_launch_count")
     return out_items, out_counts
+
+
+def fold_cascade_lanes(items: Tensor, counts: Tensor, inc: Tensor, inc_count: Tensor, start_level: int) -> Tuple[Tensor, Tensor]:
+    """The lane-batched insert: ``(B, L, k)`` items, ``(B, L)`` counts, ``(B,
+    M)`` runs and ``(B,)`` run counts, each lane folded as
+    :func:`fold_cascade` folds it. On CUDA tensors the cascade kernel's
+    lane-batched form; on CPU tensors :func:`fold_cascade_lanes_plain`."""
+    if items.device.type == "cpu":
+        return fold_cascade_lanes_plain(items, counts, inc, inc_count, start_level)
+    if items.device.type == "cuda":
+        return _cascade_cuda(items, counts, inc, inc_count, start_level, None, None, lanes=items.shape[0])
+    raise ValueError(f"fold_cascade runs on CPU or CUDA tensors, got device {items.device}")
+
+
+def merge_cascade_lanes(items: Tensor, counts: Tensor, other_items: Tensor, other_counts: Tensor) -> Tuple[Tensor, Tensor]:
+    """The lane-batched merge: lane ``b`` of the result is
+    :func:`merge_cascade` of lane ``b`` of each sketch."""
+    if items.device.type == "cpu":
+        return merge_cascade_lanes_plain(items, counts, other_items, other_counts)
+    if items.device.type == "cuda":
+        return _cascade_cuda(items, counts, None, None, 0, other_items, other_counts, lanes=items.shape[0])
+    raise ValueError(f"merge_cascade runs on CPU or CUDA tensors, got device {items.device}")
+
+
+_INSERT_ROUTE = _build.lane_route(
+    "fold_cascade", "(Tensor items, Tensor counts, Tensor inc, Tensor inc_count, int start_level) -> (Tensor, Tensor)",
+    lane_args=(0, 1, 2, 3), shared_args=(), lanes_fn=fold_cascade_lanes,
+)
+_MERGE_ROUTE = _build.lane_route(
+    "merge_cascade", "(Tensor items, Tensor counts, Tensor other_items, Tensor other_counts) -> (Tensor, Tensor)",
+    lane_args=(0, 1, 2, 3), shared_args=(), lanes_fn=merge_cascade_lanes,
+)
 
 
 def fold_cascade(items: Tensor, counts: Tensor, inc: Tensor, inc_count: Tensor, start_level: int) -> Tuple[Tensor, Tensor]:
@@ -307,6 +391,8 @@ def fold_cascade(items: Tensor, counts: Tensor, inc: Tensor, inc_count: Tensor, 
         raise ValueError(f"fold_cascade's inputs must be on one device, got {items.device}, {counts.device}, {inc.device} and {inc_count.device}")
     if start_level < 0:
         raise ValueError(f"fold_cascade needs start_level >= 0, got {start_level}")
+    if _build.batched(items, counts, inc, inc_count):
+        return _INSERT_ROUTE(items, counts.to(torch.int32), inc, inc_count.reshape(()).to(torch.int32), int(start_level))
     if items.device.type == "cpu":
         return fold_cascade_plain(items, counts, inc, inc_count.reshape(()), start_level)
     if items.device.type == "cuda":
@@ -324,6 +410,8 @@ def merge_cascade(items: Tensor, counts: Tensor, other_items: Tensor, other_coun
         raise ValueError(f"merge_cascade needs two sketches of one shape, got {tuple(items.shape)} and {tuple(other_items.shape)}")
     if not (items.device == counts.device == other_items.device == other_counts.device):
         raise ValueError(f"merge_cascade's inputs must be on one device, got {items.device} and {other_items.device}")
+    if _build.batched(items, counts, other_items, other_counts):
+        return _MERGE_ROUTE(items, counts.to(torch.int32), other_items, other_counts.to(torch.int32))
     if items.device.type == "cpu":
         return merge_cascade_plain(items, counts, other_items, other_counts)
     if items.device.type == "cuda":

@@ -333,9 +333,15 @@ def bootstrap_functionalize(metric: Metric, num_bootstraps: int = 10, group: Opt
     resampled along their leading axis; keyword arguments pass as they are.
     The vmapped update runs without the value checks (they read values
     back, which ``vmap`` cannot), as the JAX package's traced update does;
-    the refusals of :func:`functionalize` apply.
+    the refusals of :func:`functionalize` apply. A metric whose update
+    launches a kernel (the Binned metrics' K1, the confusion family's K2, a
+    ``QuantileSketch``'s K3 cascade) runs on the card too: the replicas are
+    the lanes of one launch of the kernel's lane-batched form
+    (``ops/_build.py::lane_route``), as ``pallas_call``'s batching rule
+    batches the JAX package's kernels.
 
-    ``compute`` returns ``{"mean", "std" (ddof=1), "raw"}``. With ``group``
+    ``compute`` returns ``{"mean", "std" (ddof=1), "raw"}``; integer values
+    (a confusion matrix) are averaged in float32. With ``group``
     it syncs the stacked state in one ``fused_sync`` (a collective per
     bucket, whatever the number of replicas), then computes each replica;
     ``dropped`` and ``faults`` sum every replica's counts in one
@@ -390,8 +396,10 @@ def bootstrap_functionalize(metric: Metric, num_bootstraps: int = 10, group: Opt
         if sync is not None:
             state = sync(state)
         raw = _stack([mdef.compute(_replica(state, i)) for i in range(num_bootstraps)])
-        mean = apply_to_collection(raw, Tensor, lambda v: v.mean(dim=0))
-        std = apply_to_collection(raw, Tensor, lambda v: v.std(dim=0, correction=1))
+        # integer values (a confusion matrix) average in float32, as jnp's mean and std do
+        real = apply_to_collection(raw, Tensor, lambda v: v if v.is_floating_point() else v.to(torch.float32))
+        mean = apply_to_collection(real, Tensor, lambda v: v.mean(dim=0))
+        std = apply_to_collection(real, Tensor, lambda v: v.std(dim=0, correction=1))
         return {"mean": mean, "std": std, "raw": raw}
 
     def merge(state_a: Any, state_b: Any, **counts: Any) -> Any:

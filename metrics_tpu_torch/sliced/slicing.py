@@ -34,13 +34,17 @@ package: quantile sketches (their merge is a compaction), list and ring
 states, and an inner trace-safe wrapper (compose
 ``WindowedMetric(SlicedMetric(m))`` instead).
 
-**A difference from the JAX package.** On the card a wrapped metric whose
-update launches a kernel (the Binned metrics' K1, the confusion matrix
-family's K2) is refused at its first sliced update: a kernel launch cannot
-run under ``vmap``, and a CUDA tensor is never routed to a kernel's plain
-version, so the kernel's wrapper raises where it would launch
-(``ops/_build.py::refuse_batched``). On the CPU the plain versions run
-under ``vmap`` and the values are the JAX package's.
+**Kernel-backed members.** A wrapped metric whose update launches a kernel
+(the Binned metrics' K1, the confusion matrix family's K2 through
+``_bincount``) slices on the card as on the CPU: under ``vmap`` each
+kernel's wrapper takes its lane route (``ops/_build.py::lane_route``), and
+the update's rows become the lanes of one launch of the kernel's
+lane-batched form, as ``pallas_call``'s batching rule gives the JAX package
+one batched kernel. The per-row deltas are materialised, as JAX's ``vmap``
+materialises them: ``(n, *state)`` beside the ``(K + 2, *state)`` rings
+(ROADMAP Queue 2 parks counting straight into the rings). Their rings hold
+integer counts (float32 counts of 0/1 rows for the Binned metrics) and stay
+bit-equal to the JAX package's.
 
 **Scrape.** :meth:`SlicedMetric.scrape_slices` gives the top slices by rows
 (at most ``METRICS_TPU_SLICES_MAX_LABELS``, default 8) with their scalar
@@ -342,7 +346,8 @@ class SlicedMetric(_StreamingWrapper):
         for name, kind in self._specs.items():
             ring = getattr(self, f"{SLICE_STATE_PREFIX}{name}")[:K]
             if kind in ("sum", "faults", "sketch_sum"):
-                raw[name] = ring.sum(dim=0)
+                # in the ring's dtype, as jnp.sum keeps int32 (torch's sum would widen it)
+                raw[name] = ring.sum(dim=0, dtype=ring.dtype)
             elif kind == "mean":
                 raw[name] = ring.sum(dim=0) / total
             elif kind in ("max", "sketch_max"):

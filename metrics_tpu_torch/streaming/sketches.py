@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.metric import Metric, resolve_device
+from metrics_tpu_torch.ops._build import bit_view
 from metrics_tpu_torch.ops.binning import halving_level, precompact_binned
 from metrics_tpu_torch.ops.compactor import (
     fold_cascade,
@@ -75,7 +76,7 @@ def _hash_keys(values: Tensor) -> Tensor:
     truncated to its low 32 bits."""
     x = values.reshape(-1)
     if x.is_floating_point():
-        bits = x.to(torch.float32).view(torch.int32).to(torch.int64) & _U32
+        bits = bit_view(x.to(torch.float32), torch.int32).to(torch.int64) & _U32
         return torch.where((bits & 0x7F800000) == 0, 0, bits)
     return x.to(torch.int64) & _U32
 

@@ -5,6 +5,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.ops.bucketed_rank import flush_denormals
+from metrics_tpu_torch.ops import _build
 from metrics_tpu_torch.ops.histogram import histogram
 
 Tensor = torch.Tensor
@@ -180,10 +181,14 @@ def _bincount(x: Tensor, minlength: int) -> Tensor:
     ``ops/histogram.py``), which reads nothing back to the host, where
     ``torch.bincount`` reads the input's minimum and maximum; values are
     first narrowed to int32 with those out of range sent to -1, so no wide
-    value wraps into range. A CPU tensor keeps the plain ``bincount``.
+    value wraps into range. Under ``torch.func.vmap`` (a sliced confusion
+    matrix, a bootstrap) every device takes that path too, and the kernel's
+    lane route counts each lane: its lane-batched form on the card, its
+    plain version on the CPU. An unbatched CPU tensor keeps the plain
+    ``bincount``.
     """
     x = x.reshape(-1)
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" or _build.batched(x):
         if x.dtype != torch.int32:
             x = torch.where((x >= 0) & (x < minlength), x, -1).to(torch.int32)
         return histogram(x, minlength)

@@ -379,6 +379,51 @@ def test_bootstrap_bit_equal_to_jax_on_its_indices(kind):
     assert int(tdef.dropped(ts)) == int(jdef.dropped(js))
 
 
+# bootstraps whose update reaches a kernel: name: (factory(pkg, **kw), batch
+# maker, the kernel module and its lanes' plain version)
+KERNEL_BOOTSTRAPS = {
+    "binned_ap": (lambda pkg, **kw: pkg.BinnedAveragePrecision(num_classes=C, thresholds=6, **kw), _class_batch,
+                  "binned_counters", "binned_counter_update_lanes_plain"),
+    "confusion_matrix": (lambda pkg, **kw: pkg.ConfusionMatrix(num_classes=C, **kw), _class_batch,
+                         "histogram", "histogram_lanes_plain"),
+    "quantile_sketch": (KINDS["sketch"][0], _sketch_batch, "compactor", "fold_cascade_lanes_plain"),
+}
+
+
+@pytest.mark.parametrize("name", list(KERNEL_BOOTSTRAPS))
+def test_bootstrap_of_a_kernel_backed_metric_bit_equal_to_jax_on_its_indices(name, monkeypatch):
+    """The replicas' vmapped update reaches the kernel's lane route (K1, K2
+    or K3's cascade): one lane-batched call an update, the replicas as its
+    lanes (on the card the kernel's batched form, here its plain version
+    with the lane axis written out). The states are bit-equal to JAX's on
+    the indices JAX drew; the per-replica values are bit-equal where they
+    are counts or sketch items (the confusion matrix, the quantiles) and
+    within ``atol`` where they are float32 arithmetic on the counts (the
+    average precision); the mean and std within ``atol``."""
+    import importlib
+
+    factory, batch, kernel, plain = KERNEL_BOOTSTRAPS[name]
+    module = importlib.import_module(f"metrics_tpu_torch.ops.{kernel}")
+    inner = getattr(module, plain)
+    lanes = []
+    monkeypatch.setattr(module, plain, lambda *a: lanes.append(a[0].shape[0]) or inner(*a))
+    b = 6
+    tdef, jdef = mtt.bootstrap_functionalize(factory(mtt, device="cpu"), b), mt.bootstrap_functionalize(factory(mt), b)
+    ts, js = tdef.init(), jdef.init()
+    jupdate = jax.jit(jdef.update)
+    for i in range(2):
+        key = jax.random.PRNGKey(30 + i)
+        data = batch(i)
+        js = jupdate(js, key, *_j(data))
+        ts = tdef.update.with_indices(ts, torch.from_numpy(_jax_indices(key, b, len(data[0]))), *_t(data))
+        assert_states_close(ts, js)
+    assert lanes == [b, b]
+    out_t, out_j = tdef.compute(ts), jdef.compute(js)
+    if name != "binned_ap":
+        assert_bits_equal(out_t["raw"], jax.tree_util.tree_map(np.asarray, out_j["raw"]))
+    _close(out_t, out_j)
+
+
 @pytest.mark.parametrize("kind", ["ring", "sketch"])
 def test_bootstrap_over_a_group_refuses_states_that_do_not_reduce_lane_by_lane(kind):
     """Over a group the replicas' stacked state syncs elementwise, which a

@@ -11,13 +11,13 @@ W4); computed values within ``atol=1e-6``.
 
 Also held: the quarantine and discard routing, the bounded scrape and its
 environment variable, ``WindowedMetric(SlicedMetric(m))``, every refusal
-of the JAX package and the port's own refusal of a kernel-backed metric on
-the card (a stated difference), the sliced pure layer in both modes (the
+of the JAX package, the kernel-backed members (K1's Binned metrics and K2's
+confusion family) sliced through the kernels' lane route, one lane-batched
+call per update, the sliced pure layer in both modes (the
 sharded one over four Gloo ranks against JAX's ``psum_scatter`` under
 ``jax.vmap(axis_name="data")``, its collectives counted), the fault ring
 in ``MetricDef.faults``, and the sliced states carried across the packages.
 """
-import importlib
 import multiprocessing as mp
 import warnings
 
@@ -44,8 +44,6 @@ from tests.helpers.torch_twins import assert_states_close, leaves  # noqa: E402
 
 C = 4
 K = 5
-# the module, which its package shadows with the function of the same name
-cm_functional = importlib.import_module("metrics_tpu_torch.functional.classification.confusion_matrix")
 RTOL = ATOL = 1e-6
 
 
@@ -251,53 +249,45 @@ def test_refusals_match_jax():
         jsl.SlicedMetric(mt.SumMetric(), num_slices=K).update(jnp.ones(3))
 
 
-@pytest.mark.parametrize(
-    "factory",
-    [
-        lambda: mtt.BinnedAveragePrecision(num_classes=C, thresholds=5, device="cpu"),
-        lambda: mtt.ConfusionMatrix(num_classes=C, device="cpu"),
-        lambda: mtt.CohenKappa(num_classes=C, device="cpu"),
-        lambda: mtt.MatthewsCorrCoef(num_classes=C, device="cpu"),
-        lambda: mtt.JaccardIndex(num_classes=C, device="cpu"),
-    ],
-)
-def test_kernel_backed_metric_refused_on_the_card_only(factory, monkeypatch):
-    """Stated difference D32: on the card a sliced update that would launch
-    a kernel is refused where the kernel launches (it cannot run under
-    ``vmap``, and a CUDA tensor never goes to a plain version); on the CPU
-    it slices as in the JAX package. The card is stood in by routing each
-    kernel's plain version to its CUDA entry, which refuses a batched
-    tensor before it builds or launches anything."""
-    p, t, ids = _rows(12, seed=31)
-    args = (torch.from_numpy(p), torch.from_numpy(t))
-    ok = mtt.SlicedMetric(factory(), num_slices=K)  # the CPU: accepted
-    ok.update(*args, slice_ids=torch.from_numpy(ids))
-    assert int(ok.metric_state["sl__rows"].sum()) == len(ids)
-
-    monkeypatch.setattr(binned_counters, "binned_counter_update_plain",
-                        lambda pr, tg, th: binned_counters._binned_counter_update_cuda(pr, tg, th))
-    monkeypatch.setattr(cm_functional, "_bincount", lambda x, minlength: histogram._histogram_cuda(x, minlength))
-    with pytest.raises(ValueError, match="cannot launch under torch.func.vmap.*sliced K1/K2"):
-        mtt.SlicedMetric(factory(), num_slices=K).update(*args, slice_ids=torch.from_numpy(ids))
+# the kernel-backed members: the Binned metrics reach K1, the confusion
+# family K2 (through ``_bincount``); name: (factory(pkg, **kw), kernel)
+KERNEL_BACKED = {
+    "binned_pr_curve": (lambda pkg, **kw: pkg.BinnedPrecisionRecallCurve(num_classes=C, thresholds=5, **kw), "k1"),
+    "binned_ap": (lambda pkg, **kw: pkg.BinnedAveragePrecision(num_classes=C, thresholds=5, **kw), "k1"),
+    "binned_recall_at_precision": (
+        lambda pkg, **kw: pkg.BinnedRecallAtFixedPrecision(num_classes=C, min_precision=0.3, thresholds=5, **kw), "k1"),
+    "confusion_matrix": (lambda pkg, **kw: pkg.ConfusionMatrix(num_classes=C, **kw), "k2"),
+    "cohen_kappa": (lambda pkg, **kw: pkg.CohenKappa(num_classes=C, **kw), "k2"),
+    "matthews": (lambda pkg, **kw: pkg.MatthewsCorrCoef(num_classes=C, **kw), "k2"),
+    "jaccard": (lambda pkg, **kw: pkg.JaccardIndex(num_classes=C, **kw), "k2"),
+}
 
 
-@pytest.mark.parametrize(
-    "launch",
-    [
-        lambda x: binned_counters._binned_counter_update_cuda(x, x > 0.5, torch.linspace(0, 1, 5)),
-        lambda x: histogram._histogram_cuda((x * 4).to(torch.int32), 4),
-    ],
-    ids=["K1", "K2"],
-)
-def test_kernel_entries_refuse_batched_tensors(launch):
-    """The CUDA entry of each kernel refuses a ``vmap``-batched tensor
-    first, with the D32 message; an unbatched tensor goes on to the build."""
-    x = torch.rand(3, 6, C)
-    with pytest.raises(ValueError, match="cannot launch under torch.func.vmap.*sliced K1/K2"):
-        torch.func.vmap(launch)(x)
-    with pytest.raises(Exception) as unbatched:
-        launch(x[0])
-    assert "torch.func.vmap" not in str(unbatched.value)
+@pytest.mark.parametrize("name", list(KERNEL_BACKED))
+def test_kernel_backed_member_sliced_through_the_lane_route_matches_jax(name, monkeypatch):
+    """A member whose update launches a kernel slices on every device: its
+    per-row deltas reach the kernel's lane route (``ops/_build.py::
+    lane_route``), one lane-batched call per update (on the card the
+    kernel's batched form, here its plain version with the lane axis written
+    out), and the rings equal the JAX package's bit for bit (integer counts,
+    float32 counts of 0/1 rows), the per-slice values within ``atol``."""
+    factory, kernel = KERNEL_BACKED[name]
+    module, plain = (binned_counters, "binned_counter_update_lanes_plain") if kernel == "k1" else (histogram, "histogram_lanes_plain")
+    inner = getattr(module, plain)
+    calls = []
+    monkeypatch.setattr(module, plain, lambda *a: calls.append(a[0].shape[0]) or inner(*a))
+    ours = mtt.SlicedMetric(factory(mtt, device="cpu"), num_slices=K)
+    ref = jsl.SlicedMetric(factory(mt), num_slices=K)
+    sizes = (12, 7)
+    for i, n in enumerate(sizes):
+        p, t, ids = _rows(n, seed=31 + i)
+        valid = (np.arange(n) % 4 != 1) if i == 1 else None
+        ours.update(torch.from_numpy(p), torch.from_numpy(t), slice_ids=torch.from_numpy(ids),
+                    valid=None if valid is None else torch.from_numpy(valid))
+        ref.update(jnp.asarray(p), jnp.asarray(t), slice_ids=jnp.asarray(ids), valid=None if valid is None else jnp.asarray(valid))
+    assert calls == list(sizes)  # one call per update, its lanes the update's rows
+    assert_states_close(ours.metric_state, dict(ref.metric_state))
+    _close_values(ours.compute().per_slice, ref.compute().per_slice)
 
 
 def test_sliced_confusion_matrix_on_the_cpu_matches_jax():
