@@ -558,6 +558,22 @@ BATCHED_BAP_BOOT_BATCHES = 8  # the first 8 batches of the epoch
 BATCHED_SKETCH_BOOTSTRAPS = 8
 BATCHED_SKETCH_BATCHES = 4  # 2^20-row lognormal batches
 BATCHED_SKETCH_SHAPE = (20, 6600)  # QuantileSketch(eps=0.01): the stream path's sketch
+BATCHED_BAP_TIMED_LANES = 100  # K1's many-row form also timed at phase_bootstrap's replica count
+# K1's many-row form on the card against its plain version: (name, (lanes,
+# rows, classes, thresholds), special scores and thresholds, whether the
+# plan runs the first design: a class's histogram outgrows shared memory)
+K1_MANY_ROW_CASES = (
+    ("bootstrap_shape", (20, 1024, CLASSES, THRESHOLDS), True, False),
+    ("100_lanes_cluster_of_2", (100, 1023, 33, THRESHOLDS), True, False),
+    ("2_lanes_cluster_of_8", (2, 1024, 33, THRESHOLDS), False, False),
+    ("one_class_cluster_of_5", (2, 4097, 1, 1), False, False),
+    ("7000_thresholds_one_class_tiles", (20, 2, 33, 7000), True, False),
+    ("10000_thresholds_in_device_memory", (4, 4097, 5, 10_000), True, False),
+    ("wide_counters_32_classes", (2, 65_536, 40, THRESHOLDS), True, False),
+    ("wide_counters_one_class", (4, 70_000, 1, 9), True, False),
+    ("histogram_in_device_memory_first_design", (2, 1024, 3, 30_000), True, True),
+    ("split_above_max_lanes", (65_536, 2, 1, 1), False, False),
+)
 K2_SPLIT_CASE = (1025, 2, 1 << 21)  # lanes, ids a lane, bins: 2^31 + 2^21 bins, two launches (8.6 GB of counts)
 SERVE_LADDER = (64, 256, 1024)
 SERVE_SPANS = {64: (1, 64), 256: (65, 256), 1024: (257, 1024)}
@@ -5011,7 +5027,8 @@ def _rings(m):
     return {k: v for k, v in m.metric_state.items() if k.startswith("sl__")}
 
 
-def _lanes_entry(name, source, replaces, shape, fns, kernel_name, nbytes, ops, launches, max_abs_err, library=None):
+def _lanes_entry(name, source, replaces, shape, fns, kernel_name, nbytes, ops, launches, max_abs_err, library=None,
+                 plain_iters=20):
     """A lane-batched kernel's entry of the kernels line: the wrapper, the
     kernel alone and the plain version timed with CUDA events in turns, the
     kernel's own time from the profiler, and the bound of the same work."""
@@ -5020,7 +5037,8 @@ def _lanes_entry(name, source, replaces, shape, fns, kernel_name, nbytes, ops, l
     fns = dict(fns, **({"library": library} if library else {}))
     times = {}
     for key in order:
-        times.setdefault(key, []).append(cuda_time_ms(fns[key], iters=20, warmup=3))
+        iters = plain_iters if key == "plain" else 20
+        times.setdefault(key, []).append(cuda_time_ms(fns[key], iters=iters, warmup=min(3, iters)))
     ms = {key: statistics.mean(v) for key, v in times.items()}
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
@@ -5045,16 +5063,105 @@ def _lanes_entry(name, source, replaces, shape, fns, kernel_name, nbytes, ops, l
     }
 
 
+def k1_many_row_times(lib, boot_lanes, batch, thr, order, launches, max_abs_err, gen):
+    """K1's many-row lane form (a bootstrap's kernel) for the kernels line:
+    at the BAP bootstrap's lanes (``boot_lanes``, 20 replicas of the first
+    batch) and at ``BATCHED_BAP_TIMED_LANES`` replicas resampled from
+    ``batch``, the one-pass kernel timed in turns with its first design (the
+    unbatched kernel with the lane on its grid, over a scratch zeroed before
+    each launch), both held bit-equal, each beside the bound and the plain
+    version."""
+    import torch
+
+    from metrics_tpu_torch.ops import binned_counters as k1
+
+    s_thr, perm = order
+    stream = torch.cuda.current_stream(thr.device).cuda_stream
+
+    def forms(p, y):
+        lanes = p.shape[0]
+        u8 = y.view(torch.uint8)
+        out_new, out_old = (torch.empty((lanes, 3, CLASSES, THRESHOLDS), dtype=torch.float32, device=thr.device) for _ in range(2))
+        scratch = torch.empty((lanes * (2 * CLASSES * (THRESHOLDS + 1) + CLASSES),), dtype=torch.int32, device=thr.device)
+
+        def new():
+            err = lib.binned_counters_lanes_launch(p.data_ptr(), u8.data_ptr(), s_thr.data_ptr(), perm.data_ptr(), None,
+                                                   out_new.data_ptr(), lanes, BATCH, CLASSES, THRESHOLDS, stream)
+            if err:
+                raise RuntimeError(f"binned_counters lanes launch failed with cudaError {err}")
+
+        def old():
+            scratch.zero_()
+            err = lib.binned_counters_lanes_grid_launch(p.data_ptr(), u8.data_ptr(), s_thr.data_ptr(), perm.data_ptr(),
+                                                        scratch.data_ptr(), out_old.data_ptr(), lanes, BATCH, CLASSES,
+                                                        THRESHOLDS, stream)
+            if err:
+                raise RuntimeError(f"binned_counters lanes grid launch failed with cudaError {err}")
+
+        new()
+        old()
+        torch.cuda.synchronize()
+        if not torch.equal(out_new, out_old):
+            raise AssertionError(f"batched_kernels_path: K1's one-pass many-row kernel and its first design disagree at {lanes} lanes")
+        return new, old
+
+    def plain(p, y):
+        # 20 lanes at a time: the plain version sums its (lanes, 1024, 1000, 100)
+        # comparison in int64, 16 GB at 20 lanes
+        parts = [k1.binned_counter_update_lanes_plain(p[i:i + 20], y[i:i + 20], thr) for i in range(0, p.shape[0], 20)]
+        return tuple(torch.cat(z) for z in zip(*parts))
+
+    def entry(p, y, launches_by_path, err, plain_iters):
+        lanes = p.shape[0]
+        new, old = forms(p, y)
+        out = _lanes_entry(
+            "binned_counters_lanes_many_rows", "metrics_tpu_torch/csrc/binned_counters.cu", "metrics_tpu/ops/binned_counters.py:32",
+            {"form": "many-row lanes (bootstrap)", "lanes": lanes, "rows": BATCH, "classes": CLASSES, "thresholds": THRESHOLDS},
+            {"plain": lambda: plain(p, y), "wrapper": lambda: k1.binned_counter_update_lanes(p, y, thr, order), "kernel": new},
+            "binned_counters_lanes_kernel", lanes * BATCH * CLASSES * 5 + THRESHOLDS * 8 + 3 * lanes * CLASSES * THRESHOLDS * 4,
+            lanes * BATCH * CLASSES * math.ceil(math.log2(THRESHOLDS + 1)), launches_by_path, err, plain_iters=plain_iters)
+        turns = {}
+        for key, fn, kname in (("old", old, "binned_counters_kernel"), ("new", new, "binned_counters_lanes_kernel"),
+                               ("new", new, "binned_counters_lanes_kernel"), ("old", old, "binned_counters_kernel")):
+            turns.setdefault(key, []).append((cuda_time_ms(fn, iters=20, warmup=3), device_ms_per_launch(fn, kname, iters=20)))
+        out["previous_design"] = {
+            "what": "the unbatched kernel with the lane on its grid (binned_counters_kernel<true>, "
+                    "binned_counters_lanes_grid_launch), its scratch zeroed before each launch, timed in this run "
+                    "in turns with the one-pass kernel",
+            "kernel_device_ms": statistics.mean(t[1] for t in turns["old"]),
+            "with_zeroing_ms": statistics.mean(t[0] for t in turns["old"]),
+            "scratch_bytes": lanes * (2 * CLASSES * (THRESHOLDS + 1) + CLASSES) * 4,
+            "one_pass_kernel_device_ms_same_turns": statistics.mean(t[1] for t in turns["new"]),
+            "one_pass_ms_same_turns": statistics.mean(t[0] for t in turns["new"]),
+        }
+        return out
+
+    head = entry(*boot_lanes, {"batched_kernels_path_bap_bootstrap": launches}, max_abs_err, 20)
+    idx = torch.randint(0, BATCH, (BATCHED_BAP_TIMED_LANES, BATCH), generator=gen, device=thr.device)
+    p, y = batch[0][idx].contiguous(), batch[1][idx].contiguous()
+    got, want = k1.binned_counter_update_lanes(p, y, thr, order), plain(p, y)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"batched_kernels_path: K1's many-row form differs from its plain version at {BATCHED_BAP_TIMED_LANES} lanes")
+    del got, want
+    torch.cuda.empty_cache()
+    head["at_timed_lanes"] = entry(p, y, {}, 0.0, 2)
+    return head
+
+
 def batched_parity(dev):
     """Each lane-batched form against its plain version on the card, bit for
     bit, at its edges: K1's one-row kernel with NaN, infinite and denormal
     scores and repeated, NaN and denormal thresholds, and with thresholds
-    too many for shared memory; its histogram form over lanes of many rows;
+    too many for shared memory; its many-row form at every switch of its
+    plan (``K1_MANY_ROW_CASES``: no scratch asked for but where a class's
+    histogram outgrows shared memory, one launch per ``MAX_LANES`` lanes);
     K2 with its bins in shared memory and in device memory, a misaligned
     data pointer, and a call of more than 2^31 bins, split into two
     launches; K3's cascade in insert and merge mode at the stream's shape,
     with an unbatched sketch expanded over the lanes, and at a k whose
-    buffers run out of device memory. Returns the largest difference."""
+    buffers run out of device memory; K3's single fold under vmap
+    (``fold_level``) at a small k and the stream's. Returns the largest
+    difference."""
     import torch
 
     from metrics_tpu_torch.ops import binned_counters as k1
@@ -5077,23 +5184,42 @@ def batched_parity(dev):
             emit({"phase": "parity", "kernel": "lane_batched", "cases": rows})
             raise AssertionError(f"the lane-batched {kernel} differs from its plain version in case {case!r}")
 
+    lib1 = k1._library()
+
     def k1_case(case, lanes, n, c, t, special=False):
         p = torch.rand((lanes, n, c), generator=g, device=dev)
         y = torch.rand((lanes, n, c), generator=g, device=dev) < 0.4
         thr = torch.rand((t,), generator=g, device=dev)
-        thr[1] = thr[0]
-        if special:
-            p[..., 0], p[..., 1], p[..., 2] = float("nan"), 1e-40, -1e-40
-            p[..., 3], p[..., 4] = float("inf"), float("-inf")
-            thr[2], thr[3], thr[4] = float("nan"), 1e-40, 0.0
-        check("binned_counters", case, k1.binned_counter_update_lanes(p, y, thr), k1.binned_counter_update_lanes_plain(p, y, thr),
-              lanes=lanes, rows=n, classes=c, thresholds=t)
+        if special:  # NaN, denormal and infinite scores; repeated, NaN and denormal thresholds
+            p.view(-1)[::3] = float("nan")
+            p.view(-1)[1::7], p.view(-1)[2::7] = 1e-40, -1e-40
+            p.view(-1)[3::11], p.view(-1)[4::11] = float("inf"), float("-inf")
+            thr[1:t // 2:2] = thr[0].item()
+            thr[t // 2] = float("nan")
+            if t > 3:
+                thr[-1], thr[-2] = 1e-40, -1e-40
+        before = k1.lanes_launch_count
+        got = k1.binned_counter_update_lanes(p, y, thr)
+        launches = k1.lanes_launch_count - before
+        check("binned_counters", case, got, k1.binned_counter_update_lanes_plain(p, y, thr), lanes=lanes, rows=n,
+              classes=c, thresholds=t, launches=launches,
+              scratch_int32=lib1.binned_counters_lanes_scratch(min(lanes, k1.MAX_LANES), n, c, t))
+        return rows[-1]
 
     k1_case("one_row_special", 33, 1, 7, 9, special=True)
     k1_case("one_row_main_shape_cut", 64, 1, CLASSES, THRESHOLDS)
     k1_case("one_row_thresholds_in_device_memory", 8, 1, 5, 7000)
-    k1_case("histogram_lanes_special", 5, 77, 6, 9, special=True)
-    k1_case("histogram_lanes", 20, 300, 37, THRESHOLDS)
+    # the many-row form: every switch of the one-pass plan (class tiles of 32
+    # and fewer, a cluster of parts or none, one counter a bin or two,
+    # thresholds staged or in device memory), its first design where a
+    # class's histogram outgrows shared memory, and the wrapper's split of
+    # more than MAX_LANES lanes
+    for case, shape, special, first_design in K1_MANY_ROW_CASES:
+        row = k1_case(case, *shape, special=special)
+        if bool(row["scratch_int32"]) != first_design:
+            raise AssertionError(f"K1's many-row form asked for {row['scratch_int32']} int32 of scratch in case {case!r}")
+        if row["launches"] != -(-shape[0] // k1.MAX_LANES):
+            raise AssertionError(f"K1's many-row form took {row['launches']} launches in case {case!r}")
 
     def k2_case(case, lanes, n, nb, offset=0):
         base = torch.randint(-3, nb + 3, (lanes * n + offset,), generator=g, device=dev, dtype=torch.int32)
@@ -5132,6 +5258,21 @@ def batched_parity(dev):
     got = torch.func.vmap(lambda x, c: k3.fold_cascade(items[0], counts[0], x, c, 1))(inc, inc_count)
     want = [k3.fold_cascade_plain(items[0], counts[0], inc[i], inc_count[i], 1) for i in range(inc.shape[0])]
     check("compactor_cascade", "shared_sketch_under_vmap", got, tuple(torch.stack(w) for w in zip(*want)), lanes=inc.shape[0])
+    # the single fold's lane-batched form, fold_level under vmap: lanes that
+    # absorb, that overflow with an odd leftover, and empty ones
+    for case, lanes, k, m in (("small", 5, 64, 40), ("stream_k", 8, BATCHED_SKETCH_SHAPE[1], 4096)):
+        a_cnt = torch.randint(0, k + 1, (lanes,), generator=g, device=dev, dtype=torch.int32)
+        b_cnt = torch.randint(0, m + 1, (lanes,), generator=g, device=dev, dtype=torch.int32)
+        a_cnt[:3], b_cnt[:3] = torch.tensor([k, 0, k - 1]), torch.tensor([m, 0, 2])
+        a = torch.stack([_level_run(k, c, g, dev) for c in a_cnt.tolist()])
+        b = torch.stack([_level_run(m, c, g, dev) for c in b_cnt.tolist()])
+        before = k3.fold_lanes_launch_count
+        got = torch.func.vmap(k3.fold_level)(a, a_cnt, b, b_cnt)
+        launches = k3.fold_lanes_launch_count - before
+        check("compactor_fold", f"fold_level_lanes_{case}", got, k3.compactor_fold_lanes_plain(a, a_cnt, b, b_cnt, k),
+              lanes=lanes, k=k, m=m, launches=launches)
+        if launches != 1:
+            raise AssertionError(f"fold_level under vmap took {launches} lane-batched launches in case {case!r}")
     emit({"phase": "parity", "kernel": "lane_batched", "cases": rows, "max_abs_err": max_err})
     return max_err
 
@@ -5140,7 +5281,8 @@ def phase_batched_kernels(dev):
     a sliced ``BinnedAveragePrecision`` (K1) and ``ConfusionMatrix`` (K2) at
     the sliced path's shape, the confusion family sliced at 10 classes, and
     bootstraps of ``BinnedAveragePrecision`` (K1) and ``QuantileSketch``
-    (K3). Returns the three entries of the kernels line."""
+    (K3), and the sketch bootstrap's insert level by level under vmap (the
+    single fold's lane form). Returns its five entries of the kernels line."""
     import numpy as np
     import torch
 
@@ -5384,11 +5526,23 @@ def phase_batched_kernels(dev):
     k3_err = float(torch.nan_to_num((got[0] - want[0]).abs(), nan=0.0).max())
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError("batched_kernels_path: K3's lane-batched cascade differs from its plain version")
-    del qstate, qreps, qdef, qone
+    # the same insert level by level, fold_level under vmap (the cascade's
+    # per-level design): one lane-batched single fold a level below the top
+    k3.reset_launch_count()
+    per_level = torch.func.vmap(lambda i, c, r, rc: k3.fold_cascade_plain(i, c, r, rc, level, fold=k3.compactor_fold))(
+        q_items, q_counts, inc, inc_count)
+    torch.cuda.synchronize()
+    fold_boot = {"fold_lanes": k3.fold_lanes_launch_count, "single_fold": k3.fold_launch_count,
+                 "cascade": k3.launch_count + k3.lanes_launch_count}
+    if fold_boot != {"fold_lanes": max(0, L - 1 - level), "single_fold": 0, "cascade": 0} or not fold_boot["fold_lanes"]:
+        raise AssertionError(f"batched_kernels_path: the per-level sketch insert under vmap launched {fold_boot}")
+    if not (torch.equal(per_level[0], got[0]) and torch.equal(per_level[1], got[1])):
+        raise AssertionError("batched_kernels_path: the per-level insert under vmap differs from the lane-batched cascade")
+    del qstate, qreps, qdef, qone, per_level
     k1_boot_got = k1.binned_counter_update_lanes(*bap_boot_lanes, thr, order)
     k1_boot_err = max(float((a - b).abs().max()) for a, b in zip(k1_boot_got, k1.binned_counter_update_lanes_plain(*bap_boot_lanes, thr)))
     if k1_boot_err != 0.0:
-        raise AssertionError(f"batched_kernels_path: K1's histogram form differs from its plain version ({k1_boot_err})")
+        raise AssertionError(f"batched_kernels_path: K1's many-row form differs from its plain version ({k1_boot_err})")
     peak = torch.cuda.max_memory_allocated()
 
     # ---- each lane-batched kernel's times, at its path's shape ------------
@@ -5404,18 +5558,9 @@ def phase_batched_kernels(dev):
         if err:
             raise RuntimeError(f"binned_counters lanes launch failed with cudaError {err}")
 
-    bp, bt = bap_boot_lanes[0], bap_boot_lanes[1].view(torch.uint8)
     nboot = BATCHED_BAP_BOOTSTRAPS
-    scratch1 = torch.zeros(lib1.binned_counters_lanes_scratch(nboot, BATCH, CLASSES, THRESHOLDS), dtype=torch.int32, device=dev)
-    out1b = torch.empty((nboot, 3, CLASSES, THRESHOLDS), dtype=torch.float32, device=dev)
-
-    def k1_hist_raw():
-        scratch1.zero_()
-        err = lib1.binned_counters_lanes_launch(bp.data_ptr(), bt.data_ptr(), s_thr.data_ptr(), perm.data_ptr(),
-                                                scratch1.data_ptr(), out1b.data_ptr(), nboot, BATCH, CLASSES, THRESHOLDS, stream)
-        if err:
-            raise RuntimeError(f"binned_counters lanes launch failed with cudaError {err}")
-
+    if any(lib1.binned_counters_lanes_scratch(lanes, BATCH, CLASSES, THRESHOLDS) for lanes in (nboot, BATCHED_BAP_TIMED_LANES)):
+        raise AssertionError("batched_kernels_path: K1's many-row form asks for scratch at the bootstrap's shape")
     out2 = torch.zeros((BATCH, nb), dtype=torch.int32, device=dev)
 
     def k2_raw():  # adds into counts zeroed once: the kernel alone
@@ -5446,8 +5591,7 @@ def phase_batched_kernels(dev):
          "wrapper": lambda: k1.binned_counter_update_lanes(rows_p, rows_t, thr, order), "kernel": k1_rows_raw},
         "binned_counters_row_tiles_kernel", BATCH * CLASSES * 5 + THRESHOLDS * 8 + 3 * BATCH * CLASSES * THRESHOLDS * 4,
         BATCH * CLASSES * math.ceil(math.log2(THRESHOLDS + 1)),
-        {"batched_kernels_path_sliced_bap": report["bap"]["launches"]["lanes"], "batched_kernels_path_bap_bootstrap": bap_boot["lanes"]},
-        max(k1_err, k1_boot_err))
+        {"batched_kernels_path_sliced_bap": report["bap"]["launches"]["lanes"]}, k1_err)
     # the form's first design, a warp per pair (its path for long rows), against the tiled kernel in this run
     warp = lib1.binned_counters_rows_warp_launch
     warp.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -5475,14 +5619,10 @@ def phase_batched_kernels(dev):
         "kernel_device_ms": statistics.mean(turns["warp"]),
         "tiled_kernel_device_ms_same_turns": statistics.mean(turns["tiled"]),
     }
-    k1_rows["bootstrap_form"] = _lanes_entry(
-        "binned_counters_lanes", "metrics_tpu_torch/csrc/binned_counters.cu", "metrics_tpu/ops/binned_counters.py:32",
-        {"form": "histogram lanes (bootstrap)", "lanes": nboot, "rows": BATCH, "classes": CLASSES, "thresholds": THRESHOLDS},
-        {"plain": lambda: k1.binned_counter_update_lanes_plain(*bap_boot_lanes, thr),
-         "wrapper": lambda: k1.binned_counter_update_lanes(*bap_boot_lanes, thr, order), "kernel": k1_hist_raw},
-        "binned_counters_kernel", nboot * BATCH * CLASSES * 5 + THRESHOLDS * 8 + 3 * nboot * CLASSES * THRESHOLDS * 4,
-        nboot * BATCH * CLASSES * math.ceil(math.log2(THRESHOLDS + 1)), {}, k1_boot_err)
+    k1_many = k1_many_row_times(lib1, bap_boot_lanes, (p0, (to_onehot(y0, CLASSES) == 1)), thr, order, bap_boot["lanes"],
+                                k1_boot_err, gen)
     entries["k1"] = k1_rows
+    entries["k1_many"] = k1_many
     entries["k2"] = _lanes_entry(
         "histogram_lanes", "metrics_tpu_torch/csrc/histogram.cu", "metrics_tpu/ops/pallas_kernels.py:62",
         {"lanes": BATCH, "ids_per_lane": 1, "num_buckets": nb},
@@ -5499,6 +5639,36 @@ def phase_batched_kernels(dev):
          "wrapper": lambda: k3.fold_cascade_lanes(q_items, q_counts, inc_c, inc_count_c, level), "kernel": k3_raw},
         "compactor_cascade_kernel", BATCHED_SKETCH_BOOTSTRAPS * (2 * (L * k * 4 + L * 4) + m3 * 4 + 4),
         BATCHED_SKETCH_BOOTSTRAPS * (L * k + m3), {"batched_kernels_path_sketch_bootstrap": q_boot["lanes"]}, k3_err)
+    # the single fold's lane form: the insert's first fold (the run into its
+    # level) of the 8 sketches, as fold_level under vmap gives it the kernel
+    f_a, f_ac = q_items[:, level].contiguous(), q_counts[:, level].contiguous()
+    p_len = (k + m3) // 2
+    f_out = [torch.empty(shp, dtype=dt, device=dev) for shp, dt in (((BATCHED_SKETCH_BOOTSTRAPS, k), torch.float32),
+             ((BATCHED_SKETCH_BOOTSTRAPS,), torch.int32), ((BATCHED_SKETCH_BOOTSTRAPS, p_len), torch.float32),
+             ((BATCHED_SKETCH_BOOTSTRAPS,), torch.int32))]
+
+    def fold_raw():
+        err = lib3.compactor_fold_lanes_launch(f_a.data_ptr(), k, inc_c.data_ptr(), m3, f_ac.data_ptr(), inc_count_c.data_ptr(), k,
+                                               *(t.data_ptr() for t in f_out), BATCHED_SKETCH_BOOTSTRAPS, stream)
+        if err:
+            raise RuntimeError(f"compactor_fold lanes launch failed with cudaError {err}")
+
+    fold_got = torch.func.vmap(k3.fold_level)(f_a, f_ac, inc_c, inc_count_c)
+    fold_want = k3.compactor_fold_lanes_plain(f_a, f_ac, inc_c, inc_count_c, k)
+    fold_raw()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(fold_got, fold_want, f_out)):
+        raise AssertionError("batched_kernels_path: the lane-batched single fold differs from its plain version on the sketch bootstrap's lanes")
+    entries["k3_fold"] = _lanes_entry(
+        "compactor_fold_lanes", "metrics_tpu_torch/csrc/compactor_fold.cu", "metrics_tpu/ops/pallas_kernels.py:141",
+        {"lanes": BATCHED_SKETCH_BOOTSTRAPS, "k": k, "M": m3, "level": level, "counts_in": f_ac.tolist(),
+         "run_counts_in": inc_count_c.tolist(), "promoted": int((fold_want[3] > 0).sum())},
+        {"plain": lambda: k3.compactor_fold_lanes_plain(f_a, f_ac, inc_c, inc_count_c, k),
+         "wrapper": lambda: k3.compactor_fold_lanes(f_a, f_ac, inc_c, inc_count_c, k), "kernel": fold_raw},
+        "compactor_fold_kernel", BATCHED_SKETCH_BOOTSTRAPS * ((k + m3) * 4 + 8 + (k + p_len) * 4 + 8),
+        BATCHED_SKETCH_BOOTSTRAPS * (k + m3), {"batched_kernels_path_sketch_bootstrap_per_level": fold_boot["fold_lanes"]}, 0.0)
+    entries["k3_fold"]["replaces_fn"] = ("metrics_tpu/ops/compactor.py::fold_level (its jnp.sort and the Pallas fold "
+                                         "_make_fold_kernel -> _fold_kernel) under jax.vmap")
     emit({
         "phase": "batched_kernels_path",
         "config": {"rows": ROWS, "classes": CLASSES, "thresholds": THRESHOLDS, "batch": BATCH, "slices": SLICES,
@@ -5514,14 +5684,15 @@ def phase_batched_kernels(dev):
         "bap_bootstrap": {"launches": bap_boot, "replicas_bit_equal": BATCHED_BAP_BOOTSTRAPS,
                           "update_p50_ms": statistics.median(boot_s) * 1e3},
         "sketch_bootstrap": {"launches": q_boot, "replicas_bit_equal": BATCHED_SKETCH_BOOTSTRAPS,
-                             "update_p50_ms": statistics.median(sketch_s) * 1e3},
-        "max_abs_err": {"k1_rows": k1_err, "k1_hist": k1_boot_err, "k2": k2_err, "k3": k3_err, "edge_cases": edge_err},
+                             "update_p50_ms": statistics.median(sketch_s) * 1e3,
+                             "per_level_under_vmap_launches": fold_boot},
+        "max_abs_err": {"k1_rows": k1_err, "k1_many_rows": k1_boot_err, "k2": k2_err, "k3": k3_err, "edge_cases": edge_err},
         "peak_mem_bytes": peak,
         "peak_mem_bytes_edge_parity": peak_parity,
         "cpu_reference_s": cpu_s,
         "phase_s": time.perf_counter() - t_start,
     })
-    return [entries["k1"], entries["k2"], entries["k3"]]
+    return [entries["k1"], entries["k1_many"], entries["k2"], entries["k3"], entries["k3_fold"]]
 
 
 def msmarco_rank_rows(n, rank, world):

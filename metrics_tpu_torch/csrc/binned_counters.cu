@@ -78,18 +78,67 @@
 //   store is one coalesced 128-byte run. With more thresholds than shared
 //   memory holds (long rows) a warp per pair remains
 //   (binned_counters_rows_kernel).
-// - Lanes of many rows (a bootstrap's replicas): the histogram kernel above
-//   with the lane as the grid's third axis, each lane with its own
-//   histogram, tile counters and output, and the row chunks cut so that the
-//   grid keeps about two blocks per SM over all lanes. Bound as the
-//   unbatched kernel, times B.
+// - Lanes of many rows (a bootstrap's replicas): binned_counters_lanes_kernel,
+//   one pass per (lane, class tile). Bound by bytes: at a bootstrap of 20
+//   replicas of 1024 rows, C = 1000, T = 100 it reads 102 MB of scores and
+//   labels and writes 24.6 MB, 0.0377 ms at 3.35 TB/s. Its first design (the
+//   unbatched kernel above with the lane on the grid's third axis) gave
+//   every block a whole (lane, tile), yet paid for the reduction across
+//   blocks that it never needed: a zeroed device scratch of 2 C (T + 1) + C
+//   int32 a lane, global atomics into it, a fence, a tile counter and a
+//   reload; and its 4-class tiles used an eighth of each 32-byte sector that
+//   a warp's label load fetched. This design:
+//   * gives a block 32 classes (fewer where C is smaller or T too large for
+//     shared memory), so a warp's loads take one row's 128 bytes of scores
+//     and 32 bytes of labels, every fetched byte used;
+//   * keeps the tile's histogram in shared memory as [bin][class], so the
+//     32 threads of a warp, one row's 32 classes, always add into 32
+//     different banks. Below 2^16 rows a lane the two sides share one 32-bit
+//     counter, positives in its high half and negatives in its low half:
+//     one atomic a score and half the memory (27 KB at T = 100 with the
+//     transposed copy and the grid below); from 2^16 rows the sides take a
+//     counter each;
+//   * finds a score's bin by a lookup, not a binary search: a uniform grid
+//     of 2T cells (at most 2048) over the finite thresholds' range holds,
+//     for each cell, the run of sorted thresholds whose own cell it is, so a
+//     score's bin is the run's start plus a search among the run's few
+//     thresholds (none or one at evenly spread thresholds). The cell is the
+//     same float arithmetic for scores and thresholds, monotone in its
+//     argument, so the count is exact whatever the spread; thresholds bunched
+//     in one cell fall back to a binary search among them. Staged up to
+//     8,191 thresholds (40 KB with the grid), else searched in device memory;
+//   * walks its rows with running pointers, loading the next four rows
+//     before it bins the four it holds.
+//   * takes the suffix sums in shared memory, through a transposed copy
+//     ([class][bin], odd stride) that the writes read without conflicts, and
+//     writes the (3, ct, T) output once, through the permutation. No scratch,
+//     no fence, no counter.
+//   Its builds at the bootstrap's shape, on the card (PERF.md): a binary
+//   search in a loop 0.107 ms, bound by the search's issued instructions; a
+//   breadth-first search tree unrolled to its depth 0.094; the grid 0.077;
+//   the running pointers 0.061. The loads alone, with the tail, took 0.066
+//   in the loop's build: what is left is the loads' rate at this access
+//   pattern and the tail (suffix sums and writes, 0.016), which every block
+//   of the one wave runs at the same time.
+//   Where the lanes and tiles give fewer than two blocks an SM (few lanes,
+//   few classes), a (lane, tile)'s rows are cut over the blocks of a thread
+//   block cluster (at most 8): each block counts its part in its own shared
+//   memory, block r of the cluster sums slice r of every block's histogram
+//   into block 0's through distributed shared memory, and block 0 writes.
+//   Still no device scratch. Only where one class's histogram and its
+//   transposed copy do not fit in a block's shared memory (T above about
+//   29,000, or 14,000 for lanes of 2^16 rows or more) does the form run its
+//   first design, whose histogram lives in device memory.
 //
 // Both give the counts of the unbatched kernel, lane by lane, bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -252,6 +301,245 @@ binned_counters_kernel(const float* __restrict__ preds, const uint8_t* __restric
       const int o = col[b - 1];
       o_row[o] = (float)v;
       if (side == 0) o_row[2 * out_plane + o] = (float)(pos_total - v);
+    }
+  }
+}
+
+// The many-row lane form, one pass per (lane, class tile); see the note at
+// the top. blockIdx.y is the lane; blockIdx.x / parts the class tile, whose
+// rows are cut over the `parts` blocks of a cluster. kWide: a counter per
+// side (lanes of 2^16 rows or more), else positives in the high half of one
+// counter and negatives in its low half.
+constexpr int kStageRows = 4;                    // rows a thread loads ahead of those it bins
+constexpr int kMaxClusterParts = 8;              // the portable cluster size
+constexpr int kStagedThresholds = 8191;         // thresholds staged in shared memory up to this many (32 KB)
+constexpr int kMaxCells = 2048;                  // the lookup grid's cells at most
+
+// The cell of p in a uniform grid of g cells over the finite thresholds'
+// range [t0, t0 + g / inv]: monotone in p (each float step rounds
+// monotonically), NaN in cell 0.
+__device__ __forceinline__ int grid_cell(float p, float t0, float inv, int g) {
+  const float x = __fmul_rn(__fsub_rn(p, t0), inv);
+  return (int)fminf(fmaxf(x, 0.0f), (float)(g - 1));  // fmaxf takes 0 over a NaN
+}
+
+// The first of the sorted thresholds s[0, n) whose cell is >= cell
+__device__ __forceinline__ int first_in_cell(const float* s, int n, float t0, float inv, int g, int cell) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (grid_cell(s[mid], t0, inv, g) < cell) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// kStaged: the thresholds and their lookup grid in shared memory, else the
+// thresholds are searched in device memory
+template <bool kWide, bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+binned_counters_lanes_kernel(const float* __restrict__ preds, const uint8_t* __restrict__ target,
+                             const float* __restrict__ sorted_thr, const int* __restrict__ perm,
+                             float* __restrict__ out, int n, int c, int t, int p2, int ct, int parts,
+                             int rows_per_part, int thr_words, int stride, int cells) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ unsigned s_seg[kThreads];
+  __shared__ int s_valid;       // thresholds that are not NaN (they sort last)
+  __shared__ float s_lo, s_hi;  // the least and the greatest finite threshold
+  constexpr int kSides = kWide ? 2 : 1;
+  const int bins = t + 1;
+  const int hist_words = kSides * bins * ct;
+  // thr_words words of the sorted thresholds and the lookup grid (later the
+  // permutation), the histogram [side][bin][class], its suffix sums
+  // [side * ct + class][stride]
+  float* s_thr = reinterpret_cast<float*>(smem_raw);
+  unsigned* s_grid = reinterpret_cast<unsigned*>(smem_raw) + ((t + 3) & ~3);
+  unsigned* s_hist = reinterpret_cast<unsigned*>(smem_raw) + thr_words;
+  unsigned* s_tr = s_hist + hist_words;
+
+  const int part = parts > 1 ? (int)cg::this_cluster().block_rank() : 0;
+  const int c0 = (blockIdx.x / parts) * ct;
+  const int classes = min(ct, c - c0);
+  const size_t lane = blockIdx.y;
+  preds += lane * n * c;
+  target += lane * n * c;
+  out += lane * 3 * (size_t)c * t;
+  const int r0 = min(n, part * rows_per_part);
+  const int r1 = min(n, r0 + rows_per_part);
+
+  if (kStaged) {
+    if (threadIdx.x == 0) {
+      s_valid = t;
+      s_lo = s_hi = 0.0f;
+    }
+    for (int i = threadIdx.x; i < t; i += kThreads) s_thr[i] = flush(sorted_thr[i]);
+  }
+  for (int i = threadIdx.x; i < hist_words; i += kThreads) s_hist[i] = 0;
+  __syncthreads();
+  float t0 = 0.0f, inv = 0.0f;
+  if (kStaged) {
+    // sorted: -inf, finite values, +inf, NaN; each boundary found by the
+    // one thread that sees it
+    for (int i = threadIdx.x; i < t; i += kThreads) {
+      const float v = s_thr[i];
+      if (isnan(v) && (i == 0 || !isnan(s_thr[i - 1]))) s_valid = i;
+      if (isfinite(v) && (i == 0 || !isfinite(s_thr[i - 1]))) s_lo = v;
+      if (isfinite(v) && (i == t - 1 || !isfinite(s_thr[i + 1]))) s_hi = v;
+    }
+    __syncthreads();
+    t0 = s_lo;
+    inv = s_hi > s_lo ? (float)cells / (s_hi - s_lo) : 0.0f;
+    // grid cell q holds the thresholds [first(q), first(q + 1)) of the sorted
+    // order, first(q) the first whose cell is >= q (a NaN's cell is past the
+    // grid): p in cell q clears every threshold before first(q), none from
+    // first(q + 1) on
+    for (int q = threadIdx.x; q < cells; q += kThreads) {
+      const int lo = first_in_cell(s_thr, s_valid, t0, inv, cells, q);
+      const int hi = q + 1 < cells ? first_in_cell(s_thr, s_valid, t0, inv, cells, q + 1) : s_valid;
+      s_grid[q] = (unsigned)lo | ((unsigned)hi << 16);
+    }
+    __syncthreads();
+  }
+
+  // thread i counts class i % ct of every (256 / ct)-th row: a warp takes one
+  // row's 32 classes, whose counters sit in 32 banks
+  const int j = threadIdx.x % ct;
+  const int step = kThreads / ct;
+  if (j < classes) {
+    unsigned* h = s_hist + j;
+    auto add = [&](float p, uint8_t y) {
+      p = flush(p);
+      int b;
+      if (kStaged) {
+        // the thresholds before the score's cell, then a search among its own
+        const unsigned w = s_grid[grid_cell(p, t0, inv, cells)];
+        int lo = w & 0xffffu, hi = w >> 16;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (s_thr[mid] <= p) {
+            lo = mid + 1;
+          } else {
+            hi = mid;
+          }
+        }
+        b = lo;
+      } else {
+        b = bin_of<true>(sorted_thr, t, p2, p);
+      }
+      if (kWide) {
+        atomicAdd(h + (y ? 0 : bins * ct) + b * ct, 1u);
+      } else {
+        atomicAdd(h + b * ct, y ? 0x10000u : 1u);
+      }
+    };
+    // this thread's rows, in groups of kStageRows: the next group's loads
+    // are issued before this group is searched
+    const int r = r0 + threadIdx.x / ct;
+    int left = r < r1 ? (r1 - 1 - r) / step + 1 : 0;
+    const size_t row_step = (size_t)step * c;
+    const float* pp = preds + (size_t)r * c + c0 + j;
+    const uint8_t* yp = target + (size_t)r * c + c0 + j;
+    float p[kStageRows], p_next[kStageRows];
+    uint8_t y[kStageRows], y_next[kStageRows];
+    auto load = [&](float* pv, uint8_t* yv) {
+#pragma unroll
+      for (int u = 0; u < kStageRows; ++u) {
+        pv[u] = __ldg(pp);
+        yv[u] = __ldg(yp);
+        pp += row_step;
+        yp += row_step;
+      }
+    };
+    if (left >= kStageRows) {
+      load(p, y);
+      for (left -= kStageRows; left >= kStageRows; left -= kStageRows) {
+        load(p_next, y_next);
+#pragma unroll
+        for (int u = 0; u < kStageRows; ++u) {
+          add(p[u], y[u]);
+          p[u] = p_next[u];
+          y[u] = y_next[u];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kStageRows; ++u) add(p[u], y[u]);
+    }
+    for (; left > 0; --left, pp += row_step, yp += row_step) add(__ldg(pp), __ldg(yp));
+  }
+
+  if (parts > 1) {
+    // block q of the cluster sums slice q of every block's histogram into
+    // block 0's, which then writes the tile
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int len = (hist_words + parts - 1) / parts;
+    const int hi = min(hist_words, (part + 1) * len);
+    unsigned* lead = cluster.map_shared_rank(s_hist, 0);
+    for (int i = part * len + threadIdx.x; i < hi; i += kThreads) {
+      unsigned sum = 0;
+      for (int q = 0; q < parts; ++q) sum += cluster.map_shared_rank(s_hist, q)[i];
+      lead[i] = sum;
+    }
+    cluster.sync();  // block 0's histogram is whole, and no block leaves while another reads its own
+    if (part) return;
+  } else {
+    __syncthreads();
+  }
+
+  // the permutation where the thresholds were (the search is over)
+  const int* col = perm;
+  if (kStaged) {
+    int* s_perm = reinterpret_cast<int*>(s_thr);
+    for (int i = threadIdx.x; i < t; i += kThreads) s_perm[i] = perm[i];
+    col = s_perm;
+  }
+
+  // Suffix sums of the kSides * ct rows of bins, each row cut into segments
+  // of one thread: the segment's sum, the sums of the segments above it,
+  // then its bins from the top down, into the transposed copy. A warp takes
+  // one bin of 32 rows: the reads hit 32 banks, and so do the writes (the
+  // stride is odd).
+  const int rows = kSides * ct;
+  const int segs = kThreads / rows;
+  const int seg_len = (bins + segs - 1) / segs;
+  const int q = threadIdx.x % rows;
+  const int sg = threadIdx.x / rows;
+  const unsigned* h = s_hist + (q / ct) * bins * ct + q % ct;
+  const int lo = min(bins, sg * seg_len);
+  const int hi = min(bins, lo + seg_len);
+  unsigned sum = 0;
+  for (int b = lo; b < hi; ++b) sum += h[b * ct];
+  s_seg[threadIdx.x] = sum;
+  __syncthreads();
+  {
+    unsigned run = 0;
+    for (int u = sg + 1; u < segs; ++u) run += s_seg[u * rows + q];
+    unsigned* tr = s_tr + q * stride;
+    for (int b = hi - 1; b >= lo; --b) {
+      run += h[b * ct];
+      tr[b] = run;  // the row's sum over bins >= b
+    }
+  }
+  __syncthreads();
+
+  // bin b's suffix sum is the count at sorted threshold b - 1: written
+  // through the permutation, a warp per class
+  const size_t plane = (size_t)c * t;
+  for (int cls = threadIdx.x >> 5; cls < classes; cls += kThreads / 32) {
+    const unsigned* tp = s_tr + cls * stride;
+    const unsigned* fp = s_tr + (kWide ? ct + cls : cls) * stride;
+    float* o = out + (size_t)(c0 + cls) * t;
+    const unsigned pos_total = kWide ? tp[0] : tp[0] >> 16;  // all of the class's positives
+    for (int b = 1 + (threadIdx.x & 31); b < bins; b += 32) {
+      const unsigned pos = kWide ? tp[b] : tp[b] >> 16;
+      const unsigned neg = kWide ? fp[b] : fp[b] & 0xffffu;
+      const int oc = col[b - 1];
+      o[oc] = (float)pos;
+      o[plane + oc] = (float)neg;
+      o[2 * plane + oc] = (float)(pos_total - pos);
     }
   }
 }
@@ -442,6 +730,119 @@ int rows_launch(const float* preds, const uint8_t* target, const float* sorted_t
   return (int)cudaGetLastError();
 }
 
+// The shared memory a lanes kernel may use (the opt-in limit less the static
+// shared memory of the instance that has the most, rounded up to 1 KB) and
+// the card's SM count; 0 if either cannot be read.
+int lanes_shared_bytes() {
+  static int bytes = -1;
+  if (bytes < 0) {
+    int dev = 0, got = 0;
+    cudaFuncAttributes attr;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&got, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+        cudaFuncGetAttributes(&attr, binned_counters_lanes_kernel<false, true>) != cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    bytes = got - (((int)attr.sharedSizeBytes + 1023) & ~1023);
+  }
+  return bytes;
+}
+
+int sm_count() {
+  static int sms = -1;
+  if (sms < 0) {
+    int dev = 0, got = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&got, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    sms = got;
+  }
+  return sms;
+}
+
+struct LanesPlan {
+  int wide, staged, p2, cells, ct, parts, rows_per_part, thr_words, stride;
+  long long tiles, smem;
+};
+
+// The many-row lane form's plan (c, t, lanes > 0): 0 for the one-pass
+// kernel, 1 where one class's histogram and its suffix sums do not fit in a
+// block's shared memory (the first design runs, its histogram in device
+// memory), -1 if the card's limits cannot be read.
+int lanes_plan(int lanes, int n, int c, int t, LanesPlan* pl) {
+  const long long limit = lanes_shared_bytes();
+  const long long sms = sm_count();
+  if (limit <= 0 || sms <= 0) return -1;
+  pl->wide = n >= (1 << 16);
+  int p2 = 1;
+  while (p2 <= t) p2 <<= 1;
+  pl->p2 = p2;
+  pl->staged = t <= kStagedThresholds;
+  pl->cells = 1;
+  while (pl->cells < 2 * t && pl->cells < kMaxCells) pl->cells <<= 1;
+  pl->thr_words = pl->staged ? ((t + 3) & ~3) + pl->cells : 0;  // the thresholds (later the permutation), the grid
+  const long long bins = (long long)t + 1;
+  pl->stride = (int)(bins | 1);
+  const long long sides = pl->wide ? 2 : 1;
+  auto smem = [&](long long ct) { return 4 * (pl->thr_words + sides * ct * (bins + pl->stride)); };
+  int ct = 1;
+  while (ct < 32 && ct < c) ct <<= 1;
+  while (ct > 1 && smem(ct) > kPreferredSmem) ct >>= 1;
+  if (smem(ct) > limit) return 1;
+  pl->ct = ct;
+  pl->smem = smem(ct);
+  pl->tiles = (c + ct - 1) / ct;
+  // cut a (lane, tile)'s rows over a cluster where the grid has fewer than
+  // two blocks an SM, each part at least one staged pass of rows
+  const long long per_pass = (long long)kStageRows * (kThreads / ct);
+  long long parts = (2 * sms + pl->tiles * lanes - 1) / (pl->tiles * lanes);
+  if (parts > kMaxClusterParts) parts = kMaxClusterParts;
+  if (parts > (n + per_pass - 1) / per_pass) parts = (n + per_pass - 1) / per_pass;
+  if (parts < 1) parts = 1;
+  pl->parts = (int)parts;
+  pl->rows_per_part = (int)((n + parts - 1) / parts);
+  return 0;
+}
+
+int lanes_launch(const float* preds, const uint8_t* target, const float* sorted_thr, const int* perm, float* out,
+                 int lanes, int n, int c, int t, const LanesPlan& pl, cudaStream_t stream) {
+  if (pl.tiles * pl.parts > 0x7fffffffLL || lanes > 65535) return (int)cudaErrorInvalidConfiguration;
+  void (*kernel)(const float*, const uint8_t*, const float*, const int*, float*, int, int, int, int, int, int, int, int,
+                 int, int) = pl.wide ? (pl.staged ? binned_counters_lanes_kernel<true, true> : binned_counters_lanes_kernel<true, false>)
+                                     : (pl.staged ? binned_counters_lanes_kernel<false, true> : binned_counters_lanes_kernel<false, false>);
+  // each instance opts into the most shared memory it has been given so far
+  static int opted[2][2] = {};
+  if (pl.smem > opted[pl.wide][pl.staged]) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return (int)err;
+    }
+    opted[pl.wide][pl.staged] = (int)pl.smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(pl.tiles * pl.parts), (unsigned)lanes, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)pl.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)pl.parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, preds, target, sorted_thr, perm, out, n, c, t, pl.p2, pl.ct,
+                                             pl.parts, pl.rows_per_part, pl.thr_words, pl.stride, pl.cells);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` and returns the launch's cudaError_t (0 on success).
@@ -454,21 +855,41 @@ extern "C" int binned_counters_launch(const float* preds, const uint8_t* target,
 }
 
 // Scratch int32 values the lane-batched form needs: none for lanes of one
-// row, else 2*c*(t+1) + c per lane.
+// row or where the one-pass kernel runs, else 2*c*(t+1) + c per lane.
 extern "C" long long binned_counters_lanes_scratch(int lanes, int n, int c, int t) {
-  return n == 1 ? 0 : (long long)lanes * (2LL * c * (t + 1) + c);
+  if (n == 1 || c <= 0 || t <= 0 || lanes <= 0) return 0;
+  LanesPlan pl;
+  return lanes_plan(lanes, n, c, t, &pl) == 1 ? (long long)lanes * (2LL * c * (t + 1) + c) : 0;
 }
 
 // The lane-batched form: preds and target (lanes, n, c), one shared set of
 // thresholds, out (lanes, 3, c, t) float32 written whole. Lanes of one row
-// take the one-row kernel; others the histogram kernel with the lane on the
-// grid (at most 65,535 lanes a launch; the wrapper splits), over a zeroed
-// scratch of binned_counters_lanes_scratch(lanes, n, c, t) values.
+// take the one-row kernel; lanes of many the one-pass kernel, or its first
+// design where the plan says so, over a zeroed scratch of
+// binned_counters_lanes_scratch(lanes, n, c, t) values (at most 65,535
+// lanes a launch; the wrapper splits).
 extern "C" int binned_counters_lanes_launch(const float* preds, const uint8_t* target, const float* sorted_thr,
                                             const int* perm, int* scratch, float* out, int lanes, int n, int c, int t,
                                             void* stream) {
-  if (n != 1) return launch(preds, target, sorted_thr, perm, scratch, out, lanes, n, c, t, (cudaStream_t)stream);
-  return rows_launch(preds, target, sorted_thr, perm, out, lanes, c, t, 0, (cudaStream_t)stream);
+  if (n == 1) return rows_launch(preds, target, sorted_thr, perm, out, lanes, c, t, 0, (cudaStream_t)stream);
+  if (c <= 0 || t <= 0 || lanes <= 0) return (int)cudaSuccess;
+  LanesPlan pl;
+  const int how = lanes_plan(lanes, n, c, t, &pl);
+  if (how < 0) return (int)cudaErrorInvalidDevice;
+  if (how == 0) return lanes_launch(preds, target, sorted_thr, perm, out, lanes, n, c, t, pl, (cudaStream_t)stream);
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(preds, target, sorted_thr, perm, scratch, out, lanes, n, c, t, (cudaStream_t)stream);
+}
+
+// The many-row form's first design at any shape: the unbatched kernel with
+// the lane on its grid, over a zeroed scratch of lanes * (2*c*(t+1) + c)
+// int32 values. The form's path where the one-pass plan does not fit, and
+// elsewhere the design that chip_smoke.py times beside the one-pass kernel.
+// Arguments as binned_counters_lanes_launch.
+extern "C" int binned_counters_lanes_grid_launch(const float* preds, const uint8_t* target, const float* sorted_thr,
+                                                 const int* perm, int* scratch, float* out, int lanes, int n, int c,
+                                                 int t, void* stream) {
+  return launch(preds, target, sorted_thr, perm, scratch, out, lanes, n, c, t, (cudaStream_t)stream);
 }
 
 // The one-row form's warp-per-pair kernel at any T: the form's path for long

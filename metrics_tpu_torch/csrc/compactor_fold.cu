@@ -21,7 +21,13 @@
 // first. Equal values are equal bits (the sketch's items hold no NaN, no -0.0
 // and no denormal: the precompaction canonicalises them), so the tie order
 // cannot change an output. compactor_fold_kernel is that fold alone, one
-// launch per fold over as many blocks as its k + p_len output slots need.
+// launch per fold over as many blocks as its k + p_len output slots need;
+// its lane-batched form (compactor_fold_lanes_launch, what fold_level
+// becomes under torch.func.vmap) puts the lane on the grid's second axis,
+// each lane with its own runs, counts and outputs. Bound by bytes: a fold
+// reads its two runs and writes k + p_len floats, under 0.1 MB a lane at the
+// stream's shape (k = 6600); one fold is about 50 blocks, so the lanes fill
+// the card where one fold alone leaves most of it idle.
 //
 // The cascade. A sketch update folds a run into its start level, the
 // promoted run into the next level, and so on up; the top level absorbs and
@@ -104,11 +110,25 @@ __device__ __forceinline__ float merged_at(const float* __restrict__ a, int na,
   return b[j];
 }
 
+// kLanes: blockIdx.y is the lane, and every array has a leading lane axis
+// (the counts one value a lane)
+template <bool kLanes>
 __global__ void __launch_bounds__(kThreads)
 compactor_fold_kernel(const float* __restrict__ a, int na, const float* __restrict__ b, int nb,
                       const int* __restrict__ a_count, const int* __restrict__ b_count, int k,
                       float* __restrict__ items, int* __restrict__ count,
                       float* __restrict__ promoted, int* __restrict__ pcount) {
+  if (kLanes) {
+    const size_t lane = blockIdx.y;
+    a += lane * na;
+    b += lane * nb;
+    a_count += lane;
+    b_count += lane;
+    items += lane * k;
+    count += lane;
+    promoted += lane * ((na + nb) / 2);
+    pcount += lane;
+  }
   const int ca = *a_count;
   const int cb = *b_count;
   const int c = ca + cb;
@@ -408,7 +428,24 @@ extern "C" int compactor_fold_launch(const float* a, int na, const float* b, int
                                      void* stream) {
   const long long n_out = (long long)k + (na + (long long)nb) / 2;
   const int blocks = (int)((n_out + kThreads - 1) / kThreads);
-  compactor_fold_kernel<<<blocks > 0 ? blocks : 1, kThreads, 0, (cudaStream_t)stream>>>(
+  compactor_fold_kernel<false><<<blocks > 0 ? blocks : 1, kThreads, 0, (cudaStream_t)stream>>>(
+      a, na, b, nb, a_count, b_count, k, items, count, promoted, pcount);
+  return (int)cudaGetLastError();
+}
+
+// The lane-batched single fold: `lanes` folds in one launch, the lane on the
+// grid's second axis (at most 65,535 lanes; the wrapper splits). a (lanes,
+// na), b (lanes, nb), a_count and b_count (lanes,) in; items (lanes, k),
+// count (lanes,), promoted (lanes, (na + nb) / 2), pcount (lanes,) out.
+extern "C" int compactor_fold_lanes_launch(const float* a, int na, const float* b, int nb,
+                                           const int* a_count, const int* b_count, int k,
+                                           float* items, int* count, float* promoted, int* pcount,
+                                           int lanes, void* stream) {
+  if (lanes <= 0) return (int)cudaSuccess;
+  if (lanes > 65535) return (int)cudaErrorInvalidConfiguration;
+  const long long n_out = (long long)k + (na + (long long)nb) / 2;
+  const int blocks = (int)((n_out + kThreads - 1) / kThreads);
+  compactor_fold_kernel<true><<<dim3(blocks > 0 ? blocks : 1, lanes), kThreads, 0, (cudaStream_t)stream>>>(
       a, na, b, nb, a_count, b_count, k, items, count, promoted, pcount);
   return (int)cudaGetLastError();
 }

@@ -18,10 +18,12 @@ Under ``torch.func.vmap`` (a sliced Binned metric's per-row deltas, a
 bootstrap's replicas) :func:`binned_counter_update` takes the lane route
 (``_build.lane_route``): the lanes reach :func:`binned_counter_update_lanes`,
 one launch of the kernel's lane-batched form on a CUDA tensor (counted in
-``lanes_launch_count``; lanes of one row take its one-row kernel), and the
-plain version with the lane axis written out on a CPU tensor. The
-thresholds are one set for every lane: batched thresholds raise. An
-unbatched call launches the kernel directly, as before.
+``lanes_launch_count``; lanes of one row take its one-row kernel, lanes of
+many its one-pass kernel, which needs no scratch while a class's histogram
+fits in a block's shared memory), and the plain version with the lane axis
+written out on a CPU tensor. The thresholds are one set for every lane:
+batched thresholds raise. An unbatched call launches the kernel directly,
+as before.
 """
 import ctypes
 from typing import Optional, Tuple
@@ -89,6 +91,9 @@ def _library() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.binned_counters_lanes_scratch.argtypes = [ctypes.c_int] * 4
     lib.binned_counters_lanes_scratch.restype = ctypes.c_longlong
+    fn = lib.binned_counters_lanes_grid_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 

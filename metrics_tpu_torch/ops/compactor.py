@@ -36,8 +36,12 @@ route (``_build.lane_route``): the lanes' sketches reach
 cascade kernel's lane-batched form on CUDA tensors (one walking block per
 lane, counted in ``lanes_launch_count``), and the plain versions with the
 lane axis written out on CPU tensors. ``start_level`` is shared by the
-lanes (it depends on the batch's size only). No vmapped path of the port
-reaches the single fold: on a batched CUDA tensor it raises.
+lanes (it depends on the batch's size only). :func:`compactor_fold` (and so
+:func:`fold_level`) takes the lane route too, as JAX's ``fold_level`` runs
+under ``jax.vmap``: :func:`compactor_fold_lanes`, one launch of the fold
+kernel's lane-batched form on CUDA tensors (counted in
+``fold_lanes_launch_count``), :func:`compactor_fold_lanes_plain` on CPU
+tensors.
 
 The JAX package skips the levels that the promotion does not reach with a
 ``lax.cond`` on the incoming count. The cascade kernel does the same on the
@@ -65,20 +69,22 @@ _INT32_MAX = (1 << 31) - 1
 
 # launches since the last reset_launch_count(), read by chip_smoke.py: of
 # the cascade kernel (the sketch paths' K3), of the single-fold kernel, and
-# of the cascade's lane-batched form
+# of the cascade's and the single fold's lane-batched forms
 launch_count = 0
 fold_launch_count = 0
 lanes_launch_count = 0
+fold_lanes_launch_count = 0
 
-# the lane-batched cascade's grid takes at most this many lanes a launch
+# the lane-batched kernels' grids take at most this many lanes a launch
 MAX_LANES = 65535
 
 
 def reset_launch_count() -> None:
-    global launch_count, fold_launch_count, lanes_launch_count
+    global launch_count, fold_launch_count, lanes_launch_count, fold_lanes_launch_count
     launch_count = 0
     fold_launch_count = 0
     lanes_launch_count = 0
+    fold_lanes_launch_count = 0
 
 
 # The plain versions below take any leading lane axes: counts are ``(...)``
@@ -121,11 +127,16 @@ def compactor_fold_plain(
     return _compactor_fold_select(combined, a_count + b_count, k)
 
 
+compactor_fold_lanes_plain = compactor_fold_plain
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.compactor_fold_launch.argtypes = [p, i, p, i, p, p, i, p, p, p, p, p]
     lib.compactor_fold_launch.restype = i
+    lib.compactor_fold_lanes_launch.argtypes = [p, i, p, i, p, p, i, p, p, p, p, i, p]
+    lib.compactor_fold_lanes_launch.restype = i
     lib.compactor_cascade_scratch_floats.argtypes = [i, i, i]
     lib.compactor_cascade_scratch_floats.restype = ctypes.c_longlong
     lib.compactor_cascade_launch.argtypes = [p, p, i, i, p, i, p, i, p, p, p, p, p, p]
@@ -136,32 +147,61 @@ def _library() -> ctypes.CDLL:
 
 
 def _compactor_fold_cuda(
+    a: Tensor, a_count: Tensor, b: Tensor, b_count: Tensor, k: int, lanes: Optional[int] = None
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Launch the single-fold kernel on PyTorch's current stream; with
+    ``lanes``, every array has a leading lane axis and the lane-batched form
+    runs (one launch per ``MAX_LANES`` lanes)."""
+    na, nb = a.shape[-1], b.shape[-1]
+    lead = () if lanes is None else (lanes,)
+    a, b = a.contiguous(), b.contiguous()
+    a_count = a_count.to(torch.int32).reshape(lead).contiguous()
+    b_count = b_count.to(torch.int32).reshape(lead).contiguous()
+    items = torch.empty(lead + (k,), dtype=torch.float32, device=a.device)
+    promoted = torch.empty(lead + ((na + nb) // 2,), dtype=torch.float32, device=a.device)
+    count = torch.empty(lead, dtype=torch.int32, device=a.device)
+    pcount = torch.empty(lead, dtype=torch.int32, device=a.device)
+    lib = _library()
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if lanes is None:
+        err = lib.compactor_fold_launch(
+            a.data_ptr(), na, b.data_ptr(), nb, a_count.data_ptr(), b_count.data_ptr(), k,
+            items.data_ptr(), count.data_ptr(), promoted.data_ptr(), pcount.data_ptr(), stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"compactor_fold kernel launch failed with cudaError {err}")
+        _build.count_launch(__name__, "fold_launch_count")
+        return items, count, promoted, pcount
+    with torch.cuda.device(a.device):
+        for lo, hi in _build.lane_groups(lanes, 1, MAX_LANES):
+            err = lib.compactor_fold_lanes_launch(
+                a[lo].data_ptr(), na, b[lo].data_ptr(), nb, a_count[lo].data_ptr(), b_count[lo].data_ptr(), k,
+                items[lo].data_ptr(), count[lo].data_ptr(), promoted[lo].data_ptr(), pcount[lo].data_ptr(), hi - lo, stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"compactor_fold lanes kernel launch failed with cudaError {err}")
+            _build.count_launch(__name__, "fold_lanes_launch_count")
+    return items, count, promoted, pcount
+
+
+def compactor_fold_lanes(
     a: Tensor, a_count: Tensor, b: Tensor, b_count: Tensor, k: int
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Launch the single-fold kernel on PyTorch's current stream."""
-    if _build.batched(a, a_count, b, b_count):
-        raise ValueError(
-            "compactor_fold has no lane-batched form: no vmapped path of the port reaches the single fold "
-            "(a sketch update or merge under torch.func.vmap runs fold_cascade / merge_cascade)"
-        )
-    na, nb = a.shape[0], b.shape[0]
-    a, b = a.contiguous(), b.contiguous()
-    a_count = a_count.to(torch.int32).contiguous()
-    b_count = b_count.to(torch.int32).contiguous()
-    items = torch.empty((k,), dtype=torch.float32, device=a.device)
-    promoted = torch.empty(((na + nb) // 2,), dtype=torch.float32, device=a.device)
-    count = torch.empty((), dtype=torch.int32, device=a.device)
-    pcount = torch.empty((), dtype=torch.int32, device=a.device)
-    fn = _library().compactor_fold_launch
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(
-        a.data_ptr(), na, b.data_ptr(), nb, a_count.data_ptr(), b_count.data_ptr(), k,
-        items.data_ptr(), count.data_ptr(), promoted.data_ptr(), pcount.data_ptr(), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"compactor_fold kernel launch failed with cudaError {err}")
-    _build.count_launch(__name__, "fold_launch_count")
-    return items, count, promoted, pcount
+    """The lane-batched single fold: ``(B, na)`` and ``(B, nb)`` runs with
+    ``(B,)`` counts; lane ``i`` of each output is :func:`compactor_fold` of
+    lane ``i``. On CUDA tensors the fold kernel's lane-batched form; on CPU
+    tensors :func:`compactor_fold_lanes_plain`."""
+    if a.device.type == "cpu":
+        return compactor_fold_lanes_plain(a, a_count, b, b_count, k)
+    if a.device.type == "cuda":
+        return _compactor_fold_cuda(a, a_count, b, b_count, k, lanes=a.shape[0])
+    raise ValueError(f"compactor_fold runs on CPU or CUDA tensors, got device {a.device}")
+
+
+_FOLD_ROUTE = _build.lane_route(
+    "compactor_fold", "(Tensor a, Tensor a_count, Tensor b, Tensor b_count, int k) -> (Tensor, Tensor, Tensor, Tensor)",
+    lane_args=(0, 1, 2, 3), shared_args=(), lanes_fn=compactor_fold_lanes,
+)
 
 
 def compactor_fold(
@@ -178,7 +218,9 @@ def compactor_fold(
 
     Returns:
         ``(items (k,), count, promoted ((na + nb) // 2,), promoted_count)``,
-        the counts 0-d int32 tensors on the same device.
+        the counts 0-d int32 tensors on the same device. Under
+        ``torch.func.vmap`` each lane is folded on its own, by the kernel's
+        lane-batched form.
     """
     if a.ndim != 1 or b.ndim != 1 or a_count.numel() != 1 or b_count.numel() != 1:
         raise ValueError(
@@ -194,6 +236,8 @@ def compactor_fold(
         )
     if not 1 <= k <= a.shape[0] + b.shape[0] or k + (a.shape[0] + b.shape[0]) // 2 > _INT32_MAX:
         raise ValueError(f"compactor_fold needs 1 <= k <= na + nb < 2^31, got k={k}, na={a.shape[0]}, nb={b.shape[0]}")
+    if _build.batched(a, a_count, b, b_count):
+        return _FOLD_ROUTE(a, a_count.reshape(()).to(torch.int32), b, b_count.reshape(()).to(torch.int32), int(k))
     if a.device.type == "cpu":
         return compactor_fold_plain(a, a_count.reshape(()), b, b_count.reshape(()), k)
     if a.device.type == "cuda":
@@ -208,7 +252,7 @@ def fold_level(items: Tensor, count: Tensor, inc: Tensor, inc_count: Tensor) -> 
     ``(M,)`` in the same form. Returns ``(new_items (k,), new_count,
     promoted ((k + M) // 2,), promoted_count)``: within ``k`` the level
     absorbs everything; past it the buffer compacts and at most one
-    leftover stays."""
+    leftover stays. Under ``torch.func.vmap`` one lane-batched fold."""
     return compactor_fold(items, count, inc, inc_count, items.shape[0])
 
 

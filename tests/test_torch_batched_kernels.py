@@ -9,7 +9,8 @@ form in place of the plain one. JAX's side is its own Pallas kernel, run in
 interpret mode, through ``pallas_call``'s batching rule: K1 is
 ``jax.vmap(binned_counter_update(..., backend="pallas-interpret"))``, K2
 ``jax.vmap(histogram_pallas(..., interpret=True))``, K3 the insert and
-merge cascades under ``kernel_override(compactor_fold="pallas-interpret")``.
+merge cascades and the single fold (``fold_level``) under
+``kernel_override(compactor_fold="pallas-interpret")``.
 
 Tolerance: none. Every output is bit-equal (integer counts, float32 counts
 of 0/1 rows, sketch items that are input values moved, never computed).
@@ -36,6 +37,7 @@ from metrics_tpu_torch.ops import _build, binned_counters, compactor, histogram 
 from metrics_tpu_torch.streaming.sketches import QuantileSketchState  # noqa: E402
 
 DENORMAL = np.float32(1e-40)
+_INF = float("inf")
 
 
 def _bits(ours, ref):
@@ -79,6 +81,8 @@ THRESHOLDS = {
     "linspace": np.linspace(0, 1, 6).astype(np.float32),
     "repeated": np.array([0.5, 0.2, 0.5, 0.0, 0.9, 0.2], np.float32),
     "denormal": np.array([0.0, DENORMAL, -DENORMAL, 0.5, -0.0, 1.0], np.float32),
+    # 7,000 thresholds (one class a tile in the many-row kernel's plan), in no order, with a repeat and a NaN
+    "many": np.concatenate([np.random.default_rng(7).random(6998), [0.5, np.nan]]).astype(np.float32),
 }
 
 K1_CASES = {
@@ -87,6 +91,12 @@ K1_CASES = {
     "many_row_lanes": (4, 11, 3, "linspace", False, False),
     "nan_scores_repeated_thresholds": (6, 1, 4, "repeated", True, False),
     "denormal_scores_and_thresholds": (5, 7, 2, "denormal", False, True),
+    # the splits of the many-row kernel's plan: class tiles of 32, groups of
+    # rows, more lanes than classes, one class a tile at many thresholds
+    "classes_not_a_multiple_of_32": (2, 5, 37, "repeated", True, False),
+    "rows_not_a_multiple_of_a_stage": (3, 37, 4, "linspace", False, True),
+    "more_lanes_than_classes": (12, 6, 2, "denormal", True, True),
+    "7000_thresholds_few_rows": (2, 3, 2, "many", True, False),
 }
 
 
@@ -144,6 +154,8 @@ def test_unbatched_calls_do_not_take_the_route(monkeypatch):
     for module in (binned_counters, histogram):
         monkeypatch.setattr(module, "_ROUTE", None)
     monkeypatch.setattr(compactor, "_INSERT_ROUTE", None)
+    monkeypatch.setattr(compactor, "_FOLD_ROUTE", None)
+    compactor.fold_level(torch.tensor([1.0, 2.0, _INF]), torch.tensor(2), torch.tensor([0.5]), torch.tensor(1))
     p, t = _k1_inputs(1, 5, 3, seed=4)
     binned_counters.binned_counter_update(torch.from_numpy(p[0]), torch.from_numpy(t[0]), torch.linspace(0, 1, 4))
     histogram.histogram(torch.arange(6), 4)
@@ -282,10 +294,43 @@ def test_k3_merge_lanes_match_jax_vmap_of_the_pallas_fold(monkeypatch):
         _bits(o, r)
 
 
+def _level_runs(lanes, n, counts, seed):
+    """``lanes`` ascending float32 runs of length ``n``, ``+inf`` past each
+    lane's count."""
+    run = np.sort(np.random.default_rng(seed).lognormal(0, 1, (lanes, n)).astype(np.float32), axis=1)
+    return np.where(np.arange(n) < np.asarray(counts)[:, None], run, np.inf).astype(np.float32), np.asarray(counts, np.int32)
+
+
+@pytest.mark.parametrize("k", [8, 24])
+def test_k3_single_fold_lanes_match_jax_vmap_of_the_pallas_fold(k, monkeypatch):
+    """``fold_level`` under ``torch.func.vmap`` takes the single fold's lane
+    route (one call of its plain lanes version on the CPU), bit-equal to
+    JAX's ``fold_level`` under ``jax.vmap`` through its Pallas fold: lanes
+    whose counts stay within ``k`` (absorbed) and lanes that overflow it
+    (compacted, an odd leftover kept), an empty run and an empty level."""
+    m = 10
+    level_counts = [0, k // 2, k, k - 1, 3, k]
+    run_counts = [m, 2, 0, m, m - 1, 7]
+    items, counts = _level_runs(6, k, level_counts, seed=k)
+    inc, inc_count = _level_runs(6, m, run_counts, seed=k + 1)
+    c = np.asarray(level_counts) + np.asarray(run_counts)
+    assert (c <= k).any() and (c > k).any() and ((c > k) & (c % 2 == 1)).any()
+    calls = Count(monkeypatch, compactor, "compactor_fold_lanes_plain")
+    ours = torch.func.vmap(compactor.fold_level)(
+        torch.from_numpy(items), torch.from_numpy(counts), torch.from_numpy(inc), torch.from_numpy(inc_count)
+    )
+    assert calls.n == 1  # one lane-batched call, not one per lane
+    with kdispatch.kernel_override(compactor_fold="pallas-interpret"):
+        ref = jax.vmap(jax_compactor.fold_level)(jnp.asarray(items), jnp.asarray(counts), jnp.asarray(inc), jnp.asarray(inc_count))
+    for o, r in zip(ours, ref):
+        _bits(o, r)
+
+
 def test_k3_shared_sketch_with_batched_runs_and_the_single_fold():
     """An unbatched sketch is expanded over the lanes of a batched run, each
-    lane equal to its own insert; the single fold keeps its plain version
-    under vmap on the CPU (no vmapped path reaches it on the card)."""
+    lane equal to its own insert; the single fold, its level unbatched and
+    its runs batched, takes its lane route with the level expanded, each
+    lane equal to its own fold."""
     items, counts = _sketches(1, seed=5)
     inc, inc_count = _runs(4, 8, seed=6)
     it, ct = torch.from_numpy(items[0]), torch.from_numpy(counts[0])
