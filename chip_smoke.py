@@ -559,6 +559,7 @@ BATCHED_SKETCH_BOOTSTRAPS = 8
 BATCHED_SKETCH_BATCHES = 4  # 2^20-row lognormal batches
 BATCHED_SKETCH_SHAPE = (20, 6600)  # QuantileSketch(eps=0.01): the stream path's sketch
 BATCHED_BAP_TIMED_LANES = 100  # K1's many-row form also timed at phase_bootstrap's replica count
+BATCHED_SKETCH_TIMED_LANES = 100  # K3's lane forms also timed at 100 lanes, where the cascade's plan runs the walking kernel
 # K1's many-row form on the card against its plain version: (name, (lanes,
 # rows, classes, thresholds), special scores and thresholds, whether the
 # plan runs the first design: a class's histogram outgrows shared memory)
@@ -607,6 +608,8 @@ FP32_OPS_PER_S = 67e12
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")  # host calls that launch a kernel, as the profiler names them
 RECORDED_SHARE = 0.95  # least share of a profiler window's launches whose records on the card it must keep
+LAUNCH_RECORDED_SHARE = 0.5  # least share of the timed kernel's launches a window for its time a launch must keep
+FOLD_KERNELS = ("compactor_fold_slots_kernel", "compactor_fold_tiles_kernel")  # the single fold's two kernels, one by its plan
 # the image slice (phases 26-28)
 IMG_SIZE = 256  # ImageNet 256x256, the class-conditional generation protocol (DiT)
 # FID-50K's 50,000 real and 50,000 generated images, cut to FID-10K: the
@@ -769,26 +772,42 @@ def cuda_time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, kernel_name, iters=50):
+def device_profile(fn, kernel_name, iters=50, per_launch=None, host=True):
     """The card's own time per call of ``fn`` from a ``torch.profiler``
-    window over ``iters`` calls: of ``kernel_name`` (per launch and per
-    call, and its launches per call), of every operation on the card, and
-    the kernel launches that ``fn`` makes on the host per call.
+    window over ``iters`` calls: of ``kernel_name`` (a name, or a tuple of
+    names counted as one kernel; per launch and per
+    call, its launches per call, and how many launches of it the window
+    recorded), of every operation on the card, and the kernel launches that
+    ``fn`` makes on the host per call.
 
     The profiler keeps every launch made on the host, but late in a long
     run it has left out the card's records of whole calls at one end of a
     window (those of 10 of 50 calls, of all of 10, of 3 of 800). Per-call
     figures divide by the calls whose records were kept; a window that
     kept less than 95 % of its launches is taken again over four times the
-    calls, twice at most, and then the run fails."""
+    calls, twice at most. With ``per_launch`` (only
+    the time a launch of ``kernel_name`` is wanted, ``per_launch`` its
+    launches in one call of ``fn``) a window is taken once it recorded at
+    least half of that kernel's launches: a launch's time does not depend
+    on the other records the window kept. After three windows short of
+    their rule every device time is None, with ``short_of_records`` (the
+    card's time is a measurement here, not a check; in a long run the
+    profiler has kept 665 records of 800 launches, and none of 320). A
+    launch's time is given as the
+    mean and as the median of the recorded launches (late in a long run
+    one window read a kernel of 1.3 us at 0.64 us a launch). ``host=False``
+    records the card alone (no host launches then): a window over calls
+    with many host operations costs seconds otherwise."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel_name,) if isinstance(kernel_name, str) else tuple(kernel_name)
+    hit = lambda key: any(name in key for name in names)  # noqa: E731
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -796,36 +815,64 @@ def device_profile(fn, kernel_name, iters=50):
         on_device = [e for e in events if e.device_type == DeviceType.CUDA]
         kernels = sum(e.count for e in on_device if not e.key.startswith(("Memcpy", "Memset")))
         launches = sum(e.count for e in events if e.device_type != DeviceType.CUDA and e.key.startswith(LAUNCH_CALLS))
-        if kernels >= RECORDED_SHARE * launches:
+        recorded = sum(e.count for e in on_device if hit(e.key))
+        if (recorded >= LAUNCH_RECORDED_SHARE * per_launch * iters) if per_launch else kernels >= RECORDED_SHARE * launches:
             break
         iters *= 4
     else:
-        raise RuntimeError(f"the profiler recorded {kernels} kernels of {launches} launches on the host")
+        # no device time from a window short of records; the counts say why
+        return {"ms_per_launch": None, "median_ms_per_launch": None, "ms_per_call": None, "launches_per_call": None,
+                "all_device_ms_per_call": None, "device_ops_per_call": None, "host_launches_per_call": launches / iters,
+                "recorded_share": kernels / launches if launches else None, "recorded_launches": recorded, "iters": iters,
+                "short_of_records": True}
     calls = iters * min(1.0, kernels / launches) if launches else iters
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
-    hits = [e for e in on_device if kernel_name in e.key]
+    hits = [e for e in on_device if hit(e.key)]
     us, count = sum(dev_us(e) for e in hits), sum(e.count for e in hits)
+    each_us = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA and hit(e.name)]
     return {
         "ms_per_launch": us / 1e3 / count if count else None,
+        "median_ms_per_launch": statistics.median(each_us) / 1e3 if each_us else None,
         "ms_per_call": us / 1e3 / calls,
         "launches_per_call": count / calls,
         "all_device_ms_per_call": sum(dev_us(e) for e in on_device) / 1e3 / calls,
         "device_ops_per_call": sum(e.count for e in on_device) / calls,
         "host_launches_per_call": launches / iters,
         "recorded_share": kernels / launches if launches else None,
+        "recorded_launches": count,
         "iters": iters,
     }
 
 
-def device_ms_per_launch(fn, kernel_name, iters=50):
-    """The card's own time for one launch of ``kernel_name``, from a
-    ``torch.profiler`` window over ``iters`` calls of ``fn``. Back-to-back
-    launches timed with CUDA events measure the host's enqueue rate when
-    the kernel is shorter than the launch itself; this does not."""
-    return device_profile(fn, kernel_name, iters)["ms_per_launch"]
+def device_ms_per_launch(fn, kernel_name, iters=50, per_call=1):
+    """The card's own time for one launch of ``kernel_name`` (``per_call``
+    launches in one call of ``fn``), from a ``torch.profiler`` window over
+    ``iters`` calls of ``fn``, and the launches of it that the window
+    recorded. Back-to-back launches timed with CUDA events measure the
+    host's enqueue rate when the kernel is shorter than the launch itself;
+    this does not. The median of the recorded launches."""
+    got = device_profile(fn, kernel_name, iters, per_launch=per_call)
+    return got["median_ms_per_launch"], got["recorded_launches"]
+
+
+def _mean(values):
+    """The mean, or None if a value is None (a profiler window short of
+    records, ``device_profile``)."""
+    return None if any(v is None for v in values) else statistics.mean(values)
+
+
+def _ratio(a, b):
+    return None if a is None or b is None else a / b
+
+
+def _launch_time(key, fn, kernel_name, iters=50):
+    """``{key: ms a launch, key + "_launches_recorded": n}`` for a dict of
+    results (see ``device_ms_per_launch``)."""
+    ms, recorded = device_ms_per_launch(fn, kernel_name, iters)
+    return {key: ms, f"{key}_launches_recorded": recorded}
 
 
 def phase_build():
@@ -1126,9 +1173,9 @@ def k1_times(preds, target, launches, max_abs_err):
         "max_abs_err": max_abs_err,
         "ms": ms["wrapper"],
         "kernel_ms": ms["kernel"],  # with the scratch's memset before each launch
-        "kernel_device_ms": device_ms_per_launch(raw, "binned_counters_kernel"),
+        **_launch_time("kernel_device_ms", raw, "binned_counters_kernel"),
         # the same launch over no rows: the kernel's fixed cost (zeroing, flush, tile counter, suffix sums)
-        "kernel_device_ms_no_rows": device_ms_per_launch(lambda: raw(0), "binned_counters_kernel"),
+        **_launch_time("kernel_device_ms_no_rows", lambda: raw(0), "binned_counters_kernel"),
         "plain_ms": ms["plain"],
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1140,7 +1187,7 @@ def k1_times(preds, target, launches, max_abs_err):
             "what": "a compare per (row, class, threshold), csrc/binned_counters_loop.cu, timed in this run",
             "ms": ms["prev_wrapper"],
             "kernel_ms": ms["prev_kernel"],  # with the buffer's memset before each launch
-            "kernel_device_ms": device_ms_per_launch(prev_raw, "binned_counters_loop_kernel"),
+            **_launch_time("kernel_device_ms", prev_raw, "binned_counters_loop_kernel"),
         },
     }
 
@@ -1173,7 +1220,7 @@ def profile_summary(prof, wall_s, batches):
         # records of them (a kernel inside a replayed graph has its records too)
         "port_kernels_ms_per_batch": {
             name: sum(dev_us(e) for e in on_device if name in e.key) / 1e3 / batches
-            for name in ("binned_counters_kernel", "histogram_kernel", "compactor_fold_kernel", "compactor_cascade_kernel")
+            for name in ("binned_counters_kernel", "histogram_kernel", *FOLD_KERNELS, "compactor_cascade_kernel")
         },
         "port_kernel_records_per_batch": {
             name: sum(e.count for e in on_device if name in e.key) / batches
@@ -1228,10 +1275,66 @@ def _count(c, dev):
     return torch.tensor(c, dtype=torch.int32, device=dev)
 
 
+def _fold_raw(entry, a, a_count, b, b_count, k):
+    """A launcher of one of the single fold's C entries (``entry``: the
+    plan's kernels or its first design's, unbatched, or lane-batched where
+    every array has a leading lane axis) on these runs, writing into outputs
+    allocated once. Returns ``(launch, outputs)``."""
+    import torch
+
+    lanes = a.shape[0] if a.ndim == 2 else None
+    lead = () if lanes is None else (lanes,)
+    na, nb = a.shape[-1], b.shape[-1]
+    a, b = a.contiguous(), b.contiguous()
+    ca = a_count.to(torch.int32).reshape(lead).contiguous()
+    cb = b_count.to(torch.int32).reshape(lead).contiguous()
+    outs = (torch.empty(lead + (k,), dtype=torch.float32, device=a.device), torch.empty(lead, dtype=torch.int32, device=a.device),
+            torch.empty(lead + ((na + nb) // 2,), dtype=torch.float32, device=a.device),
+            torch.empty(lead, dtype=torch.int32, device=a.device))
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    extra = () if lanes is None else (lanes,)
+
+    def launch():
+        err = entry(a.data_ptr(), na, b.data_ptr(), nb, ca.data_ptr(), cb.data_ptr(), k, *(t.data_ptr() for t in outs),
+                    *extra, stream)
+        if err:
+            raise RuntimeError(f"{entry.__name__} failed with cudaError {err}")
+
+    return launch, outs
+
+
+def _outputs_bit_equal(got, want):
+    import torch
+
+    return all(x.shape == y.shape and x.dtype == y.dtype and torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(got, want))
+
+
+def _tie_run(n, count, blocks, dev):
+    """An ascending (n,) float32 run of ``count`` valid values made of runs
+    of equal values, ``blocks`` as (value, repeats), +inf past them."""
+    import torch
+
+    vals = [v for v, r in blocks for _ in range(r)]
+    assert len(vals) == count
+    out = torch.full((n,), float("inf"), device=dev)
+    out[:count] = torch.tensor(vals, dtype=torch.float32, device=dev)
+    return out
+
+
 def phase_k3_parity(dev):
-    """K3 against its plain version on the card, bit for bit: the shapes of
-    the stream path (k = 6600, an insert's 4096 items, a merge's 3k run and
-    its level-with-carry merge) and every edge."""
+    """K3's single fold against its plain version on the card, bit for bit:
+    the shapes of the stream path (k = 6600, an insert's 4096 items, a
+    merge's 3k run and its level-with-carry merge), every edge, and the
+    tiles' own edges (a tile is 1024 merged positions): a run of
+    ties across a tile boundary, c at and past a tile's edge, the
+    pass-through copy (with a misaligned view), misaligned runs, infinities
+    in the valid prefix, c == k and k + 1, a 2^16-item run, rows whose
+    length is not a multiple of 4. The plan runs one fold a thread an
+    output slot and many lanes by tiles; each case the slots take alone is
+    also run as the lanes of one launch, as many as it takes for the plan
+    to give the tiles, so both kernels fold every such case. The first
+    design (``compactor_fold_search_launch``) is held to the same cases."""
     import torch
 
     from metrics_tpu_torch.ops import compactor as k3
@@ -1239,6 +1342,19 @@ def phase_k3_parity(dev):
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     k = K3_K
     run = lambda n, c, ties=False: (_level_run(n, c, g, dev, ties), _count(c, dev))  # noqa: E731
+
+    def shifted(n, c, by):  # a run that starts `by` floats past a 16-byte boundary
+        base = torch.full((n + by,), float("inf"), device=dev)
+        base[by:] = _level_run(n, c, g, dev)
+        return base[by:], _count(c, dev)
+
+    def with_infinities(n, c):
+        x, cx = run(n, c)
+        x[:3], x[c - 2:c] = float("-inf"), float("inf")
+        return x, cx
+
+    ties_a = lambda n: (_tie_run(n, 3900, [(0.1, 500), (0.5, 400), (0.9, 3000)], dev), _count(3900, dev))  # noqa: E731
+    ties_b = lambda n: (_tie_run(n, 2850, [(0.2, 450), (0.5, 400), (0.95, 2000)], dev), _count(2850, dev))  # noqa: E731
     cases = [
         # name, (a, a_count), (b, b_count), k
         ("insert_overflow", run(k, 6000), run(K3_M, 4096), k),
@@ -1254,27 +1370,61 @@ def phase_k3_parity(dev):
         ("k8_full", run(8, 8), run(8, 8), 8),
         ("heavy_ties", run(k, 6600, True), run(K3_M, 4096, True), k),
         ("m_2_16_many_blocks", run(k, 6500), run(70_000, 65_536), k),
+        # the tiles' edges: merged positions 950-1749 are one value
+        # from both runs, across the boundary at 1024
+        ("tie_run_across_tile_boundary", ties_a(k), ties_b(K3_M), k),
+        ("tie_run_across_tile_boundary_absorb", ties_a(k), ties_b(2 * k), 3 * k),
+        ("c_eq_tile", run(2048, 600), run(2048, 424), 2048),
+        ("c_one_under_tile", run(2048, 600), run(2048, 423), 2048),
+        ("c_two_tiles_overflow", run(2048, 1500), run(2048, 548), 2000),
+        ("c_past_two_tiles_odd_leftover", run(2048, 1500), run(2048, 549), 2000),
+        ("pass_through_copy", run(k, 5000), run(K3_M, 0), k),
+        ("pass_through_misaligned_view", shifted(k, 6600, 1), run(K3_M, 0), k),
+        ("misaligned_runs", shifted(k, 6000, 1), shifted(K3_M, 4096, 3), k),
+        ("infinities_in_valid_prefix", with_infinities(k, 6100), with_infinities(K3_M, 4000), k),
+        ("only_incoming", run(k, 0), run(K3_M, 4095), k),
+        ("m_2_16", run(k, 6600), run(65_536, 65_536), k),
+        ("odd_lengths", run(1001, 700), run(333, 301), 999),
     ]
+    lib = k3._library()
     rows, max_err = [], 0.0
+    launches = k3.fold_launch_count
     for name, (a, ca), (b, cb), kk in cases:
         got = k3.compactor_fold(a, ca, b, cb, kk)
         want = k3.compactor_fold_plain(a, ca, b, cb, kk)
+        first, first_out = _fold_raw(lib.compactor_fold_search_launch, a, ca, b, cb, kk)
+        first()
+        na, nb = a.shape[0], b.shape[0]
+        lanes = next(n for n in (2 ** e for e in range(16)) if lib.compactor_fold_lanes_plan(n, na, nb, kk) == 0)
+        spread = lambda x: x.reshape(1, -1).expand(lanes, -1).contiguous()  # noqa: E731
+        tiled, tiled_out = _fold_raw(lib.compactor_fold_lanes_launch, spread(a), spread(ca).reshape(lanes), spread(b),
+                                     spread(cb).reshape(lanes), kk)
+        tiled()
         torch.cuda.synchronize()
-        equal = all(x.shape == y.shape and torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(got, want))
+        equal, first_equal = _outputs_bit_equal(got, want), _outputs_bit_equal(first_out, want)
+        tiles_equal = _outputs_bit_equal(tiled_out, tuple(w.reshape(1, *w.shape).expand(lanes, *w.shape) for w in want))
         err = max(
-            float(torch.where(x == y, 0.0, (x.double() - y.double()).abs()).max()) if x.numel() else 0.0
+            float(torch.where(x == y, 0.0, (x.double() - y.double()).abs()).nan_to_num(float("inf")).max()) if x.numel() else 0.0
             for x, y in zip(got, want)
         )
         max_err = max(max_err, err)
         rows.append({
-            "case": name, "na": a.shape[0], "nb": b.shape[0], "k": kk,
-            "c": int(ca) + int(cb), "count": int(got[1]), "pcount": int(got[3]), "bit_equal": equal,
+            "case": name, "na": a.shape[0], "nb": b.shape[0], "k": kk, "c": int(ca) + int(cb),
+            "a_offset_bytes": a.storage_offset() * 4, "count": int(got[1]), "pcount": int(got[3]),
+            "kernel": _fold_plan(lib, 1, na, nb, kk)["kernel"], "bit_equal": equal,
+            "tiles_lanes": lanes, "tiles_bit_equal": tiles_equal, "first_design_bit_equal": first_equal,
         })
-        if not equal:
+        if not (equal and first_equal and tiles_equal):
             emit({"phase": "parity", "kernel": "compactor_fold", "cases": rows})
-            raise AssertionError(f"compactor_fold kernel differs from its plain version in case {name!r}")
-    emit({"phase": "parity", "kernel": "compactor_fold", "cases": rows, "max_abs_err": max_err})
-    return max_err
+            which = "the plan's kernel" if not equal else "the tiles" if not tiles_equal else "the first design"
+            raise AssertionError(f"compactor_fold's {which} differs from its plain version in case {name!r}")
+    launches = k3.fold_launch_count - launches
+    if FOLD_KERNELS[0] not in {r["kernel"] for r in rows}:
+        raise AssertionError("phase_k3_parity: the plan gave no single fold of these cases the slot kernel")
+    if launches != len(cases):
+        raise AssertionError(f"phase_k3_parity: {len(cases)} single folds launched the kernel {launches} times")
+    emit({"phase": "parity", "kernel": "compactor_fold", "cases": rows, "max_abs_err": max_err, "launches": launches})
+    return max_err, launches
 
 
 def _levels(levels, k, fill, gen, dev, ties=False, extremes=False):
@@ -1654,8 +1804,7 @@ def k3_times(dev, launches, max_abs_err, fold_max_abs_err, q_state, batch):
             "wrapper": lambda: k3.fold_cascade(a, b, inc, inc_count, level),
             "plain": lambda: k3.fold_cascade_plain(a, b, inc, inc_count, level),
             "per_level": lambda: k3.fold_cascade_plain(a, b, inc, inc_count, level, fold=k3.compactor_fold),
-            # the levels and counts in, the run and its count in; the levels and counts out
-            "bytes": 2 * (L * k * 4 + L * 4) + m * 4 + 4,
+            "bound": _cascade_bound(b, k, inc_count),
             "counts_in": b.tolist(),
         }
 
@@ -1667,7 +1816,7 @@ def k3_times(dev, launches, max_abs_err, fold_max_abs_err, q_state, batch):
             "wrapper": lambda: k3.merge_cascade(items2, counts2, items, counts),
             "plain": lambda: k3.merge_cascade_plain(items2, counts2, items, counts),
             "per_level": lambda: k3.merge_cascade_plain(items2, counts2, items, counts, fold=k3.compactor_fold),
-            "bytes": 3 * (L * k * 4 + L * 4),
+            "bound": _cascade_bound(counts2, k, other_counts=counts),
             "counts_in": [counts2.tolist(), counts.tolist()],
         },
     }
@@ -1679,24 +1828,24 @@ def k3_times(dev, launches, max_abs_err, fold_max_abs_err, q_state, batch):
         for name in order:
             times.setdefault(name, []).append(cuda_time_ms(fns[name], iters=100, warmup=10))
         ms = {name: statistics.mean(v) for name, v in times.items()}
-        cascade = device_profile(fns["kernel"], "compactor_cascade_kernel")
-        previous = device_profile(fns["per_level"], "compactor_fold_kernel")
-        bytes_ms = fns["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = (L * k + (m if shape.startswith("insert") else L * k)) / FP32_OPS_PER_S * 1e3  # a compare per merged value
+        cascade = device_profile(fns["kernel"], "compactor_cascade_kernel", per_launch=1)
+        before = k3.fold_launch_count
+        fns["per_level"]()
+        previous = device_profile(fns["per_level"], FOLD_KERNELS, per_launch=k3.fold_launch_count - before)
         out[shape] = {
             "ms": ms["wrapper"],
             "kernel_ms": ms["kernel"],
-            "kernel_device_ms": cascade["ms_per_launch"],
+            "kernel_device_ms": cascade["median_ms_per_launch"],
+            "kernel_device_ms_launches_recorded": cascade["recorded_launches"],
             "plain_ms": ms["plain"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": fns["bytes"],
+            **fns["bound"],
             "counts_in": fns["counts_in"],
             "previous_design": {
                 "what": "one single-fold launch per level (the previous design), timed in this run",
                 "ms": ms["per_level"],
                 "fold_launches_per_call": previous["launches_per_call"],
-                "fold_device_ms_per_launch": previous["ms_per_launch"],
+                "fold_device_ms_per_launch": previous["median_ms_per_launch"],
+                "fold_launches_recorded": previous["recorded_launches"],
                 "fold_device_ms_per_call": previous["ms_per_call"],
                 "all_device_ms_per_call": previous["all_device_ms_per_call"],
                 "device_ops_per_call": previous["device_ops_per_call"],
@@ -1715,6 +1864,7 @@ def k3_times(dev, launches, max_abs_err, fold_max_abs_err, q_state, batch):
         "ms": head["ms"],
         "kernel_ms": head["kernel_ms"],
         "kernel_device_ms": head["kernel_device_ms"],
+        "kernel_device_ms_launches_recorded": head["kernel_device_ms_launches_recorded"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
@@ -3383,16 +3533,16 @@ def k2_times(dev, max_abs_err):
         for label in order:
             times.setdefault(label, []).append(cuda_time_ms(fns[label]))
         ms = {label: statistics.mean(v) for label, v in times.items()}
-        ms["kernel_device"] = device_ms_per_launch(raw, "histogram_kernel")
+        ms.update(_launch_time("kernel_device", raw, "histogram_kernel"))
         # kernels that one call of the launcher puts on the card, from the launches on the host
         ms["kernels_per_call"] = device_profile(kernel_fn(ids, zero=False), "histogram_kernel")["host_launches_per_call"]
         if ms["kernels_per_call"] != 1.0:
             raise AssertionError(f"one histogram call launched {ms['kernels_per_call']} kernels on input {name!r}, not 1")
-        ms["prev_kernel_device"] = device_ms_per_launch(prev, "histogram_match_kernel")
+        ms.update(_launch_time("prev_kernel_device", prev, "histogram_match_kernel"))
         ms["library_device"] = device_profile(fns["library"], "")["all_device_ms_per_call"]
-        ms["kernel_vs_prev"] = ms["kernel_device"] / ms["prev_kernel_device"]
-        ms["kernel_vs_library"] = ms["kernel_device"] / ms["library_device"]
-        ms["share_of_bound"] = bound_ms / ms["kernel_device"]
+        ms["kernel_vs_prev"] = _ratio(ms["kernel_device"], ms["prev_kernel_device"])
+        ms["kernel_vs_library"] = _ratio(ms["kernel_device"], ms["library_device"])
+        ms["share_of_bound"] = _ratio(bound_ms, ms["kernel_device"])
         per_input[name] = ms
 
     head = per_input["uniform"]
@@ -3407,6 +3557,7 @@ def k2_times(dev, max_abs_err):
         "ms": head["wrapper"],
         "kernel_ms": head["kernel"],
         "kernel_device_ms": head["kernel_device"],
+        "kernel_device_ms_launches_recorded": head["kernel_device_launches_recorded"],
         "plain_ms": head["plain"],
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -3886,7 +4037,7 @@ def k2_confmat_times(preds, target, launches):
 
     bound_ms, bound_by = bound(4 * n + 4 * nb)  # int32 ids in, every int32 count written
     kernel_bound_ms, kernel_bound_by = bound(4 * n + 8 * touched)  # ids in, touched counts read and written
-    kernel_device = device_ms_per_launch(raw, "histogram_kernel")
+    kernel_device, kernel_recorded = device_ms_per_launch(raw, "histogram_kernel")
     wrapper = device_profile(fns["wrapper"], "histogram_kernel")
     wrapper_device = wrapper["all_device_ms_per_call"]
     return {
@@ -3897,9 +4048,10 @@ def k2_confmat_times(preds, target, launches):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "launches": launches,
-        "launches_x_gap_ms": launches * (wrapper_device - bound_ms),
+        "launches_x_gap_ms": None if wrapper_device is None else launches * (wrapper_device - bound_ms),
         # the kernel alone, into zeroed counts
         "kernel_device_ms": kernel_device,
+        "kernel_device_ms_launches_recorded": kernel_recorded,
         "kernel_bound_ms": kernel_bound_ms,
         "kernel_bound_by": kernel_bound_by,
         # by events, each a whole call
@@ -3921,13 +4073,16 @@ def k2_path_launches(entry, launches):
     if per_kind * len(kinds) != launches:
         raise AssertionError(f"{launches} K2 launches on the dist path are not {len(kinds)} kinds x its ranks")
     per_input, bound_ms = entry["by_input"], entry["bound_ms"]
-    gap = {kind: per_kind * (per_input[x]["kernel_device"] - bound_ms) for kind, x in kinds.items()}
-    prev_gap = {kind: per_kind * (per_input[x]["prev_kernel_device"] - bound_ms) for kind, x in kinds.items()}
+    gap = {kind: None if per_input[x]["kernel_device"] is None else per_kind * (per_input[x]["kernel_device"] - bound_ms)
+           for kind, x in kinds.items()}
+    prev_gap = {kind: None if per_input[x]["prev_kernel_device"] is None else per_kind * (per_input[x]["prev_kernel_device"] - bound_ms)
+                for kind, x in kinds.items()}
     entry["launches"] = launches
     entry["dist_path"] = {
         "launches_per_kind": per_kind, "ids_per_kind": kinds,
-        "launches_x_gap_ms": sum(gap.values()), "by_kind_ms": gap,
-        "previous_design_launches_x_gap_ms": sum(prev_gap.values()), "previous_design_by_kind_ms": prev_gap,
+        "launches_x_gap_ms": None if None in gap.values() else sum(gap.values()), "by_kind_ms": gap,
+        "previous_design_launches_x_gap_ms": None if None in prev_gap.values() else sum(prev_gap.values()),
+        "previous_design_by_kind_ms": prev_gap,
     }
 
 
@@ -5027,11 +5182,64 @@ def _rings(m):
     return {k: v for k, v in m.metric_state.items() if k.startswith("sl__")}
 
 
+def _bound(nbytes, ops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes}
+
+
+def _fold_bound(a_count, b_count, k, p_len):
+    """The single fold's bound on this run's counts (one lane or a lane
+    axis): each lane reads the valid prefixes of its two runs and its two
+    counts, and writes its k items, its p_len promoted slots and two
+    counts; a compare per merged value."""
+    lanes = a_count.numel()
+    c = int(a_count.sum()) + int(b_count.sum())
+    return _bound(c * 4 + lanes * 8 + lanes * ((k + p_len) * 4 + 8), c)
+
+
+def _cascade_bound(counts, k, inc_count=None, other_counts=None):
+    """A cascade's bound on this run's counts (``counts`` (L,) or (lanes,
+    L)): an insert of a run with ``inc_count`` valid values, or a merge
+    with a sketch of ``other_counts``, reads the valid prefixes of every
+    level and of the run or the other sketch's levels, and the counts, and
+    writes every level (k floats, +inf past the count) and its count; a
+    compare per valid value read."""
+    lanes = counts.numel() // counts.shape[-1]
+    L = counts.shape[-1]
+    valid = int(counts.sum()) + int((inc_count if other_counts is None else other_counts).sum())
+    counts_in = lanes * (L + (1 if other_counts is None else L)) * 4
+    return _bound(valid * 4 + counts_in + lanes * L * (k + 1) * 4, valid)
+
+
+@contextlib.contextmanager
+def _fold_lanes_entry(lib, entry):
+    """Inside this block the lane-batched single fold's wrapper
+    (``compactor_fold_lanes``, and so ``fold_level`` under vmap) launches
+    ``entry``, a C entry with ``compactor_fold_lanes_launch``'s arguments:
+    the first design, timed on the path beside the plan's kernel."""
+    saved = lib.compactor_fold_lanes_launch
+    lib.compactor_fold_lanes_launch = entry
+    try:
+        yield
+    finally:
+        lib.compactor_fold_lanes_launch = saved
+
+
+def _fold_plan(lib, lanes, na, nb, k):
+    """The single fold's plan at this shape (``compactor_fold_lanes_plan``,
+    see ``compactor_fold.cu``): its kernel, and its blocks a lane."""
+    slots = lib.compactor_fold_lanes_plan(lanes, na, nb, k) == 1
+    blocks = -(-(k + (na + nb) // 2) // 256) if slots else max(1, -(-(na + nb) // 1024))
+    return {"kernel": FOLD_KERNELS[0] if slots else FOLD_KERNELS[1], "blocks_a_lane": blocks, "lanes": lanes}
+
+
 def _lanes_entry(name, source, replaces, shape, fns, kernel_name, nbytes, ops, launches, max_abs_err, library=None,
-                 plain_iters=20):
+                 plain_iters=20, bound=None):
     """A lane-batched kernel's entry of the kernels line: the wrapper, the
     kernel alone and the plain version timed with CUDA events in turns, the
-    kernel's own time from the profiler, and the bound of the same work."""
+    kernel's own time from the profiler, and the bound of the same work
+    (``bound``, else ``_bound(nbytes, ops)``)."""
     order = ["plain", "wrapper", "kernel"] + (["library"] if library else [])
     order = order + order[::-1]
     fns = dict(fns, **({"library": library} if library else {}))
@@ -5040,8 +5248,6 @@ def _lanes_entry(name, source, replaces, shape, fns, kernel_name, nbytes, ops, l
         iters = plain_iters if key == "plain" else 20
         times.setdefault(key, []).append(cuda_time_ms(fns[key], iters=iters, warmup=min(3, iters)))
     ms = {key: statistics.mean(v) for key, v in times.items()}
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
     return {
         "name": name,
         "route": "cuda",
@@ -5053,13 +5259,11 @@ def _lanes_entry(name, source, replaces, shape, fns, kernel_name, nbytes, ops, l
         "max_abs_err": max_abs_err,
         "ms": ms["wrapper"],
         "kernel_ms": ms["kernel"],
-        "kernel_device_ms": device_ms_per_launch(fns["kernel"], kernel_name, iters=20),
+        **_launch_time("kernel_device_ms", fns["kernel"], kernel_name, iters=20),
         "plain_ms": ms["plain"],
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        **(bound or _bound(nbytes, ops)),
         "library_ms": ms.get("library"),
         "shape": shape,
-        "bytes": nbytes,
     }
 
 
@@ -5123,16 +5327,17 @@ def k1_many_row_times(lib, boot_lanes, batch, thr, order, launches, max_abs_err,
         turns = {}
         for key, fn, kname in (("old", old, "binned_counters_kernel"), ("new", new, "binned_counters_lanes_kernel"),
                                ("new", new, "binned_counters_lanes_kernel"), ("old", old, "binned_counters_kernel")):
-            turns.setdefault(key, []).append((cuda_time_ms(fn, iters=20, warmup=3), device_ms_per_launch(fn, kname, iters=20)))
+            turns.setdefault(key, []).append((cuda_time_ms(fn, iters=20, warmup=3), *device_ms_per_launch(fn, kname, iters=20)))
         out["previous_design"] = {
             "what": "the unbatched kernel with the lane on its grid (binned_counters_kernel<true>, "
                     "binned_counters_lanes_grid_launch), its scratch zeroed before each launch, timed in this run "
                     "in turns with the one-pass kernel",
-            "kernel_device_ms": statistics.mean(t[1] for t in turns["old"]),
+            "kernel_device_ms": _mean([t[1] for t in turns["old"]]),
             "with_zeroing_ms": statistics.mean(t[0] for t in turns["old"]),
             "scratch_bytes": lanes * (2 * CLASSES * (THRESHOLDS + 1) + CLASSES) * 4,
-            "one_pass_kernel_device_ms_same_turns": statistics.mean(t[1] for t in turns["new"]),
+            "one_pass_kernel_device_ms_same_turns": _mean([t[1] for t in turns["new"]]),
             "one_pass_ms_same_turns": statistics.mean(t[0] for t in turns["new"]),
+            "launches_recorded": {key: [t[2] for t in v] for key, v in turns.items()},
         }
         return out
 
@@ -5148,6 +5353,307 @@ def k1_many_row_times(lib, boot_lanes, batch, thr, order, launches, max_abs_err,
     return head
 
 
+def _design_turns(new, old, new_kernel, old_kernel, iters=20):
+    """Two designs of one kernel timed in turns (old, new, new, old), by
+    CUDA events (ms a call, enqueue included) and by the profiler's device
+    time of the named kernel (ms a launch); the means of each, and the
+    launches each profiler window recorded."""
+    turns = {}
+    for key, fn, kname in (("old", old, old_kernel), ("new", new, new_kernel), ("new", new, new_kernel), ("old", old, old_kernel)):
+        turns.setdefault(key, []).append((cuda_time_ms(fn, iters=iters, warmup=3), *device_ms_per_launch(fn, kname, iters=iters)))
+    return {key: {"events_ms": statistics.mean(t[0] for t in v), "device_ms": _mean([t[1] for t in v]),
+                  "launches_recorded": [t[2] for t in v]}
+            for key, v in turns.items()}
+
+
+def _host_split(fn, calls=200, top=8):
+    """Where a wrapper's host time goes: ``cProfile`` over ``calls`` calls,
+    the functions with the most time of their own, in ms a call (the
+    profiler's own cost inflates the small ones), beside the wrapper's
+    uninstrumented host ms a call."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)[:top]
+    return {
+        "host_ms_per_call": host_ms,
+        "profiled_ms_per_call": sum(v[2] for v in stats.values()) * 1e3 / calls,
+        "top_own_ms_per_call": [[f"{os.path.basename(f)}:{line}({name})", v[2] * 1e3 / calls, v[1] / calls]
+                                for (f, line, name), v in rows],
+    }
+
+
+def _cascade_raw(lib, entry, items, counts, run, start, other=None, parts=None):
+    """A launcher of one of the lane cascade's C entries (the plan's, the
+    walking kernel's, or the value-split kernel's at ``parts`` blocks a lane) on
+    these lanes, writing into outputs allocated once: an insert of ``run``
+    (``(inc, inc_count)``) from ``start``, or a merge with ``other``
+    (``(items, counts)``). Returns ``(launch, outputs)``."""
+    import torch
+
+    lanes, L, k = items.shape
+    out = (torch.empty_like(items), torch.empty_like(counts))
+    if other is None:
+        inc, inc_count = run
+        args = (items.data_ptr(), counts.data_ptr(), L, k, inc.data_ptr(), inc.shape[1], inc_count.data_ptr(), start, None, None)
+    else:
+        args = (items.data_ptr(), counts.data_ptr(), L, k, None, 0, None, 0, other[0].data_ptr(), other[1].data_ptr())
+    fn = getattr(lib, entry)
+    stream = torch.cuda.current_stream(items.device).cuda_stream
+    tail = (lanes, parts, stream) if parts is not None else (None, lanes, stream)
+
+    def launch():
+        err = fn(*args, out[0].data_ptr(), out[1].data_ptr(), *tail)
+        if err:
+            raise RuntimeError(f"{entry} failed with cudaError {err}")
+
+    return launch, out
+
+
+def _held(label, outs, want):
+    import torch
+
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        if not all(torch.equal(x, y) for x, y in zip(out, want)):
+            raise AssertionError(f"batched_kernels_path: {name} differs from its plain version ({label})")
+
+
+def k3_cascade_lanes_designs(lib, insert):
+    """The lane cascade's designs, each held bit-equal to the plain version
+    first, then timed in turns: at the bootstrap's lanes the plan's kernel
+    (the value-split kernel) against its first design (the walking kernel), in
+    insert and merge mode; at ``BATCHED_SKETCH_TIMED_LANES`` lanes (the same
+    sketches repeated), where the plan runs the walking kernel, against the
+    value-split kernel at the fewest blocks a lane the plan gives it (4).
+    Bounds on the run's counts."""
+    import torch
+
+    from metrics_tpu_torch.ops import compactor as k3
+
+    items, counts, inc, inc_count, level = insert
+    lanes, L, k = items.shape
+    m = inc.shape[1]
+    other = (torch.roll(items, 1, 0).contiguous(), torch.roll(counts, 1, 0).contiguous())
+    kernel_of = lambda parts: "compactor_cascade_split_kernel" if parts > 0 else "compactor_cascade_kernel"  # noqa: E731
+    out = {}
+    for mode in ("insert", "merge"):
+        merge = mode == "merge"
+        kw = {"other": other} if merge else {}
+        parts = lib.compactor_cascade_lanes_parts(lanes, L, k, 0 if merge else m, int(merge))
+        new, new_out = _cascade_raw(lib, "compactor_cascade_lanes_launch", items, counts, (inc, inc_count), level, **kw)
+        old, old_out = _cascade_raw(lib, "compactor_cascade_lanes_walk_launch", items, counts, (inc, inc_count), level, **kw)
+        new()
+        old()
+        want = (k3.merge_cascade_lanes_plain(items, counts, *other) if merge
+                else k3.fold_cascade_lanes_plain(items, counts, inc, inc_count, level))
+        _held(f"{mode} at {lanes} lanes", {"the plan's lane cascade": new_out, "the walking lane cascade": old_out}, want)
+        t = _design_turns(new, old, kernel_of(parts), "compactor_cascade_kernel")
+        out[mode] = {"plan_parts": parts, "plan_kernel": kernel_of(parts),
+                     "kernel_device_ms": t["new"]["device_ms"], "kernel_events_ms": t["new"]["events_ms"],
+                     "first_design_device_ms": t["old"]["device_ms"], "first_design_events_ms": t["old"]["events_ms"],
+                     "launches_recorded": {"kernel": t["new"]["launches_recorded"], "first_design": t["old"]["launches_recorded"]},
+                     **(_cascade_bound(counts, k, other_counts=other[1]) if merge else _cascade_bound(counts, k, inc_count))}
+    idx = torch.arange(BATCHED_SKETCH_TIMED_LANES, device=items.device) % lanes
+    many = [x[idx].contiguous() for x in (items, counts, inc, inc_count)]
+    parts = lib.compactor_cascade_lanes_parts(BATCHED_SKETCH_TIMED_LANES, L, k, m, 0)
+    plan, plan_out = _cascade_raw(lib, "compactor_cascade_lanes_launch", many[0], many[1], many[2:], level)
+    walk, walk_out = _cascade_raw(lib, "compactor_cascade_lanes_walk_launch", many[0], many[1], many[2:], level)
+    four, four_out = _cascade_raw(lib, "compactor_cascade_lanes_split_launch", many[0], many[1], many[2:], level, parts=4)
+    for fn in (plan, walk, four):
+        fn()
+    plain = lambda: k3.fold_cascade_lanes_plain(*many, level)  # noqa: E731
+    _held(f"insert at {BATCHED_SKETCH_TIMED_LANES} lanes",
+          {"the plan's lane cascade": plan_out, "the walking lane cascade": walk_out, "the value-split kernel at 4 blocks a lane": four_out},
+          plain())
+    t = _design_turns(four, walk, "compactor_cascade_split_kernel", "compactor_cascade_kernel")
+    n = BATCHED_SKETCH_TIMED_LANES
+    return {
+        "previous_design": {
+            "what": "the walking kernel with the lane on the grid (compactor_cascade_kernel, "
+                    "compactor_cascade_lanes_walk_launch), the form's first design, timed in this run in turns with the plan's kernel",
+            "kernel_device_ms": out["insert"]["first_design_device_ms"],
+            "events_ms": out["insert"]["first_design_events_ms"],
+            "new_kernel_device_ms_same_turns": out["insert"]["kernel_device_ms"],
+            "new_events_ms_same_turns": out["insert"]["kernel_events_ms"],
+            "launches_recorded": out["insert"]["launches_recorded"],
+            "by_mode": out,
+        },
+        "at_timed_lanes": {
+            "lanes": n, "plan_parts": parts, "plan_kernel": kernel_of(parts),
+            "walking_kernel_device_ms": t["old"]["device_ms"], "walking_events_ms": t["old"]["events_ms"],
+            "split_4_blocks_kernel_device_ms": t["new"]["device_ms"], "split_4_blocks_events_ms": t["new"]["events_ms"],
+            "launches_recorded": {"walking": t["old"]["launches_recorded"], "split_4_blocks": t["new"]["launches_recorded"]},
+            "plain_ms": cuda_time_ms(plain, iters=2, warmup=1),
+            **_cascade_bound(many[1], k, many[3]),
+        },
+    }
+
+
+def k3_fold_lanes_designs(lib, states):
+    """The single fold's lane form: the plan's kernel against its first
+    design in turns, at the bootstrap's lanes and at
+    ``BATCHED_SKETCH_TIMED_LANES`` lanes (the same folds repeated), each
+    held bit-equal to the plain version first, in two states (``states``:
+    name -> (a, a_count, b, b_count)): the run into an empty level
+    (absorbing) and into a level that holds a run already (promoting: both
+    runs non-empty). At the bootstrap's lanes the plan runs the slot
+    kernel, at ``BATCHED_SKETCH_TIMED_LANES`` the tiles. Bounds on each
+    run's counts."""
+    import torch
+
+    from metrics_tpu_torch.ops import compactor as k3
+
+    by_state = {}
+    for state, fold in states.items():
+        for lanes in (fold[0].shape[0], BATCHED_SKETCH_TIMED_LANES):
+            idx = torch.arange(lanes, device=fold[0].device) % fold[0].shape[0]
+            a, ac, b, bc = (x[idx].contiguous() for x in fold)
+            k = a.shape[1]
+            new, new_out = _fold_raw(lib.compactor_fold_lanes_launch, a, ac, b, bc, k)
+            old, old_out = _fold_raw(lib.compactor_fold_search_lanes_launch, a, ac, b, bc, k)
+            new()
+            old()
+            plain = lambda: k3.compactor_fold_lanes_plain(a, ac, b, bc, k)  # noqa: E731
+            _held(f"single fold at {lanes} lanes, {state}", {"the plan's fold": new_out, "the searching fold": old_out}, plain())
+            t = _design_turns(new, old, FOLD_KERNELS, "compactor_fold_search_kernel")
+            by_state.setdefault(state, {})[lanes] = {
+                "kernel_device_ms": t["new"]["device_ms"], "kernel_events_ms": t["new"]["events_ms"],
+                "first_design_device_ms": t["old"]["device_ms"], "first_design_events_ms": t["old"]["events_ms"],
+                "launches_recorded": {"kernel": t["new"]["launches_recorded"], "first_design": t["old"]["launches_recorded"]},
+                "counts_in": ac[:8].tolist(), "run_counts_in": bc[:8].tolist(),
+                "plan": _fold_plan(lib, lanes, a.shape[1], b.shape[1], k),
+                "plain_ms": cuda_time_ms(plain, iters=3, warmup=1),
+                **_fold_bound(ac, bc, k, new_out[2].shape[1])}
+    boot = next(iter(states.values()))[0].shape[0]
+    head = by_state["absorbing"][boot]
+    return {
+        "previous_design": {
+            "what": "every output slot's own co-rank search in device memory (compactor_fold_search_kernel, "
+                    "compactor_fold_search_lanes_launch), the first design, timed in this run in turns with the plan's kernel",
+            "kernel_device_ms": head["first_design_device_ms"], "events_ms": head["first_design_events_ms"],
+            "new_kernel_device_ms_same_turns": head["kernel_device_ms"], "new_events_ms_same_turns": head["kernel_events_ms"],
+            "launches_recorded": head["launches_recorded"],
+        },
+        "at_timed_lanes": {"lanes": BATCHED_SKETCH_TIMED_LANES, **by_state["absorbing"][BATCHED_SKETCH_TIMED_LANES]},
+        "by_state": {state: {str(lanes): v for lanes, v in rows.items()} for state, rows in by_state.items()},
+    }
+
+
+def k3_per_level_designs(lib, states, run, level):
+    """The sketch bootstrap's insert level by level under vmap (one
+    lane-batched single fold a level below the top), the whole insert with
+    the plan's kernel against the same insert with the first design in
+    every fold, in turns, in each of ``states`` (name -> (items, counts) of
+    the lanes): by CUDA events (ms a call) and by the profiler (the folds'
+    device ms a call, every operation's on the card). Each held bit-equal
+    to the lane-batched plain cascade first."""
+    import torch
+
+    from metrics_tpu_torch.ops import compactor as k3
+
+    inc, inc_count = run
+    out = {}
+    for state, (items, counts) in states.items():
+        L, k = items.shape[1:]
+        folds = L - 1 - level
+
+        def per_level(items=items, counts=counts):
+            return torch.func.vmap(lambda i, c, r, rc: k3.fold_cascade_plain(i, c, r, rc, level, fold=k3.compactor_fold))(
+                items, counts, inc, inc_count)
+
+        def first(per_level=per_level):
+            with _fold_lanes_entry(lib, lib.compactor_fold_search_lanes_launch):
+                return per_level()
+
+        _held(f"the per-level insert under vmap, {state}", {"the plan's folds": per_level(), "the first design's folds": first()},
+              k3.fold_cascade_lanes_plain(items, counts, inc, inc_count, level))
+        turns = {}
+        for key, fn, kname in (("first", first, "compactor_fold_search_kernel"), ("plan", per_level, FOLD_KERNELS),
+                               ("plan", per_level, FOLD_KERNELS), ("first", first, "compactor_fold_search_kernel")):
+            events = cuda_time_ms(fn, iters=10, warmup=2)
+            prof = device_profile(fn, kname, iters=10, per_launch=folds, host=False)
+            turns.setdefault(key, []).append((events, prof["ms_per_call"], prof["all_device_ms_per_call"], prof["recorded_launches"],
+                                              prof["iters"]))
+        out[state] = {
+            "folds_a_call": folds,
+            "level_counts_in": counts[:, level].tolist(),
+            "first_fold_plan": _fold_plan(lib, items.shape[0], k, inc.shape[1], k),
+            **{key: {"events_ms": statistics.mean(t[0] for t in v), "folds_device_ms_per_call": _mean([t[1] for t in v]),
+                     "all_device_ms_per_call": _mean([t[2] for t in v]),
+                     "launches_recorded": [t[3] for t in v], "calls_profiled": [t[4] for t in v]}
+               for key, v in turns.items()},
+        }
+    return out
+
+
+def k3_fold_unbatched_entry(lib, insert, k, fold_parity):
+    """The unbatched single fold's entry of the kernels line (the kernel of
+    ``compactor_fold`` and ``fold_level``, which no path but
+    ``phase_k3_parity`` launches): at an insert's shape (``insert``, a level
+    of k and a 4096-item run) and a merge's (a level of k and a 3k run),
+    the wrapper, the plan's kernel (the slot kernel) and the plain version
+    in turns, and the kernel against its first design, each held bit-equal
+    first. The insert folds into an empty level, the merge's fold two
+    non-empty runs; bounds on the runs' counts."""
+    import torch
+
+    from metrics_tpu_torch.ops import compactor as k3
+
+    max_abs_err, parity_launches = fold_parity
+    dev = insert[0].device
+    g = torch.Generator(device=dev).manual_seed(SEED + 93)
+    merge = (_level_run(k, 5000, g, dev), _count(5000, dev), _level_run(3 * k, 9000, g, dev), _count(9000, dev))
+    by_call = {}
+    for shape, (a, ac, b, bc) in (("insert", insert), ("merge_fold", merge)):
+        new, new_out = _fold_raw(lib.compactor_fold_launch, a, ac, b, bc, k)
+        old, old_out = _fold_raw(lib.compactor_fold_search_launch, a, ac, b, bc, k)
+        new()
+        old()
+        _held(f"unbatched single fold, {shape}", {"the plan's fold": new_out, "the searching fold": old_out},
+              k3.compactor_fold_plain(a, ac, b, bc, k))
+        na, nb = a.shape[0], b.shape[0]
+        entry = _lanes_entry(
+            "compactor_fold", "metrics_tpu_torch/csrc/compactor_fold.cu", "metrics_tpu/ops/pallas_kernels.py:141",
+            {"na": na, "nb": nb, "k": k, "a_count": int(ac), "b_count": int(bc)},
+            {"plain": lambda: k3.compactor_fold_plain(a, ac, b, bc, k), "wrapper": lambda: k3.compactor_fold(a, ac, b, bc, k),
+             "kernel": new},
+            FOLD_KERNELS, None, None, {"phase_k3_parity": parity_launches}, max_abs_err,
+            bound=_fold_bound(ac, bc, k, (na + nb) // 2))
+        entry["plan"] = _fold_plan(lib, 1, na, nb, k)
+        entry["replaces_fn"] = ("metrics_tpu/ops/compactor.py::fold_level (its jnp.sort and the Pallas fold "
+                                "_make_fold_kernel -> _fold_kernel)")
+        t = _design_turns(new, old, FOLD_KERNELS, "compactor_fold_search_kernel")
+        entry["previous_design"] = {
+            "what": "every output slot's own co-rank search in device memory (compactor_fold_search_kernel, "
+                    "compactor_fold_search_launch), the first design, timed in this run in turns with the plan's kernel",
+            "kernel_device_ms": t["old"]["device_ms"], "events_ms": t["old"]["events_ms"],
+            "new_kernel_device_ms_same_turns": t["new"]["device_ms"], "new_events_ms_same_turns": t["new"]["events_ms"],
+            "launches_recorded": {"kernel": t["new"]["launches_recorded"], "first_design": t["old"]["launches_recorded"]},
+        }
+        by_call[shape] = entry
+    head = dict(by_call["insert"])
+    head["unit"] = "one fold; by_call.merge_fold is a merge's fold of a level with a 3k run"
+    head["by_call"] = {"merge_fold": by_call["merge_fold"]}
+    return head
+
+
 def batched_parity(dev):
     """Each lane-batched form against its plain version on the card, bit for
     bit, at its edges: K1's one-row kernel with NaN, infinite and denormal
@@ -5157,13 +5663,19 @@ def batched_parity(dev):
     histogram outgrows shared memory, one launch per ``MAX_LANES`` lanes);
     K2 with its bins in shared memory and in device memory, a misaligned
     data pointer, and a call of more than 2^31 bins, split into two
-    launches; K3's cascade in insert and merge mode at the stream's shape,
-    with an unbatched sketch expanded over the lanes, and at a k whose
-    buffers run out of device memory; K3's single fold under vmap
-    (``fold_level``) at a small k and the stream's. Returns the largest
-    difference."""
+    launches; K3's single fold under vmap (``fold_level``) with every kind
+    of lane in one launch (empty, the pass-through copy, absorbed,
+    overflowing with and without an odd leftover) at 1 to 65,536 lanes, with
+    infinities and heavy ties, its first design held to the same lanes;
+    K3's cascade in insert and merge mode on both sides of its plan (the
+    value-split kernel, the walking kernel, its device-memory scratch) at 1
+    to 65,536 lanes, from the top level, with ties and infinities, the
+    value-split kernel at every size its plan gives, and an unbatched sketch
+    expanded over the lanes. Returns the largest difference."""
+    import numpy as np
     import torch
 
+    from metrics_tpu_torch.ops import _build
     from metrics_tpu_torch.ops import binned_counters as k1
     from metrics_tpu_torch.ops import compactor as k3
     from metrics_tpu_torch.ops import histogram as k2
@@ -5239,50 +5751,182 @@ def batched_parity(dev):
         raise AssertionError("a lane-batched K2 call of more than 2^31 bins did not take two launches")
     torch.cuda.empty_cache()
 
-    def sketches(lanes, levels, k, start):
-        fill = lambda: torch.randint(0, k + 1, (levels,), generator=g, device=dev).tolist()  # noqa: E731
-        items, counts = zip(*(_levels(levels, k, fill(), g, dev) for _ in range(lanes)))
-        return torch.stack(items), torch.stack(counts)
+    lib3 = k3._library()
 
-    for case, lanes, (L, k), m, start in (("stream_shape", 4, BATCHED_SKETCH_SHAPE, 4096, 8), ("small", 3, (6, 64), 64, 0),
-                                          ("device_memory_buffers", 2, (4, 66_000), 66_000, 1)):
-        items, counts = sketches(lanes, L, k, start)
-        inc = torch.stack([_level_run(m, int(torch.randint(0, m + 1, (1,), generator=g, device=dev)), g, dev) for _ in range(lanes)])
-        inc_count = (inc < float("inf")).sum(dim=1).to(torch.int32)
-        check("compactor_cascade", f"insert_{case}", k3.fold_cascade_lanes(items, counts, inc, inc_count, start),
-              k3.fold_cascade_lanes_plain(items, counts, inc, inc_count, start), lanes=lanes, levels=L, k=k, m=m)
-        other, other_counts = sketches(lanes, L, k, 0)
-        check("compactor_cascade", f"merge_{case}", k3.merge_cascade_lanes(items, counts, other, other_counts),
-              k3.merge_cascade_lanes_plain(items, counts, other, other_counts), lanes=lanes, levels=L, k=k)
-    # an unbatched sketch under a vmap over the runs: expanded over the lanes
-    got = torch.func.vmap(lambda x, c: k3.fold_cascade(items[0], counts[0], x, c, 1))(inc, inc_count)
-    want = [k3.fold_cascade_plain(items[0], counts[0], inc[i], inc_count[i], 1) for i in range(inc.shape[0])]
-    check("compactor_cascade", "shared_sketch_under_vmap", got, tuple(torch.stack(w) for w in zip(*want)), lanes=inc.shape[0])
-    # the single fold's lane-batched form, fold_level under vmap: lanes that
-    # absorb, that overflow with an odd leftover, and empty ones
-    for case, lanes, k, m in (("small", 5, 64, 40), ("stream_k", 8, BATCHED_SKETCH_SHAPE[1], 4096)):
-        a_cnt = torch.randint(0, k + 1, (lanes,), generator=g, device=dev, dtype=torch.int32)
-        b_cnt = torch.randint(0, m + 1, (lanes,), generator=g, device=dev, dtype=torch.int32)
-        a_cnt[:3], b_cnt[:3] = torch.tensor([k, 0, k - 1]), torch.tensor([m, 0, 2])
-        a = torch.stack([_level_run(k, c, g, dev) for c in a_cnt.tolist()])
-        b = torch.stack([_level_run(m, c, g, dev) for c in b_cnt.tolist()])
+    def lane_runs(n, counts, ties=False, infinities=False):
+        """(lanes, n) ascending float32 runs, lane i +inf past counts[i]; with
+        infinities a valid prefix of two or more starts at -inf and ends at +inf."""
+        lanes = counts.shape[0]
+        if ties:
+            vals = torch.randint(0, 4, (lanes, n), generator=g, device=dev).to(torch.float32)
+        else:
+            vals = torch.rand((lanes, n), generator=g, device=dev)
+        vals = torch.sort(vals, dim=1).values
+        pos = torch.arange(n, device=dev)
+        if infinities:
+            two = counts[:, None] >= 2
+            vals = torch.where(two & (pos == 0), float("-inf"), vals)
+            vals = torch.where(two & (pos == counts[:, None] - 1), float("inf"), vals)
+        return torch.where(pos < counts[:, None], vals, float("inf")).contiguous()
+
+    def fold_counts(lanes, k, m):
+        """Per-lane counts of the five kinds, lane i of kind i % 5: empty,
+        nothing incoming (the pass-through copy), absorbed (c <= k),
+        overflowing with an odd leftover, overflowing with none."""
+        rng = np.random.default_rng(SEED + lanes + k)
+        ca, cb = np.zeros(lanes, np.int64), np.zeros(lanes, np.int64)
+        kind = np.arange(lanes) % 5
+        ca[kind == 1] = rng.integers(0, k + 1, (kind == 1).sum())
+        absorb = kind == 2
+        cb[absorb] = rng.integers(1, min(m, k) + 1, absorb.sum())
+        ca[absorb] = rng.integers(0, k - cb[absorb] + 1)
+        over = kind >= 3
+        ca[over] = k
+        cb[over] = rng.integers(1, m + 1, over.sum())
+        wrong = over & (((ca + cb) % 2 == 1) != (kind == 3))  # kind 3 odd, kind 4 even
+        cb[wrong] = np.where(cb[wrong] > 1, cb[wrong] - 1, cb[wrong] + 1)
+        return (torch.from_numpy(ca.astype(np.int32)).to(dev), torch.from_numpy(cb.astype(np.int32)).to(dev))
+
+    # the single fold's lane form, fold_level under vmap: every kind of lane
+    # in one launch, at 1, 8, 100 and 65,536 lanes (the last in two launches,
+    # the wrapper's split at MAX_LANES), with infinities and heavy ties, on
+    # both sides of its plan (the slot kernel, the tiles); the first design
+    # (compactor_fold_search_lanes_launch) held to the same lanes
+    fold_sides = set()
+    for case, lanes, k, m, ties, infinities in (
+        ("small", 5, 64, 40, False, False), ("stream_k", 8, BATCHED_SKETCH_SHAPE[1], 4096, False, False),
+        ("1_lane", 1, BATCHED_SKETCH_SHAPE[1], 4096, False, False),
+        ("100_lanes_infinities", 100, BATCHED_SKETCH_SHAPE[1], 4096, False, True),
+        ("100_lanes_heavy_ties", 100, 2048, 1024, True, False),
+        ("65536_lanes_split", 65_536, 8, 4, False, True),
+    ):
+        a_cnt, b_cnt = fold_counts(lanes, k, m)
+        a, b = lane_runs(k, a_cnt, ties, infinities), lane_runs(m, b_cnt, ties, infinities)
         before = k3.fold_lanes_launch_count
         got = torch.func.vmap(k3.fold_level)(a, a_cnt, b, b_cnt)
         launches = k3.fold_lanes_launch_count - before
-        check("compactor_fold", f"fold_level_lanes_{case}", got, k3.compactor_fold_lanes_plain(a, a_cnt, b, b_cnt, k),
-              lanes=lanes, k=k, m=m, launches=launches)
-        if launches != 1:
-            raise AssertionError(f"fold_level under vmap took {launches} lane-batched launches in case {case!r}")
+        want = k3.compactor_fold_lanes_plain(a, a_cnt, b, b_cnt, k)
+        first_equal = None
+        if lanes <= k3.MAX_LANES:
+            first, first_out = _fold_raw(lib3.compactor_fold_search_lanes_launch, a, a_cnt, b, b_cnt, k)
+            first()
+            torch.cuda.synchronize()
+            first_equal = _outputs_bit_equal(first_out, want)
+        plan = _fold_plan(lib3, min(lanes, k3.MAX_LANES), k, m, k)
+        fold_sides.add(plan["kernel"])
+        check("compactor_fold", f"fold_level_lanes_{case}", got, want, lanes=lanes, k=k, m=m, launches=launches,
+              ties=ties, infinities=infinities, first_design_bit_equal=first_equal, plan=plan)
+        if launches != -(-lanes // k3.MAX_LANES) or first_equal is False:
+            raise AssertionError(f"fold_level under vmap took {launches} lane-batched launches (first design bit-equal: "
+                                 f"{first_equal}) in case {case!r}")
+
+    if fold_sides != set(FOLD_KERNELS):
+        raise AssertionError(f"batched_parity reached only these kernels of the single fold's plan: {sorted(fold_sides)}")
+
+    def sketches(lanes, levels, k, kind_of_lane=True, ties=False, infinities=False):
+        """(lanes, levels, k) sketches and their counts: random fills, and with
+        kind_of_lane lane i % 4 == 1 empty and lane i % 4 == 2 full at every level."""
+        counts = torch.randint(0, k + 1, (lanes, levels), generator=g, device=dev, dtype=torch.int32)
+        if kind_of_lane:
+            counts[1::4] = 0
+            counts[2::4] = k
+        items = lane_runs(k, counts.reshape(-1), ties, infinities).reshape(lanes, levels, k)
+        return items, counts
+
+    # the cascade's lane form on both sides of its plan (the value-split kernel
+    # where the SMs over the lanes give 4 or more blocks a lane and the
+    # buffers fit shared memory, else the walking kernel, in its
+    # device-memory scratch past that), in insert and merge mode
+    sides = set()
+    for case, lanes, (L, k), m, start, ties, infinities in (
+        ("stream_shape", 4, BATCHED_SKETCH_SHAPE, 4096, 8, False, False), ("small", 3, (6, 64), 64, 0, False, False),
+        ("1_lane_stream_shape", 1, BATCHED_SKETCH_SHAPE, 4096, 8, False, False),
+        ("8_lanes_stream_shape", 8, BATCHED_SKETCH_SHAPE, 4096, 8, False, False),
+        ("33_lanes", 33, (6, 256), 256, 1, False, False), ("34_lanes", 34, (6, 256), 256, 1, False, False),
+        ("100_lanes_stream_shape", 100, BATCHED_SKETCH_SHAPE, 4096, 8, False, False),
+        ("ties_and_infinities", 8, (8, 512), 512, 2, True, True),
+        ("start_at_the_top_level", 8, (6, 256), 256, 5, False, False),
+        ("65536_lanes_split", 65_536, (4, 8), 8, 0, False, True),
+        # an insert's value-split buffers fit, a merge's do not (the walking kernel, staged)
+        ("k8000", 2, (4, 8000), 8000, 1, False, False),
+        ("device_memory_buffers", 2, (4, 66_000), 66_000, 1, False, False),
+    ):
+        items, counts = sketches(lanes, L, k, ties=ties, infinities=infinities)
+        inc_count = torch.randint(0, m + 1, (lanes,), generator=g, device=dev, dtype=torch.int32)
+        inc_count[0] = m
+        inc = lane_runs(m, inc_count, ties, infinities)
+        other, other_counts = sketches(lanes, L, k, ties=ties, infinities=infinities)
+        for mode in ("insert", "merge"):
+            merge = mode == "merge"
+            parts = [lib3.compactor_cascade_lanes_parts(hi - lo, L, k, 0 if merge else m, int(merge))
+                     for lo, hi in _build.lane_groups(lanes, 1, k3.MAX_LANES)]
+            sides.update((mode, p > 0) for p in parts)
+            before = k3.lanes_launch_count
+            if merge:
+                got = k3.merge_cascade_lanes(items, counts, other, other_counts)
+                launches = k3.lanes_launch_count - before
+                want = k3.merge_cascade_lanes_plain(items, counts, other, other_counts)
+            else:
+                got = k3.fold_cascade_lanes(items, counts, inc, inc_count, start)
+                launches = k3.lanes_launch_count - before
+                want = k3.fold_cascade_lanes_plain(items, counts, inc, inc_count, start)
+            check("compactor_cascade", f"{mode}_{case}", got, want, lanes=lanes, levels=L, k=k, m=0 if merge else m,
+                  start=0 if merge else start, plan_parts=parts, launches=launches)
+            if launches != len(parts):
+                raise AssertionError(f"the lane-batched cascade took {launches} launches in case {mode}_{case!r}")
+    if sides != {(mode, side) for mode in ("insert", "merge") for side in (False, True)}:
+        raise AssertionError(f"batched_parity reached only these sides of the lane cascade's plan: {sorted(sides)}")
+    # the value-split kernel at every number of blocks a lane the plan can
+    # give (4 to 8; 3 is refused), and the walking kernel, at the stream's shape
+    L, k = BATCHED_SKETCH_SHAPE
+    items, counts = sketches(8, L, k)
+    inc_count = torch.full((8,), 4096, dtype=torch.int32, device=dev)
+    inc = lane_runs(4096, inc_count)
+    other, other_counts = sketches(8, L, k)
+    want_insert = k3.fold_cascade_lanes_plain(items, counts, inc, inc_count, 8)
+    want_merge = k3.merge_cascade_lanes_plain(items, counts, other, other_counts)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for parts in (0, 3, 4, 5, 6, 7, 8):
+        for mode, want in (("insert", want_insert), ("merge", want_merge)):
+            out = (torch.empty_like(items), torch.empty_like(counts))
+            args = ((items.data_ptr(), counts.data_ptr(), L, k, inc.data_ptr(), 4096, inc_count.data_ptr(), 8, None, None)
+                    if mode == "insert" else
+                    (items.data_ptr(), counts.data_ptr(), L, k, None, 0, None, 0, other.data_ptr(), other_counts.data_ptr()))
+            if parts:
+                err = lib3.compactor_cascade_lanes_split_launch(*args, out[0].data_ptr(), out[1].data_ptr(), 8, parts, stream)
+            else:
+                err = lib3.compactor_cascade_lanes_walk_launch(*args, out[0].data_ptr(), out[1].data_ptr(), None, 8, stream)
+            if parts == 3:
+                if not err:
+                    raise AssertionError("the lane cascade's value-split kernel launched at 3 blocks a lane, a size its plan never gives")
+                continue
+            if err:
+                raise RuntimeError(f"the lane cascade's {'value-split' if parts else 'walking'} kernel failed to launch with cudaError {err}")
+            check("compactor_cascade", f"{mode}_stream_shape_{f'split_{parts}_blocks' if parts else 'walking_kernel'}",
+                  out, want, lanes=8, parts=parts)
+    # an unbatched sketch under a vmap over the runs: expanded over the lanes
+    items, counts = sketches(2, 4, 256)
+    inc_count = torch.tensor([200, 0], dtype=torch.int32, device=dev)
+    inc = lane_runs(256, inc_count)
+    got = torch.func.vmap(lambda x, c: k3.fold_cascade(items[0], counts[0], x, c, 1))(inc, inc_count)
+    want = [k3.fold_cascade_plain(items[0], counts[0], inc[i], inc_count[i], 1) for i in range(inc.shape[0])]
+    check("compactor_cascade", "shared_sketch_under_vmap", got, tuple(torch.stack(w) for w in zip(*want)), lanes=inc.shape[0])
     emit({"phase": "parity", "kernel": "lane_batched", "cases": rows, "max_abs_err": max_err})
     return max_err
 
-def phase_batched_kernels(dev):
+def phase_batched_kernels(dev, fold_parity):
     """The kernels' lane-batched forms on their paths (``batched_kernels_path``):
     a sliced ``BinnedAveragePrecision`` (K1) and ``ConfusionMatrix`` (K2) at
     the sliced path's shape, the confusion family sliced at 10 classes, and
     bootstraps of ``BinnedAveragePrecision`` (K1) and ``QuantileSketch``
     (K3), and the sketch bootstrap's insert level by level under vmap (the
-    single fold's lane form). Returns its five entries of the kernels line."""
+    single fold's lane form). K3's lane forms are timed beside their first
+    designs at 8 and ``BATCHED_SKETCH_TIMED_LANES`` lanes (the fold into an
+    empty level and into a full one), the whole per-level insert with
+    either design in every fold, and the unbatched single fold beside its
+    first design; ``fold_parity`` is
+    ``phase_k3_parity``'s (largest difference, launches). Returns its six
+    entries of the kernels line."""
     import numpy as np
     import torch
 
@@ -5307,7 +5951,15 @@ def phase_batched_kernels(dev):
     thr = jax_linspace(0, 1.0, THRESHOLDS, device=dev)
     order = k1.threshold_order(thr)
     bap_kw = dict(num_classes=CLASSES, thresholds=THRESHOLDS, device=dev)
+    sections, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):  # seconds of each part of the phase
+        now = time.perf_counter()
+        sections[name] = now - t_mark[0]
+        t_mark[0] = now
+
     edge_err = batched_parity(dev)
+    mark("edge_parity")
     peak_parity = torch.cuda.max_memory_allocated()  # the 2^31-bin case: its counts and its plain version's
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5546,6 +6198,7 @@ def phase_batched_kernels(dev):
     peak = torch.cuda.max_memory_allocated()
 
     # ---- each lane-batched kernel's times, at its path's shape ------------
+    mark("paths")
     lib1, lib2, lib3 = k1._library(), k2._library(), k3._library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     s_thr, perm = order
@@ -5616,13 +6269,15 @@ def phase_batched_kernels(dev):
     k1_rows["previous_design"] = {
         "what": "a warp per (lane, class) pair writing its rows through the permutation (binned_counters_rows_kernel, "
                 "the form's path for long rows), timed in this run in turns with the tiled kernel",
-        "kernel_device_ms": statistics.mean(turns["warp"]),
-        "tiled_kernel_device_ms_same_turns": statistics.mean(turns["tiled"]),
+        "kernel_device_ms": _mean([t[0] for t in turns["warp"]]),
+        "tiled_kernel_device_ms_same_turns": _mean([t[0] for t in turns["tiled"]]),
+        "launches_recorded": {key: [t[1] for t in v] for key, v in turns.items()},
     }
     k1_many = k1_many_row_times(lib1, bap_boot_lanes, (p0, (to_onehot(y0, CLASSES) == 1)), thr, order, bap_boot["lanes"],
                                 k1_boot_err, gen)
     entries["k1"] = k1_rows
     entries["k1_many"] = k1_many
+    mark("k1_times")
     entries["k2"] = _lanes_entry(
         "histogram_lanes", "metrics_tpu_torch/csrc/histogram.cu", "metrics_tpu/ops/pallas_kernels.py:62",
         {"lanes": BATCH, "ids_per_lane": 1, "num_buckets": nb},
@@ -5632,27 +6287,28 @@ def phase_batched_kernels(dev):
          **{f"batched_kernels_path_sliced_{n}": v["k2_lanes_launches"] for n, v in small.items()}},
         k2_err, library=lambda: torch.bincount(offset_ids, minlength=BATCH * nb))
     entries["k2"]["library"] = "torch.bincount over the lane-offset ids, minlength = lanes * num_buckets (int64 counts)"
+    mark("k2_times")
+    # the lane cascade: the plan at the bootstrap's 8 lanes (the value-split
+    # kernel), in turns with its first design (the walking kernel)
+    parts3 = lib3.compactor_cascade_lanes_parts(BATCHED_SKETCH_BOOTSTRAPS, L, k, m3, 0)
+    cascade_kernel = "compactor_cascade_split_kernel" if parts3 > 0 else "compactor_cascade_kernel"
     entries["k3"] = _lanes_entry(
         "compactor_cascade_lanes", "metrics_tpu_torch/csrc/compactor_fold.cu", "metrics_tpu/ops/pallas_kernels.py:141",
-        {"lanes": BATCHED_SKETCH_BOOTSTRAPS, "levels": L, "k": k, "M": m3, "start_level": level},
+        {"lanes": BATCHED_SKETCH_BOOTSTRAPS, "levels": L, "k": k, "M": m3, "start_level": level, "plan_parts": parts3},
         {"plain": lambda: k3.fold_cascade_lanes_plain(q_items, q_counts, inc_c, inc_count_c, level),
          "wrapper": lambda: k3.fold_cascade_lanes(q_items, q_counts, inc_c, inc_count_c, level), "kernel": k3_raw},
-        "compactor_cascade_kernel", BATCHED_SKETCH_BOOTSTRAPS * (2 * (L * k * 4 + L * 4) + m3 * 4 + 4),
-        BATCHED_SKETCH_BOOTSTRAPS * (L * k + m3), {"batched_kernels_path_sketch_bootstrap": q_boot["lanes"]}, k3_err)
+        cascade_kernel, None, None, {"batched_kernels_path_sketch_bootstrap": q_boot["lanes"]}, k3_err,
+        bound=_cascade_bound(q_counts, k, inc_count_c))
+    entries["k3"].update(k3_cascade_lanes_designs(lib3, (q_items, q_counts, inc_c, inc_count_c, level)))
+    entries["k3"]["host_split"] = _host_split(lambda: k3.fold_cascade_lanes(q_items, q_counts, inc_c, inc_count_c, level))
+    mark("k3_cascade_times")
     # the single fold's lane form: the insert's first fold (the run into its
-    # level) of the 8 sketches, as fold_level under vmap gives it the kernel
+    # level) of the 8 sketches, as fold_level under vmap gives it the kernel;
+    # the level is empty (absorbing), and after that insert it holds the run
+    # (promoting: the next insert's first fold merges two full runs)
     f_a, f_ac = q_items[:, level].contiguous(), q_counts[:, level].contiguous()
     p_len = (k + m3) // 2
-    f_out = [torch.empty(shp, dtype=dt, device=dev) for shp, dt in (((BATCHED_SKETCH_BOOTSTRAPS, k), torch.float32),
-             ((BATCHED_SKETCH_BOOTSTRAPS,), torch.int32), ((BATCHED_SKETCH_BOOTSTRAPS, p_len), torch.float32),
-             ((BATCHED_SKETCH_BOOTSTRAPS,), torch.int32))]
-
-    def fold_raw():
-        err = lib3.compactor_fold_lanes_launch(f_a.data_ptr(), k, inc_c.data_ptr(), m3, f_ac.data_ptr(), inc_count_c.data_ptr(), k,
-                                               *(t.data_ptr() for t in f_out), BATCHED_SKETCH_BOOTSTRAPS, stream)
-        if err:
-            raise RuntimeError(f"compactor_fold lanes launch failed with cudaError {err}")
-
+    fold_raw, f_out = _fold_raw(lib3.compactor_fold_lanes_launch, f_a, f_ac, inc_c, inc_count_c, k)
     fold_got = torch.func.vmap(k3.fold_level)(f_a, f_ac, inc_c, inc_count_c)
     fold_want = k3.compactor_fold_lanes_plain(f_a, f_ac, inc_c, inc_count_c, k)
     fold_raw()
@@ -5665,10 +6321,25 @@ def phase_batched_kernels(dev):
          "run_counts_in": inc_count_c.tolist(), "promoted": int((fold_want[3] > 0).sum())},
         {"plain": lambda: k3.compactor_fold_lanes_plain(f_a, f_ac, inc_c, inc_count_c, k),
          "wrapper": lambda: k3.compactor_fold_lanes(f_a, f_ac, inc_c, inc_count_c, k), "kernel": fold_raw},
-        "compactor_fold_kernel", BATCHED_SKETCH_BOOTSTRAPS * ((k + m3) * 4 + 8 + (k + p_len) * 4 + 8),
-        BATCHED_SKETCH_BOOTSTRAPS * (k + m3), {"batched_kernels_path_sketch_bootstrap_per_level": fold_boot["fold_lanes"]}, 0.0)
+        FOLD_KERNELS, None, None, {"batched_kernels_path_sketch_bootstrap_per_level": fold_boot["fold_lanes"]}, 0.0,
+        bound=_fold_bound(f_ac, inc_count_c, k, p_len))
     entries["k3_fold"]["replaces_fn"] = ("metrics_tpu/ops/compactor.py::fold_level (its jnp.sort and the Pallas fold "
                                          "_make_fold_kernel -> _fold_kernel) under jax.vmap")
+    entries["k3_fold"]["plan"] = _fold_plan(lib3, BATCHED_SKETCH_BOOTSTRAPS, k, m3, k)
+    promoted_state = tuple(x.contiguous() for x in got)
+    entries["k3_fold"].update(k3_fold_lanes_designs(lib3, {
+        "absorbing": (f_a, f_ac, inc_c, inc_count_c),
+        "promoting": (promoted_state[0][:, level].contiguous(), promoted_state[1][:, level].contiguous(), inc_c, inc_count_c)}))
+    mark("k3_fold_times")
+    # the path itself, the whole per-level insert, with either design in every fold
+    entries["k3_fold"]["per_level_insert"] = k3_per_level_designs(
+        lib3, {"absorbing": (q_items, q_counts), "promoting": promoted_state}, (inc_c, inc_count_c), level)
+    entries["k3_fold"]["host_split"] = _host_split(lambda: k3.compactor_fold_lanes(f_a, f_ac, inc_c, inc_count_c, k))
+    # the unbatched single fold (phase_k3_parity's kernel) at an insert's
+    # shape (lane 0's first fold) and a merge's (a level with a 3k run)
+    mark("k3_per_level_times")
+    entries["k3_fold_unbatched"] = k3_fold_unbatched_entry(lib3, (f_a[0], f_ac[0], inc_c[0], inc_count_c[0]), k, fold_parity)
+    mark("k3_unbatched_fold_times")
     emit({
         "phase": "batched_kernels_path",
         "config": {"rows": ROWS, "classes": CLASSES, "thresholds": THRESHOLDS, "batch": BATCH, "slices": SLICES,
@@ -5690,9 +6361,10 @@ def phase_batched_kernels(dev):
         "peak_mem_bytes": peak,
         "peak_mem_bytes_edge_parity": peak_parity,
         "cpu_reference_s": cpu_s,
+        "sections_s": sections,
         "phase_s": time.perf_counter() - t_start,
     })
-    return [entries["k1"], entries["k1_many"], entries["k2"], entries["k3"], entries["k3_fold"]]
+    return [entries["k1"], entries["k1_many"], entries["k2"], entries["k3"], entries["k3_fold"], entries["k3_fold_unbatched"]]
 
 
 def msmarco_rank_rows(n, rank, world):
@@ -9273,7 +9945,7 @@ def main():
     preds, target = make_data(device)
     k1_err = phase_parity(preds, target)
     k2_err = phase_k2_parity(device)
-    k3_fold_err = phase_k3_parity(device)
+    k3_fold_err, k3_fold_parity_launches = phase_k3_parity(device)
     k3_err = phase_k3_cascade_parity(device)
     with budget_time(NEW_PHASE_S, "backend_probe"):
         phase_backend_probe(probe)  # its probe ran beside the build and the parity phases
@@ -9314,7 +9986,7 @@ def main():
     phase_retrieval(device)
     k1_sliced_launches = phase_sliced(device)
     with budget_time(BATCHED_PHASE_S, "batched_kernels_path"):
-        batched_kernels = phase_batched_kernels(device)
+        batched_kernels = phase_batched_kernels(device, (k3_fold_err, k3_fold_parity_launches))
     # its metrics hold reference cycles (bound methods) and, through them, their
     # graphs' pools: collected here, or the dist ranks below find the card full
     gc.collect()
@@ -9377,6 +10049,13 @@ def main():
           "analysis_phases_s": ANALYSIS_PHASE_S, "analysis_phases_limit_s": ANALYSIS_PHASES_LIMIT_S,
           "batched_phases_s": BATCHED_PHASE_S, "batched_phases_limit_s": BATCHED_PHASES_LIMIT_S,
           "script_s": time.perf_counter() - _T0})
+    # the unbatched single fold: no path but phase_k3_parity launches it
+    # (stream_path and batched_kernels_path check 0 themselves)
+    single = next(e for e in batched_kernels if e["name"] == "compactor_fold")
+    single["launches_by_path"].update({"stream_path": 0, "batched_kernels_path": 0, "audio_path": audio_launches["compactor_fold_single"],
+                                       "lockwitness_path": witness_launches["compactor_fold_single"],
+                                       "analysis_path": analysis_launches["compactor_fold_single"]})
+    single["launches"] = sum(single["launches_by_path"].values())
     # the lane-batched forms, each beside the kernel it batches
     kernels.extend(batched_kernels)
     print(smi, flush=True)

@@ -33,9 +33,11 @@ Under ``torch.func.vmap`` (a bootstrap of a sketch metric: one sketch per
 replica) :func:`fold_cascade` and :func:`merge_cascade` take the lane
 route (``_build.lane_route``): the lanes' sketches reach
 :func:`fold_cascade_lanes` / :func:`merge_cascade_lanes`, one launch of the
-cascade kernel's lane-batched form on CUDA tensors (one walking block per
-lane, counted in ``lanes_launch_count``), and the plain versions with the
-lane axis written out on CPU tensors. ``start_level`` is shared by the
+cascade kernel's lane-batched form on CUDA tensors (blocks that split
+each lane's levels by value where the lanes leave the card idle, else one
+walking block a lane, as the kernel's plan decides from the shapes; counted
+in ``lanes_launch_count``), and the plain versions with
+the lane axis written out on CPU tensors. ``start_level`` is shared by the
 lanes (it depends on the batch's size only). :func:`compactor_fold` (and so
 :func:`fold_level`) takes the lane route too, as JAX's ``fold_level`` runs
 under ``jax.vmap``: :func:`compactor_fold_lanes`, one launch of the fold
@@ -132,6 +134,8 @@ compactor_fold_lanes_plain = compactor_fold_plain
 
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
+    if getattr(lib, "_typed", False):
+        return lib
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.compactor_fold_launch.argtypes = [p, i, p, i, p, p, i, p, p, p, p, p]
     lib.compactor_fold_launch.restype = i
@@ -143,6 +147,22 @@ def _library() -> ctypes.CDLL:
     lib.compactor_cascade_launch.restype = i
     lib.compactor_cascade_lanes_launch.argtypes = [p, p, i, i, p, i, p, i, p, p, p, p, p, i, p]
     lib.compactor_cascade_lanes_launch.restype = i
+    # the plans of the lane-batched cascade and fold, and the first designs
+    # and the value-split kernel at a given size, which chip_smoke.py times
+    # and checks
+    lib.compactor_cascade_lanes_parts.argtypes = [i, i, i, i, i]
+    lib.compactor_cascade_lanes_parts.restype = i
+    lib.compactor_fold_lanes_plan.argtypes = [i, i, i, i]
+    lib.compactor_fold_lanes_plan.restype = i
+    lib.compactor_fold_search_launch.argtypes = lib.compactor_fold_launch.argtypes
+    lib.compactor_fold_search_launch.restype = i
+    lib.compactor_fold_search_lanes_launch.argtypes = lib.compactor_fold_lanes_launch.argtypes
+    lib.compactor_fold_search_lanes_launch.restype = i
+    lib.compactor_cascade_lanes_walk_launch.argtypes = lib.compactor_cascade_lanes_launch.argtypes
+    lib.compactor_cascade_lanes_walk_launch.restype = i
+    lib.compactor_cascade_lanes_split_launch.argtypes = [p, p, i, i, p, i, p, i, p, p, p, p, i, i, p]
+    lib.compactor_cascade_lanes_split_launch.restype = i
+    lib._typed = True  # once per process: the wrappers call this at every launch
     return lib
 
 

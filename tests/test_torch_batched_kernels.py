@@ -18,7 +18,9 @@ of 0/1 rows, sketch items that are input values moved, never computed).
 Also held: lanes of one row and of many, NaN and denormal scores, repeated
 thresholds, out-of-range and int64 ids, a lane axis that is not axis 0,
 nested vmaps folded into one lane axis, the split of a large K2 call into
-launches below 2^31 bins, and the refusal of a batched threshold set.
+launches below 2^31 bins, the refusal of a batched threshold set, and K3's
+edges in one batch: empty, full and pass-through lanes, c == k and k + 1,
+odd leftovers, heavy ties, an insert at the top level.
 """
 import numpy as np
 import pytest
@@ -235,32 +237,48 @@ def test_k2_lanes_split_below_two_to_the_31_bins():
 L3, K3 = 5, 16
 
 
-def _sketches(lanes, seed):
+def _sketches(lanes, seed, ties=False, kinds=False):
     """``lanes`` sketches after a few inserts each (the JAX package's own
-    insert), as numpy ``(lanes, L, k)`` items and ``(lanes, L)`` counts."""
+    insert), as numpy ``(lanes, L, k)`` items and ``(lanes, L)`` counts.
+    ``ties``: the values are drawn from {0, 1, 2, 3}; ``kinds``: lane i % 3
+    == 0 stays empty, lane i % 3 == 1 takes one insert of 64 rows and lane
+    i % 3 == 2 six, which reach the top level."""
     rng = np.random.default_rng(seed)
     items, counts = [], []
     for lane in range(lanes):
         s = JaxState.create(k=K3, levels=L3)
-        for _ in range(1 + lane % 3):
-            s = s.insert(jnp.asarray(rng.lognormal(0, 1, 24 + 8 * lane).astype(np.float32)))
+        inserts, n = 1 + lane % 3, 24 + 8 * lane
+        if kinds:
+            inserts, n = (0, 1, 6)[lane % 3], 64
+        for _ in range(inserts):
+            vals = rng.integers(0, 4, n) if ties else rng.lognormal(0, 1, n)
+            s = s.insert(jnp.asarray(vals.astype(np.float32)))
         items.append(np.asarray(s.items))
         counts.append(np.asarray(s.counts))
     return np.stack(items), np.stack(counts)
 
 
-def _runs(lanes, m, seed):
+def _runs(lanes, m, seed, ties=False):
     rng = np.random.default_rng(seed)
     count = rng.integers(0, m + 1, lanes).astype(np.int32)
     count[0] = m
-    run = np.sort(rng.random((lanes, m)).astype(np.float32), axis=1)
+    if ties:
+        count[1::3] = 0  # empty runs beside full ones
+    vals = rng.integers(0, 4, (lanes, m)) if ties else rng.random((lanes, m))
+    run = np.sort(vals.astype(np.float32), axis=1)
     return np.where(np.arange(m) < count[:, None], run, np.inf).astype(np.float32), count
 
 
-@pytest.mark.parametrize("start_level", [0, 2])
-def test_k3_insert_lanes_match_jax_vmap_of_the_pallas_fold(start_level, monkeypatch):
-    items, counts = _sketches(6, seed=1)
-    inc, inc_count = _runs(6, K3, seed=2 + start_level)
+# (start level, heavy ties with empty and full lanes); the start level L3 - 1
+# runs the top level's absorb alone
+@pytest.mark.parametrize(
+    "start_level,ties",
+    [pytest.param(0, False, id="0"), pytest.param(2, False, id="2"), pytest.param(L3 - 1, False, id="top_level"),
+     pytest.param(1, True, id="heavy_ties_empty_and_full_lanes")],
+)
+def test_k3_insert_lanes_match_jax_vmap_of_the_pallas_fold(start_level, ties, monkeypatch):
+    items, counts = _sketches(6, seed=1, ties=ties, kinds=ties)
+    inc, inc_count = _runs(6, K3, seed=2 + start_level, ties=ties)
     calls = Count(monkeypatch, compactor, "fold_cascade_lanes_plain")
     ours = torch.func.vmap(lambda i, c, x, xc: compactor.fold_cascade(i, c, x, xc, start_level))(
         torch.from_numpy(items), torch.from_numpy(counts), torch.from_numpy(inc), torch.from_numpy(inc_count)
@@ -275,8 +293,16 @@ def test_k3_insert_lanes_match_jax_vmap_of_the_pallas_fold(start_level, monkeypa
 
 
 def test_k3_merge_lanes_match_jax_vmap_of_the_pallas_fold(monkeypatch):
-    items, counts = _sketches(5, seed=3)
-    other, other_counts = _sketches(5, seed=4)
+    _check_merge_lanes(*_sketches(5, seed=3), *_sketches(5, seed=4), monkeypatch)
+
+
+def test_k3_merge_lanes_with_ties_and_empty_and_full_lanes_match_jax_vmap(monkeypatch):
+    """Merges where lanes of one batch are empty, hold one insert or reach
+    the top level, over values with heavy ties."""
+    _check_merge_lanes(*_sketches(6, seed=3, ties=True, kinds=True), *_sketches(6, seed=4, ties=True, kinds=True), monkeypatch)
+
+
+def _check_merge_lanes(items, counts, other, other_counts, monkeypatch):
     calls = Count(monkeypatch, compactor, "merge_cascade_lanes_plain")
     ours = torch.func.vmap(compactor.merge_cascade)(
         torch.from_numpy(items), torch.from_numpy(counts), torch.from_numpy(other), torch.from_numpy(other_counts)
@@ -294,25 +320,38 @@ def test_k3_merge_lanes_match_jax_vmap_of_the_pallas_fold(monkeypatch):
         _bits(o, r)
 
 
-def _level_runs(lanes, n, counts, seed):
+def _level_runs(lanes, n, counts, seed, ties=False):
     """``lanes`` ascending float32 runs of length ``n``, ``+inf`` past each
-    lane's count."""
-    run = np.sort(np.random.default_rng(seed).lognormal(0, 1, (lanes, n)).astype(np.float32), axis=1)
+    lane's count; ``ties``: values drawn from {0, 1, 2}."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(0, 3, (lanes, n)) if ties else rng.lognormal(0, 1, (lanes, n))
+    run = np.sort(vals.astype(np.float32), axis=1)
     return np.where(np.arange(n) < np.asarray(counts)[:, None], run, np.inf).astype(np.float32), np.asarray(counts, np.int32)
 
 
-@pytest.mark.parametrize("k", [8, 24])
-def test_k3_single_fold_lanes_match_jax_vmap_of_the_pallas_fold(k, monkeypatch):
+# k, then the lanes' level and run counts (runs of 10), heavy ties
+FOLD_LANE_CASES = {
+    "8": (8, [0, 4, 8, 7, 3, 8], [10, 2, 0, 10, 9, 7], False),
+    "24": (24, [0, 12, 24, 23, 3, 24], [10, 2, 0, 10, 9, 7], False),
+    # c == k, c == k + 1 (an odd leftover), c == k + 2, empty lanes and a
+    # pass-through lane (nothing incoming) in one batch
+    "c_eq_k_and_k_plus_1": (16, [6, 7, 8, 0, 0, 16, 9], [10, 10, 10, 0, 10, 0, 10], False),
+    "heavy_ties": (16, [16, 15, 5, 0, 11], [10, 10, 10, 4, 5], True),
+}
+
+
+@pytest.mark.parametrize("case", list(FOLD_LANE_CASES))
+def test_k3_single_fold_lanes_match_jax_vmap_of_the_pallas_fold(case, monkeypatch):
     """``fold_level`` under ``torch.func.vmap`` takes the single fold's lane
     route (one call of its plain lanes version on the CPU), bit-equal to
     JAX's ``fold_level`` under ``jax.vmap`` through its Pallas fold: lanes
     whose counts stay within ``k`` (absorbed) and lanes that overflow it
-    (compacted, an odd leftover kept), an empty run and an empty level."""
-    m = 10
-    level_counts = [0, k // 2, k, k - 1, 3, k]
-    run_counts = [m, 2, 0, m, m - 1, 7]
-    items, counts = _level_runs(6, k, level_counts, seed=k)
-    inc, inc_count = _level_runs(6, m, run_counts, seed=k + 1)
+    (compacted, an odd leftover kept), an empty run and an empty level, in
+    one batch; c == k and k + 1; heavy ties."""
+    k, level_counts, run_counts, ties = FOLD_LANE_CASES[case]
+    m, lanes = 10, len(level_counts)
+    items, counts = _level_runs(lanes, k, level_counts, seed=k, ties=ties)
+    inc, inc_count = _level_runs(lanes, m, run_counts, seed=k + 1, ties=ties)
     c = np.asarray(level_counts) + np.asarray(run_counts)
     assert (c <= k).any() and (c > k).any() and ((c > k) & (c % 2 == 1)).any()
     calls = Count(monkeypatch, compactor, "compactor_fold_lanes_plain")
