@@ -365,12 +365,41 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    time) beside their bounds, the plain versions' and, for K2,
    ``torch.bincount`` over the lane-offset ids; the sliced update p50 beside
    the unsliced metric's, peak memory and the phase's seconds.
+41. binned large batch path (after 16): ``BinnedAveragePrecision(
+   num_classes=1, thresholds=100)`` over a binary PR curve's batch of 64
+   masks of 512 x 512 pixel scores (2^24, 0.1 % NaN) and over 2^25 scores,
+   whose counts pass 2^24: one K1 launch an update, the counters bit-equal
+   to int64 counts on the host (``np.searchsorted`` over the sorted
+   thresholds, NaN a false negative at each) rounded to float32 once; a
+   2-replica bootstrap over the 2^24 rows (K1's many-row lane form, one
+   launch) held the same way replica by replica; K1's device time at both
+   sizes and the lane form's beside their bounds;
+42. group bootstrap path, in the world of phase 8 (checked after 19):
+   ``bootstrap_functionalize(metric, B, group=WORLD)`` over states that do
+   not reduce elementwise. (a) The online monitor's stream (phase 5's 64
+   batches of 2^20 rows, 16 a rank) through bootstraps of
+   ``QuantileSketch(eps=0.01)``, ``HyperLogLog()`` and ``CountMinSketch()``,
+   8 replicas each: every rank's synced stacked states and values bit-equal;
+   the quantile sketches bit-equal to the rank-order fold of the four ranks'
+   stacked states in one process, on the card (K3's lane cascade) and with
+   ``merge_cascade_plain`` replica by replica on the CPU; three lane
+   cascades and no unbatched K3 in a sketch ``compute()``, no gather; the
+   mean replica's quantiles within ``eps_bound`` of the stream's exact ones.
+   (b) 2^18 rows a rank of the binary scorer through a bootstrap of
+   ``AUROC(capacity=2**18)`` (20 replicas, 16 batches of 16,384): every
+   rank's replicas bit-equal, each within ``1e-5`` of float64 Mann-Whitney
+   over its gathered ring. The same world on the CPU over the first 2
+   batches a rank with the same indices, against the card's over the same
+   batches. ``compute_s``, collectives and bytes a rank sends per compute,
+   and the lane cascade's merge at 8 lanes of (20, 6600) on the card.
 
 The ``budget`` line sums the seconds that phases 31-34 add (a rank's save:
 the slowest of the four), against their 30 s, those of phases 35-36
 (the detection ranks' share of the fused world: the slowest of the four)
 against theirs, those of phases 37-38 against their 45 s, and those of
-phase 39 against its 30 s, and those of phase 40 against its 60 s; every
+phase 39 against its 30 s, and those of phase 40 against its 60 s, and
+those of phases 41-42 (the world's share: the slowest rank) against
+their 60 s; every
 phase line carries ``t_s``, its seconds since the script started. The
 kernels line lists K1-K3 and then their lane-batched forms.
 
@@ -576,6 +605,16 @@ K1_MANY_ROW_CASES = (
     ("split_above_max_lanes", (65_536, 2, 1, 1), False, False),
 )
 K2_SPLIT_CASE = (1025, 2, 1 << 21)  # lanes, ids a lane, bins: 2^31 + 2^21 bins, two launches (8.6 GB of counts)
+LARGE_BATCH_ROWS = (1 << 24, 1 << 25)  # a binary PR curve over 64 masks of 512 x 512 pixel scores, and twice that
+LARGE_BATCH_BOOTSTRAPS = 2  # replicas of the bootstrap over the 2^24-row batch (K1's many-row lane form)
+LARGE_BATCH_NAN_SHARE = 0.001
+GROUP_BOOT_SKETCH_REPLICAS = 8  # the monitor's sketches bootstrapped over the group (at (20, 6600) a quantile replica)
+GROUP_BOOT_AUROC_REPLICAS = 20
+GROUP_BOOT_AUROC_ROWS = 1 << 18  # a rank's rows of the binary scorer, and its ring's capacity
+GROUP_BOOT_AUROC_BATCH = 16_384
+GROUP_BOOT_CPU_BATCHES = 2  # the CPU reference's batches a rank, the same indices (cut from 16)
+GROUP_PHASES_LIMIT_S = 60  # what binned_large_batch_path and group_bootstrap_path (a rank's share) may add
+GROUP_PHASE_S = {}  # their seconds of command
 SERVE_LADDER = (64, 256, 1024)
 SERVE_SPANS = {64: (1, 64), 256: (65, 256), 1024: (257, 1024)}
 SERVE_WORKERS = 4
@@ -945,6 +984,8 @@ def phase_parity(preds, target):
         ("n1", p[:1], onehot[:1], thr),
         ("n848", p[:848], onehot[:848], thr),
         ("c1", p[:, :1].contiguous(), onehot[:, :1].contiguous(), thr),
+        ("c1_nan_inf", nasty[:, :1].contiguous(), onehot[:, :1].contiguous(), thr),
+        ("c2", p[:, :2].contiguous(), onehot[:, :2].contiguous(), thr),
         ("t5", p, onehot, jax_linspace(0, 1.0, 5, device=dev)),
         ("nan_inf", nasty, onehot, thr),
         ("equal_to_thresholds", on_thr, onehot, thr),
@@ -2308,6 +2349,7 @@ class CollectiveRecorder:
         self.other = []
         self.sizes = []  # lanes of each all_reduce
         self.bytes = 0  # what this process sends
+        self.gather_bytes = 0  # of which in gathers
         self._saved = {}
 
     def __enter__(self):
@@ -2326,6 +2368,7 @@ class CollectiveRecorder:
                     sent = args[1] if len(args) > 1 else kwargs.get("tensor")
                     if hasattr(sent, "element_size"):
                         self.bytes += sent.numel() * sent.element_size()
+                        self.gather_bytes += sent.numel() * sent.element_size()
                 return _fn(*args, **kwargs)
 
             setattr(self.dist, name, wrapped)
@@ -2487,6 +2530,8 @@ def fused_eval_rank(rank, world, port, results, device):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # BAP's "warn" policy reports the injected faults
             out.update(pure_world(mtt, dist, dev, p, y, sync))
+        # the bootstraps over the group: the monitor's sketches and the scorer's AUROC ring
+        out.update(group_bootstrap_world(mtt, dist, dev, rank, world, sync))
         out.update(movielens_world(mtt, dist, dev, rank, world, sync))
         # the retrieval and sliced additions of this world
         out.update(retrieval_world(mtt, dist, dev, rank, world, sync))
@@ -2593,6 +2638,7 @@ def _phase_fused_eval(dev, pure_values, ml_values, snapshot_dir):
         "matches_cpu_run": True,
     })
     check_pure_world(ranks, card, pure_values, ml_values)
+    _GROUP_BOOT.update(check_group_bootstrap(ranks, dev))
     check_retrieval_sliced_world(ranks, dev)
     _DETECTION_WORLD[:] = [r["detection"] for r in ranks]  # checked in phase_detection
     with budget_time(NEW_PHASE_S, "snapshot_path"):
@@ -4327,6 +4373,138 @@ def phase_bootstrap(preds, target):
     })
 
 
+def _host_binned_counts(scores, labels, thresholds):
+    """TP/FP/FN at each threshold counted on the host in int64 and rounded
+    to float32 once: a score's bin is ``np.searchsorted`` over the sorted
+    thresholds (float32 denormals flushed, as the kernel compares), a NaN
+    score's bin is 0 (it clears no threshold: a false negative at each)."""
+    import numpy as np
+
+    def flush(x):
+        x = np.asarray(x, np.float32)
+        return np.where(np.abs(x) < np.finfo(np.float32).tiny, np.copysign(np.float32(0.0), x), x).astype(np.float32)
+
+    thr = flush(thresholds)
+    order = np.argsort(thr, kind="stable")
+    p = flush(scores)
+    bins = np.searchsorted(thr[order], p, side="right")  # the sorted thresholds <= p
+    bins[np.isnan(p)] = 0
+    pos = np.asarray(labels) == 1
+    cleared = []
+    for side in (pos, ~pos):
+        hist = np.bincount(bins[side], minlength=thr.shape[0] + 1).astype(np.int64)
+        at_sorted = np.cumsum(hist[::-1])[::-1][1:]  # sorted threshold i: the scores in bins above i
+        counts = np.empty(thr.shape[0], np.int64)
+        counts[order] = at_sorted
+        cleared.append(counts)
+    tps, fps = cleared
+    return [x.astype(np.float32) for x in (tps, fps, int(pos.sum()) - tps)]
+
+
+def phase_binned_large_batch(dev):
+    """F19 on the card: ``BinnedAveragePrecision(num_classes=1,
+    thresholds=100)`` over one batch of 2^24 pixel scores (64 masks of 512 x
+    512) and one of 2^25, whose counts pass 2^24: one K1 launch each, the
+    counters bit-equal to int64 counts on the host rounded to float32 once;
+    a 2-replica bootstrap of it over the 2^24-row batch (K1's many-row lane
+    form, one launch) held the same way, replica by replica; K1's time at
+    both sizes beside its bound."""
+    import numpy as np
+    import torch
+
+    import metrics_tpu_torch as mtt
+    from metrics_tpu_torch.ops import binned_counters as k1
+
+    t_start = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED + 80)
+    n_max = max(LARGE_BATCH_ROWS)
+    scores = torch.rand(n_max, generator=g, device=dev)
+    scores[torch.rand(n_max, generator=g, device=dev) < LARGE_BATCH_NAN_SHARE] = float("nan")
+    labels = (torch.rand(n_max, generator=g, device=dev) < POSITIVE_SHARE).to(torch.int32)
+    host_scores, host_labels = scores.cpu().numpy(), labels.cpu().numpy()
+    launches = {"unbatched": 0, "lanes": 0}
+    sizes = []
+
+    def held(got, want, what):
+        for name, a, b in zip(("tps", "fps", "fns"), got, want):
+            if not np.array_equal(np.asarray(a, np.float32).view(np.int32), b.view(np.int32)):
+                raise AssertionError(f"binned_large_batch_path: {what}: {name} differs from the host's int64 count rounded once")
+
+    for n in LARGE_BATCH_ROWS:
+        metric = mtt.BinnedAveragePrecision(num_classes=1, thresholds=THRESHOLDS, device=dev)
+        thr = metric.thresholds.cpu().numpy()
+        torch.cuda.synchronize()
+        k1.reset_launch_count()
+        t0 = time.perf_counter()
+        metric.update(scores[:n], labels[:n])
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        if (k1.launch_count, k1.lanes_launch_count) != (1, 0):
+            raise AssertionError(f"binned_large_batch_path: {n} rows launched K1 {k1.launch_count} times "
+                                 f"(lanes {k1.lanes_launch_count}), not once")
+        launches["unbatched"] += k1.launch_count
+        state = metric.metric_state
+        want = _host_binned_counts(host_scores[:n], host_labels[:n], thr)
+        held([state[k][0].cpu().numpy() for k in ("TPs", "FPs", "FNs")], want, f"{n} rows")
+        ap = float(metric.compute())
+        if not 0.0 <= ap <= 1.0:
+            raise AssertionError(f"binned_large_batch_path: average precision {ap} over {n} rows")
+        p2, y2 = scores[:n].reshape(-1, 1), (labels[:n] == 1).reshape(-1, 1)
+        order = k1.threshold_order(metric.thresholds)
+        ms, recorded = device_ms_per_launch(lambda: k1.binned_counter_update(p2, y2, metric.thresholds, order),
+                                            "binned_counters_kernel", iters=20)
+        plain_ms = cuda_time_ms(lambda: k1.binned_counter_update_plain(p2, y2, metric.thresholds), iters=3, warmup=1)
+        sizes.append({
+            "rows": n, "update_s": update_s, "largest_count": int(max(w.max() for w in want)), "average_precision": ap,
+            "kernel_device_ms": ms, "kernel_device_ms_launches_recorded": recorded, "plain_ms": plain_ms,
+            **_bound(n * (4 + 1) + THRESHOLDS * 4 + 3 * THRESHOLDS * 4, n * THRESHOLDS),
+        })
+
+    # the bootstrap over the 2^24-row batch: its replicas the lanes of one launch
+    n = LARGE_BATCH_ROWS[0]
+    bdef = mtt.bootstrap_functionalize(mtt.BinnedAveragePrecision(num_classes=1, thresholds=THRESHOLDS, device=dev),
+                                       LARGE_BATCH_BOOTSTRAPS)
+    idx = torch.randint(0, n, (LARGE_BATCH_BOOTSTRAPS, n), generator=g, device=dev)
+    torch.cuda.synchronize()
+    k1.reset_launch_count()
+    t0 = time.perf_counter()
+    bstate = bdef.update.with_indices(bdef.init(), idx, scores[:n], labels[:n])
+    torch.cuda.synchronize()
+    boot_update_s = time.perf_counter() - t0
+    if (k1.launch_count, k1.lanes_launch_count) != (0, 1):
+        raise AssertionError(f"binned_large_batch_path: the bootstrap's update launched K1 {k1.launch_count} times and "
+                             f"its lanes {k1.lanes_launch_count} times, not the lanes once")
+    launches["lanes"] += k1.lanes_launch_count
+    host_idx = idx.cpu().numpy()
+    for b in range(LARGE_BATCH_BOOTSTRAPS):
+        want = _host_binned_counts(host_scores[host_idx[b]], host_labels[host_idx[b]], thr)
+        held([bstate[k][b, 0].cpu().numpy() for k in ("TPs", "FPs", "FNs")], want, f"bootstrap replica {b}")
+    boot = bdef.compute(bstate)
+    if not bool(torch.isfinite(boot["raw"]).all()):
+        raise AssertionError(f"binned_large_batch_path: bootstrap values {boot['raw'].tolist()}")
+    rp, ry = scores[:n][idx].reshape(LARGE_BATCH_BOOTSTRAPS, n, 1), (labels[:n][idx] == 1).reshape(LARGE_BATCH_BOOTSTRAPS, n, 1)
+    order = k1.threshold_order(metric.thresholds)
+    lanes_ms, lanes_recorded = device_ms_per_launch(lambda: k1.binned_counter_update_lanes(rp, ry, metric.thresholds, order),
+                                                    "binned_counters_lanes_kernel", iters=20)
+    lanes_plain_ms = cuda_time_ms(lambda: k1.binned_counter_update_lanes_plain(rp, ry, metric.thresholds), iters=3, warmup=1)
+    out = {
+        "phase": "binned_large_batch_path",
+        "config": {"rows": list(LARGE_BATCH_ROWS), "classes": 1, "thresholds": THRESHOLDS, "nan_share": LARGE_BATCH_NAN_SHARE,
+                   "positive_share": POSITIVE_SHARE, "bootstrap_replicas": LARGE_BATCH_BOOTSTRAPS, "seed": SEED + 80,
+                   "what": "a binary PR curve over 64 segmentation masks of 512 x 512 pixels (2^24), and twice that"},
+        "sizes": sizes,
+        "k1_launches": launches,
+        "bit_equal_to_host_int64_rounded_once": True,
+        "bootstrap": {"update_s": boot_update_s, "raw": [float(v) for v in boot["raw"].cpu()],
+                      "kernel_device_ms": lanes_ms, "kernel_device_ms_launches_recorded": lanes_recorded, "plain_ms": lanes_plain_ms,
+                      **_bound(LARGE_BATCH_BOOTSTRAPS * (n * (4 + 1) + 3 * THRESHOLDS * 4) + THRESHOLDS * 4,
+                               LARGE_BATCH_BOOTSTRAPS * n * THRESHOLDS)},
+        "phase_s": time.perf_counter() - t_start,
+    }
+    emit(out)
+    return out
+
+
 def make_movielens(device):
     """The held-out ratings on the half-star grid, drawn with ml-20m's
     shares of each rating (mean 3.5255), and a standard normal draw per
@@ -4658,6 +4836,325 @@ def pure_world(mtt, dist, dev, p, y, sync):
         "boot_raw": [float(v) for v in boot["raw"].cpu()], "boot_mean": float(boot["mean"]), "boot_std": float(boot["std"]),
         "boot_rows": int((torch.isfinite(p).all(dim=1) & (y < CLASSES)).sum()),  # the rows "drop" keeps
     }
+
+
+def build_boot_sketches(mtt, device):
+    """The online monitor's three sketches (``build_monitor``'s members), each
+    to be bootstrapped over the group."""
+    return {
+        "q": mtt.QuantileSketch(eps=0.01, quantiles=QUANTILES, device=device),
+        "distinct": mtt.HyperLogLog(device=device),
+        "freq": mtt.CountMinSketch(depth=4, width=2048, device=device),
+    }
+
+
+def make_boot_scorer(device):
+    """The binary scorer's rows for the bootstrap over the group, in the dist
+    path's distribution (labels Bernoulli(0.25), scores sigmoid(z + label)):
+    ``GROUP_BOOT_AUROC_ROWS`` a rank, from one seeded generator."""
+    import torch
+
+    n = DIST_WORLD * GROUP_BOOT_AUROC_ROWS
+    g = torch.Generator(device=device).manual_seed(SEED + 71)
+    labels = (torch.rand(n, generator=g, device=device) < POSITIVE_SHARE).to(torch.int32)
+    return torch.sigmoid(torch.randn(n, generator=g, device=device) + labels.to(torch.float32)), labels
+
+
+def _boot_run(mtt, dist, group, metrics, replicas, batches, draw, device, sync):
+    """Bootstraps over ``group`` of ``metrics`` on ``device``, fed
+    ``batches`` with the indices ``draw(i)`` gives (every metric the same);
+    each ``compute()`` after the last batch timed with its collectives
+    recorded, and K3's launches counted in the updates and in each compute.
+    Returns the per-metric results, the stacked states and the synced
+    stacked states (one more ``fused_sync`` of each, outside the count)."""
+    from metrics_tpu_torch.ops import compactor as k3
+    from metrics_tpu_torch.parallel.sync import fused_sync
+
+    defs = {name: mtt.bootstrap_functionalize(m, replicas, group=group) for name, m in metrics.items()}
+    reductions = {name: dict(m._reductions) for name, m in metrics.items()}
+    states = {name: d.init() for name, d in defs.items()}
+    sync()
+    k3.reset_launch_count()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        idx = draw(i)
+        for name, d in defs.items():
+            states[name] = d.update.with_indices(states[name], idx, *(b.to(device) for b in batch))
+    sync()
+    out = {"update_s": time.perf_counter() - t0, "k3_update_launches": _k3_counts(k3)}
+    synced = {}
+    for name, d in defs.items():
+        dist.barrier()
+        k3.reset_launch_count()
+        t1 = time.perf_counter()
+        with CollectiveRecorder() as rec:
+            value = d.compute(states[name])
+            sync()
+        out[name] = {
+            "compute_s": time.perf_counter() - t1, "raw": value["raw"].cpu(), "mean": value["mean"].cpu(), "std": value["std"].cpu(),
+            "all_reduce": rec.all_reduce, "other": rec.other, "bytes_sent": rec.bytes, "gather_bytes_sent": rec.gather_bytes,
+            "k3_compute_launches": _k3_counts(k3),
+        }
+        synced[name] = fused_sync([states[name]], [reductions[name]], group, lanes=replicas)[0]
+    return out, states, synced
+
+
+def _k3_counts(k3):
+    """K3's launch counts by form: the cascade unbatched and lane-batched,
+    the single fold unbatched and lane-batched."""
+    return {"cascade": k3.launch_count, "cascade_lanes": k3.lanes_launch_count,
+            "fold": k3.fold_launch_count, "fold_lanes": k3.fold_lanes_launch_count}
+
+
+def _host_tree(state):
+    """A state of tensors and sketch states (nested dicts and NamedTuples)
+    as numpy, to put on the results queue."""
+    if isinstance(state, dict):
+        return {k: _host_tree(v) for k, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return {f: _host_tree(v) for f, v in zip(state._fields, state)}
+    return state.detach().cpu().numpy()
+
+
+def group_bootstrap_world(mtt, dist, dev, rank, world, sync):
+    """One rank of the bootstraps over the group, in the fused evaluation
+    world: (a) the online monitor's stream (64 batches of 2^20 lognormal
+    rows, 16 a rank) through bootstraps of its three sketches (8 replicas
+    each), (b) 2^18 rows a rank of the binary scorer through a bootstrap of
+    ``AUROC(capacity=2**18)`` (20 replicas, 16 batches of 16,384), each
+    synced over the world in ``compute()``; and both again on the CPU over
+    the first 2 batches with the same indices, beside the card's state
+    after the same 2 batches."""
+    import torch
+
+    group, cpu = dist.group.WORLD, torch.device("cpu")
+    t_start = time.perf_counter()
+    # the CPU runs: the host's cores shared by the ranks (more threads than
+    # cores a rank made the CPU reference a hundred times slower)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    try:
+        return _group_bootstrap_world(mtt, dist, dev, rank, world, sync, group, cpu, t_start)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _group_bootstrap_world(mtt, dist, dev, rank, world, sync, group, cpu, t_start):
+    import torch
+
+    per_rank = STREAM_BATCHES // world
+    stream = make_stream(dev)[rank * per_rank * STREAM_BATCH:(rank + 1) * per_rank * STREAM_BATCH]
+    batches = [(stream[i * STREAM_BATCH:(i + 1) * STREAM_BATCH],) for i in range(per_rank)]
+
+    def draw(i, rows, replicas, device):
+        """Batch i's resampling indices, drawn on the card from a generator
+        seeded for (rank, batch): the same for the card's run and the CPU's."""
+        gen = torch.Generator(device=dev).manual_seed(SEED + 70 + 1000 * rank + i)
+        return torch.randint(0, rows, (replicas, rows), generator=gen, device=dev).to(device)
+
+    out = {"boot_sketch_rows": int(stream.shape[0])}
+    runs = {}
+    for label, device, n_batches in (("card_cut", dev, GROUP_BOOT_CPU_BATCHES), ("cpu_cut", cpu, GROUP_BOOT_CPU_BATCHES),
+                                     ("card", dev, per_rank)):
+        res, states, synced = _boot_run(mtt, dist, group, build_boot_sketches(mtt, device), GROUP_BOOT_SKETCH_REPLICAS,
+                                        batches[:n_batches], lambda i, device=device: draw(i, STREAM_BATCH, GROUP_BOOT_SKETCH_REPLICAS, device),
+                                        device, sync)
+        runs[label] = (res, states, synced)
+    res, states, synced = runs["card"]
+    out["boot_sketch"] = {name: {k: v for k, v in r.items() if k not in ("raw", "mean", "std")} for name, r in res.items() if name in synced}
+    out["boot_sketch_update_s"] = res["update_s"]
+    out["boot_sketch_k3_update_launches"] = res["k3_update_launches"]
+    out["boot_sketch_raw"] = {name: res[name]["raw"].numpy() for name in synced}
+    out["boot_sketch_mean"] = {name: res[name]["mean"].numpy() for name in synced}
+    out["boot_sketch_local"] = _host_tree(states)
+    out["boot_sketch_synced"] = _host_tree(synced)
+    for label in ("card_cut", "cpu_cut"):
+        r, _, sy = runs[label]
+        out[f"boot_sketch_{label}_raw"] = {name: r[name]["raw"].numpy() for name in sy}
+        out[f"boot_sketch_{label}_synced"] = _host_tree(sy)
+    del stream, batches, runs
+
+    scores, labels = make_boot_scorer(dev)
+    lo = rank * GROUP_BOOT_AUROC_ROWS
+    p, y = scores[lo:lo + GROUP_BOOT_AUROC_ROWS], labels[lo:lo + GROUP_BOOT_AUROC_ROWS]
+    n_batches = GROUP_BOOT_AUROC_ROWS // GROUP_BOOT_AUROC_BATCH
+    batches = [(p[i * GROUP_BOOT_AUROC_BATCH:(i + 1) * GROUP_BOOT_AUROC_BATCH], y[i * GROUP_BOOT_AUROC_BATCH:(i + 1) * GROUP_BOOT_AUROC_BATCH])
+               for i in range(n_batches)]
+    runs = {}
+    for label, device, cut in (("card_cut", dev, GROUP_BOOT_CPU_BATCHES), ("cpu_cut", cpu, GROUP_BOOT_CPU_BATCHES), ("card", dev, n_batches)):
+        metrics = {"auroc": mtt.AUROC(capacity=GROUP_BOOT_AUROC_ROWS, device=device)}
+        runs[label] = _boot_run(mtt, dist, group, metrics, GROUP_BOOT_AUROC_REPLICAS, batches[:cut],
+                                lambda i, device=device: draw(500 + i, GROUP_BOOT_AUROC_BATCH, GROUP_BOOT_AUROC_REPLICAS, device),
+                                device, sync)
+    res, _, synced = runs["card"]
+    ring_p, ring_y = synced["auroc"]["preds"], synced["auroc"]["target"]
+    exact = [mann_whitney_auroc(ring_p.data[b][ring_p.mask[b]], ring_y.data[b][ring_y.mask[b]])
+             for b in range(GROUP_BOOT_AUROC_REPLICAS)]
+    raw = res["auroc"]["raw"].to(torch.float64)
+    out["boot_auroc"] = {k: v for k, v in res["auroc"].items() if k not in ("raw", "mean", "std")}
+    out["boot_auroc"].update({
+        "update_s": res["update_s"], "raw": [float(v) for v in res["auroc"]["raw"]],
+        "mean": float(res["auroc"]["mean"]), "std": float(res["auroc"]["std"]),
+        "float64_mann_whitney": exact, "max_abs_err_vs_float64": max(abs(float(a) - b) for a, b in zip(raw, exact)),
+        "ring_rows_per_replica": int(ring_p.mask[0].sum()), "dropped": int(ring_p.dropped.max()),
+        "card_cut_raw": [float(v) for v in runs["card_cut"][0]["auroc"]["raw"]],
+        "cpu_cut_raw": [float(v) for v in runs["cpu_cut"][0]["auroc"]["raw"]],
+    })
+    out["boot_world_s"] = time.perf_counter() - t_start
+    return out
+
+
+def _host_trees_equal(a, b):
+    """Two trees of numpy arrays (``_host_tree``), bit for bit."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(_host_trees_equal(a[k], b[k]) for k in a)
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def check_group_bootstrap(ranks, dev):
+    """The bootstraps over the group (``group_bootstrap_world``): every rank's
+    synced stacked states and values bit-equal to rank 0's; the quantile
+    sketches bit-equal to the rank-order fold of the four ranks' stacked
+    states in this process, on the card (K3's lane cascade, three launches)
+    and replica by replica with ``merge_cascade_plain`` on the CPU; K3's
+    lane cascade launched ``world - 1`` times a sketch ``compute()`` and no
+    unbatched K3 there; no gather for the sketches; the CPU run over the
+    first 2 batches bit-equal to the card's over the same batches (HLL's
+    estimate within ``HLL_RTOL``); the mean replica's quantiles within
+    ``eps_bound`` of the stream's exact ones; every rank's AUROC replicas
+    bit-equal, each within ``EXACT_ATOL`` of float64 Mann-Whitney over its
+    gathered ring and within ``EXACT_ATOL`` of the CPU run's on the cut.
+    Returns K3's lane launches on the path and its merge's time."""
+    import numpy as np
+    import torch
+
+    from metrics_tpu_torch.ops import compactor as k3
+    from metrics_tpu_torch.streaming.sketches import QuantileSketchState
+
+    t_start = time.perf_counter()
+    r0, world = ranks[0], len(ranks)
+    for r in ranks:
+        for key in ("boot_sketch_synced", "boot_sketch_raw", "boot_sketch_card_cut_synced", "boot_sketch_cpu_cut_synced"):
+            if not _host_trees_equal(r[key], r0[key]):
+                raise AssertionError(f"group_bootstrap_path: rank {r['rank']}'s {key} differs from rank 0's")
+        if r["boot_auroc"]["raw"] != r0["boot_auroc"]["raw"]:
+            raise AssertionError(f"group_bootstrap_path: rank {r['rank']}'s AUROC replicas differ from rank 0's")
+        for name, b in r["boot_sketch"].items():
+            merges = world - 1 if name == "q" else 0
+            launched = b["k3_compute_launches"]
+            if b["other"] or launched != {"cascade": 0, "cascade_lanes": merges, "fold": 0, "fold_lanes": 0}:
+                raise AssertionError(f"group_bootstrap_path: rank {r['rank']}'s {name} compute made {b['all_reduce']} and "
+                                     f"{b['other']}, K3 {launched}; predicted {merges} lane cascades and no gather")
+            if [c for c in b["all_reduce"]] != [c for c in r0["boot_sketch"][name]["all_reduce"]]:
+                raise AssertionError(f"group_bootstrap_path: rank {r['rank']}'s {name} collectives differ from rank 0's")
+        if r["boot_sketch_k3_update_launches"]["cascade"] or r["boot_sketch_k3_update_launches"]["fold"]:
+            raise AssertionError(f"group_bootstrap_path: rank {r['rank']}'s sketch updates launched unbatched K3: "
+                                 f"{r['boot_sketch_k3_update_launches']}")
+    # the card against the CPU over the first batches, the same indices
+    card_cut, cpu_cut = r0["boot_sketch_card_cut_synced"], r0["boot_sketch_cpu_cut_synced"]
+    if not _host_trees_equal(card_cut, cpu_cut):
+        raise AssertionError("group_bootstrap_path: the synced sketches of the card's first batches differ from the CPU run's")
+    for name in ("q", "freq"):
+        if not _host_trees_equal(r0["boot_sketch_card_cut_raw"][name], r0["boot_sketch_cpu_cut_raw"][name]):
+            raise AssertionError(f"group_bootstrap_path: {name} on the card's first batches differs from the CPU run's")
+    hll_card, hll_cpu = r0["boot_sketch_card_cut_raw"]["distinct"], r0["boot_sketch_cpu_cut_raw"]["distinct"]
+    if not np.allclose(hll_card, hll_cpu, rtol=HLL_RTOL, atol=0.0):
+        raise AssertionError(f"group_bootstrap_path: HLL estimates {hll_card} on the card, {hll_cpu} on the CPU")
+
+    # the in-process fold of the ranks' stacked quantile sketches
+    fields = QuantileSketchState._fields
+    stacked = [QuantileSketchState(*(torch.from_numpy(r["boot_sketch_local"]["q"]["sketch"][f]) for f in fields)) for r in ranks]
+    on_card = [QuantileSketchState(*(t.to(dev) for t in s)) for s in stacked]
+    merge = torch.func.vmap(QuantileSketchState.sketch_merge)
+    k3.reset_launch_count()
+    folded = on_card[0]
+    for s in on_card[1:]:
+        folded = merge(folded, s)
+    torch.cuda.synchronize()
+    fold_launches = _k3_counts(k3)
+    if fold_launches != {"cascade": 0, "cascade_lanes": world - 1, "fold": 0, "fold_lanes": 0}:
+        raise AssertionError(f"group_bootstrap_path: the in-process fold launched K3 {fold_launches}")
+    want = r0["boot_sketch_synced"]["q"]["sketch"]
+    if not _host_trees_equal(_host_tree(folded), want):
+        raise AssertionError("group_bootstrap_path: the synced quantile sketches differ from the in-process fold on the card")
+    replicas = stacked[0].items.shape[0]
+    for b in range(replicas):
+        items, counts = stacked[0].items[b], stacked[0].counts[b]
+        for s in stacked[1:]:
+            items, counts = k3.merge_cascade_plain(items, counts, s.items[b], s.counts[b])
+        if not (np.array_equal(items.numpy().view(np.int32), want["items"][b].view(np.int32))
+                and np.array_equal(counts.numpy(), want["counts"][b])):
+            raise AssertionError(f"group_bootstrap_path: replica {b}'s synced sketch differs from its plain fold on the CPU")
+    # the mean replica's quantiles against the whole stream's exact ones
+    x = make_stream(dev)
+    finite = torch.sort(x[torch.isfinite(x)]).values
+    del x
+    L, k = stacked[0].items.shape[1:]
+    eps_bound = 2.0 * (L + 1) / k
+    mean_q = torch.from_numpy(np.asarray(r0["boot_sketch_mean"]["q"], np.float32)).to(dev)
+    rank_frac = (torch.searchsorted(finite, mean_q, right=True).to(torch.float64) / finite.numel()).tolist()
+    q_err = [abs(f - q) for f, q in zip(rank_frac, QUANTILES)]
+    if max(q_err) > eps_bound:
+        raise AssertionError(f"group_bootstrap_path: the mean replica's quantiles sit at ranks {rank_frac}, "
+                             f"beyond eps_bound {eps_bound} of {QUANTILES}")
+    del finite
+    # the lane cascade's merge at the sync's shape, a launch on the card
+    lib = k3._library()
+    parts = lib.compactor_cascade_lanes_parts(replicas, L, k, 0, 1)
+    kernel = "compactor_cascade_split_kernel" if parts > 0 else "compactor_cascade_kernel"
+    a, c = on_card[0], on_card[1]
+    merge_ms, merge_recorded = device_ms_per_launch(lambda: k3.merge_cascade_lanes(a.items, a.counts, c.items, c.counts),
+                                                   kernel, iters=20)
+    merge_time = {"lanes": replicas, "levels": L, "k": k, "plan_parts": parts, "kernel": kernel,
+                  "kernel_device_ms": merge_ms, "kernel_device_ms_launches_recorded": merge_recorded,
+                  **_cascade_bound(a.counts, k, other_counts=c.counts)}
+
+    # (b): AUROC
+    auroc = r0["boot_auroc"]
+    if auroc["max_abs_err_vs_float64"] > EXACT_ATOL or auroc["dropped"] or auroc["ring_rows_per_replica"] != world * GROUP_BOOT_AUROC_ROWS:
+        raise AssertionError(f"group_bootstrap_path: AUROC replicas off float64 Mann-Whitney by {auroc['max_abs_err_vs_float64']}, "
+                             f"{auroc['ring_rows_per_replica']} rows a replica, {auroc['dropped']} dropped")
+    cut_err = max(abs(a - b) for a, b in zip(auroc["card_cut_raw"], auroc["cpu_cut_raw"]))
+    if cut_err > EXACT_ATOL:
+        raise AssertionError(f"group_bootstrap_path: AUROC on the card's first batches off the CPU run's by {cut_err}")
+    path_launches = sum(r["boot_sketch_k3_update_launches"]["cascade_lanes"] + sum(b["k3_compute_launches"]["cascade_lanes"]
+                                                                                  for b in r["boot_sketch"].values()) for r in ranks)
+    emit({
+        "phase": "group_bootstrap_path",
+        "config": {"world": world, "backend": "gloo, four processes on one card (loopback TCP; not NCCL)",
+                   "sketches": {"replicas": GROUP_BOOT_SKETCH_REPLICAS, "rows_per_rank": r0["boot_sketch_rows"],
+                                "batch": STREAM_BATCH, "members": {"q": "QuantileSketch(eps=0.01)", "distinct": "HyperLogLog()",
+                                                                  "freq": "CountMinSketch(depth=4, width=2048)"},
+                                "sketch_shape": [L, k]},
+                   "auroc": {"replicas": GROUP_BOOT_AUROC_REPLICAS, "capacity": GROUP_BOOT_AUROC_ROWS,
+                             "rows_per_rank": GROUP_BOOT_AUROC_ROWS, "batch": GROUP_BOOT_AUROC_BATCH},
+                   "cpu_reference": f"the same world on the CPU, the first {GROUP_BOOT_CPU_BATCHES} batches a rank (cut from 16)"},
+        "sketches": {name: {"compute_s": [r["boot_sketch"][name]["compute_s"] for r in ranks],
+                            "collectives": {"all_reduce": b["all_reduce"], "other": b["other"]},
+                            "bytes_sent_per_rank": b["bytes_sent"], "gather_bytes_sent_per_rank": b["gather_bytes_sent"],
+                            "k3_launches_per_compute": b["k3_compute_launches"]}
+                     for name, b in r0["boot_sketch"].items()},
+        "sketch_update_s": [r["boot_sketch_update_s"] for r in ranks],
+        "sketch_k3_update_launches_per_rank": [r["boot_sketch_k3_update_launches"] for r in ranks],
+        "quantiles": list(QUANTILES), "mean_replica_quantiles": [float(v) for v in r0["boot_sketch_mean"]["q"]],
+        "mean_replica_rank_fraction": rank_frac, "eps_bound": eps_bound,
+        "in_process_fold": {"k3_launches": fold_launches, "bit_equal_card": True, "bit_equal_cpu_plain": True},
+        "k3_lane_merge": merge_time,
+        "auroc": {"compute_s": [r["boot_auroc"]["compute_s"] for r in ranks], "update_s": [r["boot_auroc"]["update_s"] for r in ranks],
+                  "collectives": {"all_reduce": auroc["all_reduce"], "other": auroc["other"]},
+                  "bytes_sent_per_rank": auroc["bytes_sent"], "gather_bytes_sent_per_rank": auroc["gather_bytes_sent"],
+                  "mean": auroc["mean"], "std": auroc["std"], "max_abs_err_vs_float64": auroc["max_abs_err_vs_float64"],
+                  "cut_max_abs_err_card_vs_cpu": cut_err},
+        "ranks_bit_equal": True,
+        "card_cut_bit_equal_cpu": True,
+        "world_s_per_rank": [r["boot_world_s"] for r in ranks],
+        "check_s": time.perf_counter() - t_start,
+    })
+    GROUP_PHASE_S["group_bootstrap_path"] = max(r["boot_world_s"] for r in ranks) + time.perf_counter() - t_start
+    return {"k3_lanes_launches": path_launches, "k3_lane_merge": merge_time}
 
 
 def movielens_world(mtt, dist, dev, rank, world, sync):
@@ -9154,6 +9651,7 @@ def detection_world(mtt, dist, dev, rank, world, sync):
 # the fused evaluation world's MeanAveragePrecision results, held against
 # the one-process values in phase_detection
 _DETECTION_WORLD = []
+_GROUP_BOOT = {}  # group_bootstrap_path's K3 launches and merge time, for the kernels line
 
 
 def phase_detection(dev):
@@ -9963,6 +10461,8 @@ def main():
     del stream
     k1_pure_launches, pure_values = phase_pure(device)
     phase_bootstrap(preds, target)
+    with budget_time(GROUP_PHASE_S, "binned_large_batch_path"):
+        large_batch = phase_binned_large_batch(device)
     ml_world_values = phase_regression(device)
     phase_pairwise(device)
     # the kernels' times, before any path spawns its ranks
@@ -10026,7 +10526,10 @@ def main():
         "pure_path": k1_pure_launches, "sliced_path": k1_sliced_launches,
         "compiled_path": k1_compiled_launches, "serving_path": k1_serving_launches,
         "serving_obs_path": k1_serving_obs_launches, "fleet_path": k1_fleet_launches,
+        "binned_large_batch_path": large_batch["k1_launches"]["unbatched"],
     }
+    # F19: K1 past 2^24 rows, a launch at each size beside its bound
+    kernels[0]["large_batch"] = {"sizes": large_batch["sizes"], "bootstrap_lanes": large_batch["bootstrap"]}
     kernels[1]["launches_by_path"] = {
         "dist_path": k2_launches, "full_classification_path": full_launches["histogram"],
         "multilabel_path": k2_multilabel_launches, "full_classification_dist": k2_full_dist_launches,
@@ -10048,6 +10551,8 @@ def main():
           "audio_phases_limit_s": AUDIO_PHASES_LIMIT_S,
           "analysis_phases_s": ANALYSIS_PHASE_S, "analysis_phases_limit_s": ANALYSIS_PHASES_LIMIT_S,
           "batched_phases_s": BATCHED_PHASE_S, "batched_phases_limit_s": BATCHED_PHASES_LIMIT_S,
+          "group_phases_s": GROUP_PHASE_S, "group_phases_total_s": sum(GROUP_PHASE_S.values()),
+          "group_phases_limit_s": GROUP_PHASES_LIMIT_S,
           "script_s": time.perf_counter() - _T0})
     # the unbatched single fold: no path but phase_k3_parity launches it
     # (stream_path and batched_kernels_path check 0 themselves)
@@ -10056,6 +10561,14 @@ def main():
                                        "lockwitness_path": witness_launches["compactor_fold_single"],
                                        "analysis_path": analysis_launches["compactor_fold_single"]})
     single["launches"] = sum(single["launches_by_path"].values())
+    # the bootstraps of binned_large_batch_path and group_bootstrap_path on
+    # the lane-batched forms
+    by_name = {e["name"]: e for e in batched_kernels}
+    by_name["binned_counters_lanes_many_rows"]["launches_by_path"]["binned_large_batch_path"] = large_batch["k1_launches"]["lanes"]
+    by_name["compactor_cascade_lanes"]["launches_by_path"]["group_bootstrap_path"] = _GROUP_BOOT["k3_lanes_launches"]
+    by_name["compactor_cascade_lanes"]["group_bootstrap_merge"] = _GROUP_BOOT["k3_lane_merge"]
+    for entry in (by_name["binned_counters_lanes_many_rows"], by_name["compactor_cascade_lanes"]):
+        entry["launches"] = sum(entry["launches_by_path"].values())
     # the lane-batched forms, each beside the kernel it batches
     kernels.extend(batched_kernels)
     print(smi, flush=True)

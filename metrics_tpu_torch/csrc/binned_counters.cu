@@ -24,7 +24,8 @@
 //   thresholds, with b(p) = #{i : s[i] <= p}. A NaN threshold sorts last and
 //   is never <= p, a NaN score has b = 0, so the predicate stays monotone.
 // - Each block takes a tile of ct = 4 classes (fewer where the histogram's
-//   shared memory needs it) and a chunk of rows, about two blocks per SM.
+//   shared memory needs it, or where C is smaller: at C = 1 all 256 threads
+//   count the one class) and a chunk of rows, about two blocks per SM.
 //   Thread i owns class i % ct and every (256 / ct)-th row, so a warp's loads
 //   of scores and labels are coalesced runs of rows' class tiles. It flushes
 //   the score, finds b by a branch-free binary search over the flushed sorted
@@ -47,9 +48,14 @@
 //   call. What is left above the bound is latency: the thresholds' load, the
 //   flush, the tile counter and the tail are round trips in series.
 // - Integer counts are exact and do not depend on the order in which blocks
-//   run; converted to float32 they equal the JAX package's float32 sums of
-//   0/1 values while a call has fewer than 2^24 rows (the wrapper refuses
-//   more). Where even one class's 2 (T + 1) bins do not fit in a block's
+//   run. Each is converted to float32 once, rounded to nearest, as the plain
+//   version rounds its int64 sums: bit-equal to it at every row count the
+//   int32 counters hold (fewer than 2^31 rows a call, or a lane; the wrapper
+//   refuses more), and to the JAX package's float32 sums of 0/1 values below
+//   2^24 rows, past which those round at every tile (ROADMAP D71). Every
+//   index that rows times classes (times lanes) reaches is 64-bit, and row
+//   loops run in unsigned or 64-bit integers, so no index wraps below 2^31
+//   rows. Where even one class's 2 (T + 1) bins do not fit in a block's
 //   shared memory (T above about 29,000), the histogram lives in the device
 //   scratch itself; where the T thresholds exceed 48 KB the search reads them
 //   from device memory. No ceiling on T.
@@ -188,8 +194,10 @@ binned_counters_kernel(const float* __restrict__ preds, const uint8_t* __restric
   }
   const int c0 = blockIdx.x * ct;
   const int classes = min(ct, c - c0);
-  const int r0 = blockIdx.y * rows_per_block;
-  const int r1 = min(n, r0 + rows_per_block);
+  // unsigned: the rows stay below 2^31, so r0 + rows_per_block and r + step
+  // cannot wrap
+  const unsigned r0 = blockIdx.y * (unsigned)rows_per_block;
+  const unsigned r1 = min((unsigned)n, r0 + (unsigned)rows_per_block);
 
   if (thr_smem) {
     for (int i = threadIdx.x; i < t; i += kThreads) s_thr[i] = flush(sorted_thr[i]);
@@ -205,7 +213,7 @@ binned_counters_kernel(const float* __restrict__ preds, const uint8_t* __restric
     int* h_pos = hist_smem ? s_hist + j * bins : hist + (size_t)(c0 + j) * bins;
     int* h_neg = hist_smem ? h_pos + ct * bins : h_pos + plane;
 #pragma unroll 4
-    for (int r = r0 + threadIdx.x / ct; r < r1; r += step) {
+    for (unsigned r = r0 + threadIdx.x / ct; r < r1; r += step) {
       const size_t g = (size_t)r * c + c0 + j;
       const float p = flush(__ldg(preds + g));
       const bool y = __ldg(target + g) != 0;
@@ -367,8 +375,8 @@ binned_counters_lanes_kernel(const float* __restrict__ preds, const uint8_t* __r
   preds += lane * n * c;
   target += lane * n * c;
   out += lane * 3 * (size_t)c * t;
-  const int r0 = min(n, part * rows_per_part);
-  const int r1 = min(n, r0 + rows_per_part);
+  const long long r0 = min((long long)n, (long long)part * rows_per_part);
+  const long long r1 = min((long long)n, r0 + rows_per_part);
 
   if (kStaged) {
     if (threadIdx.x == 0) {
@@ -437,8 +445,8 @@ binned_counters_lanes_kernel(const float* __restrict__ preds, const uint8_t* __r
     };
     // this thread's rows, in groups of kStageRows: the next group's loads
     // are issued before this group is searched
-    const int r = r0 + threadIdx.x / ct;
-    int left = r < r1 ? (r1 - 1 - r) / step + 1 : 0;
+    const long long r = r0 + threadIdx.x / ct;
+    int left = r < r1 ? (int)((r1 - 1 - r) / step) + 1 : 0;
     const size_t row_step = (size_t)step * c;
     const float* pp = preds + (size_t)r * c + c0 + j;
     const uint8_t* yp = target + (size_t)r * c + c0 + j;
@@ -674,6 +682,7 @@ int launch(const float* preds, const uint8_t* target, const float* sorted_thr, c
   const long long thr_bytes = thr_smem ? 4LL * t : 0;
   const long long limit = max_shared_bytes();
   int ct = 4;
+  while (ct > 1 && (ct >> 1) >= c) ct >>= 1;  // no idle class slots where C < 4
   while (ct > 1 && thr_bytes + 8LL * ct * bins > kPreferredSmem) ct >>= 1;
   const int hist_smem = thr_bytes + 8LL * ct * bins <= (ct > 1 ? kPreferredSmem : limit);
   if (!hist_smem) ct = 32;

@@ -37,9 +37,10 @@ Tensor = torch.Tensor
 
 SOURCE = "binned_counters.cu"
 
-# the kernel counts in int32 and converts to float32: exact, and equal to the
-# JAX package's float32 sums, below 2^24 rows per call
-MAX_ROWS = 1 << 24
+# the kernel counts in int32 and rounds each count to float32 once, as the
+# plain version rounds its int64 sums: bit-equal to it below 2^31 rows per
+# call (or per lane), to the JAX package's float32 sums below 2^24 (D71)
+MAX_ROWS = 1 << 31
 
 # the lane-batched kernel's grid takes at most this many lanes a launch
 MAX_LANES = 65535
@@ -58,7 +59,9 @@ def reset_launch_count() -> None:
 
 def binned_counter_update_plain(preds: Tensor, target: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """The plain version: materialises the ``(N, C, T)`` comparison and sums
-    it. ``target`` is 0/1 (only ``== 1`` counts as positive). With a
+    it in int64, each count rounded to float32 once (past 2^24 rows the JAX
+    package's kernel rounds at every tile instead, D71). ``target`` is 0/1
+    (only ``== 1`` counts as positive). With a
     leading lane axis (``(B, N, C)`` inputs) it is the plain version of the
     lane-batched form: ``(B, C, T)`` counts, each lane's those of its rows."""
     tgt = (target == 1).unsqueeze(-1)
@@ -104,7 +107,7 @@ def _binned_counter_update_cuda(
     n, c = preds.shape
     t = thresholds.shape[0]
     if n >= MAX_ROWS:
-        raise ValueError(f"binned_counters takes fewer than 2^24 rows per call (exact float32 counts), got {n}")
+        raise ValueError(f"binned_counters takes fewer than 2^31 rows per call (int32 counters), got {n}")
     preds = preds.to(torch.float32).contiguous()
     tgt = _target_u8(target).contiguous()
     out = torch.empty((3, c, t), dtype=torch.float32, device=preds.device)
@@ -138,7 +141,7 @@ def _binned_counter_lanes_cuda(
     lanes, n, c = preds.shape
     t = sorted_thr.shape[0]
     if n >= MAX_ROWS:
-        raise ValueError(f"binned_counters takes fewer than 2^24 rows per lane (exact float32 counts), got {n}")
+        raise ValueError(f"binned_counters takes fewer than 2^31 rows per lane (int32 counters), got {n}")
     preds = preds.to(torch.float32).contiguous()
     tgt = _target_u8(target).contiguous()
     out = torch.empty((lanes, 3, c, t), dtype=torch.float32, device=preds.device)

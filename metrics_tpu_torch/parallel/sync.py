@@ -576,14 +576,45 @@ def _reduce_rows(rows: List[Tensor], fx: Reduction) -> Any:
 
 
 def sync_cat_buffer(buffer: CatBuffer, gather: Callable[[Tensor], List[Tensor]], dropped: Tensor,
-                    gather_data: Optional[Callable[[Tensor], List[Tensor]]] = None) -> CatBuffer:
+                    gather_data: Optional[Callable[[Tensor], List[Tensor]]] = None, dim: int = 0) -> CatBuffer:
     """The union of every rank's ring: ``data`` and ``mask`` gathered and
     stacked along the capacity (masked rows stay masked), with ``dropped``,
     the ranks' summed drop count. ``gather_data`` (default ``gather``)
-    carries the data."""
-    data = torch.cat((gather_data or gather)(buffer.data))
-    mask = torch.cat(gather(buffer.mask))
-    return CatBuffer(data, mask, dropped.reshape(()))
+    carries the data. ``dim`` is the capacity's axis: 1 for rings stacked
+    on a leading replica axis, each replica's ring the union of its own."""
+    data = torch.cat((gather_data or gather)(buffer.data), dim=dim)
+    mask = torch.cat(gather(buffer.mask), dim=dim)
+    return CatBuffer(data, mask, dropped.reshape(buffer.dropped.shape))
+
+
+def _lanewise(fn: Callable, lanes: Optional[int]) -> Callable:
+    """``fn`` itself, or mapped over a leading replica axis of ``lanes``."""
+    return fn if lanes is None else torch.func.vmap(fn)
+
+
+def _fold_packed(like: Any, parts: Sequence[Tensor], lanes: Optional[int] = None) -> Any:
+    """The fold in rank order of every rank's packed quantile sketch
+    (``parts``, each ``(packed_size,)`` in ``like``'s geometry) with
+    ``sketch_merge``. With ``lanes`` each part is ``(lanes, packed_size)``
+    and ``like`` a sketch stacked on a leading replica axis: each replica
+    folds its own payloads, under ``torch.func.vmap``, so that every merge
+    is one launch of the merge cascade's lane-batched form on the card."""
+    unpack = _lanewise(type(like).unpack_like, lanes)
+    merge = _lanewise(type(like).sketch_merge, lanes)
+    merged = None
+    for part in parts:
+        sketch = unpack(part, like)
+        merged = sketch if merged is None else merge(merged, sketch)
+    return merged
+
+
+def _reduce_lanes(rows: List[Tensor], fx: Reduction, lanes: Optional[int]) -> Any:
+    """:func:`_reduce_rows` of every rank's row, or with ``lanes`` of each
+    replica's rows (each rank's ``(lanes, ...)`` row split along its
+    leading axis), stacked back along it."""
+    if lanes is None:
+        return _reduce_rows(rows, fx)
+    return torch.stack([_reduce_rows([r[b] for r in rows], fx) for b in range(lanes)])
 
 
 def fused_sync(
@@ -596,6 +627,7 @@ def fused_sync(
     transport: Optional[str] = None,
     chunks: Optional[int] = None,
     host_codec: Optional[WireCodec] = None,
+    lanes: Optional[int] = None,
 ) -> List[Dict[str, Any]]:
     """Sync many metrics' states with one collective per (reduction, dtype).
 
@@ -648,6 +680,20 @@ def fused_sync(
     rank's self-describing wire, gathered as bytes, and is reduced over
     the decoded rows in rank order; every other leaf syncs as above.
 
+    ``lanes``: every state carries a leading axis of that many replicas (a
+    bootstrap's stacked state), and each replica syncs as its own state
+    would, with the same collectives as one state: the bucketed leaves
+    reduce elementwise anyway; a ring's ``data`` and ``mask`` are gathered
+    once for all replicas and each replica's ring is the rank-order union
+    of its own rows, its ``dropped`` counts in the int32 sum bucket; the
+    quantile payloads of all replicas sit at the rank's offset of the
+    float32 sum bucket, and each replica folds every rank's sketch in rank
+    order, the replicas under ``torch.func.vmap`` (one lane-batched merge
+    cascade per rank folded); a ``None``-reduced state comes back as
+    ``(replica, rank, ...)`` and a callable reduction sees each replica's
+    ``(rank, ...)`` rows, as under the JAX package's ``jax.vmap``. On a
+    quantized wire each replica's leaf and payload is encoded on its own.
+
     ``comm`` replaces the default communicator (see the module's
     docstring). When one of its collectives degrades, every state takes
     this rank's own value, the value of a world of one process.
@@ -666,7 +712,7 @@ def fused_sync(
         n_chunks, chunk_floor = resolve_sync_chunks(None), SYNC_CHUNK_MIN_BYTES
     else:
         n_chunks, chunk_floor = resolve_sync_chunks(chunks), 0
-    args = (states, reductions, group, defaults, same_as, codec, n_chunks, chunk_floor, host_codec)
+    args = (states, reductions, group, defaults, same_as, codec, n_chunks, chunk_floor, host_codec, lanes)
     with gather_sequence_lock:
         try:
             return _fused_sync(comm, *args)
@@ -685,6 +731,7 @@ def _fused_sync(
     n_chunks: int,
     chunk_floor: int,
     host_codec: Optional[WireCodec],
+    lanes: Optional[int],
 ) -> List[Dict[str, Any]]:
     world, rank = comm.get_world_size(group), comm.get_rank(group)
     quantized = codec.name != "exact"
@@ -720,7 +767,7 @@ def _fused_sync(
                 else:
                     gather_merge.append((i, name, value))
             elif isinstance(value, CatBuffer):
-                bucket("sum", value.dropped.reshape(1), (i, name, "dropped"))
+                bucket("sum", value.dropped.reshape(-1), (i, name, "dropped"))
                 passthrough.append((i, name, value, fx))
             elif fx in _BUCKETED and isinstance(value, Tensor):
                 if host_codec is not None and quantizes_on_host(value):
@@ -744,7 +791,8 @@ def _fused_sync(
     sketch_wire = quantized or host_codec is not None
     payload_size = 0
     if gather_merge and not sketch_wire:
-        payload = torch.cat([v.pack() for (_, _, v) in gather_merge])
+        packed = [_lanewise(type(v).pack, lanes)(v).reshape(-1) for (_, _, v) in gather_merge]
+        payload = torch.cat(packed)
         payload_size = payload.shape[0]
         wide = payload.new_zeros((world * payload_size,))
         wide[rank * payload_size:(rank + 1) * payload_size] = payload
@@ -802,18 +850,14 @@ def _fused_sync(
     if gather_merge and not sketch_wire:
         per_rank = synced_slots["sketches"].reshape(-1, payload_size)
         offset = 0
-        for (i, name, v) in gather_merge:
-            size = v.packed_size
-            merged = None
-            for part in per_rank:
-                s = type(v).unpack_like(part[offset:offset + size], v)
-                merged = s if merged is None else merged.sketch_merge(s)
-            out[i][name] = merged
+        shape = (-1,) if lanes is None else (lanes, -1)
+        for (i, name, v), size in zip(gather_merge, (p.shape[0] for p in packed)):
+            out[i][name] = _fold_packed(v, [part[offset:offset + size].reshape(shape) for part in per_rank], lanes)
             offset += size
     if quantized and (wire_leaves or gather_merge):
-        _quantized_wire_sync(out, wire_leaves, gather_merge, codec, group, comm)
+        _quantized_wire_sync(out, wire_leaves, gather_merge, codec, group, comm, lanes)
     elif host_codec is not None and gather_merge:
-        _quantized_wire_sync(out, [], gather_merge, host_codec, group, comm)
+        _quantized_wire_sync(out, [], gather_merge, host_codec, group, comm, lanes)
     for (i, name, value, fx) in host_leaves:
         out[i][name] = _reduce_rows(gather_fixed(value), fx)
 
@@ -828,14 +872,14 @@ def _fused_sync(
             continue
         if isinstance(value, CatBuffer):
             data_gather = gather_fixed if host_codec is not None and quantizes_on_host(value.data) else None
-            out[i][name] = sync_cat_buffer(value, gather, dropped[(i, name)], data_gather)
+            out[i][name] = sync_cat_buffer(value, gather, dropped[(i, name)], data_gather, dim=0 if lanes is None else 1)
         elif isinstance(value, list):
             template = defaults[i].get(name) if defaults is not None else None
             local = _list_local(value, template, states[i])
             parts = _host_ragged_gather(local, group, comm, host_codec) if host_codec is not None else gather(local)
             out[i][name] = [t for t in parts if t.shape[0]]
         else:
-            out[i][name] = _reduce_rows(gather(value), fx)
+            out[i][name] = _reduce_lanes(gather(value), fx, lanes)
     for (i, name, _, _) in passthrough:
         if i in shared:
             out[i][name] = out[shared[i]][name]
@@ -871,6 +915,7 @@ def _quantized_wire_sync(
     codec: WireCodec,
     group: Any,
     comm: Any,
+    lanes: Optional[int] = None,
 ) -> None:
     """The quantized wire: encode, one ``all_gather`` of the bytes, decode.
 
@@ -882,15 +927,21 @@ def _quantized_wire_sync(
     own block scales: the error per lane is at most the sum over ranks of
     the codec's block envelope), a sketch the fold of the decoded sketches
     in rank order. The bytes are those of the JAX package's
-    scatter-into-zeros and ``psum``."""
-    segments = []  # (kind, i, name, flat float32 payload, exact tail, original)
-    for (i, name, v) in wire_leaves:
-        segments.append(("leaf", i, name, v.to(torch.float32).reshape(-1), 0, v))
-    for (i, name, v) in gather_merge:
+    scatter-into-zeros and ``psum``. With ``lanes`` (states stacked on a
+    replica axis) each replica's leaf and payload is a segment of its own,
+    and the replicas' sketches fold under ``torch.func.vmap``."""
+    segments = []  # (flat float32 payload, exact tail): the leaves', then the sketches'
+    for (_, _, v) in wire_leaves:
+        flat = v.to(torch.float32).reshape(-1 if lanes is None else (lanes, -1))
+        for row in (flat if lanes is not None else [flat]):
+            segments.append((row, 0))
+    for (_, _, v) in gather_merge:
         # the packed layout: items (L*k), then the counts (L) and the split
         # n_seen (2), the exact tail
-        segments.append(("sketch", i, name, v.pack(), v.counts.shape[0] + 2, v))
-    wires = [codec.encode(vec, tail) for (_, _, _, vec, tail, _) in segments]
+        packed = _lanewise(type(v).pack, lanes)(v)
+        for row in (packed if lanes is not None else [packed]):
+            segments.append((row, v.counts.shape[-1] + 2))
+    wires = [codec.encode(vec, tail) for (vec, tail) in segments]
     sizes = [w.shape[0] for w in wires]
     wire = torch.cat(wires)
     # the wire's bytes beside the float32 lanes it replaces (a host instant)
@@ -900,25 +951,31 @@ def _quantized_wire_sync(
         "sync.quantized_wire",
         transport=codec.name,
         wire_bytes=int(wire.numel()) * wire.element_size(),
-        exact_bytes=int(sum(vec.shape[0] for (_, _, _, vec, _, _) in segments) * 4),
+        exact_bytes=int(sum(vec.shape[0] for (vec, _) in segments) * 4),
     )
     per_rank = [row.view(codec.wire_dtype) for row in _all_gather(as_bytes(wire), group, comm)]
+    decoded = []  # each segment's decoded rows, one a rank
     offset = 0
-    for (kind, i, name, vec, tail, orig), size in zip(segments, sizes):
-        rows = [codec.decode(w[offset:offset + size], vec.shape[0], tail) for w in per_rank]
-        if kind == "leaf":
-            total = rows[0]
-            for r in rows[1:]:
-                total = total + r
-            out[i][name] = total.reshape(orig.shape).to(orig.dtype)
-        else:
-            merged = None
-            for r in rows:
-                s = type(orig).unpack_like(r, orig)
-                merged = s if merged is None else merged.sketch_merge(s)
-            out[i][name] = merged
+    for (vec, tail), size in zip(segments, sizes):
+        decoded.append([codec.decode(w[offset:offset + size], vec.shape[0], tail) for w in per_rank])
         offset += size
+    rows_of = iter(decoded)
 
+    def next_rows() -> List[Tensor]:
+        """The next state's rows, one a rank (each replica's stacked)."""
+        if lanes is None:
+            return next(rows_of)
+        replicas = [next(rows_of) for _ in range(lanes)]
+        return [torch.stack([rows[r] for rows in replicas]) for r in range(len(per_rank))]
+
+    for (i, name, orig) in wire_leaves:
+        rows = next_rows()
+        total = rows[0]
+        for r in rows[1:]:
+            total = total + r
+        out[i][name] = total.reshape(orig.shape).to(orig.dtype)
+    for (i, name, orig) in gather_merge:
+        out[i][name] = _fold_packed(orig, next_rows(), lanes)
 
 
 # --------------------------------------------------------------------------

@@ -33,7 +33,10 @@ Differences from the JAX package, each stated in ROADMAP Queue 3:
   with the same values.
 - ``bootstrap_functionalize`` draws from a ``torch.Generator`` (D29), and
   keeps the draw apart from the vmapped update
-  (``bdef.update.with_indices``).
+  (``bdef.update.with_indices``). With ``group`` it syncs the replicas'
+  stacked state in one ``fused_sync`` over the replica axis (D26), every
+  state kind that JAX's batched sync takes: rings, quantile sketches and
+  callable reductions replica by replica.
 - A metric is refused by its declared ``jittable_update`` and
   ``jittable_compute`` flags only (D30): the port compiles nothing, so no
   failed trace turns a flag off.
@@ -285,40 +288,6 @@ def _replica(state: Any, i: int) -> Any:
     return apply_to_collection(state, Tensor, lambda t: t[i])
 
 
-def _stacked_sync(metric: Any, group: Any) -> Callable[[Any], Any]:
-    """``stacked state -> synced stacked state`` for a state with a leading
-    replica axis: one ``fused_sync`` of the whole stack, whose sum, mean,
-    max and min buckets (the fault counters among them) reduce each
-    replica's lanes apart. A ``None``-reduced state comes back as
-    ``(replica, rank, ...)``, each replica's own stack of the ranks."""
-    nodes = _collect_metrics(metric) if _is_trace_safe_wrapper(metric) else [metric]
-    for node in nodes:
-        for name, fx in node._reductions.items():
-            default = node._defaults[name]
-            elementwise = isinstance(default, FaultCounters) or (
-                isinstance(default, Tensor) and fx in (None, "sum", "mean", "max", "min")
-            )
-            if not elementwise:
-                raise ValueError(
-                    f"bootstrap_functionalize(group=...) syncs the replicas' stacked state elementwise; state "
-                    f"{name!r} of {type(node).__name__} (reduction {fx!r}) does not reduce lane by lane. "
-                    "Sync without the group, or bootstrap a metric without rings, quantile sketches or "
-                    "callable reductions."
-                )
-    unstacked = [[name for name, fx in node._reductions.items() if fx is None] for node in nodes]
-    sync_tree = _fused_sync_tree(metric, group)
-
-    def sync(state: Any) -> Any:
-        synced = sync_tree(state)
-        node_states = synced if _is_trace_safe_wrapper(metric) else [synced]
-        for s, names in zip(node_states, unstacked):
-            for name in names:
-                s[name] = s[name].movedim(0, 1)
-        return synced
-
-    return sync
-
-
 def bootstrap_functionalize(metric: Metric, num_bootstraps: int = 10, group: Optional[Any] = None) -> MetricDef:
     """``num_bootstraps`` resampled replicas of a metric as one set of pure
     functions over a stacked state (a leading replica axis), with one
@@ -342,11 +311,14 @@ def bootstrap_functionalize(metric: Metric, num_bootstraps: int = 10, group: Opt
 
     ``compute`` returns ``{"mean", "std" (ddof=1), "raw"}``; integer values
     (a confusion matrix) are averaged in float32. With ``group``
-    it syncs the stacked state in one ``fused_sync`` (a collective per
-    bucket, whatever the number of replicas), then computes each replica;
-    ``dropped`` and ``faults`` sum every replica's counts in one
-    ``all_reduce``. Over a group, a metric whose states do not reduce lane
-    by lane (rings, quantile sketches, callable reductions) is refused.
+    it syncs the stacked state in one ``fused_sync`` over a replica axis
+    (``lanes=num_bootstraps``: the collectives of one replica's sync,
+    whatever the number of replicas), then computes each replica, with the
+    value JAX's ``jax.vmap(mdef.compute)`` gives it: each replica's ring
+    the union of its own rows, its quantile sketch the fold of its own
+    sketches (K3's lane-batched merge cascade on the card), a callable
+    reduction over its own ``(rank, ...)`` rows. ``dropped`` and
+    ``faults`` sum every replica's counts in one ``all_reduce``.
 
     Example:
         >>> import torch
@@ -360,7 +332,7 @@ def bootstrap_functionalize(metric: Metric, num_bootstraps: int = 10, group: Opt
     if not (isinstance(num_bootstraps, int) and num_bootstraps > 1):
         raise ValueError("Expected argument `num_bootstraps` to be an integer larger than 1")
     mdef = functionalize(metric)  # each replica's own functions, local
-    sync = None if group is None else _stacked_sync(metric, group)
+    sync = None if group is None else _fused_sync_tree(metric, group, lanes=num_bootstraps)
 
     def init() -> Any:
         return apply_to_collection(mdef.init(), Tensor, lambda t: torch.stack([t] * num_bootstraps))
@@ -460,11 +432,12 @@ class OverlappedDef(NamedTuple):
 
 
 def _fused_sync_tree(
-    metric: Any, group: Any, transport: Optional[str] = None, chunks: Optional[int] = None
+    metric: Any, group: Any, transport: Optional[str] = None, chunks: Optional[int] = None,
+    lanes: Optional[int] = None,
 ) -> Callable[[Any], Any]:
     """``state -> synced state`` as one ``fused_sync`` over every node of a
     metric, a trace-safe wrapper or a collection (its wrappers' nodes
-    included)."""
+    included); ``lanes`` for a state stacked on a leading replica axis."""
     if isinstance(metric, MetricCollection):
         members = list(metric.items(keep_base=True, copy_state=False))
         wrapper_names = {name for name, m in members if _is_trace_safe_wrapper(m)}
@@ -488,7 +461,7 @@ def _fused_sync_tree(
     def sync_tree(state: Any) -> Any:
         synced = fused_sync(
             [pick(state, name, j) for name, j, _ in rows], reductions, group, defaults,
-            transport=transport, chunks=chunks,
+            transport=transport, chunks=chunks, lanes=lanes,
         )
         if not isinstance(metric, MetricCollection):
             return synced if _is_trace_safe_wrapper(metric) else synced[0]

@@ -12,9 +12,15 @@ recorder of the collectives:
   ``read_fresh``;
 - a regression collection (Pearson's stacked moments, Spearman's rings,
   R2, MSE) through ``functionalize``;
-- ``bootstrap_functionalize(metric, b, group=WORLD)`` of a guarded
-  ``Accuracy`` and of ``PearsonCorrCoef`` at two replica counts, on indices
-  drawn with numpy: ``compute``, ``faults`` and ``dropped``.
+- ``bootstrap_functionalize(metric, b, group=WORLD)`` at two replica
+  counts, on indices drawn with numpy (``compute``, ``faults`` and
+  ``dropped``), of a metric of each state kind that JAX's batched sync
+  takes: a guarded ``Accuracy`` (sums and fault counters),
+  ``PearsonCorrCoef`` (``None``-reduced moments), ``SpearmanCorrCoef`` and
+  ``AUROC`` with rings (Spearman's overflowing), a ``QuantileSketch``, a
+  ``HyperLogLog``, a ``CountMinSketch`` and a metric with a callable
+  reduction; and each one's ``functionalize(metric, group=WORLD)`` compute,
+  whose collectives the bootstrap's must not outnumber.
 """
 import sys
 import traceback
@@ -29,7 +35,9 @@ SEED = 31
 ROWS = [29, 6, 41, 17]  # rows per rank: ragged (an empty rank could not infer Accuracy's mode)
 THRESHOLDS = 8
 RING = 128  # Spearman's ring on each rank: its whole shard
+BOOT_RING = 16  # the bootstrap's Spearman ring: smaller than a rank's shard, so it drops rows
 BOOTSTRAPS = (3, 6)  # two replica counts: the collectives must not grow with them
+SKETCHES = ("quantile", "hll", "countmin")  # the bootstraps whose synced states are held bit for bit
 
 
 def class_shards(world):
@@ -56,6 +64,50 @@ def reg_shards(world):
     return [(p[a:b], t[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
 
 
+def binary_shards(world):
+    """Binary scores on a grid of 64 (ties) and labels, positives scoring
+    higher on average, split over the ranks."""
+    rng = np.random.default_rng(SEED + 2)
+    n = sum(ROWS[:world])
+    t = (rng.random(n) < 0.4).astype(np.int64)
+    p = (np.floor(np.clip(rng.normal(0.4 + 0.2 * t, 0.2), 0.0, 0.999) * 64) / 64).astype(np.float32)
+    bounds = np.cumsum([0] + ROWS[:world])
+    return [(p[a:b], t[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def value_shards(world):
+    """Lognormal values, a stream sketch's one column: 24 rows a rank, so
+    that every batch has one shape (the sketches' payloads do not depend on
+    the rows)."""
+    rng = np.random.default_rng(SEED + 3)
+    return [(rng.lognormal(0.0, 1.0, 24).astype(np.float32),) for _ in range(world)]
+
+
+def rank_weighted(rows):
+    """A callable reduction that tells the ranks apart: rank 0's row once,
+    every other rank's twice."""
+    return rows[0] + 2 * rows[1:].sum(0)
+
+
+def weighted_total(pkg, **kw):
+    """A metric whose state has a callable ``dist_reduce_fx``, written once
+    over either package's ``Metric``: the sum of its scores times their
+    targets."""
+
+    class WeightedTotal(pkg.Metric):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.add_state("total", default=np.zeros((), np.float32), dist_reduce_fx=rank_weighted)
+
+        def update(self, preds, target):
+            self.total = self.total + (preds * target).sum()
+
+        def compute(self):
+            return self.total
+
+    return WeightedTotal(**kw)
+
+
 def class_collection(pkg, **kw):
     drop = dict(num_classes=C, on_invalid="drop", **kw)
     return pkg.MetricCollection({
@@ -78,10 +130,17 @@ def reg_collection(pkg, **kw):
 
 def boot_metrics(pkg, **kw):
     """``{name: (metric, shards)}`` of the bootstrap check: sum states with
-    the fault counters, and ``None``-reduced (stacked) moments."""
+    the fault counters, ``None``-reduced (stacked) moments, rings, quantile,
+    distinct-count and frequency sketches, and a callable reduction."""
     return {
         "acc": (pkg.Accuracy(num_classes=C, on_invalid="drop", **kw), class_shards),
         "pearson": (pkg.PearsonCorrCoef(**kw), reg_shards),
+        "spearman": (pkg.SpearmanCorrCoef(capacity=BOOT_RING, **kw), reg_shards),
+        "auroc": (pkg.AUROC(capacity=RING, **kw), binary_shards),
+        "quantile": (pkg.QuantileSketch(eps=0.05, **kw), value_shards),
+        "hll": (pkg.HyperLogLog(**kw), value_shards),
+        "countmin": (pkg.CountMinSketch(**kw), value_shards),
+        "callable": (weighted_total(pkg, **kw), reg_shards),
     }
 
 
@@ -111,6 +170,7 @@ def rank_main(rank, world, store, queue):
         dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
         warnings.simplefilter("ignore")
         import metrics_tpu_torch as mtt
+        from metrics_tpu_torch.parallel.sync import fused_sync
 
         group = dist.group.WORLD
         out = {}
@@ -154,6 +214,15 @@ def rank_main(rank, world, store, queue):
                         out[f"{key}_{fn}"] = _numpy(getattr(bdef, fn)(bstate))
                     out[f"{key}_{fn}_calls"] = rec.calls
                 out[f"{key}_local_state"] = _numpy(bstate)
+                if name in SKETCHES and b == BOOTSTRAPS[0]:  # the synced stacked state itself
+                    synced = fused_sync([bstate], [dict(metric._reductions)], group, lanes=b)[0]
+                    out[f"{key}_synced"] = _numpy(synced)
+        for name, (metric, shards) in boot_metrics(mtt, device="cpu").items():
+            mdef = mtt.functionalize(metric, group=group)
+            state = fold(mdef.update, mdef.init(), shards(world)[rank], torch)
+            with Recorder(dist) as rec:
+                mdef.compute(state)
+            out[f"single_{name}_compute_calls"] = rec.calls
         out["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "metrics_tpu"))
         dist.destroy_process_group()
         queue.put((rank, out))

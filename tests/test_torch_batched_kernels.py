@@ -320,6 +320,38 @@ def _check_merge_lanes(items, counts, other, other_counts, monkeypatch):
         _bits(o, r)
 
 
+def test_k3_fold_of_gathered_stacked_sketches_is_each_replicas_plain_fold(monkeypatch):
+    """A bootstrap's quantile sketches synced over a group
+    (``parallel/sync.py::_fold_packed``): every rank's stacked payload
+    unpacked and folded in rank order under ``torch.func.vmap``, one
+    lane-batched merge per rank folded, equals each replica's own fold by
+    ``merge_cascade_plain``, bit for bit."""
+    from metrics_tpu_torch.parallel.sync import _fold_packed
+
+    world, lanes = 4, 6
+    rng = np.random.default_rng(40)
+    ranks = []
+    for r in range(world):
+        states = []
+        for lane in range(lanes):  # empty lanes, one insert, and inserts that reach the top level
+            s = QuantileSketchState.create(k=K3, levels=L3, device="cpu")
+            for _ in range((0, 1, 6)[(lane + r) % 3]):
+                s = s.insert(torch.from_numpy(rng.lognormal(0, 1, 64).astype(np.float32)))
+            states.append(s)
+        ranks.append(QuantileSketchState(*(torch.stack(f) for f in zip(*states))))
+    gathered = [torch.func.vmap(QuantileSketchState.pack)(s) for s in ranks]  # each rank's (lanes, packed) payload
+    calls = Count(monkeypatch, compactor, "merge_cascade_lanes_plain")
+    ours = _fold_packed(ranks[0], gathered, lanes)
+    assert calls.n == world - 1
+    for b in range(lanes):
+        items, counts = ranks[0].items[b], ranks[0].counts[b]
+        for s in ranks[1:]:
+            items, counts = compactor.merge_cascade_plain(items, counts, s.items[b], s.counts[b])
+        _bits(ours.items[b], items)
+        _bits(ours.counts[b], counts)
+        assert int(ours.n_seen[b]) == sum(int(s.n_seen[b]) for s in ranks)
+
+
 def _level_runs(lanes, n, counts, seed, ties=False):
     """``lanes`` ascending float32 runs of length ``n``, ``+inf`` past each
     lane's count; ``ties``: values drawn from {0, 1, 2}."""

@@ -114,3 +114,72 @@ def test_kernel_source_is_a_plain_c_library():
     path = _build.library_path(port.SOURCE)
     assert path.parent.parent == _build.BUILD_DIR and path.name == "libbinned_counters.so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_plain_counts_past_2_24_rows_round_once():
+    """F19: at 2^24 + 1 rows every count is an int64 count rounded to float32
+    once, as the kernel's int32 counts are on the card (no refusal below 2^31
+    rows); a NaN score is a false negative at every threshold."""
+    n = (1 << 24) + 1
+    rng = np.random.default_rng(19)
+    preds = rng.random((n, 1), dtype=np.float32)
+    preds[rng.integers(0, n, 1000), 0] = np.nan
+    target = np.ones((n, 1), np.float32)
+    thresholds = np.array([2.0, 0.5, -1.0], np.float32)
+    got = port.binned_counter_update_plain(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(thresholds))
+    ge, pos = preds >= thresholds, target == 1
+    want = [(pos & ge).sum(0, keepdims=True), (~pos & ge).sum(0, keepdims=True), (pos & ~ge).sum(0, keepdims=True)]
+    assert max(int(w.max()) for w in want) > 1 << 24  # past float32's exact integers
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().view(np.int32), w.astype(np.int64).astype(np.float32).view(np.int32))
+
+
+def _jax_tile_accumulation(preds, target, thresholds):
+    """The JAX package's kernel arithmetic (``_counter_kernel``): each grid
+    step's tile of ``_TILE_N`` rows adds its float32 counts (exact: at most
+    ``_TILE_N``) into float32 accumulators, in grid order. Written with jnp
+    over the tiles, because the kernel in interpret mode takes minutes at
+    2^24 rows; held against that kernel on a small input below."""
+    import jax
+
+    from metrics_tpu.ops.binned_counters import _TILE_N
+
+    n, c = preds.shape
+    pad = (-n) % _TILE_N
+    p = jnp.concatenate([jnp.asarray(preds), jnp.full((pad, c), -jnp.inf, jnp.float32)]).reshape(-1, _TILE_N, c, 1)
+    t = jnp.concatenate([jnp.asarray(target), jnp.zeros((pad, c), jnp.float32)]).reshape(-1, _TILE_N, c, 1)
+
+    @jax.jit
+    def run(p, t, thr):
+        ge = (p >= thr).astype(jnp.float32)
+        tiles = jnp.stack([jnp.sum(t * ge, axis=1), jnp.sum((1.0 - t) * ge, axis=1), jnp.sum(t * (1.0 - ge), axis=1)], axis=1)
+        acc, _ = jax.lax.scan(lambda a, x: (a + x, None), jnp.zeros(tiles.shape[1:], jnp.float32), tiles)
+        return acc
+
+    return np.asarray(run(p, t, jnp.asarray(thresholds)))
+
+
+def test_d71_jax_rounds_each_tile_past_2_24_rows():
+    """D71: the port rounds each exact count to float32 once; the JAX
+    package's kernel adds float32 tile counts. The two are bit-equal while
+    every count stays below 2^24, and past it JAX's sums drift by at most
+    one per tile added (an ulp of 2 rounds half away)."""
+    small = _inputs(5 * 256 + 17, 2, 3, seed=71)
+    want = np.stack([np.asarray(x) for x in jax_binned(*(jnp.asarray(a) for a in small), interpret=True)])
+    np.testing.assert_array_equal(_jax_tile_accumulation(*small).view(np.int32), want.view(np.int32))
+
+    # every tile holds 255 positives above all thresholds and one below
+    tiles = (1 << 16) + 1024
+    preds = np.ones((tiles * 256, 1), np.float32)
+    preds[::256] = -1.0
+    target = np.ones_like(preds)
+    thresholds = np.array([0.25, 0.5, 0.75], np.float32)
+    below = ((1 << 24) // 256 - 1) * 256  # the tiles whose counts stay under 2^24
+    for rows, equal in ((below, True), (tiles * 256, False)):
+        p, t = preds[:rows], target[:rows]
+        ours = np.stack([x.numpy() for x in port.binned_counter_update_plain(*(torch.from_numpy(a) for a in (p, t, thresholds)))])
+        jax_sums = _jax_tile_accumulation(p, t, thresholds)
+        exact = np.array([255, 0, 1], np.int64)[:, None, None] * (rows // 256) * np.ones((1, 1, 3), np.int64)
+        np.testing.assert_array_equal(ours.view(np.int32), exact.astype(np.float32).view(np.int32))
+        assert np.array_equal(jax_sums, ours) == equal
+        assert np.abs(jax_sums.astype(np.int64) - exact).max() <= rows // 256

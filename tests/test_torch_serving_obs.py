@@ -9,6 +9,7 @@ restore of the port's files); a drifting stream trips one
 JAX's health-derived metric names and ``health()`` JAX's keys.
 """
 import re
+import threading
 import time
 
 import numpy as np
@@ -172,7 +173,44 @@ def _confidence(args, kwargs):
     return p.max(dim=1).values if isinstance(p, torch.Tensor) else np.asarray(p).max(axis=1)
 
 
+class _CheckWatch:
+    """Waits for a reducer check of ``monitor`` that began after a mark: the
+    monitor's ``check`` (which the loop's reducer calls) wrapped to note the
+    newest mark set before each check began, once the check has ended."""
+
+    def __init__(self, monitor):
+        self._check = monitor.check
+        self._lock = threading.Lock()
+        self._marks = 0
+        self._covered = 0  # the newest mark that a finished check began after
+        monitor.check = self._checked
+
+    def _checked(self):
+        with self._lock:
+            mark = self._marks
+        out = self._check()
+        with self._lock:
+            self._covered = max(self._covered, mark)
+        return out
+
+    def wait_for_check(self, deadline_s=60.0):
+        """Mark now, then wait until a check that began after the mark has
+        ended (it covers every row offered before the mark); False if none
+        ended within ``deadline_s``."""
+        with self._lock:
+            self._marks += 1
+            mark = self._marks
+        deadline = time.monotonic() + deadline_s
+        while time.monotonic() < deadline:
+            with self._lock:
+                if self._covered >= mark:
+                    return True
+            time.sleep(0.005)
+        return False
+
+
 def _drift_run(pkg, conv, monitor):
+    checks = _CheckWatch(monitor)
     blessed = _requests(5, n_req=40)
     with pkg.ServeLoop(pkg.Accuracy(num_classes=C, pad_batches=True, **({"device": "cpu"} if pkg is mtt else {})),
                        workers=2, reduce_every_s=0.02, drift_monitors=[monitor]) as loop:
@@ -187,7 +225,7 @@ def _drift_run(pkg, conv, monitor):
             loop.offer(conv(np.nan_to_num(p)), conv(t))
             if i % 10 == 9:
                 assert loop.drain(60)
-                time.sleep(0.1)  # a few of the reducer's 0.02 s ticks check what was offered
+                assert checks.wait_for_check()  # a reducer check covers what was offered
                 if monitor.status()["active"] and detected_at is None:
                     detected_at = (i + 1) * 8.5  # about the rows offered since the shift
         text = loop.scrape()

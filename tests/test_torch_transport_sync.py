@@ -12,7 +12,9 @@ lane, an int32 sum leaf, a float32 mean leaf, a float32 max leaf, and a
 quantile sketch. Expected: every lane bit-equal to JAX, for the exact,
 int8 and fp16 transports and for 1 and 4 chunks (the int8 and fp16
 decode-and-sum runs in rank order on both sides and is bit-reproducible
-on the CPU, so no tolerance is needed).
+on the CPU, so no tolerance is needed). A sync over a replica axis
+(``lanes=``, a bootstrap's stacked states) gives each replica what its own
+sync gives it, bit for bit, for every state kind, exact and int8.
 
 A degraded sync (a collective that hangs past the bounded communicator's
 timeout) takes the states' world-of-one values: an ``all_reduce`` bucket,
@@ -221,3 +223,58 @@ def test_a_wedged_collective_degrades_the_sync_to_world_of_one(case, transport, 
     assert int(out[1]["q"].n_seen) == int(states[1]["q"].n_seen)
     if transport == "exact":
         assert torch.equal(out[1]["q"].counts, states[1]["q"].counts)
+
+
+def _replica_states(rank, replicas):
+    """A rank's states of every kind, one set a replica: a quantile sketch,
+    HyperLogLog and CountMin (elementwise sketches), a ring that overflows,
+    and stacked (``None``-reduced) moments."""
+    rng = np.random.default_rng(300 + rank)
+    makers = {
+        "q": lambda: mtt.QuantileSketch(eps=0.05, device="cpu"),
+        "hll": lambda: mtt.HyperLogLog(device="cpu"),
+        "cm": lambda: mtt.CountMinSketch(device="cpu"),
+        "ring": lambda: mtt.SpearmanCorrCoef(capacity=16, device="cpu"),
+        "moments": lambda: mtt.PearsonCorrCoef(device="cpu"),
+    }
+    out = {}
+    for name, make in makers.items():
+        out[name] = []
+        for _ in range(replicas):
+            m = make()
+            x = torch.from_numpy(rng.lognormal(size=20 + 3 * rank).astype(np.float32))
+            m.update(x) if name in ("q", "hll", "cm") else m.update(x, x + torch.from_numpy(rng.normal(size=x.shape[0]).astype(np.float32)))
+            out[name].append(m.metric_state)
+    return out, {name: dict(make()._reductions) for name, make in makers.items()}
+
+
+@pytest.mark.parametrize("transport", ["exact", "int8"])
+def test_a_replica_axis_syncs_each_replica_as_its_own_sync(transport):
+    """``fused_sync(..., lanes=B)`` over states stacked on a replica axis (a
+    bootstrap's) gives every replica, bit for bit, what the sync of that
+    replica's states alone gives it, for every state kind, with the
+    collectives of one replica's sync."""
+    from metrics_tpu_torch.pure import _replica, _stack
+
+    replicas = 3
+
+    def body(rank, comm):
+        states, reds = _replica_states(rank, replicas)
+        names = sorted(states)
+        stacked = S.fused_sync([_stack(states[n]) for n in names], [reds[n] for n in names], None, comm=comm,
+                               transport=transport, lanes=replicas)
+        per_replica = [S.fused_sync([states[n][b] for n in names], [reds[n] for n in names], None, comm=comm, transport=transport)
+                       for b in range(replicas)]
+        return names, stacked, per_replica
+
+    world = ThreadWorld(3)
+    results = world.run(body)
+    calls = [c[:2] for c in world.calls]
+    assert calls[: len(calls) // (replicas + 1)] * (replicas + 1) == calls  # the stack's sync makes one replica's collectives
+    for names, stacked, per_replica in results:
+        for i, name in enumerate(names):
+            for b in range(replicas):
+                got, want = _replica(stacked[i], b), per_replica[b][i]
+                for key in want:
+                    for x, y in zip(*(v if isinstance(v, tuple) else (v,) for v in (got[key], want[key]))):
+                        assert torch.equal(x, y), (transport, name, key, b)
