@@ -9,11 +9,15 @@ Phases, each printing one JSON line, and any failure exits non-zero:
 
 1. device: the card, and its name and power limit as ``nvidia-smi`` reports them;
 2. build: compile every CUDA kernel from ``metrics_tpu_torch/csrc/``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together, and K1's source with its flat
+   plan off (``tools/k1_flat_variants.py``'s ``previous``, for phase 41);
 3. parity: each kernel against its plain PyTorch version on the card,
    bit-equal, at the main paths' shapes and at the edges (K1
    ``binned_counters`` with NaN, infinite and denormal scores and thresholds
-   and a histogram too large for shared memory; K2 ``histogram`` with
+   and a histogram too large for shared memory, and on both sides of its
+   plan: each case names its design, and every few-class, many-row case,
+   unbatched and in 1-3 lanes, misaligned, skewed or wide, must take the
+   flat one and no other case may; K2 ``histogram`` with
    sorted, run-length, Zipf and one-bin ids, misaligned data pointers,
    scalar heads and tails, and grids on both sides of each shared-memory
    limit; K3's single fold ``compactor_fold`` and its cascade
@@ -372,8 +376,10 @@ Phases, each printing one JSON line, and any failure exits non-zero:
    to int64 counts on the host (``np.searchsorted`` over the sorted
    thresholds, NaN a false negative at each) rounded to float32 once; a
    2-replica bootstrap over the 2^24 rows (K1's many-row lane form, one
-   launch) held the same way replica by replica; K1's device time at both
-   sizes and the lane form's beside their bounds;
+   launch) held the same way replica by replica; all three launches on
+   K1's flat design; at each shape, with uniform and with background-heavy
+   scores (90 % in one bin), the flat design and the design before it held
+   bit-equal to the plain version and timed in turns beside the bound;
 42. group bootstrap path, in the world of phase 8 (checked after 19):
    ``bootstrap_functionalize(metric, B, group=WORLD)`` over states that do
    not reduce elementwise. (a) The online monitor's stream (phase 5's 64
@@ -608,6 +614,7 @@ K2_SPLIT_CASE = (1025, 2, 1 << 21)  # lanes, ids a lane, bins: 2^31 + 2^21 bins,
 LARGE_BATCH_ROWS = (1 << 24, 1 << 25)  # a binary PR curve over 64 masks of 512 x 512 pixel scores, and twice that
 LARGE_BATCH_BOOTSTRAPS = 2  # replicas of the bootstrap over the 2^24-row batch (K1's many-row lane form)
 LARGE_BATCH_NAN_SHARE = 0.001
+LARGE_BATCH_BACKGROUND = 0.9  # the background-heavy draw's scores in one bin (a mostly-background score map)
 GROUP_BOOT_SKETCH_REPLICAS = 8  # the monitor's sketches bootstrapped over the group (at (20, 6600) a quantile replica)
 GROUP_BOOT_AUROC_REPLICAS = 20
 GROUP_BOOT_AUROC_ROWS = 1 << 18  # a rank's rows of the binary scorer, and its ring's capacity
@@ -916,14 +923,24 @@ def _launch_time(key, fn, kernel_name, iters=50):
 
 def phase_build():
     from metrics_tpu_torch.ops import _build, binned_counters, compactor, histogram
+    from tools import k1_flat_variants
 
     sources = [binned_counters.SOURCE, histogram.SOURCE, compactor.SOURCE, LOOP_SOURCE, MATCH_SOURCE]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        # K1 as it was before the flat design, timed beside it in binned_large_batch_path
+        previous = pool.submit(k1_flat_variants.build, "previous")
         list(pool.map(_build.build, sources))
+        previous_so = previous.result()
     for src in sources:
         _build.load(src)
     seconds = time.perf_counter() - t0
+    emit({
+        "phase": "build",
+        "source": f"metrics_tpu_torch/csrc/{binned_counters.SOURCE} with the flat plan off (tools/k1_flat_variants.py, 'previous')",
+        "library": str(previous_so.relative_to(ROOT)),
+        "seconds_all_sources": seconds,
+    })
     for src in sources:
         info = _build.build_info.get(src, {})
         emit({
@@ -997,22 +1014,108 @@ def phase_parity(preds, target):
         # one class's 2 (T + 1) bins exceed a block's shared memory: the histogram lives in device memory
         ("t30000_histogram_in_device_memory", *small(300, 5), torch.rand(30000, generator=g, device=dev)),
     ]
+    flat_cases, lane_cases = _flat_parity_cases(g, thr, edge_values, edge_thr)
+    lib = k1._library()
     rows = []
-    max_err = 0.0
-    for name, pp, tt, th in cases:
-        got = k1.binned_counter_update(pp, tt, th)
-        want = k1.binned_counter_update_plain(pp, tt, th)
+    max_err = {"histogram": 0.0, "flat": 0.0}
+    for name, pp, tt, th in cases + flat_cases + lane_cases:
+        lanes = pp.shape[0] if pp.ndim == 3 else 1
+        n, c = pp.shape[-2:]
+        design = {0: "histogram", 1: "flat", 2: "flat_wide"}[lib.binned_counters_flat_plan(lanes, n, c, th.shape[0])]
+        # the plan's two sides: every case built for the flat design takes it, and no other
+        if design.startswith("flat") != name.startswith(("flat", "lanes")) or name.startswith("flat_wide") != (design == "flat_wide"):
+            raise AssertionError(f"binned_counters: the plan sends case {name!r} ({lanes} x {n} x {c}) to the {design} design")
+        got = (k1.binned_counter_update_lanes if pp.ndim == 3 else k1.binned_counter_update)(pp, tt, th)
+        want = _plain_in_row_chunks(pp, tt, th)
         torch.cuda.synchronize()
         equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
         err = max(float((a - b).abs().max()) if a.numel() else 0.0 for a, b in zip(got, want))
-        max_err = max(max_err, err)
-        rows.append({"case": name, "shape": [pp.shape[0], pp.shape[1], th.shape[0]], "bit_equal": equal, "max_abs_err": err})
+        key = "flat" if design.startswith("flat") else "histogram"
+        max_err[key] = max(max_err[key], err)
+        rows.append({"case": name, "shape": [*pp.shape, th.shape[0]], "design": design, "bit_equal": equal, "max_abs_err": err,
+                     "scores_offset_bytes": pp.storage_offset() * 4 % 16, "target_offset_bytes": tt.storage_offset() % 4})
+        del got, want
         if not equal:
             emit({"phase": "parity", "cases": rows})
             raise AssertionError(f"binned_counters kernel differs from its plain version in case {name!r}")
     full_err = rows[0]["max_abs_err"]
-    emit({"phase": "parity", "kernel": "binned_counters", "cases": rows, "max_abs_err": max_err})
-    return full_err
+    emit({"phase": "parity", "kernel": "binned_counters", "cases": rows, "max_abs_err": max(max_err.values()),
+          "max_abs_err_by_design": max_err})
+    return full_err, max_err["flat"]
+
+
+def _plain_in_row_chunks(preds, target, thresholds, rows=1 << 21):
+    """K1's plain version over chunks of ``rows`` rows (of each lane, for
+    ``(B, N, C)`` inputs), each chunk's exact counts added in int64 and the
+    sums rounded to float32 once: the plain version's own arithmetic,
+    without materialising an (N, C, T) comparison of billions of elements
+    at once."""
+    import torch
+
+    from metrics_tpu_torch.ops import binned_counters as k1
+
+    if preds.ndim == 3:
+        lanes = [_plain_in_row_chunks(p, t, thresholds, rows) for p, t in zip(preds, target)]
+        return tuple(torch.stack(x) for x in zip(*lanes))
+    if preds.shape[0] <= rows:
+        return k1.binned_counter_update_plain(preds, target, thresholds)
+    sums = None
+    for lo in range(0, preds.shape[0], rows):
+        part = [x.to(torch.int64) for x in k1.binned_counter_update_plain(preds[lo:lo + rows], target[lo:lo + rows], thresholds)]
+        sums = part if sums is None else [a + b for a, b in zip(sums, part)]
+    return tuple(x.to(torch.float32) for x in sums)
+
+
+def _flat_parity_cases(g, thr, edge_values, edge_thr):
+    """K1's cases on the flat design's side of its plan (C <= 8, N * C
+    times the lanes >= 2^20): C in {1, 2, 3, 5} at 2^20 + 3 and 2^24 rows;
+    a score view 4 bytes past a 16-byte boundary and a bool target view at
+    an odd byte; 90 % of the scores in the lowest bin; scores equal to the
+    thresholds; NaN, +-inf and denormal scores and thresholds; bunched and
+    NaN thresholds; 2^26 rows of 8 classes, where a copy of a block's
+    histogram counts past 2^16 (a counter a side); and lanes in {1, 2, 3},
+    two of them 2^24 rows of misaligned views. Each is (name, preds,
+    target, thresholds)."""
+    import torch
+
+    dev = thr.device
+    odd = (1 << 20) + 3
+    base = torch.rand(5 * (1 << 24) + 8, generator=g, device=dev)
+    ybase = torch.rand(5 * (1 << 24) + 8, generator=g, device=dev) < POSITIVE_SHARE
+
+    def flat(n, c, off=0, yoff=0):
+        return base[off:off + n * c].view(n, c), ybase[yoff:yoff + n * c].view(n, c)
+
+    bunched = torch.cat([thr[::5], 0.5 + torch.arange(80, device=dev, dtype=torch.float32) * 6e-8])
+    near = torch.where(torch.rand((odd, 2), generator=g, device=dev) < 0.5, base[:2 * odd].view(odd, 2),
+                       bunched[torch.randint(0, bunched.numel(), (odd, 2), generator=g, device=dev)])
+    nan_thr = torch.cat([thr[:93], torch.full((7,), float("nan"), device=dev)])[torch.randperm(100, generator=g, device=dev)]
+    low = base[:1 << 24].view(-1, 1)
+    lowest = torch.where(torch.rand(low.shape, generator=g, device=dev) < 0.9, -low, low)  # 90 % below every threshold
+    edges = edge_values[torch.randint(0, edge_values.numel(), (odd, 3), generator=g, device=dev)]
+    wide_p = torch.rand((1 << 26, 8), generator=g, device=dev)
+    wide_y = torch.rand((1 << 26, 8), generator=g, device=dev) < POSITIVE_SHARE
+    cases = [(f"flat_c{c}_n{n}", *flat(n, c), thr) for c in (1, 2, 3, 5) for n in (odd, 1 << 24)]
+    cases += [
+        ("flat_misaligned_scores_odd_bool_target_c3", *flat(odd, 3, off=1, yoff=3), thr),
+        ("flat_misaligned_scores_odd_bool_target_c1_n2^24", *flat(1 << 24, 1, off=1, yoff=1), thr),
+        ("flat_lowest_bin_90", lowest, flat(1 << 24, 1)[1], thr),
+        ("flat_equal_to_thresholds", thr[torch.randint(0, thr.numel(), (odd, 2), generator=g, device=dev)], flat(odd, 2)[1], thr),
+        ("flat_denormal_nan_inf_scores_and_thresholds", edges, flat(odd, 3)[1], edge_thr),
+        ("flat_denormal_nan_inf_scores_linspace_thresholds", edges, flat(odd, 3)[1], thr),
+        ("flat_bunched_thresholds", near, flat(odd, 2)[1], bunched),
+        ("flat_nan_thresholds", *flat(odd, 2), nan_thr),
+        ("flat_wide_c8_n2^26", wide_p, wide_y, thr),
+    ]
+    lane_cases = [
+        ("lanes1_c1", base[:odd].view(1, odd, 1), ybase[:odd].view(1, odd, 1), thr),
+        ("lanes2_c2", base[:4 * odd].view(2, odd, 2), ybase[:4 * odd].view(2, odd, 2), thr),
+        ("lanes3_c3", base[1:1 + 9 * odd].view(3, odd, 3), ybase[3:3 + 9 * odd].view(3, odd, 3), thr),
+        ("lanes2_c1_n2^24_misaligned", base[1:1 + (2 << 24)].view(2, 1 << 24, 1), ybase[5:5 + (2 << 24)].view(2, 1 << 24, 1), thr),
+        ("lanes3_c1_n2^24_lowest_bin_90", torch.cat([lowest.reshape(-1)] * 3).view(3, 1 << 24, 1),
+         ybase[:3 << 24].view(3, 1 << 24, 1), thr),
+    ]
+    return cases, lane_cases
 
 
 def build_collection(pkg, device):
@@ -1074,6 +1177,9 @@ def phase_main_path(preds, target):
     torch.cuda.synchronize()
     compute_s = time.perf_counter() - t1
     launches = k1.launch_count
+    if k1.flat_launch_count:
+        raise AssertionError(f"the main path's shape ({BATCH} x {CLASSES} x {THRESHOLDS}) ran K1's flat design "
+                             f"{k1.flat_launch_count} times: its plan keeps the binary-search histogram there")
 
     members = dict(coll.items(keep_base=True, copy_state=False))
     for name, m in members.items():
@@ -1129,6 +1235,7 @@ def phase_main_path(preds, target):
         "compute_s": compute_s,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "k1_launches": launches,
+        "k1_flat_launches": k1.flat_launch_count,
         "acc1": float(acc1),
         "acc5": float(acc5),
         "bap_mean": float(bap_t.mean()),
@@ -1261,11 +1368,12 @@ def profile_summary(prof, wall_s, batches):
         # records of them (a kernel inside a replayed graph has its records too)
         "port_kernels_ms_per_batch": {
             name: sum(dev_us(e) for e in on_device if name in e.key) / 1e3 / batches
-            for name in ("binned_counters_kernel", "histogram_kernel", *FOLD_KERNELS, "compactor_cascade_kernel")
+            for name in ("binned_counters_kernel", "binned_counters_flat_kernel", "histogram_kernel", *FOLD_KERNELS,
+                         "compactor_cascade_kernel")
         },
         "port_kernel_records_per_batch": {
             name: sum(e.count for e in on_device if name in e.key) / batches
-            for name in ("binned_counters_kernel", "histogram_kernel", "compactor_cascade_kernel")
+            for name in ("binned_counters_kernel", "binned_counters_flat_kernel", "histogram_kernel", "compactor_cascade_kernel")
         },
         # a blocking device-to-host read waits in one stream synchronisation
         "stream_syncs_per_batch": sum(e.count for e in events if e.key == "cudaStreamSynchronize") / batches,
@@ -4402,18 +4510,25 @@ def _host_binned_counts(scores, labels, thresholds):
 
 
 def phase_binned_large_batch(dev):
-    """F19 on the card: ``BinnedAveragePrecision(num_classes=1,
-    thresholds=100)`` over one batch of 2^24 pixel scores (64 masks of 512 x
-    512) and one of 2^25, whose counts pass 2^24: one K1 launch each, the
-    counters bit-equal to int64 counts on the host rounded to float32 once;
-    a 2-replica bootstrap of it over the 2^24-row batch (K1's many-row lane
-    form, one launch) held the same way, replica by replica; K1's time at
-    both sizes beside its bound."""
+    """F19 on the card, and K1's flat design: ``BinnedAveragePrecision(
+    num_classes=1, thresholds=100)`` over one batch of 2^24 pixel scores (64
+    masks of 512 x 512) and one of 2^25, whose counts pass 2^24: one K1
+    launch each, on the flat design, the counters bit-equal to int64 counts
+    on the host rounded to float32 once; a 2-replica bootstrap of it over
+    the 2^24-row batch (K1's lane form, one launch, the flat design) held
+    the same way, replica by replica. At each of the three shapes, with the
+    uniform scores and with a background-heavy draw of the same size (90 %
+    of the scores in one bin), the flat design and the design before it
+    (``tools/k1_flat_variants.py``'s ``previous`` build: the binary-search
+    histogram unbatched, the one-pass kernel in lanes) are held bit-equal to
+    the plain version on the card and timed in turns, each beside the
+    bound."""
     import numpy as np
     import torch
 
     import metrics_tpu_torch as mtt
     from metrics_tpu_torch.ops import binned_counters as k1
+    from tools import k1_flat_variants as k1fv
 
     t_start = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(SEED + 80)
@@ -4421,14 +4536,39 @@ def phase_binned_large_batch(dev):
     scores = torch.rand(n_max, generator=g, device=dev)
     scores[torch.rand(n_max, generator=g, device=dev) < LARGE_BATCH_NAN_SHARE] = float("nan")
     labels = (torch.rand(n_max, generator=g, device=dev) < POSITIVE_SHARE).to(torch.int32)
+    # the background-heavy draw: 90 % of the same scores squeezed below the second threshold (1/99)
+    skewed = torch.where(torch.rand(n_max, generator=g, device=dev) < LARGE_BATCH_BACKGROUND, scores * 0.005, scores)
     host_scores, host_labels = scores.cpu().numpy(), labels.cpu().numpy()
-    launches = {"unbatched": 0, "lanes": 0}
+    launches = {"unbatched": 0, "lanes": 0, "flat_unbatched": 0, "flat_lanes": 0}
     sizes = []
+    lib, previous = k1._library(), k1fv.previous_library()
 
     def held(got, want, what):
         for name, a, b in zip(("tps", "fps", "fns"), got, want):
             if not np.array_equal(np.asarray(a, np.float32).view(np.int32), b.view(np.int32)):
                 raise AssertionError(f"binned_large_batch_path: {what}: {name} differs from the host's int64 count rounded once")
+
+    def turns(p, y, thr, order):
+        """The flat design and the previous one at ``p``/``y`` ((n, 1) or
+        (lanes, n, 1)), each bit-equal to the plain version, then timed in
+        turns (previous, flat, flat, previous): the profiler's median launch."""
+        want = torch.stack(_plain_in_row_chunks(p, y, thr), dim=-3)
+        fns = {}
+        for key, library in (("flat", lib), ("previous", previous)):
+            fn, got = k1fv.raw_launch(library, p, y, thr, order)
+            fn()
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"binned_large_batch_path: K1's {key} design differs from the plain version at {tuple(p.shape)}")
+            fns[key] = (fn, k1fv.kernel_of(library, p.ndim == 3, p.shape[0] if p.ndim == 3 else 1, p.shape[-2], 1))
+        if fns["flat"][1] != k1fv.KERNELS["flat"] or fns["previous"][1] == k1fv.KERNELS["flat"]:
+            raise AssertionError(f"binned_large_batch_path: the plans give {fns['flat'][1]} and {fns['previous'][1]} at {tuple(p.shape)}")
+        del want
+        got = {}
+        for key in ("previous", "flat", "flat", "previous"):
+            got.setdefault(key, []).append(device_ms_per_launch(fns[key][0], fns[key][1], iters=20))
+        return {"flat_device_ms": _mean([t[0] for t in got["flat"]]), "previous_device_ms": _mean([t[0] for t in got["previous"]]),
+                "previous_kernel": fns["previous"][1], "launches_recorded": {k: [t[1] for t in v] for k, v in got.items()}}
 
     for n in LARGE_BATCH_ROWS:
         metric = mtt.BinnedAveragePrecision(num_classes=1, thresholds=THRESHOLDS, device=dev)
@@ -4439,25 +4579,29 @@ def phase_binned_large_batch(dev):
         metric.update(scores[:n], labels[:n])
         torch.cuda.synchronize()
         update_s = time.perf_counter() - t0
-        if (k1.launch_count, k1.lanes_launch_count) != (1, 0):
+        if (k1.launch_count, k1.lanes_launch_count, k1.flat_launch_count) != (1, 0, 1):
             raise AssertionError(f"binned_large_batch_path: {n} rows launched K1 {k1.launch_count} times "
-                                 f"(lanes {k1.lanes_launch_count}), not once")
+                                 f"(lanes {k1.lanes_launch_count}, the flat design {k1.flat_launch_count}), not once on the flat design")
         launches["unbatched"] += k1.launch_count
+        launches["flat_unbatched"] += k1.flat_launch_count
         state = metric.metric_state
         want = _host_binned_counts(host_scores[:n], host_labels[:n], thr)
         held([state[k][0].cpu().numpy() for k in ("TPs", "FPs", "FNs")], want, f"{n} rows")
         ap = float(metric.compute())
         if not 0.0 <= ap <= 1.0:
             raise AssertionError(f"binned_large_batch_path: average precision {ap} over {n} rows")
-        p2, y2 = scores[:n].reshape(-1, 1), (labels[:n] == 1).reshape(-1, 1)
         order = k1.threshold_order(metric.thresholds)
-        ms, recorded = device_ms_per_launch(lambda: k1.binned_counter_update(p2, y2, metric.thresholds, order),
-                                            "binned_counters_kernel", iters=20)
+        by_draw = {}
+        for draw, src in (("uniform", scores), ("background_heavy", skewed)):
+            p2, y2 = src[:n].reshape(-1, 1), (labels[:n] == 1).reshape(-1, 1)
+            by_draw[draw] = turns(p2, y2, metric.thresholds, order)
+        p2, y2 = scores[:n].reshape(-1, 1), (labels[:n] == 1).reshape(-1, 1)
+        wrapper_ms = cuda_time_ms(lambda: k1.binned_counter_update(p2, y2, metric.thresholds, order), iters=20, warmup=3)
         plain_ms = cuda_time_ms(lambda: k1.binned_counter_update_plain(p2, y2, metric.thresholds), iters=3, warmup=1)
         sizes.append({
             "rows": n, "update_s": update_s, "largest_count": int(max(w.max() for w in want)), "average_precision": ap,
-            "kernel_device_ms": ms, "kernel_device_ms_launches_recorded": recorded, "plain_ms": plain_ms,
-            **_bound(n * (4 + 1) + THRESHOLDS * 4 + 3 * THRESHOLDS * 4, n * THRESHOLDS),
+            "kernel_device_ms": by_draw["uniform"]["flat_device_ms"], "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "turns": by_draw, **_bound(n * (4 + 1) + THRESHOLDS * 4 + 3 * THRESHOLDS * 4, n * THRESHOLDS),
         })
 
     # the bootstrap over the 2^24-row batch: its replicas the lanes of one launch
@@ -4471,10 +4615,12 @@ def phase_binned_large_batch(dev):
     bstate = bdef.update.with_indices(bdef.init(), idx, scores[:n], labels[:n])
     torch.cuda.synchronize()
     boot_update_s = time.perf_counter() - t0
-    if (k1.launch_count, k1.lanes_launch_count) != (0, 1):
+    if (k1.launch_count, k1.lanes_launch_count, k1.flat_launch_count) != (0, 1, 1):
         raise AssertionError(f"binned_large_batch_path: the bootstrap's update launched K1 {k1.launch_count} times and "
-                             f"its lanes {k1.lanes_launch_count} times, not the lanes once")
+                             f"its lanes {k1.lanes_launch_count} times (the flat design {k1.flat_launch_count}), "
+                             "not the lanes once on the flat design")
     launches["lanes"] += k1.lanes_launch_count
+    launches["flat_lanes"] += k1.flat_launch_count
     host_idx = idx.cpu().numpy()
     for b in range(LARGE_BATCH_BOOTSTRAPS):
         want = _host_binned_counts(host_scores[host_idx[b]], host_labels[host_idx[b]], thr)
@@ -4482,27 +4628,66 @@ def phase_binned_large_batch(dev):
     boot = bdef.compute(bstate)
     if not bool(torch.isfinite(boot["raw"]).all()):
         raise AssertionError(f"binned_large_batch_path: bootstrap values {boot['raw'].tolist()}")
-    rp, ry = scores[:n][idx].reshape(LARGE_BATCH_BOOTSTRAPS, n, 1), (labels[:n][idx] == 1).reshape(LARGE_BATCH_BOOTSTRAPS, n, 1)
+    ry = (labels[:n][idx] == 1).reshape(LARGE_BATCH_BOOTSTRAPS, n, 1)
     order = k1.threshold_order(metric.thresholds)
-    lanes_ms, lanes_recorded = device_ms_per_launch(lambda: k1.binned_counter_update_lanes(rp, ry, metric.thresholds, order),
-                                                    "binned_counters_lanes_kernel", iters=20)
+    boot_draw = {}
+    for draw, src in (("uniform", scores), ("background_heavy", skewed)):
+        rp = src[:n][idx].reshape(LARGE_BATCH_BOOTSTRAPS, n, 1)
+        boot_draw[draw] = turns(rp, ry, metric.thresholds, order)
+    rp = scores[:n][idx].reshape(LARGE_BATCH_BOOTSTRAPS, n, 1)
+    lanes_wrapper_ms = cuda_time_ms(lambda: k1.binned_counter_update_lanes(rp, ry, metric.thresholds, order), iters=20, warmup=3)
     lanes_plain_ms = cuda_time_ms(lambda: k1.binned_counter_update_lanes_plain(rp, ry, metric.thresholds), iters=3, warmup=1)
     out = {
         "phase": "binned_large_batch_path",
         "config": {"rows": list(LARGE_BATCH_ROWS), "classes": 1, "thresholds": THRESHOLDS, "nan_share": LARGE_BATCH_NAN_SHARE,
                    "positive_share": POSITIVE_SHARE, "bootstrap_replicas": LARGE_BATCH_BOOTSTRAPS, "seed": SEED + 80,
+                   "background_share": LARGE_BATCH_BACKGROUND,
                    "what": "a binary PR curve over 64 segmentation masks of 512 x 512 pixels (2^24), and twice that"},
         "sizes": sizes,
         "k1_launches": launches,
         "bit_equal_to_host_int64_rounded_once": True,
         "bootstrap": {"update_s": boot_update_s, "raw": [float(v) for v in boot["raw"].cpu()],
-                      "kernel_device_ms": lanes_ms, "kernel_device_ms_launches_recorded": lanes_recorded, "plain_ms": lanes_plain_ms,
+                      "kernel_device_ms": boot_draw["uniform"]["flat_device_ms"], "wrapper_ms": lanes_wrapper_ms,
+                      "plain_ms": lanes_plain_ms, "turns": boot_draw,
                       **_bound(LARGE_BATCH_BOOTSTRAPS * (n * (4 + 1) + 3 * THRESHOLDS * 4) + THRESHOLDS * 4,
                                LARGE_BATCH_BOOTSTRAPS * n * THRESHOLDS)},
         "phase_s": time.perf_counter() - t_start,
     }
     emit(out)
     return out
+
+
+def k1_flat_entry(large_batch, max_abs_err):
+    """The kernels line's entry for K1's flat design, from
+    binned_large_batch_path: its launches there (the other paths' shapes go
+    to the other designs, ``main_path`` checks 0), its times at 2^24 rows
+    (the wrapper by events, the kernel on the card in turns with the design
+    before it), and every shape and draw of the phase beside its bound."""
+    head = large_batch["sizes"][0]
+    launches = {"binned_large_batch_path_unbatched": large_batch["k1_launches"]["flat_unbatched"],
+                "binned_large_batch_path_lanes": large_batch["k1_launches"]["flat_lanes"], "main_path": 0}
+    return {
+        "name": "binned_counters_flat",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/csrc/binned_counters.cu",
+        "replaces": "metrics_tpu/ops/binned_counters.py:32",
+        "replaces_fn": "metrics_tpu/ops/binned_counters.py::_counter_kernel at few classes and many rows, unbatched and under "
+                       "pallas_call's batching rule",
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
+        "max_abs_err": max_abs_err,
+        "ms": head["wrapper_ms"],
+        "kernel_device_ms": head["kernel_device_ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,
+        "shape": [head["rows"], 1, THRESHOLDS],
+        "by_shape": {**{f"rows_{s['rows']}": {k: s[k] for k in ("turns", "bound_ms", "bound_by", "wrapper_ms", "plain_ms")}
+                        for s in large_batch["sizes"]},
+                     f"lanes_{LARGE_BATCH_BOOTSTRAPS}x{LARGE_BATCH_ROWS[0]}": {
+                         k: large_batch["bootstrap"][k] for k in ("turns", "bound_ms", "bound_by", "wrapper_ms", "plain_ms")}},
+    }
 
 
 def make_movielens(device):
@@ -10441,7 +10626,7 @@ def main():
     phase_build()
     device = torch.device("cuda", 0)
     preds, target = make_data(device)
-    k1_err = phase_parity(preds, target)
+    k1_err, k1_flat_err = phase_parity(preds, target)
     k2_err = phase_k2_parity(device)
     k3_fold_err, k3_fold_parity_launches = phase_k3_parity(device)
     k3_err = phase_k3_cascade_parity(device)
@@ -10526,10 +10711,9 @@ def main():
         "pure_path": k1_pure_launches, "sliced_path": k1_sliced_launches,
         "compiled_path": k1_compiled_launches, "serving_path": k1_serving_launches,
         "serving_obs_path": k1_serving_obs_launches, "fleet_path": k1_fleet_launches,
-        "binned_large_batch_path": large_batch["k1_launches"]["unbatched"],
+        # its shapes go to the flat design (the entry binned_counters_flat)
+        "binned_large_batch_path": large_batch["k1_launches"]["unbatched"] - large_batch["k1_launches"]["flat_unbatched"],
     }
-    # F19: K1 past 2^24 rows, a launch at each size beside its bound
-    kernels[0]["large_batch"] = {"sizes": large_batch["sizes"], "bootstrap_lanes": large_batch["bootstrap"]}
     kernels[1]["launches_by_path"] = {
         "dist_path": k2_launches, "full_classification_path": full_launches["histogram"],
         "multilabel_path": k2_multilabel_launches, "full_classification_dist": k2_full_dist_launches,
@@ -10564,13 +10748,15 @@ def main():
     # the bootstraps of binned_large_batch_path and group_bootstrap_path on
     # the lane-batched forms
     by_name = {e["name"]: e for e in batched_kernels}
-    by_name["binned_counters_lanes_many_rows"]["launches_by_path"]["binned_large_batch_path"] = large_batch["k1_launches"]["lanes"]
+    by_name["binned_counters_lanes_many_rows"]["launches_by_path"]["binned_large_batch_path"] = (
+        large_batch["k1_launches"]["lanes"] - large_batch["k1_launches"]["flat_lanes"])
     by_name["compactor_cascade_lanes"]["launches_by_path"]["group_bootstrap_path"] = _GROUP_BOOT["k3_lanes_launches"]
     by_name["compactor_cascade_lanes"]["group_bootstrap_merge"] = _GROUP_BOOT["k3_lane_merge"]
     for entry in (by_name["binned_counters_lanes_many_rows"], by_name["compactor_cascade_lanes"]):
         entry["launches"] = sum(entry["launches_by_path"].values())
-    # the lane-batched forms, each beside the kernel it batches
+    # the lane-batched forms, each beside the kernel it batches, then K1's flat design
     kernels.extend(batched_kernels)
+    kernels.append(k1_flat_entry(large_batch, k1_flat_err))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -24,8 +24,9 @@
 //   thresholds, with b(p) = #{i : s[i] <= p}. A NaN threshold sorts last and
 //   is never <= p, a NaN score has b = 0, so the predicate stays monotone.
 // - Each block takes a tile of ct = 4 classes (fewer where the histogram's
-//   shared memory needs it, or where C is smaller: at C = 1 all 256 threads
-//   count the one class) and a chunk of rows, about two blocks per SM.
+//   shared memory needs it, or where C is smaller) and a chunk of rows,
+//   about two blocks per SM. Few classes and many rows go to the flat
+//   design below instead (the plan there says where).
 //   Thread i owns class i % ct and every (256 / ct)-th row, so a warp's loads
 //   of scores and labels are coalesced runs of rows' class tiles. It flushes
 //   the score, finds b by a branch-free binary search over the flushed sorted
@@ -126,17 +127,60 @@
 //   in the loop's build: what is left is the loads' rate at this access
 //   pattern and the tail (suffix sums and writes, 0.016), which every block
 //   of the one wave runs at the same time.
-//   Where the lanes and tiles give fewer than two blocks an SM (few lanes,
-//   few classes), a (lane, tile)'s rows are cut over the blocks of a thread
-//   block cluster (at most 8): each block counts its part in its own shared
-//   memory, block r of the cluster sums slice r of every block's histogram
-//   into block 0's through distributed shared memory, and block 0 writes.
-//   Still no device scratch. Only where one class's histogram and its
-//   transposed copy do not fit in a block's shared memory (T above about
-//   29,000, or 14,000 for lanes of 2^16 rows or more) does the form run its
-//   first design, whose histogram lives in device memory.
+//   Where the lanes and tiles give fewer than two blocks an SM (few lanes
+//   of more classes than the flat design takes), a (lane, tile)'s rows are
+//   cut over the blocks of a thread block cluster (at most 8): each block
+//   counts its part in its own shared memory, block r of the cluster sums
+//   slice r of every block's histogram into block 0's through distributed
+//   shared memory, and block 0 writes. Still no device scratch. Only where
+//   one class's histogram and its transposed copy do not fit in a block's
+//   shared memory (T above about 29,000, or 14,000 for lanes of 2^16 rows
+//   or more) does the form run its first design, whose histogram lives in
+//   device memory.
 //
-// Both give the counts of the unbatched kernel, lane by lane, bit for bit.
+// Few classes and many rows (a pixel-level PR curve: 2^24 scores of one
+// class), unbatched and lane-batched: binned_counters_flat_kernel. At C = 1
+// the designs above have a class tile of one class, so the grid is 264
+// blocks (unbatched) or 16 (two lanes, clusters of 8) for 2^24 rows: each
+// thread's rows run in series behind scalar 4-byte loads, and all threads
+// of a block add into the same 2 (T + 1) bins, which a background-heavy
+// score map turns into one address. This design:
+//   * reads each lane's (N, C) scores as one flat stream of N * C floats
+//     (element i is class i mod C, tracked by a running counter, not a
+//     division): float4 scores and the four labels' bytes in one 32-bit
+//     load (a funnel shift of two aligned words where the labels start off
+//     a 4-byte boundary), a scalar head up to the scores' first 16-byte
+//     boundary and a scalar tail, the next two vectors loaded before the
+//     two held are binned; 64-bit indices throughout;
+//   * fills the card: 512-thread blocks, as many as fit on an SM (two at
+//     the kernel's registers; held to four by __launch_bounds__ it ran
+//     slower), each lane's stream cut into contiguous parts over
+//     ceil(blocks / lanes) blocks, so that two lanes of 2^24 rows spread
+//     over all 132 SMs;
+//   * bins by the lane kernel's lookup grid (grid_cell, first_in_cell);
+//   * keeps R copies of the block's [bin][class] histogram (R = 32 where
+//     shared memory allows, at C = 1 and T = 100 12.9 KB), copy = lane % R,
+//     interleaved so that word key * R + lane % R is in bank lane % R: the
+//     32 adds of a warp never meet on an address or a bank, whatever the
+//     scores' skew. Positives take the high 16 bits of a counter and
+//     negatives the low 16 where no copy can count 2^16 elements, else a
+//     counter a side;
+//   * sums the copies of each (side, bin, class) and adds the sum into the
+//     lane's int32 (2, C, T + 1) device scratch with one atomic; the last
+//     block of a lane (a counter after the histogram) takes the suffix sums,
+//     a warp a row with a shuffle scan, and writes the (3, C, T) result
+//     through the permutation it staged at the start.
+//   What is left above the bound is a fixed cost of about 11 us a launch
+//   (the staging, the grid, the reduction across blocks and the last
+//   block's tail, in series); past it the stream runs near the card's
+//   memory rate (PERF.md).
+//   The plan (flat_plan): C at most kFlatMaxClasses, lanes * N * C at least
+//   kFlatMinElements, the thresholds staged (T up to 8,191) and the
+//   histogram in kFlatSmem; else the designs above. The unbatched call and
+//   the many-row lane form both ask it first; the main path's shapes (C =
+//   1000) stay where they were. chip_smoke.py checks each side.
+//
+// All give the counts of the unbatched kernel, lane by lane, bit for bit.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -552,6 +596,229 @@ binned_counters_lanes_kernel(const float* __restrict__ preds, const uint8_t* __r
   }
 }
 
+// The few-class, many-row design; see the note at the top. blockIdx.y is
+// the lane, blockIdx.x the part of its flat stream. scratch holds per lane
+// the (2, C, T + 1) histogram and, after it, the lane's finished-block
+// counter, all zero. kWide: a counter per side, else positives in the high
+// half of one counter and negatives in its low half.
+constexpr int kFlatThreads = 512;
+constexpr int kFlatMaxClasses = 8;                  // the plan's C at most
+constexpr long long kFlatMinElements = 1LL << 20;   // and its lanes * N * C at least
+constexpr long long kFlatSmem = 44 * 1024;          // a block's dynamic shared memory at most: no opt-in, room for four an SM
+constexpr int kFlatStage = 2;                       // vectors a thread loads ahead of those it bins (1 and 4 measured slower)
+constexpr int kMaxCopies = 32;                      // copies of a block's histogram at most: one a warp lane
+
+template <bool kWide>
+__global__ void __launch_bounds__(kFlatThreads)
+binned_counters_flat_kernel(const float* __restrict__ preds, const uint8_t* __restrict__ target,
+                            const float* __restrict__ sorted_thr, const int* __restrict__ perm,
+                            int* __restrict__ scratch, float* __restrict__ out, long long per_lane, int c, int t,
+                            int cells, int thr_words, int copies_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_valid, s_last;
+  __shared__ float s_lo, s_hi;
+  const int bins = t + 1;
+  const int keys = (kWide ? 2 : 1) * bins * c;
+  const int copies = 1 << copies_log2;
+  // thr_words words of the sorted thresholds, their permutation (loaded
+  // now, so that the last block reads none of it from device memory) and
+  // the lookup grid; then the histogram's copies
+  float* s_thr = reinterpret_cast<float*>(smem_raw);
+  int* s_perm = reinterpret_cast<int*>(smem_raw) + ((t + 3) & ~3);
+  unsigned* s_grid = reinterpret_cast<unsigned*>(smem_raw) + 2 * ((t + 3) & ~3);
+  unsigned* s_hist = reinterpret_cast<unsigned*>(smem_raw) + thr_words;
+
+  const size_t lane = blockIdx.y;
+  const size_t plane = (size_t)c * bins;
+  const float* p = preds + lane * per_lane;
+  const uint8_t* y = target + lane * per_lane;
+  int* hist = scratch + lane * (2 * plane + c);
+  out += lane * 3 * (size_t)c * t;
+
+  if (threadIdx.x == 0) {
+    s_valid = t;
+    s_lo = s_hi = 0.0f;
+  }
+  for (int i = threadIdx.x; i < t; i += kFlatThreads) {
+    s_thr[i] = flush(sorted_thr[i]);
+    s_perm[i] = perm[i];
+  }
+  for (int i = threadIdx.x; i < (keys << copies_log2); i += kFlatThreads) s_hist[i] = 0;
+  __syncthreads();
+  // the lookup grid, as binned_counters_lanes_kernel builds it
+  for (int i = threadIdx.x; i < t; i += kFlatThreads) {
+    const float v = s_thr[i];
+    if (isnan(v) && (i == 0 || !isnan(s_thr[i - 1]))) s_valid = i;
+    if (isfinite(v) && (i == 0 || !isfinite(s_thr[i - 1]))) s_lo = v;
+    if (isfinite(v) && (i == t - 1 || !isfinite(s_thr[i + 1]))) s_hi = v;
+  }
+  __syncthreads();
+  const float t0 = s_lo;
+  const float inv = s_hi > s_lo ? (float)cells / (s_hi - s_lo) : 0.0f;
+  for (int q = threadIdx.x; q < cells; q += kFlatThreads) {
+    const int lo = first_in_cell(s_thr, s_valid, t0, inv, cells, q);
+    const int hi = q + 1 < cells ? first_in_cell(s_thr, s_valid, t0, inv, cells, q + 1) : s_valid;
+    s_grid[q] = (unsigned)lo | ((unsigned)hi << 16);
+  }
+  __syncthreads();
+
+  // copy lane % R of the histogram, word key * R + lane % R
+  unsigned* h = s_hist + (threadIdx.x & (copies - 1));
+  auto add = [&](float x, bool pos, int cls) {
+    x = flush(x);
+    const unsigned w = s_grid[grid_cell(x, t0, inv, cells)];
+    int lo = w & 0xffffu, hi = w >> 16;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (s_thr[mid] <= x) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    if (kWide) {
+      atomicAdd(h + ((((pos ? 0 : bins) + lo) * c + cls) << copies_log2), 1u);
+    } else {
+      atomicAdd(h + ((lo * c + cls) << copies_log2), pos ? 0x10000u : 1u);
+    }
+  };
+
+  // the scalar head up to the scores' first 16-byte boundary, the vectors,
+  // the scalar tail; the vectors cut into gridDim.x contiguous parts
+  const long long head = min(per_lane, (long long)((16 - ((uintptr_t)p & 15)) & 15) >> 2);
+  const long long vectors = (per_lane - head) >> 2;
+  const long long tail0 = head + 4 * vectors;
+  if (blockIdx.x == 0) {
+    if (threadIdx.x < head) add(__ldg(p + threadIdx.x), __ldg(y + threadIdx.x) != 0, (int)(threadIdx.x % c));
+    const long long e = tail0 + threadIdx.x;
+    if (e < per_lane) add(__ldg(p + e), __ldg(y + e) != 0, (int)(e % c));
+  }
+  const long long per_part = (vectors + gridDim.x - 1) / gridDim.x;
+  const long long v0 = min(vectors, (long long)blockIdx.x * per_part) + threadIdx.x;
+  const long long v1 = min(vectors, ((long long)blockIdx.x + 1) * per_part);
+  long long left = v0 < v1 ? (v1 - 1 - v0) / kFlatThreads + 1 : 0;
+  if (left > 0) {
+    // the labels of vector v: bytes [head + 4v, head + 4v + 4), from the
+    // aligned words around them (the second word holds a byte of the vector
+    // whenever the shift is not 0, so it is never past the tensor)
+    const int shift = 8 * (int)((uintptr_t)(y + head) & 3);
+    const float4* pv = reinterpret_cast<const float4*>(p + head) + v0;
+    const uint32_t* yv = reinterpret_cast<const uint32_t*>(y + head - (shift >> 3)) + v0;
+    int cls = (int)((head + 4 * v0) % c);
+    const int cls_step = (4 * kFlatThreads) % c;
+    auto load = [&](float4& a, uint32_t& b) {
+      a = __ldg(pv);
+      b = shift ? __funnelshift_r(__ldg(yv), __ldg(yv + 1), shift) : __ldg(yv);
+      pv += kFlatThreads;
+      yv += kFlatThreads;
+    };
+    auto bin4 = [&](const float4& a, uint32_t b) {
+      int k = cls;
+      const float v[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        add(v[j], ((b >> (8 * j)) & 0xffu) != 0, k);
+        k = k + 1 == c ? 0 : k + 1;
+      }
+      cls += cls_step;
+      if (cls >= c) cls -= c;
+    };
+    float4 a[kFlatStage], a_next[kFlatStage];
+    uint32_t b[kFlatStage], b_next[kFlatStage];
+    if (left >= kFlatStage) {
+#pragma unroll
+      for (int u = 0; u < kFlatStage; ++u) load(a[u], b[u]);
+      for (left -= kFlatStage; left >= kFlatStage; left -= kFlatStage) {
+#pragma unroll
+        for (int u = 0; u < kFlatStage; ++u) load(a_next[u], b_next[u]);
+#pragma unroll
+        for (int u = 0; u < kFlatStage; ++u) {
+          bin4(a[u], b[u]);
+          a[u] = a_next[u];
+          b[u] = b_next[u];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kFlatStage; ++u) bin4(a[u], b[u]);
+    }
+    for (; left > 0; --left) {
+      load(a[0], b[0]);
+      bin4(a[0], b[0]);
+    }
+  }
+  __syncthreads();
+
+  // each key's copies summed (read rotated: a warp's 32 keys in 32 banks
+  // where R = 32) and added into the lane's scratch
+  const int per_side = bins * c;
+  for (int k = threadIdx.x; k < keys; k += kFlatThreads) {
+    const unsigned* row = s_hist + (k << copies_log2);
+    unsigned pos = 0, neg = 0;
+    for (int s = 0; s < copies; ++s) {
+      const unsigned v = row[(s + k) & (copies - 1)];
+      if (kWide) {
+        pos += v;
+      } else {
+        pos += v >> 16;
+        neg += v & 0xffffu;
+      }
+    }
+    const int side = kWide ? k / per_side : 0;
+    const int r = k - side * per_side;
+    const int b = r / c, cls = r - b * c;
+    int* dst = hist + side * plane + (size_t)cls * bins + b;
+    if (pos) atomicAdd(dst, (int)pos);
+    if (!kWide && neg) atomicAdd(dst + plane, (int)neg);
+  }
+
+  // the last block of this lane to finish takes the suffix sums
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(reinterpret_cast<unsigned*>(hist + 2 * plane), 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  int* s_h = reinterpret_cast<int*>(s_hist);  // [side][class][bin]; the plan leaves room for 2 C (T + 1)
+  for (size_t i = threadIdx.x; i < 2 * plane; i += kFlatThreads) s_h[i] = __ldcg(hist + i);
+  __syncthreads();
+
+  // a warp a row of bins (2 C rows, at most 16 warps): each lane sums its
+  // segment, a shuffle scan gives it the sum of the segments above, and it
+  // writes its segment's suffix sums in place; bin b's suffix sum is the
+  // count at sorted threshold b - 1, written through the permutation
+  const int q = threadIdx.x >> 5, lane_id = threadIdx.x & 31;
+  if (q < 2 * c) {
+    const int side = q >= c;
+    const int cls = q - side * c;
+    int* hr = s_h + (size_t)q * bins;
+    const int seg_len = (bins + 31) >> 5;
+    const int lo = min(bins, lane_id * seg_len), hi = min(bins, lo + seg_len);
+    int sum = 0;
+    for (int bb = lo; bb < hi; ++bb) sum += hr[bb];
+    int above = sum;  // becomes the sum of this lane's segment and every segment above it
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_down_sync(0xffffffffu, above, d);
+      if (lane_id + d < 32) above += v;
+    }
+    int run = above - sum;
+    for (int bb = hi - 1; bb >= lo; --bb) {
+      run += hr[bb];
+      hr[bb] = run;
+    }
+    __syncwarp();
+    const size_t out_plane = (size_t)c * t;
+    float* o_row = out + (side ? out_plane : 0) + (size_t)cls * t;
+    const int pos_total = hr[0];  // all of the class's positives (side 0)
+    for (int bb = 1 + lane_id; bb < bins; bb += 32) {
+      const int v = hr[bb];
+      const int o = s_perm[bb - 1];
+      o_row[o] = (float)v;
+      if (side == 0) o_row[2 * out_plane + o] = (float)(pos_total - v);
+    }
+  }
+}
+
 // The one-row form: every lane holds one row, so the (lane, class) pairs are
 // rows of their own, each with one bin b, found by the same binary search;
 // sorted threshold i is cleared iff i < b. No histogram, no scratch, no
@@ -852,29 +1119,121 @@ int lanes_launch(const float* preds, const uint8_t* target, const float* sorted_
   return (int)cudaGetLastError();
 }
 
+struct FlatPlan {
+  int wide, copies_log2, cells, thr_words, parts;
+  long long smem;
+};
+
+// The flat design's plan (lanes, n > 0): 0 where it runs, 1 where the
+// shape goes to the designs above, -1 if the card's limits cannot be read.
+// Whether it runs depends on the shapes alone; the card's SM count and
+// occupancy set only its grid.
+int flat_plan(int lanes, int n, int c, int t, FlatPlan* pl) {
+  const long long per_lane = (long long)n * c;
+  if (c <= 0 || c > kFlatMaxClasses || t <= 0 || t > kStagedThresholds || (long long)lanes * per_lane < kFlatMinElements) return 1;
+  pl->cells = 1;
+  while (pl->cells < 2 * t && pl->cells < kMaxCells) pl->cells <<= 1;
+  pl->thr_words = 2 * ((t + 3) & ~3) + pl->cells;  // the thresholds, their permutation, the grid
+  const long long bins = (long long)t + 1;
+  // the most copies that fit, the suffix sums' 2 C (T + 1) words at least
+  auto fit = [&](int wide) {
+    const long long keys = (wide ? 2 : 1) * bins * c;
+    int copies = kMaxCopies;
+    auto smem = [&](long long r) { return 4 * (pl->thr_words + (keys * r > 2 * bins * c ? keys * r : 2 * bins * c)); };
+    while (copies > 1 && smem(copies) > kFlatSmem) copies >>= 1;
+    pl->copies_log2 = 0;
+    while ((1 << pl->copies_log2) < copies) ++pl->copies_log2;
+    pl->smem = smem(copies);
+    return pl->smem <= kFlatSmem;
+  };
+  if (!fit(0)) return 1;
+  const long long sms = sm_count();
+  // blocks an SM at this shared memory, asked once per size (a word each)
+  static int occupancy[kFlatSmem / 4 + 1] = {};
+  int per_sm = occupancy[pl->smem / 4];
+  if (per_sm <= 0) {
+    if (sms <= 0 || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, binned_counters_flat_kernel<false>, kFlatThreads,
+                                                                  (size_t)pl->smem) != cudaSuccess || per_sm <= 0) {
+      cudaGetLastError();
+      return -1;
+    }
+    occupancy[pl->smem / 4] = per_sm;
+  }
+  // a lane's vectors cut over ceil(blocks / lanes) parts, each at least
+  // kFlatStage vectors a thread
+  const long long vectors = per_lane / 4 + 1;
+  long long parts = (sms * per_sm + lanes - 1) / lanes;
+  const long long most = (vectors + (long long)kFlatThreads * kFlatStage - 1) / ((long long)kFlatThreads * kFlatStage);
+  if (parts > most) parts = most;
+  if (parts < 1) parts = 1;
+  pl->parts = (int)parts;
+  // the elements one copy can count: its threads' vectors, the head and the tail
+  const long long per_thread = ((vectors + parts - 1) / parts + kFlatThreads - 1) / kFlatThreads;
+  pl->wide = (kFlatThreads >> pl->copies_log2) * per_thread * 4 + 6 >= (1 << 16);
+  if (pl->wide && !fit(1)) return 1;
+  return 0;
+}
+
+int flat_launch(const float* preds, const uint8_t* target, const float* sorted_thr, const int* perm, int* scratch,
+                float* out, int lanes, int n, int c, int t, const FlatPlan& pl, cudaStream_t stream) {
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (lanes > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)pl.parts, (unsigned)lanes);
+  if (pl.wide) {
+    binned_counters_flat_kernel<true><<<grid, kFlatThreads, (size_t)pl.smem, stream>>>(
+        preds, target, sorted_thr, perm, scratch, out, (long long)n * c, c, t, pl.cells, pl.thr_words, pl.copies_log2);
+  } else {
+    binned_counters_flat_kernel<false><<<grid, kFlatThreads, (size_t)pl.smem, stream>>>(
+        preds, target, sorted_thr, perm, scratch, out, (long long)n * c, c, t, pl.cells, pl.thr_words, pl.copies_log2);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream` and returns the launch's cudaError_t (0 on success).
 // sorted_thr (t,) are the thresholds ascending (NaN last) and perm (t,) int32
 // their original columns; scratch holds 2*c*(t+1) + c zeroed int32 values;
-// out (3, c, t) float32 is written whole.
+// out (3, c, t) float32 is written whole. The flat design where its plan
+// takes the shape, else the binary-search histogram.
 extern "C" int binned_counters_launch(const float* preds, const uint8_t* target, const float* sorted_thr,
                                       const int* perm, int* scratch, float* out, int n, int c, int t, void* stream) {
+  if (c <= 0 || t <= 0) return (int)cudaSuccess;
+  FlatPlan fl;
+  const int flat = n > 0 ? flat_plan(1, n, c, t, &fl) : 1;
+  if (flat < 0) return (int)cudaErrorInvalidDevice;
+  if (flat == 0) return flat_launch(preds, target, sorted_thr, perm, scratch, out, 1, n, c, t, fl, (cudaStream_t)stream);
   return launch(preds, target, sorted_thr, perm, scratch, out, 1, n, c, t, (cudaStream_t)stream);
 }
 
+// 1 where binned_counters_launch (lanes = 1) or binned_counters_lanes_launch
+// runs the flat design at this shape with 16-bit halves, 2 where with a
+// counter a side, else 0 (-1 if the card's limits cannot be read): how the
+// wrapper counts the flat design's launches.
+extern "C" int binned_counters_flat_plan(int lanes, int n, int c, int t) {
+  if (n <= 1 || c <= 0 || t <= 0 || lanes <= 0) return 0;
+  FlatPlan fl;
+  const int flat = flat_plan(lanes, n, c, t, &fl);
+  return flat < 0 ? -1 : flat == 0 ? 1 + fl.wide : 0;
+}
+
 // Scratch int32 values the lane-batched form needs: none for lanes of one
-// row or where the one-pass kernel runs, else 2*c*(t+1) + c per lane.
+// row or where the one-pass kernel runs, else (the flat design, or the
+// first design) 2*c*(t+1) + c per lane.
 extern "C" long long binned_counters_lanes_scratch(int lanes, int n, int c, int t) {
-  if (n == 1 || c <= 0 || t <= 0 || lanes <= 0) return 0;
+  if (n <= 1 || c <= 0 || t <= 0 || lanes <= 0) return 0;
+  const long long per_lane = 2LL * c * (t + 1) + c;
+  FlatPlan fl;
+  if (flat_plan(lanes, n, c, t, &fl) == 0) return lanes * per_lane;
   LanesPlan pl;
-  return lanes_plan(lanes, n, c, t, &pl) == 1 ? (long long)lanes * (2LL * c * (t + 1) + c) : 0;
+  return lanes_plan(lanes, n, c, t, &pl) == 1 ? lanes * per_lane : 0;
 }
 
 // The lane-batched form: preds and target (lanes, n, c), one shared set of
 // thresholds, out (lanes, 3, c, t) float32 written whole. Lanes of one row
-// take the one-row kernel; lanes of many the one-pass kernel, or its first
-// design where the plan says so, over a zeroed scratch of
+// take the one-row kernel; lanes of many the flat design where its plan
+// takes them, else the one-pass kernel, or its first design where that
+// plan says so, the last two over a zeroed scratch of
 // binned_counters_lanes_scratch(lanes, n, c, t) values (at most 65,535
 // lanes a launch; the wrapper splits).
 extern "C" int binned_counters_lanes_launch(const float* preds, const uint8_t* target, const float* sorted_thr,
@@ -882,6 +1241,10 @@ extern "C" int binned_counters_lanes_launch(const float* preds, const uint8_t* t
                                             void* stream) {
   if (n == 1) return rows_launch(preds, target, sorted_thr, perm, out, lanes, c, t, 0, (cudaStream_t)stream);
   if (c <= 0 || t <= 0 || lanes <= 0) return (int)cudaSuccess;
+  FlatPlan fl;
+  const int flat = n > 0 ? flat_plan(lanes, n, c, t, &fl) : 1;
+  if (flat < 0) return (int)cudaErrorInvalidDevice;
+  if (flat == 0) return flat_launch(preds, target, sorted_thr, perm, scratch, out, lanes, n, c, t, fl, (cudaStream_t)stream);
   LanesPlan pl;
   const int how = lanes_plan(lanes, n, c, t, &pl);
   if (how < 0) return (int)cudaErrorInvalidDevice;
@@ -893,7 +1256,8 @@ extern "C" int binned_counters_lanes_launch(const float* preds, const uint8_t* t
 // The many-row form's first design at any shape: the unbatched kernel with
 // the lane on its grid, over a zeroed scratch of lanes * (2*c*(t+1) + c)
 // int32 values. The form's path where the one-pass plan does not fit, and
-// elsewhere the design that chip_smoke.py times beside the one-pass kernel.
+// elsewhere the design that chip_smoke.py times beside the one-pass kernel
+// (at lanes = 1 the binary-search histogram, whatever the flat plan says).
 // Arguments as binned_counters_lanes_launch.
 extern "C" int binned_counters_lanes_grid_launch(const float* preds, const uint8_t* target, const float* sorted_thr,
                                                  const int* perm, int* scratch, float* out, int lanes, int n, int c,

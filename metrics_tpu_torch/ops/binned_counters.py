@@ -4,12 +4,18 @@
 On a CUDA tensor :func:`binned_counter_update` launches the hand-written
 Hopper kernel ``csrc/binned_counters.cu``, which replaces the TPU kernel
 ``_counter_kernel``; if it cannot, it raises. The kernel finds each score's
-bin among the sorted thresholds by a binary search and counts bins in a
-histogram; :func:`threshold_order` gives it the thresholds' sorted order,
-which a caller with fixed thresholds computes once. On a CPU tensor it runs
-:func:`binned_counter_update_plain`, the broadcast compare-and-sum, which is
-also what the kernel is checked against on the card. No switch sends a CUDA
-tensor to the plain version.
+bin among the sorted thresholds and counts bins in a histogram;
+:func:`threshold_order` gives it the thresholds' sorted order, which a
+caller with fixed thresholds computes once. A plan from the shapes picks
+the kernel's design before the launch: few classes and many rows (C at most
+8, N * C times the lanes at least 2^20, T at most 8,191: a pixel-level PR
+curve) go to the flat design, which reads the rows as one stream over the
+whole card, bins by a lookup grid and counts in per-lane-slot copies of the
+histogram (counted also in ``flat_launch_count``); every other shape to the
+binary-search histogram, a block per class tile and chunk of rows. On a CPU
+tensor it runs :func:`binned_counter_update_plain`, the broadcast
+compare-and-sum, which is also what the kernel is checked against on the
+card. No switch sends a CUDA tensor to the plain version.
 
 Both compare with float32 denormals flushed to zero, score and threshold
 alike, as XLA's compares on the CPU and the TPU see them.
@@ -19,8 +25,10 @@ bootstrap's replicas) :func:`binned_counter_update` takes the lane route
 (``_build.lane_route``): the lanes reach :func:`binned_counter_update_lanes`,
 one launch of the kernel's lane-batched form on a CUDA tensor (counted in
 ``lanes_launch_count``; lanes of one row take its one-row kernel, lanes of
-many its one-pass kernel, which needs no scratch while a class's histogram
-fits in a block's shared memory), and the plain version with the lane axis
+few classes and many rows the flat design by the same plan, counting all
+lanes' rows at once, other lanes of many rows its one-pass kernel, which
+needs no scratch while a class's histogram fits in a block's shared
+memory), and the plain version with the lane axis
 written out on a CPU tensor. The thresholds are one set for every lane:
 batched thresholds raise. An unbatched call launches the kernel directly,
 as before.
@@ -46,15 +54,18 @@ MAX_ROWS = 1 << 31
 MAX_LANES = 65535
 
 # kernel launches since the last reset_launch_count(), read by chip_smoke.py:
-# of the kernel, and of its lane-batched form
+# of the kernel, of its lane-batched form, and of either that ran the flat
+# design (counted in one of the first two as well)
 launch_count = 0
 lanes_launch_count = 0
+flat_launch_count = 0
 
 
 def reset_launch_count() -> None:
-    global launch_count, lanes_launch_count
+    global launch_count, lanes_launch_count, flat_launch_count
     launch_count = 0
     lanes_launch_count = 0
+    flat_launch_count = 0
 
 
 def binned_counter_update_plain(preds: Tensor, target: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
@@ -97,7 +108,16 @@ def _library() -> ctypes.CDLL:
     fn = lib.binned_counters_lanes_grid_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.binned_counters_flat_plan.argtypes = [ctypes.c_int] * 4
+    lib.binned_counters_flat_plan.restype = ctypes.c_int
     return lib
+
+
+def _count_flat(lib: ctypes.CDLL, lanes: int, n: int, c: int, t: int) -> None:
+    """After a launch: count it in ``flat_launch_count`` too where the plan
+    ran the flat design at this shape."""
+    if lib.binned_counters_flat_plan(lanes, n, c, t) > 0:
+        _build.count_launch(__name__, "flat_launch_count")
 
 
 def _binned_counter_update_cuda(
@@ -125,6 +145,7 @@ def _binned_counter_update_cuda(
         if err != 0:
             raise RuntimeError(f"binned_counters kernel launch failed with cudaError {err}")
         _build.count_launch(__name__)
+        _count_flat(lib, 1, n, c, t)
     tps, fps, fns = out.unbind(0)
     return tps, fps, fns
 
@@ -162,6 +183,7 @@ def _binned_counter_lanes_cuda(
                 if err != 0:
                     raise RuntimeError(f"binned_counters lanes kernel launch failed with cudaError {err}")
                 _build.count_launch(__name__, "lanes_launch_count")
+                _count_flat(lib, hi - lo, n, c, t)
     tps, fps, fns = out.unbind(1)
     return tps, fps, fns
 

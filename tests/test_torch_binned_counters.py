@@ -183,3 +183,51 @@ def test_d71_jax_rounds_each_tile_past_2_24_rows():
         np.testing.assert_array_equal(ours.view(np.int32), exact.astype(np.float32).view(np.int32))
         assert np.array_equal(jax_sums, ours) == equal
         assert np.abs(jax_sums.astype(np.int64) - exact).max() <= rows // 256
+
+
+def _flat_edge_inputs(n, c, draw, seed):
+    """Inputs at the edges of the kernel's flat design: ``background_heavy``
+    puts 90 % of the scores in one bin (a mostly-background score map) and
+    a few in no bin (NaN, below every threshold); ``on_thresholds`` draws
+    every score from the thresholds themselves."""
+    rng = np.random.default_rng(seed)
+    thresholds = np.linspace(0, 1, 100).astype(np.float32)
+    if draw == "background_heavy":
+        preds = np.where(rng.random((n, c)) < 0.9, rng.random((n, c)) * 0.005, rng.random((n, c))).astype(np.float32)
+        preds[rng.random((n, c)) < 0.01] = np.nan
+        preds[rng.random((n, c)) < 0.01] = -0.5
+    else:
+        preds = thresholds[rng.integers(0, thresholds.size, (n, c))]
+    target = (rng.random((n, c)) < 0.25).astype(np.float32)
+    return preds, target, thresholds
+
+
+@pytest.mark.parametrize("draw", ["background_heavy", "on_thresholds"])
+@pytest.mark.parametrize(("n", "c"), [(4095, 1), (4097, 1), (4097, 2), (4095, 3)])
+def test_plain_matches_both_jax_forms_at_the_flat_designs_edges(n, c, draw):
+    """The plain version, which the card holds the flat design against bit
+    for bit, is itself bit-equal to both JAX forms at few classes, ragged
+    row counts (4k +- 1: the flat stream's scalar head and tail), a
+    background-heavy draw and scores on the thresholds."""
+    _assert_bit_equal_to_jax(*_flat_edge_inputs(n, c, draw, seed=n + 10 * c + len(draw)))
+
+
+def test_flat_design_entry_points_and_variants():
+    """The flat design is part of the same plain-C library: its kernel, its
+    plan's exported query (which the wrapper counts launches by) and the
+    variants ``tools/k1_flat_variants.py`` builds from the source, each
+    substitution found exactly once."""
+    import importlib.util
+
+    from metrics_tpu_torch.ops import _build
+
+    src = (_build.CSRC_DIR / port.SOURCE).read_text()
+    assert "binned_counters_flat_kernel" in src
+    assert 'extern "C" int binned_counters_flat_plan' in src
+    spec = importlib.util.spec_from_file_location("k1_flat_variants", _build.PACKAGE_DIR.parent / "tools" / "k1_flat_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    for name in tool.VARIANTS:
+        variant = tool.variant_source(name)
+        assert (variant == src) == (name == "plan")
+    assert port.flat_launch_count == 0  # nothing here launched a kernel
